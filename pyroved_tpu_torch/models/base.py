@@ -1,0 +1,210 @@
+"""Base class for the variational encoder-decoder models.
+
+Counterpart of the parts of ``pyroved_tpu/models/base.py`` that iVAE
+uses: invariance bookkeeping (1-D data allows only ``['t']``; in 2-D
+``'t'`` takes two latent slots), the coordinate grid and the priors, the
+latent split in the order rotation -> translation -> scale -> content,
+the transformed grids and chunked encode/decode.
+
+Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
+package's top-level names (``encoder_z``, ``decoder``) on ``self.device``.
+"""
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.spatial_decoder import apply_fused_sdecoder
+from ..utils.coord import generate_grid, transform_coordinates
+from ..utils.nn import as_f32, resolve_device
+
+Tensor = torch.Tensor
+
+
+def later_slice(what: str, item: str) -> NotImplementedError:
+    """The error for a feature that a later slice of the port brings."""
+    return NotImplementedError(
+        f"{what} is not ported yet; see ROADMAP.md, '{item}'")
+
+
+def posed_decode(decoder: nn.Module, grid: Optional[Tensor], z: Tensor,
+                 fused: bool, act: str, sigmoid_out: bool, angle=0.0,
+                 shift=0.0, scale=1.0) -> Tensor:
+    """Decode latents ``z [B, L]`` under one fixed pose for the batch.
+
+    Spatial decoders (``grid`` given) go through the fused kernel when
+    ``fused``, else through the module on the transformed grid. Returns
+    ``[B, N(, C)]`` or, for a plain decoder, ``[B, prod(out)]``."""
+    if grid is None:
+        return decoder(z)
+    B = z.shape[0]
+    dev = z.device
+    if fused:
+        full = lambda v: torch.as_tensor(  # noqa: E731
+            v, dtype=torch.float32, device=dev).reshape(()).expand(B)
+        dx = torch.as_tensor(shift, dtype=torch.float32, device=dev)
+        dx = dx.expand(B, grid.shape[-1]).contiguous()
+        return apply_fused_sdecoder(decoder, grid, full(angle), dx, full(scale),
+                                    z, act, sigmoid_out)
+    coords = fixed_transform_grid(grid, angle, shift, scale)
+    return decoder(coords.expand((B,) + coords.shape), z)
+
+
+def fixed_transform_grid(grid: Tensor, angle=0.0, shift=0.0, scale=1.0
+                         ) -> Tensor:
+    """``grid [N, D]`` under one angle/shift/scale (shift is a scalar or
+    ``[D]``; 1-D grids only shift)."""
+    as_t = lambda v: torch.as_tensor(  # noqa: E731
+        v, dtype=torch.float32, device=grid.device)
+    return transform_coordinates(grid[None], as_t(angle)[None], as_t(shift),
+                                 as_t(scale)[None])[0]
+
+
+def chunked(fn, *arrays: Tensor, batch_size: Optional[int] = None):
+    """Apply ``fn`` over row chunks of ``batch_size`` (all rows at once when
+    None) and concatenate; ``fn`` may return a tensor or a tuple."""
+    n = arrays[0].shape[0]
+    if not batch_size or n <= batch_size:
+        return fn(*arrays)
+    outs = [fn(*(a[i:i + batch_size] for a in arrays))
+            for i in range(0, n, batch_size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+class baseVAE:
+    """Common machinery for (invariant) variational encoder-decoders."""
+
+    def __init__(self, data_dim: Sequence[int], invariances: Optional[List[str]],
+                 device=None, **kwargs):
+        self.device = resolve_device(device)
+        self.data_dim = tuple(int(d) for d in data_dim)
+        self.ndim = len(self.data_dim)
+        if invariances is None:
+            coord = 0
+        else:
+            coord = len(invariances)
+            if self.ndim == 1:
+                if coord > 1 or invariances[0] != "t":
+                    raise ValueError(
+                        "For 1D data, the only invariance to enforce "
+                        "is translation ('t')")
+            if "t" in invariances and self.ndim == 2:
+                coord = coord + 1
+        self.coord = coord
+        self.invariances = invariances
+        # multi-channel spatial data rides as a trailing axis [B, *data_dim, C]
+        self.channels = int(kwargs.get("channels", 1))
+        if self.channels < 1:
+            raise ValueError(f"channels must be >= 1, got {self.channels}")
+        self.out_shape = self.data_dim + (
+            (self.channels,) if self.channels > 1 else ())
+
+        self.grid = (generate_grid(self.data_dim, self.device)
+                     if self.coord > 0 else None)
+
+        if self.coord > 0 and "t" in invariances:
+            dx_pri = float(kwargs.get("dx_prior", 0.1))
+            dy_pri = float(kwargs.get("dy_prior", dx_pri))
+            self.t_prior = torch.tensor(
+                [dx_pri, dy_pri] if self.ndim == 2 else dx_pri,
+                dtype=torch.float32, device=self.device)
+        else:
+            self.t_prior = None
+        if self.coord > 0 and "s" in (invariances or []):
+            self.sc_prior = float(kwargs.get("sc_prior", 0.1))
+        else:
+            self.sc_prior = None
+
+        self.nets: Optional[nn.ModuleDict] = None  # set by subclasses
+        self.z_dim = None
+
+    # ------------------------------------------------------------------
+    # Latent bookkeeping
+    # ------------------------------------------------------------------
+    def split_latent(self, z: Tensor):
+        """Split ``z[..., z_dim]`` into (phi, dx, sc, content): rotation
+        first, then translation, then scale. Missing parts come back as
+        identity values (phi=0, dx=0, sc=1); in 1-D phi and sc are None."""
+        batch_shape = z.shape[:-1]
+        if self.ndim == 1:
+            return None, z[..., 0:1], None, z[..., 1:]
+        phi = z.new_zeros(batch_shape)
+        dx = z.new_zeros(batch_shape + (2,))
+        sc = z.new_ones(batch_shape)
+        inv = self.invariances or []
+        if "r" in inv:
+            phi = z[..., 0]
+            z = z[..., 1:]
+        if "t" in inv:
+            dx = z[..., :2]
+            z = z[..., 2:]
+        if "s" in inv:
+            sc = sc + self.sc_prior * z[..., 0]
+            z = z[..., 1:]
+        return phi, dx, sc, z
+
+    def split_latent_full(self, z: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """:meth:`split_latent` with concrete identity defaults and the
+        translation prior applied: the per-sample transform the decoder
+        kernel takes. Returns (phi [..], dx [.., D], sc [..], content)."""
+        phi, dx, sc, z = self.split_latent(z)
+        batch_shape = z.shape[:-1]
+        if self.t_prior is not None:
+            dx = dx * self.t_prior
+        if phi is None:
+            phi = z.new_zeros(batch_shape)
+        if sc is None:
+            sc = z.new_ones(batch_shape)
+        return phi, dx, sc, z
+
+    def _embed_latent_plane(self, z: Tensor, latent_dim: int,
+                            which_dims=None, z_fixed=None) -> Tensor:
+        """Embed 2-D latent-grid points ``z [n, 2]`` into the
+        ``latent_dim``-D content space: the plane spans ``which_dims``
+        (default the first two), the other dims are ``z_fixed`` (default 0)."""
+        if latent_dim == 2 and which_dims is None and z_fixed is None:
+            return z
+        wd = tuple(int(w) for w in (which_dims if which_dims is not None
+                                    else (0, 1)))
+        if (len(wd) != 2 or wd[0] == wd[1]
+                or not all(0 <= w < latent_dim for w in wd)):
+            raise ValueError(
+                f"which_dims must be two distinct indices < {latent_dim}, "
+                f"got {wd}")
+        if z_fixed is None:
+            base = z.new_zeros((latent_dim,))
+        else:
+            base = self._as_f32(z_fixed).reshape(-1).to(z.device)
+            if base.shape[0] != latent_dim:
+                raise ValueError(
+                    f"z_fixed must have length {latent_dim}, got {base.shape[0]}")
+        full = base.expand(z.shape[0], latent_dim).clone()
+        full[:, wd[0]] = z[:, 0]
+        full[:, wd[1]] = z[:, 1]
+        return full
+
+    def transformed_grid(self, z: Tensor) -> Tuple[Optional[Tensor], Tensor]:
+        """``(coords [..., N, D], content)`` with the latent-derived affine
+        transform applied to the grid (coords is None without invariances)."""
+        if self.coord == 0:
+            return None, z
+        phi, dx, sc, z = self.split_latent_full(z)
+        grid = self.grid.expand(z.shape[:-1] + self.grid.shape)
+        return transform_coordinates(grid, phi, dx[..., None, :], sc), z
+
+    # ------------------------------------------------------------------
+    # Weights
+    # ------------------------------------------------------------------
+    def state_dict(self):
+        return self.nets.state_dict()
+
+    def load_jax_params(self, params) -> None:
+        """Load the JAX model's parameter tree (``{"encoder_z": ...,
+        "decoder": ...}``, numpy leaves), with strict key and shape checks."""
+        from ..weights import from_jax_params
+        self.nets.load_state_dict(from_jax_params(params), strict=True)
+
+    def _as_f32(self, x) -> Tensor:
+        return as_f32(x, self.device)

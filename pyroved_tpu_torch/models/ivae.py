@@ -1,0 +1,207 @@
+"""Invariant variational autoencoder (iVAE), serving path.
+
+Counterpart of ``pyroved_tpu/models/ivae.py``: a VAE with optional
+rotational / translational / scale invariances and optional conditioning
+on a vector of ``c_dim`` features. This slice serves a model: encode,
+posed decode, reconstruct, latent manifolds and per-example ELBO scoring
+(:meth:`iVAE.loss_fn`, forward only). Every spatial decode runs through the
+fused decoder kernel when the configuration supports it.
+"""
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..infer.dists import get_sampler
+from ..infer.elbo import normal_latent_site, obs_site
+from ..nets.fc import fcDecoderNet, fcEncoderNet, init_from, sDecoderNet
+from ..ops.spatial_decoder import apply_fused_sdecoder, sdecoder_supports_fusion
+from ..utils.coord import generate_latent_grid
+from ..utils.nn import set_deterministic_mode
+from .base import baseVAE, chunked, later_slice, posed_decode
+
+Tensor = torch.Tensor
+
+_KWARGS = ("channels", "dx_prior", "dy_prior", "sc_prior", "decoder_sig",
+           "kl", "num_particles", "approx_tanh")
+
+
+class iVAE(baseVAE):
+    """Variational autoencoder with rotational, translational and scale
+    invariances, optionally conditioned on ``c_dim`` features.
+
+    Arguments as in the JAX package: ``data_dim``, ``latent_dim``,
+    ``invariances`` (subset of ['r', 't', 's']), ``c_dim``,
+    ``hidden_dim_e``/``hidden_dim_d`` (default [128, 128]), ``activation``,
+    ``sampler_d``, ``sigmoid_d``, ``seed``; keywords ``dx_prior``,
+    ``dy_prior``, ``sc_prior``, ``decoder_sig``, ``kl`` ('mc' or
+    'analytic'), ``num_particles``, ``approx_tanh``, ``channels``. Plus
+    ``device``: None means "cuda"; without CUDA pass ``device="cpu"``.
+    Weights are drawn from ``seed`` with torch's default Linear init.
+    """
+
+    def __init__(
+        self,
+        data_dim: Sequence[int],
+        latent_dim: int = 2,
+        invariances: Optional[List[str]] = None,
+        c_dim: int = 0,
+        hidden_dim_e: Optional[Sequence[int]] = None,
+        hidden_dim_d: Optional[Sequence[int]] = None,
+        activation: str = "tanh",
+        sampler_d: str = "bernoulli",
+        sigmoid_d: bool = True,
+        seed: int = 1,
+        device=None,
+        **kwargs,
+    ) -> None:
+        unknown = sorted(set(kwargs) - set(_KWARGS))
+        if unknown:
+            raise TypeError(f"iVAE got unsupported keywords {unknown}; "
+                            f"supported: {list(_KWARGS)}")
+        super().__init__(data_dim, invariances, device=device, **kwargs)
+        self.generator = set_deterministic_mode(seed)
+        self.latent_dim = int(latent_dim)
+        self.z_dim = self.latent_dim + self.coord
+        self.c_dim = int(c_dim)
+        self.kl_mode = kwargs.get("kl", "mc")
+        self.num_particles = int(kwargs.get("num_particles", 1))
+        self.activation = activation
+
+        encoder = fcEncoderNet(self.out_shape, self.z_dim, self.c_dim,
+                               hidden_dim_e, activation, softplus_out=True)
+        zc_dim = self.latent_dim + self.c_dim
+        if self.coord > 0:
+            decoder = sDecoderNet(self.grid.shape[-1], zc_dim, hidden_dim_d,
+                                  activation, sigmoid_out=sigmoid_d,
+                                  channels=self.channels)
+        else:
+            decoder = fcDecoderNet(zc_dim, self.out_shape, hidden_dim_d,
+                                   activation, sigmoid_out=sigmoid_d)
+        self.nets = nn.ModuleDict({
+            "encoder_z": init_from(encoder, self.generator),
+            "decoder": init_from(decoder, self.generator),
+        }).to(self.device)
+        self.sampler_d = get_sampler(sampler_d, **kwargs)
+
+        self._dec_sig = bool(sigmoid_d)
+        self._fused = sdecoder_supports_fusion(
+            hidden_dim_d, activation, sigmoid_d, self.coord, self.channels,
+            self.device)
+        # opt-in Pade tanh on the ELBO path (max abs error < 2e-4)
+        self._dec_act = ("tanh_approx" if kwargs.get("approx_tanh")
+                         and activation == "tanh" and self._fused
+                         else activation)
+
+    @property
+    def encoder_net(self) -> fcEncoderNet:
+        return self.nets["encoder_z"]
+
+    @property
+    def decoder_net(self) -> nn.Module:
+        return self.nets["decoder"]
+
+    # ------------------------------------------------------------------
+    # ELBO (forward only)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def loss_fn(self, x, y=None, beta: float = 1.0, eps=None) -> Tensor:
+        """Per-example negative ELBO ``[B]`` of a batch ``x`` (and ``y``).
+
+        ``eps`` is the standard-normal noise of the latent sample, shaped
+        like the posterior (``[B, z_dim]``, or ``[P, B, z_dim]`` with
+        ``num_particles=P``); it is drawn from the model's generator when
+        not given. The reconstruction term is unscaled; ``beta`` scales the
+        latent term."""
+        x = self._as_f32(x)
+        B = x.shape[0]
+        xf = x.reshape(B, -1)
+        y = None if y is None else self._as_f32(y).reshape(B, -1)
+        mu, sig = self.encoder_net(xf, y)
+        P = self.num_particles
+        if P > 1:  # leading particle axis; decodes stay one batched call
+            mu = mu.expand((P,) + mu.shape)
+            sig = sig.expand((P,) + sig.shape)
+            if y is not None:
+                y = y.expand((P,) + y.shape)
+        if eps is not None:
+            eps = self._as_f32(eps)
+        z, latent_term = normal_latent_site(mu, sig, beta, self.kl_mode,
+                                            eps=eps, generator=self.generator)
+        if self.coord > 0 and self._fused:
+            phi, dx, sc, zc = self.split_latent_full(z)
+            if y is not None:
+                zc = torch.cat([zc, y], dim=-1)
+            loc = apply_fused_sdecoder(self.decoder_net, self.grid, phi, dx,
+                                       sc, zc, self._dec_act, self._dec_sig)
+        else:
+            coords, zc = self.transformed_grid(z)
+            if y is not None:
+                zc = torch.cat([zc, y], dim=-1)
+            loc = (self.decoder_net(zc) if coords is None
+                   else self.decoder_net(coords, zc))
+        recon = obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
+        per_example = -(recon + latent_term)
+        return per_example.mean(0) if P > 1 else per_example
+
+    # ------------------------------------------------------------------
+    # Inference / generation
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def encode(self, x_new, y=None, batch_size: Optional[int] = None, **kwargs):
+        """``(z_loc, z_scale)`` of q(z|x[,y]); the first ``coord`` latent
+        dims are the rotation, shift and scale ones. ``batch_size`` chunks
+        the rows."""
+        x = self._as_f32(x_new)
+        x = x.reshape(x.shape[0], -1)
+        if y is None:
+            return chunked(self.encoder_net, x, batch_size=batch_size)
+        y = self._as_f32(y).reshape(x.shape[0], -1)
+        return chunked(self.encoder_net, x, y, batch_size=batch_size)
+
+    @torch.no_grad()
+    def decode(self, z, y=None, angle=0.0, shift=0.0, scale=1.0,
+               batch_size: Optional[int] = None, **kwargs) -> Tensor:
+        """Decode content latents (and ``y``) under a fixed
+        angle/shift/scale; returns ``[B, *data_dim(, C)]``."""
+        z = self._as_f32(z)
+        if y is not None:
+            z = torch.cat([z, self._as_f32(y).reshape(z.shape[0], -1)], -1)
+
+        def dec(zz):
+            return posed_decode(self.decoder_net, self.grid, zz, self._fused,
+                                self.activation, self._dec_sig, angle, shift,
+                                scale)
+
+        loc = chunked(dec, z, batch_size=batch_size)
+        return loc.reshape((z.shape[0],) + self.out_shape)
+
+    def reconstruct(self, x_new, y=None, **kwargs) -> Tensor:
+        """Encode, then decode the posterior mean's content latents (in the
+        canonical pose unless ``angle``/``shift``/``scale`` re-pose it)."""
+        z_loc, _ = self.encode(x_new, y, **kwargs)
+        return self.decode(z_loc[:, self.coord:], y, **kwargs)
+
+    def manifold2d(self, d: int, y=None, plot: bool = False, **kwargs) -> Tensor:
+        """Decode a d x d grid over the 2-D latent plane. For
+        ``latent_dim > 2`` pass ``which_dims=(i, j)`` (and ``z_fixed``);
+        ``z_coord=`` sets the bounds. Plotting waits for a later slice."""
+        if plot:
+            raise later_slice("manifold2d(plot=True)", "viz")
+        which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
+        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z = self._embed_latent_plane(z.to(self.device), self.latent_dim,
+                                     which, zfix)
+        if self.c_dim > 0:
+            if y is None:
+                raise ValueError("To generate a manifold pass a conditional vector y")
+            y = self._as_f32(y)
+            y = y[None] if y.ndim < 2 else y
+            y = y.expand((z.shape[0],) + y.shape[1:])
+        return self.decode(z, y, **kwargs)
+
+    def predict_on_latent(self, *args, **kwargs):
+        raise later_slice("iVAE.predict_on_latent", "viz")
+
+    def fit(self, *args, **kwargs):
+        raise later_slice("iVAE.fit", "training slice")

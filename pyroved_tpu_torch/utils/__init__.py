@@ -1,0 +1,13 @@
+"""Coordinate math and NN helpers."""
+from ..infer.dists import get_sampler
+from .coord import (generate_grid, generate_latent_grid, grid2xy, imcoordgrid,
+                    rotate_coordinates, scale_coordinates,
+                    transform_coordinates)
+from .nn import as_numpy, get_activation, resolve_device, set_deterministic_mode
+
+__all__ = [
+    "generate_grid", "generate_latent_grid", "grid2xy", "imcoordgrid",
+    "rotate_coordinates", "scale_coordinates", "transform_coordinates",
+    "as_numpy", "get_activation", "resolve_device", "set_deterministic_mode",
+    "get_sampler",
+]

@@ -12,7 +12,8 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=["tests*", "benchmarks*", "examples*"]),
-    package_data={"pyroved_tpu": ["py.typed"]},
+    package_data={"pyroved_tpu": ["py.typed"],
+                  "pyroved_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",
@@ -23,6 +24,7 @@ setup(
     extras_require={
         "viz": ["matplotlib>=3.2"],
         "test": ["pytest", "torch"],
+        "torch": ["torch>=2.1", "numpy>=1.24"],
     },
     classifiers=[
         "Programming Language :: Python :: 3",
