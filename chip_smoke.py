@@ -12,7 +12,8 @@ Phases, in order (any failure propagates and exits non-zero):
    ptxas report.
 2. Kernel against plain: the fused spatial-decoder kernel against
    ``spatial_decoder_plain`` on the card, over D in {1, 2}, C in {1, 3},
-   the six activations, hidden width 128 and 256, ragged B and N.
+   the six activations, hidden width 128 and 256, ragged B and N, and a
+   few edge shapes (one pixel, one partial tile, 1 or 3 hidden layers).
 3. Serving at full width: the flagship iVAE (28x28, latent 2, rotation,
    hidden 128x128, tanh, Bernoulli) from seed 0 is exported and served;
    it answers encode, reconstruct, posed decode, manifold2d, a ragged
@@ -157,10 +158,13 @@ def phase_kernel_vs_plain(dev):
     errs = []
     rng = np.random.default_rng(0)
     acts = sd.KERNEL_ACTS_WITH_APPROX
-    cases = [(D, C, act, H) for H in (128, 256) for D in (1, 2)
-             for C in (1, 3) for act in acts]
-    for i, (D, C, act, H) in enumerate(cases):
-        B, N, L, nl = 37, 1000, 3, 2  # ragged: N is no multiple of 64
+    # (D, C, act, H, B, N, L, n_layers); N = 1000 is no multiple of 64
+    cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
+             for D in (1, 2) for C in (1, 3) for act in acts]
+    cases += [(2, 4, "tanh", 128, 1, 1, 1, 1),      # one pixel, four channels
+              (2, 2, "gelu", 256, 3, 63, 6, 3),     # one partial tile
+              (1, 1, "softplus", 256, 5, 129, 4, 1)]
+    for i, (D, C, act, H, B, N, L, nl) in enumerate(cases):
         sig = i % 2 == 0
         t = lambda *s, k=1.0: torch.as_tensor(  # noqa: E731
             rng.normal(size=s) * k, dtype=torch.float32, device=dev)
@@ -173,10 +177,10 @@ def phase_kernel_vs_plain(dev):
         out = KERNEL(**a, act=act, sigmoid_out=sig)
         torch.cuda.synchronize()
         ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
-        err = check_close(f"K1 D={D} C={C} {act} H={H}", out, ref)
-        errs.append(err)
-        log(f"  K1 vs plain D={D} C={C} H={H} act={act:<11} "
-            f"sigmoid={sig!s:<5} B={B} N={N}: max abs err {err:.3e}")
+        what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
+                f"B={B} N={N} L={L} layers={nl}")
+        errs.append(check_close(f"K1 {what}", out, ref))
+        log(f"  K1 vs plain {what}: max abs err {errs[-1]:.3e}")
     return max(errs)
 
 
