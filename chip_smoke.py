@@ -13,7 +13,9 @@ Phases, in order (any failure propagates and exits non-zero):
 2. Kernel against plain: the fused spatial-decoder kernel against
    ``spatial_decoder_plain`` on the card, over D in {1, 2}, C in {1, 3},
    the six activations, hidden width 128 and 256, ragged B and N, and a
-   few edge shapes (one pixel, one partial tile, 1 or 3 hidden layers).
+   few edge shapes (one pixel, one partial tile, 1 or 3 hidden layers);
+   then a model whose decoder widths (96, 160) pad to 256, served through
+   the kernel and held against its sDecoderNet module.
 3. Serving at full width: the flagship iVAE (28x28, latent 2, rotation,
    hidden 128x128, tanh, Bernoulli) from seed 0 is exported and served;
    it answers encode, reconstruct, posed decode, manifold2d, a ragged
@@ -21,7 +23,9 @@ Phases, in order (any failure propagates and exits non-zero):
 4. Large grid: a posed decode of 64 latents on the 128x128 model.
 5. Times: the kernel and the plain version at each kernel shape of
    phases 3 and 4 (median of CUDA-event timings), beside the least time
-   the card could take for the same work.
+   the card could take for the same work; each request's latency and the
+   host time of building the padded decoder weights against reusing them
+   (host clock, medians).
 
 Float32 throughout, with TF32 turned off for the plain version's matrix
 products and convolutions, so both sides compute in full f32.
@@ -53,13 +57,11 @@ ATOL = 1e-4
 # Per-example negative ELBO sums ~800 pixel terms of size ~1: relative.
 LOSS_RTOL = 1e-4
 
-# Data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the tensor
-# cores, HBM bandwidth. Keyed by a part of the name nvidia-smi reports.
-PEAKS = {  # name part: (f32 flop/s, bf16 flop/s, bytes/s)
-    "PCIe": (51e12, 756e12, 2.0e12),
-    "NVL": (60e12, 835e12, 3.9e12),
-    "H100": (67e12, 989e12, 3.35e12),   # SXM5 (e.g. "H100 80GB HBM3")
-}
+# Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
+# "NVIDIA H100 80GB HBM3": f32 on the CUDA cores, bf16 on the tensor cores,
+# HBM bandwidth. Other cards have no row: their bounds would be wrong.
+H100_SXM = "H100 80GB HBM3"
+PEAKS = (67e12, 989e12, 3.35e12)  # (f32 flop/s, bf16 flop/s, bytes/s)
 
 
 def log(*a):
@@ -67,10 +69,9 @@ def log(*a):
 
 
 def card_peaks(name):
-    for part, peaks in PEAKS.items():
-        if part in name:
-            return peaks
-    raise RuntimeError(f"no data-sheet peaks for card {name!r}")
+    if H100_SXM not in name:
+        raise RuntimeError(f"no data-sheet peaks for card {name!r}")
+    return PEAKS
 
 
 def blobs(n, dim, seed):
@@ -184,6 +185,28 @@ def phase_kernel_vs_plain(dev):
     return max(errs)
 
 
+def phase_padded_model():
+    """Phase 2, model level: a decoder whose widths pad to 256 is routed to
+    the kernel and matches the sDecoderNet module on the transformed grid."""
+    m = iVAE((28, 28), latent_dim=2, invariances=["r"],
+             hidden_dim_d=(96, 160), seed=0)
+    if not m._fused:
+        raise AssertionError("hidden (96, 160) is not routed to the kernel")
+    z = torch.as_tensor(np.random.default_rng(1).normal(size=(256, 2)),
+                        dtype=torch.float32)
+    pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
+    before = KERNEL.launches
+    out = m.decode(z, **pose)
+    if KERNEL.launches != before + 1:
+        raise AssertionError("hidden (96, 160) decode did not launch K1")
+    m._fused = False  # the module path: plain torch on the card
+    ref = m.decode(z, **pose)
+    err = check_close("padded-width model decode", out, ref)
+    log(f"  hidden (96, 160) -> H=256 model decode vs module: max abs err "
+        f"{err:.3e}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -208,7 +231,7 @@ def main() -> int:
 
     # -- 2. kernel vs plain ------------------------------------------------
     log("phase 2: kernel vs plain")
-    max_err = phase_kernel_vs_plain(dev)
+    max_err = max(phase_kernel_vs_plain(dev), phase_padded_model())
 
     # -- 3. serving at full width (flagship); 4. large grid ---------------
     log("phases 3 and 4: flagship iVAE served, large-grid decode")
@@ -307,8 +330,18 @@ def main() -> int:
             log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
                 f"{row['tflops']:.2f} TFLOP/s")
-    request_ms = {name: host_ms(request) for name, request in requests.items()}
+    request_ms = {name: host_ms(request, reps=30)
+                  for name, request in requests.items()}
     log(f"  request latency, ms (host clock, median): {json.dumps(request_ms)}")
+    # the host work one decode pays for its padded weights: built afresh,
+    # or taken from the module's cache
+    dec = model.decoder_net
+    with torch.no_grad():
+        weights_ms = {
+            "build": host_ms(lambda: sd.padded_sdecoder_weights(dec), reps=30),
+            "cached": host_ms(lambda: sd._kernel_weights(dec), reps=30)}
+    log(f"  padded decoder weights, ms (host clock, median): "
+        f"{json.dumps(weights_ms)}")
     head = shapes[0]
     flops0, bytes0 = head["flops"], head["bytes"]
     result = {"kernels": [{
@@ -328,6 +361,7 @@ def main() -> int:
         "library_ms": None,
         "shapes": shapes,
         "request_ms": request_ms,
+        "weights_ms": weights_ms,
     }]}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@
 //  * Nothing is allocated here and nothing synchronises with the host.
 
 #include <cuda_runtime.h>
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -48,6 +49,7 @@ constexpr int kRows = 64;                 // pixels per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerThread = kRows / kWarps;
 constexpr int kChunk = 32;                // weight rows staged per step
+constexpr int kMaxDevices = 64;
 
 enum Act { ACT_TANH = 0, ACT_RELU = 1, ACT_LRELU = 2, ACT_SOFTPLUS = 3,
            ACT_GELU = 4, ACT_TANH_APPROX = 5 };
@@ -222,6 +224,23 @@ sdec_fwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
   }
 }
 
+// Opt the kernel into more than 48 KB of dynamic shared memory. The
+// attribute belongs to the device's context and stays set, so it is set
+// once per template instance and device, not on every launch.
+template <int H, int ACT>
+cudaError_t allow_smem(int smem) {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(sdec_fwd_kernel<H, ACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 template <int H, int ACT>
 cudaError_t launch(const float* grid, const float* phi, const float* dx,
                    const float* sc, const float* z, const float* wc,
@@ -230,8 +249,7 @@ cudaError_t launch(const float* grid, const float* phi, const float* dx,
                    float* out, int B, int N, int D, int L, int n_layers, int C,
                    int sigmoid_out, cudaStream_t stream) {
   const int smem = (int)(smem_floats(H) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      sdec_fwd_kernel<H, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem<H, ACT>(smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = (N + kRows - 1) / kRows;
   const long long blocks = (long long)n_tiles * B;

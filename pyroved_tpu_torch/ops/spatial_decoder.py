@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.nn import get_activation
 from . import _build
 
 Tensor = torch.Tensor
@@ -54,19 +55,8 @@ def _pade_tanh(x: Tensor) -> Tensor:
 
 
 def _act(name: str, x: Tensor) -> Tensor:
-    if name == "tanh":
-        return torch.tanh(x)
-    if name == "tanh_approx":
-        return _pade_tanh(x)
-    if name == "lrelu":
-        return torch.where(x >= 0.0, x, 0.01 * x)
-    if name == "softplus":
-        return F.softplus(x)
-    if name == "gelu":
-        return F.gelu(x, approximate="none")
-    if name == "relu":
-        return torch.relu(x)
-    raise ValueError(f"unknown activation {name!r}")
+    """A hidden-layer activation: the registry's, or the Pade tanh."""
+    return _pade_tanh(x) if name == "tanh_approx" else get_activation(name)(x)
 
 
 def _h0_act(name: str, x: Tensor) -> Tensor:
@@ -199,24 +189,14 @@ fused_spatial_decoder_forward.launches = 0
 # Model integration
 # ---------------------------------------------------------------------------
 
-def _fusion_work_ok(hidden) -> bool:
-    """Hidden widths pad to ``Hmax = round_up(max(hidden), 128)``. A padded
-    width of 128 is always admitted; 256 only while the padded work stays
-    within twice the exact work. Wider stacks use the module path."""
-    hmax = _round_up(max(hidden), 128)
-    if hmax == 128:
-        return True
-    exact = sum(a * b for a, b in zip((hidden[0],) + tuple(hidden[:-1]), hidden))
-    return hmax <= 256 and len(hidden) * hmax * hmax <= 2 * exact
-
-
 def sdecoder_supports_fusion(hidden_dim, activation: str, sigmoid_out: bool,
                              coord: int, channels: int = 1,
                              device="cuda") -> bool:
     """True when an sDecoderNet configuration maps onto the kernel and
     ``device`` runs it: an active coordinate transform, a kernel activation,
-    1..4 channels, a padded width the kernel is built for, and a Hopper
-    card. On ``device="cpu"`` a supported configuration also counts, since
+    1..4 channels, a padded width ``round_up(max(hidden), 128)`` the kernel
+    is built for (128 or 256), and a Hopper card. The configuration alone
+    decides: no timing enters the gate. On ``device="cpu"`` a supported configuration also counts, since
     there the wrapper runs its plain version: the model takes the same path
     on both."""
     hidden = tuple(hidden_dim) if hidden_dim is not None else (128, 128)
@@ -227,7 +207,7 @@ def sdecoder_supports_fusion(hidden_dim, activation: str, sigmoid_out: bool,
     return (0 < coord < 5
             and activation in KERNEL_ACTS
             and 1 <= int(channels) <= 4
-            and _fusion_work_ok(hidden)
+            and _round_up(max(hidden), 128) in KERNEL_WIDTHS
             and (device.type == "cpu" or hopper))
 
 
@@ -263,12 +243,33 @@ def padded_sdecoder_weights(decoder) -> Tuple[Tensor, ...]:
             wout.contiguous(), bout.contiguous())
 
 
+def _kernel_weights(decoder) -> Tuple[Tensor, ...]:
+    """:func:`padded_sdecoder_weights`, kept on the module between calls.
+
+    The entry is keyed by each parameter's storage, device and version
+    counter, so ``load_state_dict``, an in-place update or ``.to()`` makes
+    the next call rebuild it. It holds the keyed storages alive, so no
+    other weight can reuse their addresses while it lives. With autograd
+    on, the weights are padded afresh so that gradients reach the module."""
+    if torch.is_grad_enabled():
+        return padded_sdecoder_weights(decoder)
+    params = list(decoder.parameters())
+    key = [(p.data_ptr(), p.device, p._version) for p in params]
+    cache = decoder.__dict__.get("_kernel_weights")
+    if cache is None or cache[0] != key:
+        cache = (key, [p.detach() for p in params],
+                 padded_sdecoder_weights(decoder))
+        decoder.__dict__["_kernel_weights"] = cache
+    return cache[2]
+
+
 def apply_fused_sdecoder(decoder, grid, phi, dx, sc, z, act: str = "tanh",
                          sigmoid_out: bool = True) -> Tensor:
     """Run the fused decode from an ``sDecoderNet``. Leading batch dims of
     phi/dx/sc/z may be multi-dimensional; they are flattened for the kernel
-    and restored on the output."""
-    Wc, bc, Wz, hw, hb, wout, bout = padded_sdecoder_weights(decoder)
+    and restored on the output. The padded weights are built once and reused
+    until a weight changes."""
+    Wc, bc, Wz, hw, hb, wout, bout = _kernel_weights(decoder)
     batch_shape = z.shape[:-1]
     out = fused_spatial_decoder_forward(
         grid.contiguous(),

@@ -160,8 +160,46 @@ def test_fusion_gate_keeps_jax_config_conditions():
     assert not ok((128, 128), "tanh_approx", True, 1, 1, "cpu")
     assert not ok((128, 128), "tanh", True, 1, 5, "cpu")      # channels
     assert not ok((512, 512), "tanh", True, 1, 1, "cpu")      # width 512
-    assert not ok((96, 160), "tanh", True, 1, 1, "cpu")       # padding > 2x
+    assert not ok((128, 384), "tanh", True, 1, 1, "cpu")      # pads to 384
+    # every width that pads to 128 or 256 runs the kernel, however much
+    # padding it takes: the configuration alone decides
+    assert ok((96, 160), "tanh", True, 1, 1, "cpu")
+    assert ok((128, 256), "relu", True, 1, 1, "cpu")
+    assert ok((8, 200, 16), "lrelu", True, 2, 1, "cpu")
     assert not ok((128, 128), "tanh", True, 1, 1, "meta")
+
+
+def _decoder(seed=0, hidden=(96, 160)):
+    return init_from(sDecoderNet(2, 3, hidden, "tanh", channels=1),
+                     set_deterministic_mode(seed))
+
+
+def test_kernel_weights_are_reused_until_a_weight_changes():
+    dec = _decoder()
+    with torch.no_grad():
+        first = tsd._kernel_weights(dec)
+        assert tsd._kernel_weights(dec) is first
+        dec.MLP_0.layers()[1].bias.add_(1.0)       # in-place update
+        second = tsd._kernel_weights(dec)
+        assert second is not first
+        np.testing.assert_array_equal(second[4][1, :160].numpy(),
+                                      first[4][1, :160].numpy() + 1.0)
+        dec.load_state_dict(_decoder(seed=1).state_dict())
+        third = tsd._kernel_weights(dec)
+        assert third is not second
+        for got, ref in zip(third, tsd.padded_sdecoder_weights(dec)):
+            assert torch.equal(got, ref)
+        assert tsd._kernel_weights(dec) is third
+
+
+def test_kernel_weights_follow_autograd_when_it_is_on():
+    dec = _decoder()
+    with torch.no_grad():
+        cached = tsd._kernel_weights(dec)
+    fresh = tsd._kernel_weights(dec)
+    assert fresh is not cached and fresh[3].requires_grad
+    fresh[3].sum().backward()
+    assert dec.MLP_0.layers()[0].weight.grad is not None
 
 
 def test_nvcc_command_targets_hopper():

@@ -132,6 +132,25 @@ def test_padded_width_gelu_gaussian_model_matches_jax():
                                                           scale=0.9))
 
 
+@pytest.mark.parametrize("hidden", [(96, 160), (128, 256)])
+def test_decoder_padded_to_256_runs_fused_and_matches_jax(hidden):
+    """Decoders whose widths pad to 256 take the fused path whatever the
+    padding costs, and match the JAX package (which decodes through XLA)."""
+    cfg = dict(data_dim=(12, 12), invariances=["r"], hidden_dim_d=hidden)
+    jm, tm = _pair(cfg)
+    assert tm._fused
+    x, _ = _data(cfg, 5)
+    z = np.random.default_rng(7).normal(size=(4, 2)).astype(np.float32)
+    _close(tm.decode(z, angle=0.4, shift=(0.1, 0.0), scale=1.2),
+           jm.decode(z, angle=0.4, shift=(0.1, 0.0), scale=1.2))
+    _close(tm.reconstruct(x), jm.reconstruct(x))
+    rng = jax.random.PRNGKey(9)
+    eps = np.array(jax.random.normal(rng, (5, jm.z_dim)))
+    ref = jm.loss_fn(jm.params, rng, (jnp.asarray(x),), jnp.float32(1.0))
+    np.testing.assert_allclose(as_numpy(tm.loss_fn(x, eps=eps)),
+                               np.asarray(ref), rtol=LOSS_RTOL)
+
+
 def test_spatial_decodes_go_through_the_fused_wrapper(monkeypatch):
     """Every spatial decode of the serving path calls the kernel's wrapper
     (on the CPU, its plain version)."""
