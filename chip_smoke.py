@@ -7,25 +7,32 @@ Run from the repository root on a machine with one Hopper GPU:
 Phases, in order (any failure propagates and exits non-zero):
 
 1. Device and build: prints the card's name and power limit
-   (``nvidia-smi``), then builds the decoder kernel from
-   ``pyroved_tpu_torch/csrc`` with nvcc and prints the build time and the
-   ptxas report.
-2. Kernel against plain: the fused spatial-decoder kernel against
-   ``spatial_decoder_plain`` on the card, over D in {1, 2}, C in {1, 3},
-   the six activations, hidden width 128 and 256, ragged B and N, and a
-   few edge shapes (one pixel, one partial tile, 1 or 3 hidden layers);
-   then a model whose decoder widths (96, 160) pad to 256, served through
-   the kernel and held against its sDecoderNet module.
+   (``nvidia-smi``), then builds the decoder kernels from
+   ``pyroved_tpu_torch/csrc`` (one nvcc per source, started together) and
+   prints the build time and the ptxas report.
+2. Kernels against plain: the fused forward K1 against
+   ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
+   activations, hidden width 128 and 256, ragged B and N and a few edge
+   shapes; a model whose decoder widths (96, 160) pad to 256, against its
+   sDecoderNet module; then the backward K2 against
+   ``spatial_decoder_bwd_plain`` (random cotangent) and the one-pass
+   Bernoulli kernel K3 against ``recon_loss_plain`` on the same matrix
+   (K3 with C = 1), each launched twice to show bitwise-equal grads.
 3. Serving at full width: the flagship iVAE (28x28, latent 2, rotation,
    hidden 128x128, tanh, Bernoulli) from seed 0 is exported and served;
    it answers encode, reconstruct, posed decode, manifold2d, a ragged
    request and ELBO scoring, each checked against a plain computation.
 4. Large grid: a posed decode of 64 latents on the 128x128 model.
-5. Times: the kernel and the plain version at each kernel shape of
-   phases 3 and 4 (median of CUDA-event timings), beside the least time
-   the card could take for the same work; each request's latency and the
-   host time of building the padded decoder weights against reusing them
-   (host clock, medians).
+5. Training at full width: the flagship from seed 0 trains 3 epochs on
+   10,000 blob images at batch 200 through ``fit`` (K1 and K2 once per
+   step); the same init with ``fused=False`` (the module path) is held
+   against it, first step's grads and per-epoch losses; then a few steps
+   with ``one_pass_train=True`` (K3 once per step, no K1 or K2).
+6. Times: each kernel and its plain version at the shapes of the paths
+   (median of CUDA-event timings), beside the least time the card could
+   take for the same work; request latencies and the padded-weight build
+   (host clock); the training step and an epoch's steps/s for the kernel
+   path and the module path, and a profiler breakdown of the step.
 
 Float32 throughout, with TF32 turned off for the plain version's matrix
 products and convolutions, so both sides compute in full f32.
@@ -47,15 +54,39 @@ from pyroved_tpu_torch.models import iVAE
 from pyroved_tpu_torch.ops import _build
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
+from pyroved_tpu_torch.trainers import SVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
+from pyroved_tpu_torch.utils.data import init_dataloader
 
-KERNEL = sd.fused_spatial_decoder_forward
+K1 = sd.fused_spatial_decoder_forward
+K2 = sd.fused_spatial_decoder_backward
+K3 = sd.fused_bernoulli_recon_loss_kernel
+KERNELS = (K1, K2, K3)
+SOURCES = ("spatial_decoder_fwd", "spatial_decoder_bwd")
+GRAD_NAMES = ("phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb", "wout",
+              "bout")
+PER_SAMPLE = 4  # the first four grads are per sample, the rest summed
 # Kernel vs plain, both f32 on the card: the sums run in another order
 # (cuBLAS against the kernel's per-thread fma chains) and tanhf/erff differ
 # from PyTorch's by a few ulp per layer.
 ATOL = 1e-4
+# Grads: atol 1e-4 with rtol 1e-3 per element; a weight grad sums over
+# every pixel of the batch (37,000 here), so its elements that nearly
+# cancel are held to 1e-3 of the tensor's largest entry instead.
+GRAD_RTOL = 1e-3
 # Per-example negative ELBO sums ~800 pixel terms of size ~1: relative.
 LOSS_RTOL = 1e-4
+# Kernel path against the module path in training: the first step's grads
+# as above; the per-epoch losses after 50-150 Adam steps, relative.
+EPOCH_RTOL = 1e-3
+# relu and lrelu: a pre-activation within rounding of 0 can fall on
+# different sides of the kink in the kernel and in cuBLAS, and such a pixel
+# moves the grads by its whole contribution. The cases take those pixels
+# out of the comparison: their cotangent is 0 (K2) or their observation is
+# the decoded value (K3, so w (sigmoid(logit) - x) is ~0). A pixel counts
+# as near the kink when a hidden pre-activation, in f64, is within
+# KINK_BAND of 0, ten times the f32 rounding of a 128-term sum of size ~1.
+KINK_BAND = 1e-5
 
 # Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
 # "NVIDIA H100 80GB HBM3": f32 on the CUDA cores, bf16 on the tensor cores,
@@ -98,6 +129,22 @@ def kernel_args(decoder, grid, z, angle=0.0, shift=(0.0, 0.0), scale=1.0):
                 wout=wout, bout=bout)
 
 
+def train_args(model, x, eps):
+    """K2/K3 inputs of one training step of ``model`` on images ``x`` with
+    latent noise ``eps`` (detached weights, posterior sample as the model
+    draws it)."""
+    with torch.no_grad():
+        xf = torch.as_tensor(x, device="cuda").reshape(x.shape[0], -1)
+        mu, sig = model.encoder_net(xf)
+        phi, dx, sc, zc = model.split_latent_full(mu + sig * eps)
+        a = dict(grid=model.grid, phi=phi.contiguous(), dx=dx.contiguous(),
+                 sc=sc.contiguous(), z=zc.contiguous())
+        a.update(zip(("Wc", "bc", "Wz", "hw", "hb", "wout", "bout"),
+                     (t.detach() for t in
+                      sd.padded_sdecoder_weights(model.decoder_net))))
+    return a, xf
+
+
 def check_close(what, got, ref, atol=ATOL):
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
@@ -111,8 +158,33 @@ def check_close(what, got, ref, atol=ATOL):
     return err
 
 
+def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE):
+    """Each of the first ``per_sample`` grads within atol 1e-4 + rtol 1e-3
+    per element; the summed weight grads within 1e-4 + 1e-3 of their
+    largest entry. Returns the largest absolute error."""
+    worst = 0.0
+    for i, (name, g, r) in enumerate(zip(names, got, ref)):
+        g, r = g.float(), r.float()
+        if g.shape != r.shape:
+            raise AssertionError(f"{what} d{name}: shape {tuple(g.shape)} "
+                                 f"!= {tuple(r.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what} d{name}: non-finite grads")
+        err = (g - r).abs()
+        top = r.abs().max()
+        scale = r.abs() if i < per_sample else top
+        n_miss = int((err > ATOL + GRAD_RTOL * scale).sum())
+        if n_miss:
+            raise AssertionError(f"{what} d{name}: max abs err "
+                                 f"{err.max().item():.3e} (largest grad "
+                                 f"{top.item():.3e}, {n_miss} elements "
+                                 f"out of tolerance)")
+        worst = max(worst, err.max().item())
+    return worst
+
+
 def work(a):
-    """(flops, bytes) one call needs: every input read once, the output
+    """(flops, bytes) one K1 call needs: every input read once, the output
     written once."""
     N, D = a["grid"].shape
     B = a["z"].shape[0]
@@ -122,6 +194,30 @@ def work(a):
     flops = B * N * (2 * D * H + nl * 2 * H * H + 2 * C * H)
     nbytes = 4 * (sum(t.numel() for t in a.values()) + B * N * C)
     return flops, nbytes
+
+
+def work_bwd(a, loss_mode=False):
+    """(flops, bytes) one K2 (or K3) call needs: per pixel the forward
+    recompute (h0, nl H x H layers, head) and the backward (head, dW and dh
+    of each layer, the du/dv/dw sums); every input read once (with the
+    cotangent, or x and the weights), every grad written once."""
+    N, D = a["grid"].shape
+    B = a["z"].shape[0]
+    H = a["Wc"].shape[1]
+    nl = a["hw"].shape[0]
+    C = a["wout"].shape[1]
+    flops = B * N * (6 * nl * H * H + 2 * (D + 1) * H + 6 * C * H + 6 * H)
+    inputs = sum(t.numel() for t in a.values())
+    grads = inputs - a["grid"].numel()
+    extra = B * N + B if loss_mode else B * N * C
+    return flops, 4 * (inputs + grads + extra)
+
+
+def bounds(flops, nbytes, peaks):
+    peak_f32, peak_bf16, peak_bw = peaks
+    return (1e3 * max(flops / peak_f32, nbytes / peak_bw),
+            1e3 * max(flops / peak_bf16, nbytes / peak_bw),
+            "operations" if flops / peak_f32 >= nbytes / peak_bw else "bytes")
 
 
 def cuda_ms(fn, reps=25, warmup=3):
@@ -154,8 +250,19 @@ def host_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def phase_kernel_vs_plain(dev):
-    """Phase 2: the kernel against the plain version across the matrix."""
+def random_case(rng, dev, D, C, H, B, N, L, nl):
+    t = lambda *s, k=1.0: torch.as_tensor(  # noqa: E731
+        rng.normal(size=s) * k, dtype=torch.float32, device=dev)
+    return dict(grid=torch.as_tensor(rng.uniform(-1, 1, (N, D)),
+                                     dtype=torch.float32, device=dev),
+                phi=t(B), dx=t(B, D, k=0.1), sc=1 + t(B, k=0.1), z=t(B, L),
+                Wc=t(D, H, k=0.5), bc=t(H, k=0.1), Wz=t(L, H, k=0.5),
+                hw=t(nl, H, H, k=1.5 / H ** 0.5), hb=t(nl, H, k=0.1),
+                wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
+
+
+def phase_k1_vs_plain(dev):
+    """Phase 2: K1 against the plain version across the matrix."""
     errs = []
     rng = np.random.default_rng(0)
     acts = sd.KERNEL_ACTS_WITH_APPROX
@@ -167,15 +274,8 @@ def phase_kernel_vs_plain(dev):
               (1, 1, "softplus", 256, 5, 129, 4, 1)]
     for i, (D, C, act, H, B, N, L, nl) in enumerate(cases):
         sig = i % 2 == 0
-        t = lambda *s, k=1.0: torch.as_tensor(  # noqa: E731
-            rng.normal(size=s) * k, dtype=torch.float32, device=dev)
-        a = dict(grid=torch.as_tensor(rng.uniform(-1, 1, (N, D)),
-                                      dtype=torch.float32, device=dev),
-                 phi=t(B), dx=t(B, D, k=0.1), sc=1 + t(B, k=0.1), z=t(B, L),
-                 Wc=t(D, H, k=0.5), bc=t(H, k=0.1), Wz=t(L, H, k=0.5),
-                 hw=t(nl, H, H, k=1.5 / H ** 0.5), hb=t(nl, H, k=0.1),
-                 wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
-        out = KERNEL(**a, act=act, sigmoid_out=sig)
+        a = random_case(rng, dev, D, C, H, B, N, L, nl)
+        out = K1(**a, act=act, sigmoid_out=sig)
         torch.cuda.synchronize()
         ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
         what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
@@ -187,24 +287,264 @@ def phase_kernel_vs_plain(dev):
 
 def phase_padded_model():
     """Phase 2, model level: a decoder whose widths pad to 256 is routed to
-    the kernel and matches the sDecoderNet module on the transformed grid."""
-    m = iVAE((28, 28), latent_dim=2, invariances=["r"],
-             hidden_dim_d=(96, 160), seed=0)
-    if not m._fused:
-        raise AssertionError("hidden (96, 160) is not routed to the kernel")
+    K1 and matches the same weights' sDecoderNet module (``fused=False``)."""
+    kw = dict(latent_dim=2, invariances=["r"], hidden_dim_d=(96, 160), seed=0)
+    m = iVAE((28, 28), **kw)
+    module = iVAE((28, 28), fused=False, **kw)
+    if not m._fused or module._fused:
+        raise AssertionError("hidden (96, 160) is not routed as configured")
     z = torch.as_tensor(np.random.default_rng(1).normal(size=(256, 2)),
                         dtype=torch.float32)
     pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
-    before = KERNEL.launches
+    before = K1.launches
     out = m.decode(z, **pose)
-    if KERNEL.launches != before + 1:
+    if K1.launches != before + 1:
         raise AssertionError("hidden (96, 160) decode did not launch K1")
-    m._fused = False  # the module path: plain torch on the card
-    ref = m.decode(z, **pose)
+    ref = module.decode(z, **pose)
+    if K1.launches != before + 1:
+        raise AssertionError("the fused=False model launched K1")
     err = check_close("padded-width model decode", out, ref)
     log(f"  hidden (96, 160) -> H=256 model decode vs module: max abs err "
         f"{err:.3e}")
     return err
+
+
+def bwd_cases():
+    """(D, C, act, H, B, N, L, n_layers) of K2's matrix: K1's, with edge
+    shapes inside the backward's layer limit (5 layers, 2 with gelu)."""
+    cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
+             for D in (1, 2) for C in (1, 3)
+             for act in sd.KERNEL_ACTS_WITH_APPROX]
+    cases += [(2, 4, "tanh", 128, 1, 1, 1, 1),       # one pixel, four channels
+              (2, 2, "gelu", 256, 3, 63, 6, 2),      # one partial tile, gelu
+              (2, 2, "tanh", 256, 3, 63, 6, 3),      # three layers
+              (1, 1, "softplus", 256, 5, 129, 4, 1),
+              (2, 1, "relu", 128, 4, 200, 2, 5)]     # the layer limit
+    return cases
+
+
+def near_kink(a, act):
+    """[B, N] pixels with a hidden pre-activation within KINK_BAND of
+    relu's or lrelu's kink (f64 plain forward), or None for smooth
+    activations."""
+    if act not in ("relu", "lrelu"):
+        return None
+    d = {k: v.double() for k, v in a.items()}
+    hs, _, _ = sd._folded_forward(d["grid"], d["phi"], d["dx"], d["sc"],
+                                  d["z"], d["Wc"], d["bc"], d["Wz"], d["hw"],
+                                  d["hb"], act)
+    near = torch.zeros(hs[0].shape[:2], dtype=torch.bool, device=hs[0].device)
+    for i in range(d["hw"].shape[0]):
+        pre = hs[i] @ d["hw"][i] + d["hb"][i]
+        near |= (pre.abs() < KINK_BAND).any(-1)
+    return near
+
+
+def phase_k2_k3_vs_plain(dev):
+    """Phase 2: K2 and K3 against their plain versions, and launched twice
+    on the same inputs with bitwise-equal grads."""
+    rng = np.random.default_rng(2)
+    errs2, errs3 = [], []
+    for i, (D, C, act, H, B, N, L, nl) in enumerate(bwd_cases()):
+        sig = i % 2 == 0
+        a = random_case(rng, dev, D, C, H, B, N, L, nl)
+        shape = (B, N) if C == 1 else (B, N, C)
+        g = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev)
+        near = near_kink(a, act)
+        if near is not None:
+            g[near] = 0.0
+        what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
+                f"B={B} N={N} L={L} layers={nl}"
+                + ("" if near is None else f" ({int(near.sum())} pixels near "
+                   f"the kink left out)"))
+        got = K2(**a, g=g, act=act, sigmoid_out=sig)
+        again = K2(**a, g=g, act=act, sigmoid_out=sig)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"K2 {what}: two launches differ")
+        ref = sd.spatial_decoder_bwd_plain(**a, g=g, act=act, sigmoid_out=sig)
+        errs2.append(check_grads(f"K2 {what}", got, ref))
+        log(f"  K2 vs plain {what}: max abs err {errs2[-1]:.3e}, bitwise "
+            f"equal across launches")
+        if C != 1 and (D, C, H) != (2, 3, 256):
+            continue
+        # K3 on the same inputs with one channel
+        a["wout"], a["bout"] = a["wout"][:, :1].contiguous(), a["bout"][:1]
+        x = torch.as_tensor(rng.uniform(0, 1, (B, N)), dtype=torch.float32,
+                            device=dev)
+        w = torch.as_tensor(rng.uniform(0, 1, B), dtype=torch.float32,
+                            device=dev)
+        if near is not None:
+            x[near] = sd.spatial_decoder_plain(**a, act=act)[near]
+        args = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], x, w, a["Wc"],
+                a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"], a["bout"])
+        loss, grads = K3(*args, act=act)
+        loss2, grads2 = K3(*args, act=act)
+        torch.cuda.synchronize()
+        if not (torch.equal(loss, loss2)
+                and all(torch.equal(p, q) for p, q in zip(grads, grads2))):
+            raise AssertionError(f"K3 {what}: two launches differ")
+        ref_loss, ref = sd.recon_loss_plain(*args, act=act)
+        rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"K3 {what}: loss rel err {rel:.3e}")
+        errs3.append(check_grads(f"K3 {what}", grads, ref))
+        log(f"  K3 vs plain D={D} C=1 H={H} act={act:<11} B={B} N={N} "
+            f"L={L} layers={nl}: loss rel err {rel:.3e}, grads max abs err "
+            f"{errs3[-1]:.3e}, bitwise equal")
+    return max(errs2), max(errs3)
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts():
+    return {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches}
+
+
+def first_step_grads(model, x, eps):
+    """Every parameter grad of one weighted loss on batch ``x``."""
+    model.nets.zero_grad(set_to_none=True)
+    w = torch.ones(x.shape[0], device="cuda")
+    loss = model.weighted_loss_fn(x, None, w, 1.0, eps=eps)
+    loss.backward()
+    grads = [p.grad.detach().clone() for p in model.nets.parameters()]
+    model.nets.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_training():
+    """Phase 5: the flagship trains 3 epochs through fit, against the module
+    path; then one-pass training."""
+    kw = dict(latent_dim=2, invariances=["r"], seed=0)
+    X = blobs(10000, (28, 28), seed=1)
+    model = iVAE((28, 28), **kw)
+    module = iVAE((28, 28), fused=False, **kw)
+    if not model._fused or module._fused:
+        raise AssertionError("flagship training is not routed as configured")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    eps = torch.randn(200, model.z_dim, generator=gen, device="cuda")
+    xb = torch.as_tensor(X[:200], device="cuda")
+    loss_k, grads_k = first_step_grads(model, xb, eps)
+    loss_m, grads_m = first_step_grads(module, xb, eps)
+    names = [n for n, _ in model.nets.named_parameters()]
+    step_err = check_grads("first step, kernel vs module path", grads_k,
+                           grads_m, names, per_sample=0)
+    if abs(loss_k - loss_m) > LOSS_RTOL * abs(loss_m):
+        raise AssertionError(f"first step loss {loss_k} vs {loss_m}")
+    log(f"  first step, kernel path vs module path: loss {loss_k:.4f} vs "
+        f"{loss_m:.4f}, grads max abs err {step_err:.3e}")
+
+    reset_counts()  # the training path starts here
+    t0 = time.perf_counter()
+    trainer = model.fit(X, epochs=3, batch_size=200)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_counts = counts()  # the training path ends here
+    steps = 3 * 50
+    log(f"  fit(epochs=3, batch_size=200) on 10,000 images: {fit_s:.2f} s, "
+        f"launches {train_counts}")
+    if train_counts != {"K1": steps, "K2": steps, "K3": 0}:
+        raise AssertionError(f"expected K1 and K2 once per step: "
+                             f"{train_counts}")
+    hist = trainer.loss_history["training_loss"]
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"loss is not finite and falling: {hist}")
+    module_trainer = module.fit(X, epochs=3, batch_size=200)
+    hist_m = module_trainer.loss_history["training_loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_m))
+    log(f"  per-epoch losses, kernel path {hist}, module path {hist_m}: "
+        f"max rel diff {rel:.3e}")
+    if not rel <= EPOCH_RTOL:
+        raise AssertionError(f"per-epoch losses differ by {rel:.3e}")
+
+    # one-pass training: K3 once per step, no K1 or K2
+    one = iVAE((28, 28), one_pass_train=True, **kw)
+    loss_1, grads_1 = first_step_grads(one, xb, eps)
+    one_err = check_grads("first step, one-pass vs module path", grads_1,
+                          grads_m, names, per_sample=0)
+    if abs(loss_1 - loss_m) > LOSS_RTOL * abs(loss_m):
+        raise AssertionError(f"one-pass first step loss {loss_1} vs {loss_m}")
+    loader = init_dataloader(X[:2000], batch_size=200)
+    one_trainer = SVItrainer(one)
+    reset_counts()  # the one-pass path starts here
+    one_loss = one_trainer.train(loader)
+    torch.cuda.synchronize()
+    one_counts = counts()  # the one-pass path ends here
+    log(f"  one_pass_train: 10 steps, loss {one_loss:.4f}, launches "
+        f"{one_counts}; first step vs module path: loss {loss_1:.4f}, grads "
+        f"max abs err {one_err:.3e}")
+    if one_counts != {"K1": 0, "K2": 0, "K3": 10} or not np.isfinite(one_loss):
+        raise AssertionError(f"one-pass training: {one_counts}, {one_loss}")
+
+    # times: the step (host clock) and an epoch's steps/s, both paths
+    times = {}
+    for name, m in (("kernel", model), ("module", module),
+                    ("one_pass", one)):
+        tr = SVItrainer(m)
+        ld = init_dataloader(X, batch_size=200)
+        w = torch.ones(200, device="cuda")
+        step = host_ms(lambda: tr.train_step((xb,), w), reps=30, warmup=5)
+        tr.train(ld)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(ld)
+        epoch_s = time.perf_counter() - t0
+        times[name] = {"step_ms": step, "steps_per_s": 50 / epoch_s}
+    log(f"  training step (host clock, median of 30) and steps/s over a "
+        f"50-step epoch: {json.dumps(times)}")
+    return {"fit_s": fit_s, "train_launches": train_counts,
+            "one_pass_launches": one_counts, "loss_history": hist,
+            "module_loss_history": hist_m, "times": times,
+            "max_err": max(step_err, one_err), "model": model, "xb": xb,
+            "eps": eps}
+
+
+def step_breakdown(model, xb):
+    """Device time of one flagship training step by kernel family, from a
+    torch.profiler trace of 10 steps, against the step's wall time under
+    the profiler (which slows the host: compare the device time with the
+    unprofiled step time too)."""
+    trainer = SVItrainer(model)
+    w = torch.ones(xb.shape[0], device="cuda")
+    for _ in range(5):
+        trainer.train_step((xb,), w)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            trainer.train_step((xb,), w)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+    buckets = {"K1": 0.0, "K2": 0.0, "Adam": 0.0, "gemm": 0.0, "other": 0.0}
+    launches = {k: 0 for k in buckets}
+    top = []
+    for ev in prof.key_averages():
+        # kernels only: an operator's entry, or a range annotated on the
+        # device ("Optimizer.step#Adam.step"), repeats its kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA or "#" in ev.key:
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        top.append((t / 1e3 / 10, ev.count / 10, ev.key[:80]))
+        name = ev.key.lower()
+        key = ("K1" if "sdec_fwd" in name else
+               "K2" if "sdec_bwd" in name else
+               "Adam" if "adam" in name or "multi_tensor" in name else
+               "gemm" if "gemm" in name or "sm90" in name or "cutlass" in name
+               else "other")
+        buckets[key] += t / 1e3 / 10  # us -> ms per step
+        launches[key] += ev.count / 10
+    device_ms = sum(buckets.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms, "by_family_ms": buckets,
+            "kernels_per_step": launches,
+            "top_kernels_ms_per_step": sorted(top, reverse=True)[:12]}
 
 
 def main() -> int:
@@ -222,20 +562,24 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi)
-    peak_f32, peak_bf16, peak_bw = card_peaks(smi)
+    peaks = card_peaks(smi)
     t0 = time.perf_counter()
-    _build.load("spatial_decoder_fwd")
-    log(f"phase 1: built spatial_decoder_fwd in "
+    _build.load_all(list(SOURCES))
+    log(f"phase 1: built {', '.join(SOURCES)} (one nvcc each, together) in "
         f"{time.perf_counter() - t0:.1f} s")
-    log(_build.build_log("spatial_decoder_fwd").strip())
+    for name in SOURCES:
+        log(_build.build_log(name).strip())
 
-    # -- 2. kernel vs plain ------------------------------------------------
-    log("phase 2: kernel vs plain")
-    max_err = max(phase_kernel_vs_plain(dev), phase_padded_model())
+    # -- 2. kernels vs plain -----------------------------------------------
+    log("phase 2: kernels vs plain")
+    k1_err = max(phase_k1_vs_plain(dev), phase_padded_model())
+    k2_err, k3_err = phase_k2_k3_vs_plain(dev)
 
     # -- 3. serving at full width (flagship); 4. large grid ---------------
     log("phases 3 and 4: flagship iVAE served, large-grid decode")
     model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+    module = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0,
+                  fused=False)
     if not model._fused:
         raise AssertionError("flagship decoder is not routed to the kernel")
     x = blobs(2500, (28, 28), seed=0)
@@ -250,26 +594,31 @@ def main() -> int:
         path = f"{tmp}/flagship.npz"
         export_model(model, path)
         served = ServedModel(path)
+
+    def score():
+        with torch.no_grad():
+            return model.loss_fn(x[:200], eps=eps)
+
     requests = {  # phase 3, then phase 4 (the large grid)
         "encode_1000": lambda: served.encode(x[:1000]),
         "reconstruct_200": lambda: model.reconstruct(x[:200]),
         "posed_decode_1024": lambda: served.decode(z_req, **pose),
         "manifold2d_32": lambda: model.manifold2d(32),
         "ragged_decode_2500": lambda: served.decode(z_rag),
-        "loss_fn_200": lambda: model.loss_fn(x[:200], eps=eps),
+        "loss_fn_200": score,
         "large_grid_decode_64": lambda: big.decode(z_big, **pose),
     }
     outputs, launches = {}, {}
-    KERNEL.launches = 0  # the main path starts here
+    reset_counts()  # the serving path starts here
     for name, request in requests.items():
-        before = KERNEL.launches
+        before = K1.launches
         outputs[name] = request()
-        launches[name] = KERNEL.launches - before
+        launches[name] = K1.launches - before
     torch.cuda.synchronize()
-    total_launches = KERNEL.launches  # the main path ends here
-    log(f"  K1 launches on the main path: {total_launches} {launches}")
-    if total_launches == 0 or launches["posed_decode_1024"] == 0:
-        raise AssertionError("the main path never launched the kernel")
+    serve_counts = counts()  # the serving path ends here
+    log(f"  launches on the serving path: {serve_counts} {launches}")
+    if serve_counts["K1"] == 0 or launches["posed_decode_1024"] == 0:
+        raise AssertionError("the serving path never launched K1")
 
     # outputs: shapes, finiteness, agreement with plain computations
     z_loc, z_scale = outputs["encode_1000"]
@@ -293,9 +642,7 @@ def main() -> int:
         errs = [check_close(name, outputs[name].reshape(rows, -1),
                             plain(m, z, **p))
                 for name, rows, m, z, p in checks]
-        model._fused = False  # the module path: plain torch on the card
-        loss_ref = model.loss_fn(x[:200], eps=eps)
-        model._fused = True
+        loss_ref = module.loss_fn(x[:200], eps=eps)  # the module path
     loss = outputs["loss_fn_200"]
     if loss.shape != (200,) or not torch.isfinite(loss).all():
         raise AssertionError("loss_fn: bad shape or non-finite values")
@@ -304,11 +651,15 @@ def main() -> int:
         raise AssertionError(f"loss_fn: max rel err {rel:.3e} > {LOSS_RTOL}")
     log(f"  served outputs match plain: max abs err {max(errs):.3e}, "
         f"loss max rel err {rel:.3e}")
-    max_err = max(max_err, *errs)
+    k1_err = max(k1_err, *errs)
 
-    # -- 5. times ----------------------------------------------------------
-    log("phase 5: times")
-    shapes = []
+    # -- 5. training at full width -----------------------------------------
+    log("phase 5: flagship training")
+    train = phase_training()
+
+    # -- 6. times ----------------------------------------------------------
+    log("phase 6: times")
+    k1_shapes = []
     with torch.no_grad():
         for name, m, z in (("flagship", model, z_req),
                            ("flagship", model, z_req[:200]),
@@ -317,24 +668,69 @@ def main() -> int:
             a = kernel_args(m.decoder_net, m.grid, z.cuda(), **pose)
             label = f"{name} B={a['z'].shape[0]} N={a['grid'].shape[0]}"
             flops, nbytes = work(a)
-            k_ms = cuda_ms(lambda: KERNEL(**a))
+            k_ms = cuda_ms(lambda: K1(**a))
             p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a), reps=20)
-            b32 = 1e3 * max(flops / peak_f32, nbytes / peak_bw)
-            b16 = 1e3 * max(flops / peak_bf16, nbytes / peak_bw)
-            row = {"shape": label, "B": a["z"].shape[0],
-                   "N": a["grid"].shape[0], "H": a["Wc"].shape[1],
-                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": b32,
-                   "bound_ms_bf16": b16, "flops": flops, "bytes": nbytes,
-                   "tflops": flops / k_ms / 1e9}
-            shapes.append(row)
-            log(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            b32, b16, by = bounds(flops, nbytes, peaks)
+            k1_shapes.append({"shape": label, "ms": k_ms, "plain_ms": p_ms,
+                              "bound_ms": b32, "bound_ms_bf16": b16,
+                              "bound_by": by, "flops": flops,
+                              "bytes": nbytes, "tflops": flops / k_ms / 1e9})
+            log(f"  K1 {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
-                f"{row['tflops']:.2f} TFLOP/s")
+                f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+    # K2 and K3 at the flagship training shape and the large grid
+    k2_shapes, k3_shapes = [], []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
+    for name, m, xx in (("flagship", train["model"], train["xb"]),
+                        ("large grid", big, xl)):
+        e = torch.randn(xx.shape[0], m.z_dim, generator=gen, device="cuda")
+        a, xf = train_args(m, xx, e)
+        B, N = a["z"].shape[0], a["grid"].shape[0]
+        label = f"{name} B={B} N={N} H={a['Wc'].shape[1]}"
+        ws_bytes, blocks = sd.bwd_workspace(B, N, 2, a["z"].shape[1],
+                                            a["Wc"].shape[1],
+                                            a["hw"].shape[0], 1)
+        g = torch.randn(B, N, generator=gen, device="cuda")
+        w = torch.ones(B, device="cuda")
+        args3 = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], xf, w,
+                 a["Wc"], a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"],
+                 a["bout"])
+        req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
+
+        def autograd_plain():
+            out = sd.spatial_decoder_plain(**req)
+            return torch.autograd.grad(
+                out, [req[k] for k in GRAD_NAMES], g)
+
+        for kernel_shapes, fn, plain_fn, loss_mode in (
+                (k2_shapes, lambda: K2(**a, g=g),
+                 lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False),
+                (k3_shapes, lambda: K3(*args3),
+                 lambda: sd.recon_loss_plain(*args3), True)):
+            flops, nbytes = work_bwd(a, loss_mode)
+            k_ms = cuda_ms(fn, reps=20)
+            p_ms = cuda_ms(plain_fn, reps=10)
+            b32, b16, by = bounds(flops, nbytes, peaks)
+            row = {"shape": label, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b32, "bound_ms_bf16": b16, "bound_by": by,
+                   "flops": flops, "bytes": nbytes,
+                   "tflops": flops / k_ms / 1e9,
+                   "workspace_bytes": ws_bytes, "blocks": blocks}
+            if not loss_mode:
+                row["autograd_plain_ms"] = cuda_ms(autograd_plain, reps=10)
+            kernel_shapes.append(row)
+            log(f"  {'K3' if loss_mode else 'K2'} {label}: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                + ("" if loss_mode else
+                   f", autograd of the plain forward "
+                   f"{row['autograd_plain_ms']:.4f} ms")
+                + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
+                f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, workspace "
+                f"{ws_bytes / 2 ** 20:.1f} MiB")
     request_ms = {name: host_ms(request, reps=30)
                   for name, request in requests.items()}
     log(f"  request latency, ms (host clock, median): {json.dumps(request_ms)}")
-    # the host work one decode pays for its padded weights: built afresh,
-    # or taken from the module's cache
     dec = model.decoder_net
     with torch.no_grad():
         weights_ms = {
@@ -342,27 +738,47 @@ def main() -> int:
             "cached": host_ms(lambda: sd._kernel_weights(dec), reps=30)}
     log(f"  padded decoder weights, ms (host clock, median): "
         f"{json.dumps(weights_ms)}")
-    head = shapes[0]
-    flops0, bytes0 = head["flops"], head["bytes"]
-    result = {"kernels": [{
-        "name": "spatial_decoder_fwd",
-        "route": "cuda",
-        "source": "pyroved_tpu_torch/csrc/spatial_decoder_fwd.cu",
-        "replaces": "pyroved_tpu/ops/spatial_decoder.py:422",
-        "launches": total_launches,
-        "launches_per_request": launches,
-        "max_abs_err": max_err,
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_ms_bf16": head["bound_ms_bf16"],
-        "bound_by": ("operations" if flops0 / peak_f32 >= bytes0 / peak_bw
-                     else "bytes"),
-        "library_ms": None,
-        "shapes": shapes,
-        "request_ms": request_ms,
-        "weights_ms": weights_ms,
-    }]}
+    breakdown = step_breakdown(train["model"], train["xb"])
+    log(f"  flagship training step breakdown (torch.profiler, 10 steps): "
+        f"{json.dumps(breakdown)}")
+
+    def entry(name, source, replaces, launches_by_path, err, shapes, **more):
+        head = shapes[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches_by_path.values()),
+                "launches_by_path": launches_by_path, "max_abs_err": err,
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"],
+                "bound_ms_bf16": head["bound_ms_bf16"],
+                "bound_by": head["bound_by"], "library_ms": None,
+                "shapes": shapes, **more}
+
+    bwd_src = "pyroved_tpu_torch/csrc/spatial_decoder_bwd.cu"
+    result = {"kernels": [
+        entry("spatial_decoder_fwd",
+              "pyroved_tpu_torch/csrc/spatial_decoder_fwd.cu",
+              "pyroved_tpu/ops/spatial_decoder.py:422",
+              {"serving": serve_counts["K1"],
+               "training": train["train_launches"]["K1"],
+               "one_pass_training": train["one_pass_launches"]["K1"]},
+              k1_err, k1_shapes, launches_per_request=launches,
+              request_ms=request_ms, weights_ms=weights_ms),
+        entry("spatial_decoder_bwd", bwd_src,
+              "pyroved_tpu/ops/spatial_decoder.py:531",
+              {"serving": serve_counts["K2"],
+               "training": train["train_launches"]["K2"],
+               "one_pass_training": train["one_pass_launches"]["K2"]},
+              max(k2_err, train["max_err"]), k2_shapes),
+        entry("bernoulli_recon_loss", bwd_src,
+              "pyroved_tpu/ops/spatial_decoder.py:1209",
+              {"serving": serve_counts["K3"],
+               "training": train["train_launches"]["K3"],
+               "one_pass_training": train["one_pass_launches"]["K3"]},
+              k3_err, k3_shapes),
+    ], "training": {k: train[k] for k in (
+        "fit_s", "loss_history", "module_loss_history", "times")},
+        "step_breakdown": breakdown}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

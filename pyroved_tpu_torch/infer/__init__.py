@@ -1,6 +1,7 @@
 """Distributions and ELBO building blocks."""
 from . import dists, elbo
 from .dists import get_sampler
-from .elbo import normal_latent_site, obs_site
+from .elbo import TraceELBO, normal_latent_site, obs_site
 
-__all__ = ["dists", "elbo", "get_sampler", "normal_latent_site", "obs_site"]
+__all__ = ["dists", "elbo", "get_sampler", "TraceELBO", "normal_latent_site",
+           "obs_site"]

@@ -13,6 +13,23 @@ from . import dists
 Tensor = torch.Tensor
 
 
+class TraceELBO:
+    """Estimator settings for the trainer's ``loss=`` argument, as Pyro's
+    ``Trace_ELBO``: ``SVItrainer(model, loss=TraceELBO(num_particles=4,
+    kl='analytic'))`` sets them on the model."""
+
+    def __init__(self, num_particles: int = 1, kl: str = "mc"):
+        if kl not in ("mc", "analytic"):
+            raise ValueError("kl must be 'mc' or 'analytic'")
+        self.num_particles = int(num_particles)
+        self.kl = kl
+
+    def configure(self, model) -> None:
+        model.kl_mode = self.kl
+        if hasattr(model, "num_particles"):
+            model.num_particles = self.num_particles
+
+
 def normal_latent_site(loc: Tensor, scale: Tensor, beta=1.0, kl: str = "mc",
                        eps: Optional[Tensor] = None,
                        generator: Optional[torch.Generator] = None

@@ -11,20 +11,15 @@ package's top-level names (``encoder_z``, ``decoder``) on ``self.device``.
 """
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..ops.spatial_decoder import apply_fused_sdecoder
 from ..utils.coord import generate_grid, transform_coordinates
-from ..utils.nn import as_f32, resolve_device
+from ..utils.nn import as_f32, later_slice, resolve_device
 
 Tensor = torch.Tensor
-
-
-def later_slice(what: str, item: str) -> NotImplementedError:
-    """The error for a feature that a later slice of the port brings."""
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md, '{item}'")
 
 
 def posed_decode(decoder: nn.Module, grid: Optional[Tensor], z: Tensor,
@@ -208,3 +203,86 @@ class baseVAE:
 
     def _as_f32(self, x) -> Tensor:
         return as_f32(x, self.device)
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _check_data_scale(X, data_scale) -> None:
+        """Reject raw integer signal data unless ``data_scale`` says how to
+        normalize it: the samplers expect normalized floats."""
+        if data_scale is not None:
+            return
+        dt = getattr(X, "dtype", None)
+        if dt is None:
+            try:
+                dt = np.asarray(X).dtype
+            except (TypeError, ValueError):
+                return
+        if isinstance(dt, torch.dtype):
+            integer = not (dt.is_floating_point or dt.is_complex)
+        else:
+            integer = np.issubdtype(np.dtype(dt), np.integer)
+        if integer:
+            raise ValueError(
+                f"fit() got integer data (dtype {dt}) without data_scale=. "
+                "The decoder samplers expect normalized floats; pass e.g. "
+                "data_scale=1/255. to train on raw uint8 directly (kept "
+                "uint8 on the device, normalized per batch), or "
+                "pre-convert X yourself.")
+
+    def fit(self, X, y=None, epochs: int = 100, batch_size: int = 100,
+            lr: float = 1e-3, scale_factor=1.0, test_data=None,
+            verbose: bool = False, trainer=None, patience=None,
+            on_segment=None, data_scale=None, **kwargs):
+        """Train for ``epochs`` epochs and return the trainer (its
+        ``loss_history`` holds the per-epoch losses).
+
+        ``X`` is an array or a DataLoader; ``y`` adds conditional features.
+        ``test_data`` (an array, a tuple of arrays or a DataLoader) is
+        evaluated after every epoch. ``data_scale=s`` keeps narrow-dtype
+        ``X`` (e.g. raw uint8 images) in that dtype on the device and
+        normalizes each batch by ``s``; integer ``X`` without it is
+        rejected. Without ``verbose`` the trainer's ``run`` drives the
+        epochs; with it, one ``step`` and ``print_statistics`` per epoch.
+        Other keywords go to the trainer. ``patience``, ``on_segment`` and
+        ``enum_schedule`` raise ``NotImplementedError`` naming their
+        ROADMAP item."""
+        from ..trainers.svi import SVItrainer
+        from ..utils.data import DataLoader, init_dataloader
+        for key, val in (("patience", patience), ("on_segment", on_segment),
+                         ("enum_schedule", kwargs.pop("enum_schedule", None))):
+            if val is not None:
+                raise later_slice(f"fit({key}=...)", "trainer surface")
+        if isinstance(X, DataLoader):
+            loader = X
+        else:
+            self._check_data_scale(X, data_scale)
+            arrays = (X,) if y is None else (X, y)
+            loader = init_dataloader(*arrays, batch_size=batch_size,
+                                     scale=data_scale, device=self.device)
+        test_loader = None
+        if test_data is not None:
+            if isinstance(test_data, DataLoader):
+                test_loader = test_data
+            else:
+                tarrs = (test_data if isinstance(test_data, tuple)
+                         else (test_data,))
+                self._check_data_scale(tarrs[0], data_scale)
+                test_loader = init_dataloader(*tarrs, batch_size=batch_size,
+                                              scale=data_scale,
+                                              device=self.device)
+        if trainer is not None and kwargs:
+            raise ValueError(
+                "fit() got both an explicit trainer= and trainer-level "
+                f"kwargs {sorted(kwargs)}; configure them on the trainer "
+                "you pass, or drop trainer= to have fit() build one.")
+        trainer = trainer or SVItrainer(self, lr=lr, **kwargs)
+        if not verbose:
+            trainer.run(loader, int(epochs), scale_factor=scale_factor,
+                        test_loader=test_loader)
+            return trainer
+        for _ in range(int(epochs)):
+            trainer.step(loader, test_loader, scale_factor=scale_factor)
+            trainer.print_statistics()
+        return trainer

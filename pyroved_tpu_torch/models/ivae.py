@@ -1,11 +1,14 @@
-"""Invariant variational autoencoder (iVAE), serving path.
+"""Invariant variational autoencoder (iVAE).
 
 Counterpart of ``pyroved_tpu/models/ivae.py``: a VAE with optional
 rotational / translational / scale invariances and optional conditioning
-on a vector of ``c_dim`` features. This slice serves a model: encode,
-posed decode, reconstruct, latent manifolds and per-example ELBO scoring
-(:meth:`iVAE.loss_fn`, forward only). Every spatial decode runs through the
-fused decoder kernel when the configuration supports it.
+on a vector of ``c_dim`` features. It trains (:meth:`iVAE.weighted_loss_fn`
+under ``fit`` and ``SVItrainer``) and serves: encode, posed decode,
+reconstruct, latent manifolds and per-example ELBO scoring
+(:meth:`iVAE.loss_fn`). Every spatial decode runs through the fused decoder
+kernels when the configuration supports them: the forward kernel, its
+backward kernel under autograd, or, with ``one_pass_train=True``, the
+one-pass Bernoulli train kernel.
 """
 from typing import List, Optional, Sequence
 
@@ -15,7 +18,10 @@ import torch.nn as nn
 from ..infer.dists import get_sampler
 from ..infer.elbo import normal_latent_site, obs_site
 from ..nets.fc import fcDecoderNet, fcEncoderNet, init_from, sDecoderNet
-from ..ops.spatial_decoder import apply_fused_sdecoder, sdecoder_supports_fusion
+from ..ops.spatial_decoder import (KERNEL_ACTS_WITH_APPROX,
+                                   apply_fused_recon_loss,
+                                   apply_fused_sdecoder,
+                                   sdecoder_supports_fusion)
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
 from .base import baseVAE, chunked, later_slice, posed_decode
@@ -23,7 +29,7 @@ from .base import baseVAE, chunked, later_slice, posed_decode
 Tensor = torch.Tensor
 
 _KWARGS = ("channels", "dx_prior", "dy_prior", "sc_prior", "decoder_sig",
-           "kl", "num_particles", "approx_tanh")
+           "kl", "num_particles", "approx_tanh", "one_pass_train", "fused")
 
 
 class iVAE(baseVAE):
@@ -35,7 +41,9 @@ class iVAE(baseVAE):
     ``hidden_dim_e``/``hidden_dim_d`` (default [128, 128]), ``activation``,
     ``sampler_d``, ``sigmoid_d``, ``seed``; keywords ``dx_prior``,
     ``dy_prior``, ``sc_prior``, ``decoder_sig``, ``kl`` ('mc' or
-    'analytic'), ``num_particles``, ``approx_tanh``, ``channels``. Plus
+    'analytic'), ``num_particles``, ``approx_tanh``, ``channels``,
+    ``fused`` (False sends every decode to the ``sDecoderNet`` module) and
+    ``one_pass_train`` (train through the one-pass loss kernel). Plus
     ``device``: None means "cuda"; without CUDA pass ``device="cpu"``.
     Weights are drawn from ``seed`` with torch's default Linear init.
     """
@@ -85,9 +93,11 @@ class iVAE(baseVAE):
         self.sampler_d = get_sampler(sampler_d, **kwargs)
 
         self._dec_sig = bool(sigmoid_d)
-        self._fused = sdecoder_supports_fusion(
-            hidden_dim_d, activation, sigmoid_d, self.coord, self.channels,
-            self.device)
+        self._fused = (bool(kwargs.get("fused", True))
+                       and sdecoder_supports_fusion(
+                           hidden_dim_d, activation, sigmoid_d, self.coord,
+                           self.channels, self.device))
+        self.one_pass_train = bool(kwargs.get("one_pass_train", False))
         # opt-in Pade tanh on the ELBO path (max abs error < 2e-4)
         self._dec_act = ("tanh_approx" if kwargs.get("approx_tanh")
                          and activation == "tanh" and self._fused
@@ -102,24 +112,19 @@ class iVAE(baseVAE):
         return self.nets["decoder"]
 
     # ------------------------------------------------------------------
-    # ELBO (forward only)
+    # ELBO
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def loss_fn(self, x, y=None, beta: float = 1.0, eps=None) -> Tensor:
-        """Per-example negative ELBO ``[B]`` of a batch ``x`` (and ``y``).
-
-        ``eps`` is the standard-normal noise of the latent sample, shaped
-        like the posterior (``[B, z_dim]``, or ``[P, B, z_dim]`` with
-        ``num_particles=P``); it is drawn from the model's generator when
-        not given. The reconstruction term is unscaled; ``beta`` scales the
-        latent term."""
+    def _posterior(self, x, y, beta, eps):
+        """(flat x, y, loc, scale, z, latent term) of one batch: q(z|x[,y]),
+        its sample (``eps`` given or drawn from the model's generator) and
+        the beta-scaled latent ELBO term."""
         x = self._as_f32(x)
         B = x.shape[0]
         xf = x.reshape(B, -1)
         y = None if y is None else self._as_f32(y).reshape(B, -1)
         mu, sig = self.encoder_net(xf, y)
-        P = self.num_particles
-        if P > 1:  # leading particle axis; decodes stay one batched call
+        if self.num_particles > 1:  # leading particle axis, one decode
+            P = self.num_particles
             mu = mu.expand((P,) + mu.shape)
             sig = sig.expand((P,) + sig.shape)
             if y is not None:
@@ -128,21 +133,87 @@ class iVAE(baseVAE):
             eps = self._as_f32(eps)
         z, latent_term = normal_latent_site(mu, sig, beta, self.kl_mode,
                                             eps=eps, generator=self.generator)
+        return xf, y, mu, sig, z, latent_term
+
+    def _with_y(self, zc, y):
+        return zc if y is None else torch.cat([zc, y], dim=-1)
+
+    def _module_decode(self, z, y):
+        """(decoded loc, warped grid or None) through the decoder module."""
+        coords, zc = self.transformed_grid(z)
+        zc = self._with_y(zc, y)
+        if coords is None:
+            return self.decoder_net(zc), None
+        return self.decoder_net(coords, zc), coords
+
+    def loss_fn(self, x, y=None, beta: float = 1.0, eps=None) -> Tensor:
+        """Per-example negative ELBO ``[B]`` of a batch ``x`` (and ``y``).
+
+        ``eps`` is the standard-normal noise of the latent sample, shaped
+        like the posterior (``[B, z_dim]``, or ``[P, B, z_dim]`` with
+        ``num_particles=P``); it is drawn from the model's generator when
+        not given. The reconstruction term is unscaled; ``beta`` scales the
+        latent term. It records gradients when autograd is on (the decode
+        then runs the backward kernel too); score under
+        ``torch.no_grad()``."""
+        xf, y, _, _, z, latent_term = self._posterior(x, y, beta, eps)
         if self.coord > 0 and self._fused:
             phi, dx, sc, zc = self.split_latent_full(z)
-            if y is not None:
-                zc = torch.cat([zc, y], dim=-1)
             loc = apply_fused_sdecoder(self.decoder_net, self.grid, phi, dx,
-                                       sc, zc, self._dec_act, self._dec_sig)
+                                       sc, self._with_y(zc, y), self._dec_act,
+                                       self._dec_sig)
         else:
-            coords, zc = self.transformed_grid(z)
-            if y is not None:
-                zc = torch.cat([zc, y], dim=-1)
-            loc = (self.decoder_net(zc) if coords is None
-                   else self.decoder_net(coords, zc))
+            loc, _ = self._module_decode(z, y)
         recon = obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
         per_example = -(recon + latent_term)
-        return per_example.mean(0) if P > 1 else per_example
+        return per_example.mean(0) if self.num_particles > 1 else per_example
+
+    def _one_pass(self) -> bool:
+        """The gate of the one-pass train kernel: opted in, a fused spatial
+        decoder with one channel and a sigmoid head, a Bernoulli sampler
+        and one particle."""
+        return (self.one_pass_train and self.coord > 0 and self._fused
+                and self.num_particles == 1 and self.channels == 1
+                and self.sampler_d.name == "bernoulli" and self._dec_sig
+                and self._dec_act in KERNEL_ACTS_WITH_APPROX)
+
+    def weighted_loss_fn(self, x, y, weights, beta: float = 1.0,
+                         eps=None) -> Tensor:
+        """The scalar training loss ``sum_b weights_b * (-ELBO_b)``.
+
+        With ``one_pass_train=True`` (and a configuration the one-pass
+        kernel takes) the reconstruction term and all its gradients come
+        from that kernel; otherwise this weights :meth:`loss_fn`."""
+        weights = self._as_f32(weights)
+        if not self._one_pass():
+            return torch.sum(self.loss_fn(x, y, beta, eps) * weights)
+        xf, y, _, _, z, latent_term = self._posterior(x, y, beta, eps)
+        phi, dx, sc, zc = self.split_latent_full(z)
+        recon_neg = apply_fused_recon_loss(
+            self.decoder_net, self.grid, phi, dx, sc, self._with_y(zc, y), xf,
+            weights, self._dec_act)
+        return recon_neg - torch.sum(weights * latent_term)
+
+    def trace(self, x, y=None, beta: float = 1.0, eps=None) -> dict:
+        """Every intermediate value of one guide + model execution, keyed
+        by site, through the ``sDecoderNet`` module: ``latent.loc /
+        .scale / .value``, ``transform.phi / .dx / .sc``, ``coords`` (the
+        warped grid, None without invariances), ``obs.loc``,
+        ``recon_logp`` and ``latent_term``."""
+        xf, y, mu, sig, z, latent_term = self._posterior(x, y, beta, eps)
+        phi = dx = sc = None
+        if self.coord > 0:
+            phi, dx, sc, _ = self.split_latent_full(z)
+        loc, coords = self._module_decode(z, y)
+        recon = obs_site(self.sampler_d, xf, loc.reshape(xf.shape[0], -1))
+        return {
+            "latent": {"loc": mu, "scale": sig, "value": z},
+            "transform": {"phi": phi, "dx": dx, "sc": sc},
+            "coords": coords,
+            "obs": {"loc": loc},
+            "recon_logp": recon,
+            "latent_term": latent_term,
+        }
 
     # ------------------------------------------------------------------
     # Inference / generation
@@ -202,6 +273,3 @@ class iVAE(baseVAE):
 
     def predict_on_latent(self, *args, **kwargs):
         raise later_slice("iVAE.predict_on_latent", "viz")
-
-    def fit(self, *args, **kwargs):
-        raise later_slice("iVAE.fit", "training slice")

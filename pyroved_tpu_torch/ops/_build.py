@@ -62,23 +62,39 @@ def build_log(name: str) -> str:
         return ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+def load_all(names: List[str]) -> List[ctypes.CDLL]:
+    """Build every ``csrc/<name>.cu`` that needs it, one ``nvcc`` each, all
+    started together, and return the loaded libraries in order."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        source, lib = _target(name)
-        if not os.path.exists(lib):
+        builds = []
+        for name in names:
+            source, lib = _target(name)
+            if name in _loaded or os.path.exists(lib):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.run(nvcc_command(source, tmp),
-                                  capture_output=True, text=True)
+            proc = subprocess.Popen(nvcc_command(source, tmp),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            builds.append((source, lib, tmp, proc))
+        failures = []
+        for source, lib, tmp, proc in builds:  # wait for every one
+            log = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {source} "
-                    f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                failures.append(f"nvcc failed to build {source} "
+                                f"(exit {proc.returncode}):\n{log}")
+                continue
             with open(lib + ".log", "w") as f:
-                f.write(proc.stdout + proc.stderr)
+                f.write(log)
             os.replace(tmp, lib)
-        _loaded[name] = ctypes.CDLL(lib)
-        return _loaded[name]
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        for name in names:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(_target(name)[1])
+        return [_loaded[name] for name in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    return load_all([name])[0]

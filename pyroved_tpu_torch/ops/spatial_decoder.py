@@ -1,44 +1,75 @@
-"""Fused coordinate-transform + spatial-decoder forward.
+"""Fused coordinate-transform + spatial decoder: forward, backward and the
+one-pass Bernoulli train kernel.
 
-Counterpart of the forward half of ``pyroved_tpu/ops/spatial_decoder.py``.
-For each sample the rotation, scale and shift fold into three H-vectors
+Counterpart of ``pyroved_tpu/ops/spatial_decoder.py``. For each sample the
+rotation, scale and shift fold into three H-vectors
 
   u = sc*(cos*Wc0 + sin*Wc1),  v = sc*(-sin*Wc0 + cos*Wc1),  w = dx@Wc + bc + z@Wz
 
 so the first layer is ``h0 = tanh(gx*u + gy*v + w)`` and the warped grid
-never exists in memory. The hidden layers and the head follow.
+never exists in memory. The hidden layers and the head follow. The backward
+runs the same fold in reverse (with a0 = u/sc, a1 = v/sc and d0 the
+cotangent of h0's pre-activation):
 
-* :func:`spatial_decoder_plain` is the plain PyTorch version (the warped
-  grid and every activation materialized), the counterpart of
-  ``_xla_forward``.
-* :func:`fused_spatial_decoder_forward` is the kernel's wrapper: on a CUDA
-  tensor it launches ``csrc/spatial_decoder_fwd.cu`` or raises; on a CPU
-  tensor it calls the plain version.
-* :func:`apply_fused_sdecoder` runs it from an ``sDecoderNet`` module.
+  du = sum_n gx d0,  dv = sum_n gy d0,  dw = sum_n d0
+  dsc = <du, a0> + <dv, a1>,  dphi = <du, v> - <dv, u>
+  ddx = dw Wc^T,  dz = dw Wz^T,  dbc = sum_b dw,  dWz = z^T dw
+  dWc0 = sum_b (sc cos) du - (sc sin) dv + dx0 dw
+  dWc1 = sum_b (sc sin) du + (sc cos) dv + dx1 dw   (D = 1: du + dx dw)
+
+Three kernels, each with a plain PyTorch version and a wrapper that, on a
+CUDA tensor, launches the kernel or raises, and on a CPU tensor calls the
+plain version:
+
+* K1, :func:`fused_spatial_decoder_forward` (``csrc/spatial_decoder_fwd.cu``),
+  plain :func:`spatial_decoder_plain`;
+* K2, :func:`fused_spatial_decoder_backward` (``csrc/spatial_decoder_bwd.cu``),
+  plain :func:`spatial_decoder_bwd_plain`: the grads of every input but the
+  grid from the output cotangent;
+* K3, :func:`fused_bernoulli_recon_loss_kernel` (the same source in loss
+  mode), plain :func:`recon_loss_plain`: the weighted Bernoulli loss and
+  all of K2's grads in one pass.
+
+:class:`FusedSpatialDecoder` (K1 forward, K2 backward) and
+:class:`FusedBernoulliReconLoss` (K3) take the place of the JAX package's
+custom VJPs; :func:`apply_fused_sdecoder` and :func:`apply_fused_recon_loss`
+run them from an ``sDecoderNet`` module.
 
 The JAX package's tile selection, per-TPU tunings and size thresholds were
-measured on a TPU and have no counterpart here: the kernel picks its own
-tile, and a supported configuration always runs it.
+measured on a TPU and have no counterpart here: the kernels pick their own
+tiles, and a supported configuration always runs them.
 """
 import ctypes
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..utils.nn import get_activation
 from . import _build
 
 Tensor = torch.Tensor
 
-#: Hidden-layer activations the kernel implements: the registry's five.
+#: Hidden-layer activations the kernels implement: the registry's five.
 #: ``tanh_approx`` (the Pade tanh behind ``approx_tanh=True``) is the sixth.
 KERNEL_ACTS = ("tanh", "relu", "lrelu", "softplus", "gelu")
 KERNEL_ACTS_WITH_APPROX = KERNEL_ACTS + ("tanh_approx",)
 _ACT_CODE = {name: i for i, name in enumerate(KERNEL_ACTS_WITH_APPROX)}
 
-#: Padded hidden widths the kernel is compiled for.
+#: Padded hidden widths the kernels are compiled for.
 KERNEL_WIDTHS = (128, 256)
+
+#: Activation buffers of one pixel tile that fit in a block's shared memory
+#: beside the backward's weight chunk: h_0 .. h_L, plus act'(pre) of each
+#: hidden layer for gelu (``csrc/spatial_decoder_bwd.cu``).
+BWD_MAX_BUFFERS = 6
+
+
+def bwd_max_layers(act: str) -> int:
+    """Most hidden layers the backward kernel (K2/K3) takes: 5, or 2 with
+    gelu, whose derivative needs a buffer of its own for each layer."""
+    return (BWD_MAX_BUFFERS - 1) // (2 if act == "gelu" else 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,8 +95,32 @@ def _h0_act(name: str, x: Tensor) -> Tensor:
     return _pade_tanh(x) if name == "tanh_approx" else torch.tanh(x)
 
 
+def _act_grad_from_post(name: str, h: Tensor) -> Tensor:
+    """d act / d pre from the post-activation, as the JAX kernel takes it:
+    the subgradient at 0 is 1 for lrelu and 0 for relu, and the Pade tanh
+    uses tanh's 1 - h^2."""
+    if name in ("tanh", "tanh_approx"):
+        return 1.0 - h * h
+    if name == "lrelu":
+        return torch.where(h >= 0.0, 1.0, 0.01)
+    if name == "softplus":
+        return 1.0 - torch.exp(-h)
+    return (h > 0.0).to(h.dtype)
+
+
+def _gelu_and_grad(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Exact gelu and its derivative Phi(x) + x phi(x)."""
+    cdf = 0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+    return x * cdf, cdf + x * 0.3989422804014327 * torch.exp(-0.5 * x * x)
+
+
+def _softplus(x: Tensor) -> Tensor:
+    """softplus in the stable form the kernel uses (no threshold)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 def spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
@@ -93,11 +148,119 @@ def spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
     return torch.sigmoid(out) if sigmoid_out else out
 
 
+def _folded_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, act):
+    """The kernels' recompute over the whole batch, in the folded form:
+    (every layer's output [B, N, H], gelu's act'(pre) per layer, and
+    (a0, a1, u, v) for D = 2)."""
+    gx = grid[:, 0][None, :, None]
+    w = dx @ Wc + bc + z @ Wz
+    fold = None
+    if grid.shape[-1] == 2:
+        c, s = torch.cos(phi)[:, None], torch.sin(phi)[:, None]
+        a0 = c * Wc[0] + s * Wc[1]
+        a1 = -s * Wc[0] + c * Wc[1]
+        u, v = sc[:, None] * a0, sc[:, None] * a1
+        gy = grid[:, 1][None, :, None]
+        pre = gx * u[:, None] + gy * v[:, None] + w[:, None]
+        fold = (a0, a1, u, v)
+    else:
+        pre = gx * Wc[0] + w[:, None]
+    hs, gelu_grads = [_h0_act(act, pre)], []
+    for i in range(hw.shape[0]):
+        pre = hs[-1] @ hw[i] + hb[i]
+        if act == "gelu":
+            h, g = _gelu_and_grad(pre)
+            gelu_grads.append(g)
+        else:
+            h = _act(act, pre)
+        hs.append(h)
+    return hs, gelu_grads, fold
+
+
+def _backprop(grid, phi, dx, sc, z, Wc, Wz, hw, wout, act, hs, gelu_grads,
+              fold, dl):
+    """The eleven grads from the head's cotangent ``dl [B, N, C]``."""
+    B, N, C = dl.shape
+    H = Wc.shape[1]
+    dbout = dl.sum((0, 1))
+    dwout = hs[-1].reshape(-1, H).T @ dl.reshape(-1, C)
+    dh = dl @ wout.T
+    dhw, dhb = torch.zeros_like(hw), hw.new_zeros(hw.shape[:2])
+    for i in reversed(range(hw.shape[0])):
+        ag = (gelu_grads[i] if act == "gelu"
+              else _act_grad_from_post(act, hs[i + 1]))
+        d_pre = dh * ag
+        dhw[i] = hs[i].reshape(-1, H).T @ d_pre.reshape(-1, H)
+        dhb[i] = d_pre.sum((0, 1))
+        dh = d_pre @ hw[i].T
+    d0 = dh * (1.0 - hs[0] * hs[0])  # the coordinate layer is tanh
+    dw = d0.sum(1)
+    du = (grid[:, 0][None, :, None] * d0).sum(1)
+    ddx, dz = dw @ Wc.T, dw @ Wz.T
+    dWz, dbc = z.T @ dw, dw.sum(0)
+    if fold is not None:
+        a0, a1, u, v = fold
+        dv = (grid[:, 1][None, :, None] * d0).sum(1)
+        dsc = (du * a0).sum(-1) + (dv * a1).sum(-1)
+        dphi = (du * v).sum(-1) - (dv * u).sum(-1)
+        c, s = sc * torch.cos(phi), sc * torch.sin(phi)
+        dWc = torch.stack([c @ du - s @ dv + dx[:, 0] @ dw,
+                           s @ du + c @ dv + dx[:, 1] @ dw])
+    else:
+        dphi, dsc = torch.zeros_like(phi), torch.zeros_like(sc)
+        dWc = (du.sum(0) + dx[:, 0] @ dw)[None]
+    return dphi, ddx, dsc, dz, dWc, dbc, dWz, dhw, dhb, dwout, dbout
+
+
+def spatial_decoder_bwd_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                              wout, bout, g, act: str = "tanh",
+                              sigmoid_out: bool = True) -> Tuple[Tensor, ...]:
+    """Plain PyTorch version of K2, the counterpart of ``_bwd``.
+
+    Takes the forward's inputs (shapes as :func:`spatial_decoder_plain`)
+    and the output cotangent ``g`` ([B, N] or [B, N, C]). Returns the
+    grads of (phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout), bout's
+    shaped [C]; the grid gets none. Written by hand from the folded-
+    transform formulas of the module docstring, with every activation
+    materialized: the derivatives come from the post-activation as the
+    kernel takes them (for gelu, from the pre-activation), so this is the
+    kernel's arithmetic, not autograd's."""
+    hs, gelu_grads, fold = _folded_forward(grid, phi, dx, sc, z, Wc, bc, Wz,
+                                           hw, hb, act)
+    dl = g.reshape(g.shape[0], g.shape[1], wout.shape[1])
+    if sigmoid_out:
+        s = torch.sigmoid(hs[-1] @ wout + bout)
+        dl = dl * s * (1.0 - s)
+    return _backprop(grid, phi, dx, sc, z, Wc, Wz, hw, wout, act, hs,
+                     gelu_grads, fold, dl)
+
+
+def recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw, hb, wout,
+                     bout, act: str = "tanh") -> Tuple[Tensor, Tuple]:
+    """Plain PyTorch version of K3, the counterpart of ``_train_call``.
+
+    ``x [B, N]`` are the observations and ``wgt [B]`` the per-example
+    weights; the head is one channel with a sigmoid. Returns the loss
+    ``-sum_b wgt_b sum_n [x logit - softplus(logit)]`` (a 0-d tensor) and
+    the grads of :func:`spatial_decoder_bwd_plain`, from the head cotangent
+    ``wgt_b (sigmoid(logit) - x)``. Written by hand like K2's plain
+    version."""
+    hs, gelu_grads, fold = _folded_forward(grid, phi, dx, sc, z, Wc, bc, Wz,
+                                           hw, hb, act)
+    logit = (hs[-1] @ wout + bout)[..., 0]
+    wm = wgt[:, None]
+    loss = -(wm * (x * logit - _softplus(logit))).sum()
+    dl = (wm * (torch.sigmoid(logit) - x))[..., None]
+    return loss, _backprop(grid, phi, dx, sc, z, Wc, Wz, hw, wout, act, hs,
+                           gelu_grads, fold, dl)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
 _fn = None
+_bwd_fns = None
 
 
 def _kernel():
@@ -108,6 +271,22 @@ def _kernel():
         f.restype = ctypes.c_int
         _fn = f
     return _fn
+
+
+def _bwd_kernel():
+    """(plan, launch) of ``csrc/spatial_decoder_bwd.cu``."""
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load("spatial_decoder_bwd")
+        plan = lib.pvt_sdec_bwd_plan
+        plan.argtypes = [ctypes.c_int] * 9 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        run = lib.pvt_sdec_bwd
+        run.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        run.restype = ctypes.c_int
+        _bwd_fns = (plan, run)
+    return _bwd_fns
 
 
 def _check(name: str, t: Tensor, shape: Tuple[int, ...], device) -> None:
@@ -121,18 +300,11 @@ def _check(name: str, t: Tensor, shape: Tuple[int, ...], device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
-                                  wout, bout, act: str = "tanh",
-                                  sigmoid_out: bool = True) -> Tensor:
-    """Fused transform + decode (shapes as :func:`spatial_decoder_plain`).
-
-    On CPU tensors this is the plain version. On CUDA tensors it launches
-    the kernel on the current stream, or raises when the inputs do not fit
-    it (H must be 128 or 256, D 1 or 2, C 1..4, float32, contiguous).
-    ``fused_spatial_decoder_forward.launches`` counts kernel launches."""
-    if grid.device.type == "cpu":
-        return spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
-                                     wout, bout, act, sigmoid_out)
+def _kernel_dims(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout,
+                 act: str) -> Tuple[int, ...]:
+    """(B, N, D, L, H, nl, C) of decoder inputs on a CUDA device that the
+    kernels take, or raise: H 128 or 256, D 1 or 2, C 1..4, float32,
+    contiguous, hw 16-byte aligned."""
     if grid.device.type != "cuda":
         raise ValueError(f"no spatial-decoder kernel for {grid.device}")
     N, D = grid.shape
@@ -155,13 +327,33 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
             ("bc", bc, (H,)), ("Wz", Wz, (L, H)), ("hw", hw, (nl, H, H)),
             ("hb", hb, (nl, H)), ("wout", wout, (H, C)), ("bout", bout, (C,))):
         _check(name, t, shape, dev)
-    if hw.data_ptr() % 16:  # the kernel stages weights as float4
+    if hw.data_ptr() % 16:  # the kernels stage weights as float4
         raise ValueError("hw must be 16-byte aligned")
+    return B, N, D, L, H, nl, C
+
+
+def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                                  wout, bout, act: str = "tanh",
+                                  sigmoid_out: bool = True) -> Tensor:
+    """Fused transform + decode, K1 (shapes as :func:`spatial_decoder_plain`).
+
+    On CPU tensors this is the plain version. On CUDA tensors it launches
+    the kernel on the current stream, or raises when the inputs do not fit
+    it (see :func:`_kernel_dims`). It is forward only: for gradients use
+    :class:`FusedSpatialDecoder`. ``fused_spatial_decoder_forward.launches``
+    counts kernel launches."""
+    if grid.device.type == "cpu":
+        return spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                                     wout, bout, act, sigmoid_out)
+    B, N, D, L, H, nl, C = _kernel_dims(grid, phi, dx, sc, z, Wc, bc, Wz, hw,
+                                        hb, wout, bout, act)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                                       wout, bout)):
-        raise RuntimeError("the spatial-decoder kernel is forward only: call "
-                           "it under torch.no_grad()")
+        raise RuntimeError("the spatial-decoder forward kernel records no "
+                           "gradient: use FusedSpatialDecoder, or call it "
+                           "under torch.no_grad()")
+    dev = grid.device
     out = torch.empty((B, N, C) if C > 1 else (B, N), device=dev,
                       dtype=torch.float32)
     if B == 0 or N == 0:  # nothing to launch
@@ -185,6 +377,166 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
 fused_spatial_decoder_forward.launches = 0
 
 
+def bwd_workspace(B: int, N: int, D: int, L: int, H: int, nl: int, C: int,
+                  act: str = "tanh", loss_mode: bool = False,
+                  device="cuda") -> Tuple[int, int]:
+    """(workspace bytes, blocks) of one K2/K3 call on ``device``: one slot
+    of weight-grad partials per block, the du/dv/dw sums of every pixel
+    tile and of every sample."""
+    plan, _ = _bwd_kernel()
+    floats, blocks = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(torch.device(device)):
+        err = plan(B, N, D, L, H, nl, C, _ACT_CODE[act], int(loss_mode),
+                   ctypes.byref(floats), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"spatial-decoder backward plan failed: CUDA error "
+                           f"{err}")
+    return 4 * floats.value, blocks.value
+
+
+def _launch_bwd(inputs, g, x, wgt, act: str, sigmoid_out: bool,
+                loss_mode: bool) -> Tuple[Tensor, ...]:
+    """Run K2 (``g``) or K3 (``x``, ``wgt``) on checked CUDA inputs; returns
+    the eleven grads, then the loss for K3."""
+    B, N, D, L, H, nl, C = _kernel_dims(*inputs, act)
+    if nl > bwd_max_layers(act):
+        raise ValueError(f"the backward kernel takes at most "
+                         f"{bwd_max_layers(act)} hidden layers with {act}, "
+                         f"got {nl}")
+    dev = inputs[0].device
+    sizes = [B, B * D, B, B * L, D * H, H, L * H, nl * H * H, nl * H, H * C,
+             C] + ([1] if loss_mode else [])
+    shapes = [(B,), (B, D), (B,), (B, L), (D, H), (H,), (L, H), (nl, H, H),
+              (nl, H), (H, C), (C,)] + ([()] if loss_mode else [])
+    if B == 0 or N == 0:  # nothing to launch: every sum is empty
+        out = torch.zeros(sum(sizes), device=dev, dtype=torch.float32)
+    else:
+        ws_bytes, blocks = bwd_workspace(B, N, D, L, H, nl, C, act, loss_mode,
+                                         dev)
+        ws = torch.empty(ws_bytes // 4, device=dev, dtype=torch.float32)
+        out = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
+        _, run = _bwd_kernel()
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = run(*(t.data_ptr() for t in inputs), ptr(g), ptr(x),
+                      ptr(wgt), out.data_ptr(), ws.data_ptr(), B, N, D, L, H,
+                      nl, C, _ACT_CODE[act], int(bool(sigmoid_out)),
+                      int(loss_mode), blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"spatial-decoder backward kernel launch "
+                               f"failed: CUDA error {err}")
+    return tuple(t.reshape(s) for t, s in zip(torch.split(out, sizes), shapes))
+
+
+def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                                   wout, bout, g, act: str = "tanh",
+                                   sigmoid_out: bool = True
+                                   ) -> Tuple[Tensor, ...]:
+    """K2: the grads of :func:`spatial_decoder_bwd_plain` from the output
+    cotangent ``g`` ([B, N] or [B, N, C], read in place).
+
+    On CPU tensors this is the plain version. On CUDA tensors it launches
+    the kernel on the current stream, or raises (inputs as
+    :func:`fused_spatial_decoder_forward`, at most
+    :func:`bwd_max_layers` hidden layers). The grads are deterministic:
+    the same inputs on the same card give bitwise-equal grads.
+    ``fused_spatial_decoder_backward.launches`` counts kernel launches."""
+    if grid.device.type == "cpu":
+        return spatial_decoder_bwd_plain(grid, phi, dx, sc, z, Wc, bc, Wz,
+                                         hw, hb, wout, bout, g, act,
+                                         sigmoid_out)
+    inputs = (grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout)
+    B, N, C = z.shape[0], grid.shape[0], wout.shape[1]
+    _check("g", g, (B, N, C) if C > 1 else (B, N), grid.device)
+    grads = _launch_bwd(inputs, g, None, None, act, sigmoid_out, False)
+    fused_spatial_decoder_backward.launches += 1
+    return grads
+
+
+fused_spatial_decoder_backward.launches = 0
+
+
+def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
+                                      Wz, hw, hb, wout, bout,
+                                      act: str = "tanh"
+                                      ) -> Tuple[Tensor, Tuple]:
+    """K3: ``(loss, grads)`` of :func:`recon_loss_plain` in one pass.
+
+    On CPU tensors this is the plain version. On CUDA tensors it launches
+    K2's kernel in loss mode (one channel, sigmoid head; ``x [B, N]``,
+    ``wgt [B]``) or raises. dbout comes back shaped like bout, [1].
+    ``fused_bernoulli_recon_loss_kernel.launches`` counts kernel launches."""
+    if grid.device.type == "cpu":
+        return recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw,
+                                hb, wout, bout, act)
+    inputs = (grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout)
+    B, N = z.shape[0], grid.shape[0]
+    if wout.shape[1] != 1:
+        raise ValueError("the one-pass loss kernel takes one channel")
+    _check("x", x, (B, N), grid.device)
+    _check("wgt", wgt, (B,), grid.device)
+    *grads, loss = _launch_bwd(inputs, None, x, wgt, act, True, True)
+    fused_bernoulli_recon_loss_kernel.launches += 1
+    return loss, tuple(grads)
+
+
+fused_bernoulli_recon_loss_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+class FusedSpatialDecoder(torch.autograd.Function):
+    """K1 forward, K2 backward: the counterpart of the JAX package's
+    ``fused_spatial_decoder`` custom VJP. Only the inputs are saved; the
+    backward recomputes the activations. The grid gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout,
+                act, sigmoid_out):
+        with torch.no_grad():
+            out = fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc,
+                                                Wz, hw, hb, wout, bout, act,
+                                                sigmoid_out)
+        ctx.save_for_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
+                              bout)
+        ctx.act, ctx.sigmoid_out = act, sigmoid_out
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        grads = fused_spatial_decoder_backward(*ctx.saved_tensors,
+                                               g.contiguous(), ctx.act,
+                                               ctx.sigmoid_out)
+        return (None, *grads, None, None)
+
+
+class FusedBernoulliReconLoss(torch.autograd.Function):
+    """K3 as an op: the forward returns the weighted Bernoulli loss and
+    keeps the grads K3 computed with it; the backward scales them by the
+    upstream cotangent. Exact because the loss enters the training loss
+    linearly. ``x`` and ``wgt`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw, hb, wout,
+                bout, act):
+        with torch.no_grad():
+            loss, grads = fused_bernoulli_recon_loss_kernel(
+                grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw, hb, wout, bout,
+                act)
+        ctx.save_for_backward(*grads)
+        return loss
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        dphi, ddx, dsc, dz, *weights = (ct * g for g in ctx.saved_tensors)
+        return (None, dphi, ddx, dsc, dz, None, None, *weights, None)
+
+
 # ---------------------------------------------------------------------------
 # Model integration
 # ---------------------------------------------------------------------------
@@ -192,13 +544,15 @@ fused_spatial_decoder_forward.launches = 0
 def sdecoder_supports_fusion(hidden_dim, activation: str, sigmoid_out: bool,
                              coord: int, channels: int = 1,
                              device="cuda") -> bool:
-    """True when an sDecoderNet configuration maps onto the kernel and
-    ``device`` runs it: an active coordinate transform, a kernel activation,
-    1..4 channels, a padded width ``round_up(max(hidden), 128)`` the kernel
-    is built for (128 or 256), and a Hopper card. The configuration alone
-    decides: no timing enters the gate. On ``device="cpu"`` a supported configuration also counts, since
-    there the wrapper runs its plain version: the model takes the same path
-    on both."""
+    """True when an sDecoderNet configuration maps onto the kernels and
+    ``device`` runs them: an active coordinate transform, a kernel
+    activation, 1..4 channels, a padded width ``round_up(max(hidden), 128)``
+    the kernels are built for (128 or 256), no more hidden layers than the
+    backward takes (:func:`bwd_max_layers`), and a Hopper card. The
+    configuration alone decides: no timing enters the gate. On
+    ``device="cpu"`` a supported configuration also counts, since there
+    the wrappers run their plain versions: the model takes the same path on
+    both."""
     hidden = tuple(hidden_dim) if hidden_dim is not None else (128, 128)
     del sigmoid_out  # both heads supported
     device = torch.device(device)
@@ -208,6 +562,7 @@ def sdecoder_supports_fusion(hidden_dim, activation: str, sigmoid_out: bool,
             and activation in KERNEL_ACTS
             and 1 <= int(channels) <= 4
             and _round_up(max(hidden), 128) in KERNEL_WIDTHS
+            and len(hidden) <= bwd_max_layers(activation)
             and (device.type == "cpu" or hopper))
 
 
@@ -219,7 +574,8 @@ def padded_sdecoder_weights(decoder) -> Tuple[Tensor, ...]:
     The padding is exact: padded lanes get zero weights in and zero bias,
     and every weight out of a padded lane is zero, so they add nothing to
     real lanes or to the head (for softplus they carry log 2, which the
-    zero outgoing weights drop)."""
+    zero outgoing weights drop). Built under autograd, the grads that land
+    on padded entries are dropped when ``F.pad`` maps them back."""
     layers = decoder.MLP_0.layers()
     kernels = [m.weight.T for m in layers]
     biases = [m.bias for m in layers]
@@ -263,20 +619,38 @@ def _kernel_weights(decoder) -> Tuple[Tensor, ...]:
     return cache[2]
 
 
+def _flat_latents(grid, phi, dx, sc, z):
+    return (grid.contiguous(), phi.reshape(-1).contiguous(),
+            dx.reshape(-1, dx.shape[-1]).contiguous(),
+            sc.reshape(-1).contiguous(), z.reshape(-1, z.shape[-1]).contiguous())
+
+
 def apply_fused_sdecoder(decoder, grid, phi, dx, sc, z, act: str = "tanh",
                          sigmoid_out: bool = True) -> Tensor:
     """Run the fused decode from an ``sDecoderNet``. Leading batch dims of
     phi/dx/sc/z may be multi-dimensional; they are flattened for the kernel
-    and restored on the output. The padded weights are built once and reused
-    until a weight changes."""
-    Wc, bc, Wz, hw, hb, wout, bout = _kernel_weights(decoder)
-    batch_shape = z.shape[:-1]
-    out = fused_spatial_decoder_forward(
-        grid.contiguous(),
-        phi.reshape(-1).contiguous(),
-        dx.reshape(-1, dx.shape[-1]).contiguous(),
-        sc.reshape(-1).contiguous(),
-        z.reshape(-1, z.shape[-1]).contiguous(),
-        Wc, bc, Wz, hw, hb, wout, bout, act, sigmoid_out)
-    chan = (wout.shape[1],) if wout.shape[1] > 1 else ()
-    return out.reshape(tuple(batch_shape) + (grid.shape[0],) + chan)
+    and restored on the output. With autograd on it goes through
+    :class:`FusedSpatialDecoder`, so the backward is K2 and the grads reach
+    the module's parameters; otherwise the padded weights are built once
+    and reused until a weight changes."""
+    weights = _kernel_weights(decoder)
+    args = _flat_latents(grid, phi, dx, sc, z) + tuple(weights)
+    if torch.is_grad_enabled():
+        out = FusedSpatialDecoder.apply(*args, act, sigmoid_out)
+    else:
+        out = fused_spatial_decoder_forward(*args, act, sigmoid_out)
+    C = weights[5].shape[1]
+    chan = (C,) if C > 1 else ()
+    return out.reshape(tuple(z.shape[:-1]) + (grid.shape[0],) + chan)
+
+
+def apply_fused_recon_loss(decoder, grid, phi, dx, sc, z, x, wgt,
+                           act: str = "tanh") -> Tensor:
+    """The weighted Bernoulli reconstruction loss
+    ``-sum_b wgt_b sum_n log p(x_bn | sigmoid(decode_bn))`` of an
+    ``sDecoderNet`` with one channel and a sigmoid head, through K3
+    (:class:`FusedBernoulliReconLoss`): z [B, L], x [B, N], wgt [B]."""
+    g, phi, dx, sc, z = _flat_latents(grid, phi, dx, sc, z)
+    return FusedBernoulliReconLoss.apply(
+        g, phi, dx, sc, z, x.reshape(z.shape[0], -1).contiguous(),
+        wgt.reshape(-1).contiguous(), *_kernel_weights(decoder), act)

@@ -186,12 +186,12 @@ def test_device_rule_and_later_slices(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserving.export_model(tm, path, quantize="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.fit(np.zeros((4, 12, 12), np.float32))
+        tm.fit(np.zeros((4, 12, 12), np.float32), patience=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.manifold2d(3, plot=True)
-    with pytest.raises(TypeError, match="one_pass_train"):
+    with pytest.raises(TypeError, match="pixel_chunks"):
         tmodels.iVAE((12, 12), invariances=["r"], device="cpu",
-                     one_pass_train=True)
+                     pixel_chunks=4)
 
 
 # ---------------------------------------------------------------------------
