@@ -6,40 +6,52 @@ Run from the repository root on a machine with one Hopper GPU:
 
 Phases, in order (any failure propagates and exits non-zero):
 
+Each phase that runs a decoder kernel runs under the port's
+``BF16_MATMUL`` flag: set (the default, as the JAX package's), hidden
+products take bf16 operands and K2/K3 run on the tensor cores
+(``spatial_decoder_bwd_tc.cu``); clear, everything is f32 and K2/K3 run on
+the CUDA cores (``spatial_decoder_bwd.cu``).
+
 1. Device and build: prints the card's name and power limit
-   (``nvidia-smi``), then builds the decoder kernels from
+   (``nvidia-smi``), then builds the three decoder sources from
    ``pyroved_tpu_torch/csrc`` (one nvcc per source, started together) and
    prints the build time and the ptxas report.
-2. Kernels against plain: the fused forward K1 against
+2. Kernels against plain, under each flag: the fused forward K1 against
    ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
    activations, hidden width 128 and 256, ragged B and N and a few edge
-   shapes; a model whose decoder widths (96, 160) pad to 256, against its
-   sDecoderNet module; then the backward K2 against
-   ``spatial_decoder_bwd_plain`` (random cotangent) and the one-pass
-   Bernoulli kernel K3 against ``recon_loss_plain`` on the same matrix
-   (K3 with C = 1), each launched twice to show bitwise-equal grads.
-3. Serving at full width: the flagship iVAE (28x28, latent 2, rotation,
-   hidden 128x128, tanh, Bernoulli) from seed 0 is exported and served;
-   it answers encode, reconstruct, posed decode, manifold2d, a ragged
-   request and ELBO scoring, each checked against a plain computation.
+   shapes; then the backward K2 against ``spatial_decoder_bwd_plain``
+   (random cotangent) and the one-pass Bernoulli kernel K3 against
+   ``recon_loss_plain`` on the same matrix (K3 with C = 1), each launched
+   twice to show bitwise-equal grads. With the flag clear, a model whose
+   decoder widths (96, 160) pad to 256 against its sDecoderNet module.
+3. Serving at full width (default flag): the flagship iVAE (28x28, latent
+   2, rotation, hidden 128x128, tanh, Bernoulli) from seed 0 is exported
+   and served; it answers encode, reconstruct, posed decode, manifold2d, a
+   ragged request and ELBO scoring, each checked against a plain
+   computation.
 4. Large grid: a posed decode of 64 latents on the 128x128 model.
-5. Training at full width: the flagship from seed 0 trains 3 epochs on
-   10,000 blob images at batch 200 through ``fit`` (K1 and K2 once per
-   step); the same init with ``fused=False`` (the module path) is held
-   against it, first step's grads and per-epoch losses; then a few steps
-   with ``one_pass_train=True`` (K3 once per step, no K1 or K2).
+5. Training at full width, under each flag: the flagship from seed 0
+   trains 3 epochs on 10,000 blob images at batch 200 through ``fit`` (K1
+   and K2 once per step); the same init with ``fused=False`` (the module
+   path, f32) is held against it, first step's grads and per-epoch
+   losses; then a few steps with ``one_pass_train=True`` (K3 once per
+   step, no K1 or K2). Then the large grid (128x128, batch 64) trains 32
+   steps through ``fit`` under the default flag.
 6. Times: each kernel and its plain version at the shapes of the paths
    (median of CUDA-event timings), beside the least time the card could
-   take for the same work; request latencies and the padded-weight build
-   (host clock); the training step and an epoch's steps/s for the kernel
-   path and the module path, and a profiler breakdown of the step.
+   take for the same work and, for the tensor-core K2/K3, cuBLAS's bf16
+   time for their hidden-layer products; request latencies and the
+   padded-weight build (host clock); the training step and an epoch's
+   steps/s for the kernel path and the module path, and a profiler
+   breakdown of the step, under each flag; the large grid's step.
 
-Float32 throughout, with TF32 turned off for the plain version's matrix
-products and convolutions, so both sides compute in full f32.
+TF32 is off for the plain version's matrix products and convolutions, so
+they compute in full f32 (on bf16-rounded operands under the flag).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, without CUDA.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -62,7 +74,8 @@ K1 = sd.fused_spatial_decoder_forward
 K2 = sd.fused_spatial_decoder_backward
 K3 = sd.fused_bernoulli_recon_loss_kernel
 KERNELS = (K1, K2, K3)
-SOURCES = ("spatial_decoder_fwd", "spatial_decoder_bwd")
+SOURCES = ("spatial_decoder_fwd", "spatial_decoder_bwd",
+           "spatial_decoder_bwd_tc")
 GRAD_NAMES = ("phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb", "wout",
               "bout")
 PER_SAMPLE = 4  # the first four grads are per sample, the rest summed
@@ -87,6 +100,41 @@ EPOCH_RTOL = 1e-3
 # as near the kink when a hidden pre-activation, in f64, is within
 # KINK_BAND of 0, ten times the f32 rounding of a 128-term sum of size ~1.
 KINK_BAND = 1e-5
+# Kernel against plain under BF16_MATMUL: both round the same operands to
+# bf16, but an operand within an f32 rounding of a bf16 boundary rounds to
+# either neighbour (2^-8 relative), since the f32 sums before it run in
+# other orders. A decoded value moves by |wout| 2^-8 |h| per flipped hidden
+# value (6.3e-4 measured at the flagship shape), a grad by up to 7e-4 of
+# its tensor's largest entry (measured over the cases below). The flips a
+# pixel collects grow with its hidden values, so the linear heads of the
+# random cases (logits of size ~10) reach 3.2e-3 (measured). Decoded values
+# within BF16_ATOL + BF16_OUT_REL of the largest output, every grad within
+# ATOL + BF16_GRAD_REL of its tensor's largest entry. Losses as in f32
+# (1.4e-7 measured).
+BF16_ATOL = 3e-3
+BF16_OUT_REL = 2e-3
+BF16_GRAD_REL = 5e-3
+# relu and lrelu under bf16: a flipped operand moves a pre-activation by
+# up to |W| 2^-8 |h| ~ 4e-3, far beyond KINK_BAND, so a few pixels cross
+# the kink in one version only, each moving a grad by its whole
+# contribution: up to 6.3e-3 of the largest entry measured over the
+# 37,000-pixel cases (smooth activations: 7.1e-4). Held at 2e-2.
+BF16_KINK_GRAD_REL = 2e-2
+# The bf16 kernel path against the f32 module path: the rounding itself.
+# The reference bounds decoded values at 2e-2 (tests/test_ops_fused.py);
+# on the CPU the flagship's first-step grads differ by 2.6e-3 of each
+# tensor's largest entry and the per-example losses by 4.4e-5, relative.
+# Training in bf16 is chaotic in the third epoch, where the loss falls
+# fastest: on the card, scaling the initial weights by 1 + 1e-6 noise
+# moves that epoch's loss by 2.2e-2 (bf16, plain versions; f32: 7.0e-5;
+# tools/profile_bwd_tc.py), and kernel and module paths differed by up to
+# 1.8e-2 there. Per-epoch losses are
+# held to 5e-2 of the module path's. The trained model's grads are then
+# held to the plain versions' on the card, in the same bf16 numerics
+# (within BF16_GRAD_REL of each tensor's largest entry; 3.0e-6 measured).
+BF16_MODULE_GRAD_REL = 2e-2
+BF16_MODULE_LOSS_RTOL = 1e-3
+BF16_EPOCH_RTOL = 5e-2
 
 # Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
 # "NVIDIA H100 80GB HBM3": f32 on the CUDA cores, bf16 on the tensor cores,
@@ -97,6 +145,35 @@ PEAKS = (67e12, 989e12, 3.35e12)  # (f32 flop/s, bf16 flop/s, bytes/s)
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The K1, K2 and K3 wrappers replaced by their plain versions inside
+    the block, also on CUDA tensors: the kernels' yardstick, never the
+    port's path."""
+    names = {"fused_spatial_decoder_forward": sd.spatial_decoder_plain,
+             "fused_spatial_decoder_backward": sd.spatial_decoder_bwd_plain,
+             "fused_bernoulli_recon_loss_kernel": sd.recon_loss_plain}
+    old = {n: getattr(sd, n) for n in names}
+    for n, f in names.items():
+        setattr(sd, n, f)
+    try:
+        yield
+    finally:
+        for n, f in old.items():
+            setattr(sd, n, f)
+
+
+@contextlib.contextmanager
+def bf16_matmul(on):
+    """The port's BF16_MATMUL flag set to ``on`` inside the block."""
+    old = sd.BF16_MATMUL
+    sd.BF16_MATMUL = on
+    try:
+        yield
+    finally:
+        sd.BF16_MATMUL = old
 
 
 def card_peaks(name):
@@ -145,7 +222,8 @@ def train_args(model, x, eps):
     return a, xf
 
 
-def check_close(what, got, ref, atol=ATOL):
+def check_close(what, got, ref, atol=ATOL, rel=0.0):
+    """Max abs error within ``atol`` + ``rel`` of the largest |ref|."""
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
@@ -153,15 +231,44 @@ def check_close(what, got, ref, atol=ATOL):
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite output")
     err = (got - ref).abs().max().item()
-    if not err <= atol:
-        raise AssertionError(f"{what}: max abs err {err:.3e} > {atol:.0e}")
+    tol = atol + rel * ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {tol:.3e}")
     return err
 
 
-def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE):
-    """Each of the first ``per_sample`` grads within atol 1e-4 + rtol 1e-3
-    per element; the summed weight grads within 1e-4 + 1e-3 of their
-    largest entry. Returns the largest absolute error."""
+@contextlib.contextmanager
+def all_cases(what):
+    """Yields ``case``, a context for one case of a phase: a failing case
+    is logged and the phase goes on, then raises listing every failure."""
+    failures = []
+
+    @contextlib.contextmanager
+    def case():
+        try:
+            yield
+        except AssertionError as e:
+            log(f"  FAILED: {e}")
+            failures.append(str(e))
+
+    yield case
+    if failures:
+        raise AssertionError(f"{what}: {len(failures)} cases failed:\n"
+                             + "\n".join(failures))
+
+
+def rel_to_max(got, ref):
+    """The largest error of any grad over its tensor's largest entry."""
+    return max(((g.float() - r.float()).abs().max()
+                / r.float().abs().max().clamp_min(1e-30)).item()
+               for g, r in zip(got, ref))
+
+
+def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE,
+                rel=GRAD_RTOL):
+    """Each of the first ``per_sample`` grads within atol 1e-4 + rtol
+    ``rel`` per element; the summed weight grads within 1e-4 + ``rel`` of
+    their largest entry. Returns the largest absolute error."""
     worst = 0.0
     for i, (name, g, r) in enumerate(zip(names, got, ref)):
         g, r = g.float(), r.float()
@@ -173,7 +280,7 @@ def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE):
         err = (g - r).abs()
         top = r.abs().max()
         scale = r.abs() if i < per_sample else top
-        n_miss = int((err > ATOL + GRAD_RTOL * scale).sum())
+        n_miss = int((err > ATOL + rel * scale).sum())
         if n_miss:
             raise AssertionError(f"{what} d{name}: max abs err "
                                  f"{err.max().item():.3e} (largest grad "
@@ -214,10 +321,13 @@ def work_bwd(a, loss_mode=False):
 
 
 def bounds(flops, nbytes, peaks):
+    """(f32 bound, bf16 bound, what bounds f32, what bounds bf16), ms."""
     peak_f32, peak_bf16, peak_bw = peaks
+    by = lambda peak: ("operations" if flops / peak >= nbytes / peak_bw  # noqa: E731
+                       else "bytes")
     return (1e3 * max(flops / peak_f32, nbytes / peak_bw),
             1e3 * max(flops / peak_bf16, nbytes / peak_bw),
-            "operations" if flops / peak_f32 >= nbytes / peak_bw else "bytes")
+            by(peak_f32), by(peak_bf16))
 
 
 def cuda_ms(fn, reps=25, warmup=3):
@@ -262,8 +372,10 @@ def random_case(rng, dev, D, C, H, B, N, L, nl):
 
 
 def phase_k1_vs_plain(dev):
-    """Phase 2: K1 against the plain version across the matrix."""
-    errs = []
+    """Phase 2: K1 against the plain version across the matrix, under the
+    current flag."""
+    atol, rel = (BF16_ATOL, BF16_OUT_REL) if sd.BF16_MATMUL else (ATOL, 0.0)
+    errs = [0.0]
     rng = np.random.default_rng(0)
     acts = sd.KERNEL_ACTS_WITH_APPROX
     # (D, C, act, H, B, N, L, n_layers); N = 1000 is no multiple of 64
@@ -272,16 +384,19 @@ def phase_k1_vs_plain(dev):
     cases += [(2, 4, "tanh", 128, 1, 1, 1, 1),      # one pixel, four channels
               (2, 2, "gelu", 256, 3, 63, 6, 3),     # one partial tile
               (1, 1, "softplus", 256, 5, 129, 4, 1)]
-    for i, (D, C, act, H, B, N, L, nl) in enumerate(cases):
-        sig = i % 2 == 0
-        a = random_case(rng, dev, D, C, H, B, N, L, nl)
-        out = K1(**a, act=act, sigmoid_out=sig)
-        torch.cuda.synchronize()
-        ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
-        what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
-                f"B={B} N={N} L={L} layers={nl}")
-        errs.append(check_close(f"K1 {what}", out, ref))
-        log(f"  K1 vs plain {what}: max abs err {errs[-1]:.3e}")
+    with all_cases("K1 vs plain") as case:
+        for i, (D, C, act, H, B, N, L, nl) in enumerate(cases):
+            sig = i % 2 == 0
+            a = random_case(rng, dev, D, C, H, B, N, L, nl)
+            out = K1(**a, act=act, sigmoid_out=sig)
+            torch.cuda.synchronize()
+            ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
+            what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
+                    f"B={B} N={N} L={L} layers={nl}")
+            with case():
+                errs.append(check_close(f"K1 {what}", out, ref, atol, rel))
+                log(f"  K1 vs plain {what}: max abs err {errs[-1]:.3e} "
+                    f"(largest output {ref.abs().max().item():.2e})")
     return max(errs)
 
 
@@ -325,8 +440,8 @@ def bwd_cases():
 
 def near_kink(a, act):
     """[B, N] pixels with a hidden pre-activation within KINK_BAND of
-    relu's or lrelu's kink (f64 plain forward), or None for smooth
-    activations."""
+    relu's or lrelu's kink (f64 plain forward, on bf16-rounded operands
+    under the flag), or None for smooth activations."""
     if act not in ("relu", "lrelu"):
         return None
     d = {k: v.double() for k, v in a.items()}
@@ -335,74 +450,94 @@ def near_kink(a, act):
                                   d["hb"], act)
     near = torch.zeros(hs[0].shape[:2], dtype=torch.bool, device=hs[0].device)
     for i in range(d["hw"].shape[0]):
-        pre = hs[i] @ d["hw"][i] + d["hb"][i]
+        pre = sd._mm(hs[i], d["hw"][i]) + d["hb"][i]
         near |= (pre.abs() < KINK_BAND).any(-1)
     return near
 
 
 def phase_k2_k3_vs_plain(dev):
     """Phase 2: K2 and K3 against their plain versions, and launched twice
-    on the same inputs with bitwise-equal grads."""
+    on the same inputs with bitwise-equal grads, under the current flag
+    (the tensor-core kernel when it is set)."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
     rng = np.random.default_rng(2)
-    errs2, errs3 = [], []
-    for i, (D, C, act, H, B, N, L, nl) in enumerate(bwd_cases()):
-        sig = i % 2 == 0
-        a = random_case(rng, dev, D, C, H, B, N, L, nl)
-        shape = (B, N) if C == 1 else (B, N, C)
-        g = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
-                            device=dev)
-        near = near_kink(a, act)
-        if near is not None:
-            g[near] = 0.0
-        what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
-                f"B={B} N={N} L={L} layers={nl}"
-                + ("" if near is None else f" ({int(near.sum())} pixels near "
-                   f"the kink left out)"))
-        got = K2(**a, g=g, act=act, sigmoid_out=sig)
-        again = K2(**a, g=g, act=act, sigmoid_out=sig)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"K2 {what}: two launches differ")
-        ref = sd.spatial_decoder_bwd_plain(**a, g=g, act=act, sigmoid_out=sig)
-        errs2.append(check_grads(f"K2 {what}", got, ref))
-        log(f"  K2 vs plain {what}: max abs err {errs2[-1]:.3e}, bitwise "
-            f"equal across launches")
-        if C != 1 and (D, C, H) != (2, 3, 256):
-            continue
-        # K3 on the same inputs with one channel
-        a["wout"], a["bout"] = a["wout"][:, :1].contiguous(), a["bout"][:1]
-        x = torch.as_tensor(rng.uniform(0, 1, (B, N)), dtype=torch.float32,
-                            device=dev)
-        w = torch.as_tensor(rng.uniform(0, 1, B), dtype=torch.float32,
-                            device=dev)
-        if near is not None:
-            x[near] = sd.spatial_decoder_plain(**a, act=act)[near]
-        args = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], x, w, a["Wc"],
-                a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"], a["bout"])
-        loss, grads = K3(*args, act=act)
-        loss2, grads2 = K3(*args, act=act)
-        torch.cuda.synchronize()
-        if not (torch.equal(loss, loss2)
-                and all(torch.equal(p, q) for p, q in zip(grads, grads2))):
-            raise AssertionError(f"K3 {what}: two launches differ")
-        ref_loss, ref = sd.recon_loss_plain(*args, act=act)
-        rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-        if not rel <= LOSS_RTOL:
-            raise AssertionError(f"K3 {what}: loss rel err {rel:.3e}")
-        errs3.append(check_grads(f"K3 {what}", grads, ref))
-        log(f"  K3 vs plain D={D} C=1 H={H} act={act:<11} B={B} N={N} "
-            f"L={L} layers={nl}: loss rel err {rel:.3e}, grads max abs err "
-            f"{errs3[-1]:.3e}, bitwise equal")
+    errs2, errs3 = [0.0], [0.0]
+    per_sample = 0 if sd.BF16_MATMUL else PER_SAMPLE
+    with all_cases(f"K2/K3 {tag} vs plain") as case:
+        for i, (D, C, act, H, B, N, L, nl) in enumerate(bwd_cases()):
+            sig = i % 2 == 0
+            grad_rel = (GRAD_RTOL if not sd.BF16_MATMUL else
+                        BF16_KINK_GRAD_REL if act in ("relu", "lrelu") else
+                        BF16_GRAD_REL)
+            a = random_case(rng, dev, D, C, H, B, N, L, nl)
+            shape = (B, N) if C == 1 else (B, N, C)
+            g = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                                device=dev)
+            near = near_kink(a, act)
+            if near is not None:
+                g[near] = 0.0
+            what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
+                    f"B={B} N={N} L={L} layers={nl}"
+                    + ("" if near is None else f" ({int(near.sum())} pixels "
+                       f"near the kink left out)"))
+            with case():
+                got = K2(**a, g=g, act=act, sigmoid_out=sig)
+                again = K2(**a, g=g, act=act, sigmoid_out=sig)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"K2 {what}: two launches differ")
+                ref = sd.spatial_decoder_bwd_plain(**a, g=g, act=act,
+                                                   sigmoid_out=sig)
+                errs2.append(check_grads(f"K2 {tag} {what}", got, ref,
+                                         per_sample=per_sample, rel=grad_rel))
+                log(f"  K2 {tag} vs plain {what}: max abs err "
+                    f"{errs2[-1]:.3e} ({rel_to_max(got, ref):.1e} of the "
+                    f"largest entry), bitwise equal across launches")
+            if C != 1 and (D, C, H) != (2, 3, 256):
+                continue
+            # K3 on the same inputs with one channel
+            a["wout"], a["bout"] = a["wout"][:, :1].contiguous(), a["bout"][:1]
+            x = torch.as_tensor(rng.uniform(0, 1, (B, N)), dtype=torch.float32,
+                                device=dev)
+            w = torch.as_tensor(rng.uniform(0, 1, B), dtype=torch.float32,
+                                device=dev)
+            if near is not None:
+                x[near] = sd.spatial_decoder_plain(**a, act=act)[near]
+            args = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], x, w,
+                    a["Wc"], a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"],
+                    a["bout"])
+            with case():
+                loss, grads = K3(*args, act=act)
+                loss2, grads2 = K3(*args, act=act)
+                torch.cuda.synchronize()
+                if not (torch.equal(loss, loss2) and all(
+                        torch.equal(p, q) for p, q in zip(grads, grads2))):
+                    raise AssertionError(f"K3 {what}: two launches differ")
+                ref_loss, ref = sd.recon_loss_plain(*args, act=act)
+                rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+                if not rel <= LOSS_RTOL:
+                    raise AssertionError(f"K3 {what}: loss rel err {rel:.3e}")
+                errs3.append(check_grads(f"K3 {tag} {what}", grads, ref,
+                                         per_sample=per_sample, rel=grad_rel))
+                log(f"  K3 {tag} vs plain D={D} C=1 H={H} act={act:<11} B={B} "
+                    f"N={N} L={L} layers={nl}: loss rel err {rel:.3e}, grads "
+                    f"max abs err {errs3[-1]:.3e} ({rel_to_max(grads, ref):.1e}"
+                    f" of the largest entry), bitwise equal")
     return max(errs2), max(errs3)
 
 
 def reset_counts():
     for k in KERNELS:
         k.launches = 0
+    K2.bf16_launches = K3.bf16_launches = 0
 
 
 def counts():
-    return {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches}
+    """Launches of each kernel since the last reset: K2 and K3 are the f32
+    kernels, K2_bf16 and K3_bf16 the tensor-core ones."""
+    return {"K1": K1.launches, "K2": K2.launches - K2.bf16_launches,
+            "K2_bf16": K2.bf16_launches,
+            "K3": K3.launches - K3.bf16_launches, "K3_bf16": K3.bf16_launches}
 
 
 def first_step_grads(model, x, eps):
@@ -416,9 +551,16 @@ def first_step_grads(model, x, eps):
     return loss.item(), grads
 
 
-def phase_training():
-    """Phase 5: the flagship trains 3 epochs through fit, against the module
-    path; then one-pass training."""
+def phase_training(module_run=None):
+    """Phase 5, under the current flag: the flagship trains 3 epochs
+    through fit, against the module path (f32; trained once, then passed
+    back in as ``module_run``); then one-pass training."""
+    on = sd.BF16_MATMUL
+    k2, k3 = ("K2_bf16", "K3_bf16") if on else ("K2", "K3")
+    tag = "bf16" if on else "f32"
+    grad_rel = BF16_MODULE_GRAD_REL if on else GRAD_RTOL
+    loss_rtol = BF16_MODULE_LOSS_RTOL if on else LOSS_RTOL
+    epoch_rtol = BF16_EPOCH_RTOL if on else EPOCH_RTOL
     kw = dict(latent_dim=2, invariances=["r"], seed=0)
     X = blobs(10000, (28, 28), seed=1)
     model = iVAE((28, 28), **kw)
@@ -431,12 +573,14 @@ def phase_training():
     loss_k, grads_k = first_step_grads(model, xb, eps)
     loss_m, grads_m = first_step_grads(module, xb, eps)
     names = [n for n, _ in model.nets.named_parameters()]
-    step_err = check_grads("first step, kernel vs module path", grads_k,
-                           grads_m, names, per_sample=0)
-    if abs(loss_k - loss_m) > LOSS_RTOL * abs(loss_m):
+    step_err = check_grads(f"{tag} first step, kernel vs module path",
+                           grads_k, grads_m, names, per_sample=0,
+                           rel=grad_rel)
+    if abs(loss_k - loss_m) > loss_rtol * abs(loss_m):
         raise AssertionError(f"first step loss {loss_k} vs {loss_m}")
-    log(f"  first step, kernel path vs module path: loss {loss_k:.4f} vs "
-        f"{loss_m:.4f}, grads max abs err {step_err:.3e}")
+    log(f"  {tag} first step, kernel path vs module path: loss "
+        f"{loss_k:.4f} vs {loss_m:.4f}, grads max abs err {step_err:.3e} "
+        f"({rel_to_max(grads_k, grads_m):.1e} of the largest entry)")
 
     reset_counts()  # the training path starts here
     t0 = time.perf_counter()
@@ -445,28 +589,45 @@ def phase_training():
     fit_s = time.perf_counter() - t0
     train_counts = counts()  # the training path ends here
     steps = 3 * 50
-    log(f"  fit(epochs=3, batch_size=200) on 10,000 images: {fit_s:.2f} s, "
-        f"launches {train_counts}")
-    if train_counts != {"K1": steps, "K2": steps, "K3": 0}:
-        raise AssertionError(f"expected K1 and K2 once per step: "
+    log(f"  {tag} fit(epochs=3, batch_size=200) on 10,000 images: "
+        f"{fit_s:.2f} s, launches {train_counts}")
+    if train_counts != {**dict.fromkeys(train_counts, 0), "K1": steps,
+                        k2: steps}:
+        raise AssertionError(f"expected K1 and {k2} once per step: "
                              f"{train_counts}")
     hist = trainer.loss_history["training_loss"]
     if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
         raise AssertionError(f"loss is not finite and falling: {hist}")
-    module_trainer = module.fit(X, epochs=3, batch_size=200)
-    hist_m = module_trainer.loss_history["training_loss"]
+    if module_run is None:
+        module_trainer = module.fit(X, epochs=3, batch_size=200)
+        hist_m = module_trainer.loss_history["training_loss"]
+    else:
+        hist_m = module_run["module_loss_history"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_m))
-    log(f"  per-epoch losses, kernel path {hist}, module path {hist_m}: "
-        f"max rel diff {rel:.3e}")
-    if not rel <= EPOCH_RTOL:
+    log(f"  {tag} per-epoch losses, kernel path {hist}, module path "
+        f"{hist_m}: max rel diff {rel:.3e}")
+    if not rel <= epoch_rtol:
         raise AssertionError(f"per-epoch losses differ by {rel:.3e}")
+    if on:  # the trained model's grads against the plain versions'
+        loss_t, grads_t = first_step_grads(model, xb, eps)
+        with plain_versions():
+            loss_p, grads_p = first_step_grads(model, xb, eps)
+        trained_err = check_grads(f"{tag} trained model, kernel path vs plain "
+                                  f"versions", grads_t, grads_p, names,
+                                  per_sample=0, rel=BF16_GRAD_REL)
+        if abs(loss_t - loss_p) > LOSS_RTOL * abs(loss_p):
+            raise AssertionError(f"trained model loss {loss_t} vs {loss_p}")
+        log(f"  {tag} trained model, kernel path vs plain versions on the "
+            f"card: loss {loss_t:.4f} vs {loss_p:.4f}, grads max abs err "
+            f"{trained_err:.3e} ({rel_to_max(grads_t, grads_p):.1e} of the "
+            f"largest entry)")
 
     # one-pass training: K3 once per step, no K1 or K2
     one = iVAE((28, 28), one_pass_train=True, **kw)
     loss_1, grads_1 = first_step_grads(one, xb, eps)
-    one_err = check_grads("first step, one-pass vs module path", grads_1,
-                          grads_m, names, per_sample=0)
-    if abs(loss_1 - loss_m) > LOSS_RTOL * abs(loss_m):
+    one_err = check_grads(f"{tag} first step, one-pass vs module path",
+                          grads_1, grads_m, names, per_sample=0, rel=grad_rel)
+    if abs(loss_1 - loss_m) > loss_rtol * abs(loss_m):
         raise AssertionError(f"one-pass first step loss {loss_1} vs {loss_m}")
     loader = init_dataloader(X[:2000], batch_size=200)
     one_trainer = SVItrainer(one)
@@ -474,16 +635,19 @@ def phase_training():
     one_loss = one_trainer.train(loader)
     torch.cuda.synchronize()
     one_counts = counts()  # the one-pass path ends here
-    log(f"  one_pass_train: 10 steps, loss {one_loss:.4f}, launches "
+    log(f"  {tag} one_pass_train: 10 steps, loss {one_loss:.4f}, launches "
         f"{one_counts}; first step vs module path: loss {loss_1:.4f}, grads "
         f"max abs err {one_err:.3e}")
-    if one_counts != {"K1": 0, "K2": 0, "K3": 10} or not np.isfinite(one_loss):
+    if (one_counts != {**dict.fromkeys(one_counts, 0), k3: 10}
+            or not np.isfinite(one_loss)):
         raise AssertionError(f"one-pass training: {one_counts}, {one_loss}")
 
-    # times: the step (host clock) and an epoch's steps/s, both paths
+    # times: the step (host clock) and an epoch's steps/s
     times = {}
-    for name, m in (("kernel", model), ("module", module),
-                    ("one_pass", one)):
+    runs = (("kernel", model), ("one_pass", one))
+    if module_run is None:
+        runs += (("module", module),)
+    for name, m in runs:
         tr = SVItrainer(m)
         ld = init_dataloader(X, batch_size=200)
         w = torch.ones(200, device="cuda")
@@ -494,8 +658,10 @@ def phase_training():
         tr.train(ld)
         epoch_s = time.perf_counter() - t0
         times[name] = {"step_ms": step, "steps_per_s": 50 / epoch_s}
-    log(f"  training step (host clock, median of 30) and steps/s over a "
-        f"50-step epoch: {json.dumps(times)}")
+    if module_run is not None:
+        times["module"] = module_run["times"]["module"]
+    log(f"  {tag} training step (host clock, median of 30) and steps/s over "
+        f"a 50-step epoch: {json.dumps(times)}")
     return {"fit_s": fit_s, "train_launches": train_counts,
             "one_pass_launches": one_counts, "loss_history": hist,
             "module_loss_history": hist_m, "times": times,
@@ -503,8 +669,42 @@ def phase_training():
             "eps": eps}
 
 
+def phase_large_grid_training():
+    """Phase 5, large grid, default flag: the 128x128 iVAE (bench.py's
+    large-grid model) trains 32 steps at batch 64 through fit; its step
+    time and the device's share of it."""
+    X = blobs(1024, (128, 128), seed=4)
+    model = iVAE((128, 128), latent_dim=2, invariances=["r"], seed=0)
+    if not model._fused:
+        raise AssertionError("the large grid is not routed to the kernels")
+    reset_counts()  # the large-grid training path starts here
+    t0 = time.perf_counter()
+    trainer = model.fit(X, epochs=2, batch_size=64)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counts()  # the large-grid training path ends here
+    hist = trainer.loss_history["training_loss"]
+    log(f"  large grid fit(epochs=2, batch_size=64) on 1,024 images: "
+        f"{fit_s:.2f} s, launches {launches}, losses {hist}")
+    if launches != {**dict.fromkeys(launches, 0), "K1": 32, "K2_bf16": 32}:
+        raise AssertionError(f"expected K1 and K2_bf16 once per step: "
+                             f"{launches}")
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"loss is not finite and falling: {hist}")
+    xb = torch.as_tensor(X[:64], device="cuda")
+    tr = SVItrainer(model)
+    w = torch.ones(64, device="cuda")
+    step = host_ms(lambda: tr.train_step((xb,), w), reps=20, warmup=3)
+    breakdown = step_breakdown(model, xb)
+    log(f"  large grid training step: {step:.3f} ms (host clock, median of "
+        f"20); breakdown (torch.profiler, 10 steps): {json.dumps(breakdown)}")
+    return {"fit_s": fit_s, "launches": launches, "loss_history": hist,
+            "step_ms": step, "step_breakdown": breakdown}
+
+
 def step_breakdown(model, xb):
-    """Device time of one flagship training step by kernel family, from a
+    """Device time of one training step by kernel family (K2: K2 or K3's
+    kernels, f32 or tensor-core, with their prep and reductions), from a
     torch.profiler trace of 10 steps, against the step's wall time under
     the profiler (which slows the host: compare the device time with the
     unprofiled step time too)."""
@@ -534,7 +734,7 @@ def step_breakdown(model, xb):
         top.append((t / 1e3 / 10, ev.count / 10, ev.key[:80]))
         name = ev.key.lower()
         key = ("K1" if "sdec_fwd" in name else
-               "K2" if "sdec_bwd" in name else
+               "K2" if "sdec_bwd" in name or "sdec_tc" in name else
                "Adam" if "adam" in name or "multi_tensor" in name else
                "gemm" if "gemm" in name or "sm90" in name or "cutlass" in name
                else "other")
@@ -570,10 +770,19 @@ def main() -> int:
     for name in SOURCES:
         log(_build.build_log(name).strip())
 
-    # -- 2. kernels vs plain -----------------------------------------------
+    # -- 2. kernels vs plain, under each flag ------------------------------
     log("phase 2: kernels vs plain")
-    k1_err = max(phase_k1_vs_plain(dev), phase_padded_model())
-    k2_err, k3_err = phase_k2_k3_vs_plain(dev)
+    errs = {}
+    for on in (False, True):
+        with bf16_matmul(on):
+            log(f"  BF16_MATMUL = {on}")
+            k1 = phase_k1_vs_plain(dev)
+            if not on:  # the module path is f32
+                k1 = max(k1, phase_padded_model())
+            k2, k3 = phase_k2_k3_vs_plain(dev)
+            errs[on] = {"K1": k1, "K2": k2, "K3": k3}
+    if not sd.BF16_MATMUL:
+        raise AssertionError("the port's default is BF16_MATMUL = True")
 
     # -- 3. serving at full width (flagship); 4. large grid ---------------
     log("phases 3 and 4: flagship iVAE served, large-grid decode")
@@ -620,7 +829,8 @@ def main() -> int:
     if serve_counts["K1"] == 0 or launches["posed_decode_1024"] == 0:
         raise AssertionError("the serving path never launched K1")
 
-    # outputs: shapes, finiteness, agreement with plain computations
+    # outputs: shapes, finiteness, agreement with plain computations (bf16
+    # like the kernel), the ELBO with the module path (f32)
     z_loc, z_scale = outputs["encode_1000"]
     if z_loc.shape != (1000, 3) or not bool((z_scale > 0).all()):
         raise AssertionError("encode: bad shape or non-positive sigma")
@@ -639,23 +849,26 @@ def main() -> int:
             ("manifold2d_32", 1024, model, generate_latent_grid(32)[0], {}),
             ("ragged_decode_2500", 2500, model, z_rag, {}),
             ("large_grid_decode_64", 64, big, z_big, pose))
-        errs = [check_close(name, outputs[name].reshape(rows, -1),
-                            plain(m, z, **p))
-                for name, rows, m, z, p in checks]
+        serve_errs = [check_close(name, outputs[name].reshape(rows, -1),
+                                  plain(m, z, **p), BF16_ATOL)
+                      for name, rows, m, z, p in checks]
         loss_ref = module.loss_fn(x[:200], eps=eps)  # the module path
     loss = outputs["loss_fn_200"]
     if loss.shape != (200,) or not torch.isfinite(loss).all():
         raise AssertionError("loss_fn: bad shape or non-finite values")
     rel = ((loss - loss_ref).abs() / loss_ref.abs()).max().item()
-    if not rel <= LOSS_RTOL:
-        raise AssertionError(f"loss_fn: max rel err {rel:.3e} > {LOSS_RTOL}")
-    log(f"  served outputs match plain: max abs err {max(errs):.3e}, "
-        f"loss max rel err {rel:.3e}")
-    k1_err = max(k1_err, *errs)
+    if not rel <= BF16_MODULE_LOSS_RTOL:
+        raise AssertionError(f"loss_fn: max rel err {rel:.3e} > "
+                             f"{BF16_MODULE_LOSS_RTOL}")
+    log(f"  served outputs match plain: max abs err {max(serve_errs):.3e}, "
+        f"loss max rel err against the module path {rel:.3e}")
 
-    # -- 5. training at full width -----------------------------------------
-    log("phase 5: flagship training")
-    train = phase_training()
+    # -- 5. training at full width, under each flag; the large grid --------
+    log("phase 5: flagship training, large-grid training")
+    with bf16_matmul(False):
+        train32 = phase_training()
+    train = phase_training(module_run=train32)
+    large = phase_large_grid_training()
 
     # -- 6. times ----------------------------------------------------------
     log("phase 6: times")
@@ -670,16 +883,18 @@ def main() -> int:
             flops, nbytes = work(a)
             k_ms = cuda_ms(lambda: K1(**a))
             p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a), reps=20)
-            b32, b16, by = bounds(flops, nbytes, peaks)
-            k1_shapes.append({"shape": label, "ms": k_ms, "plain_ms": p_ms,
-                              "bound_ms": b32, "bound_ms_bf16": b16,
-                              "bound_by": by, "flops": flops,
-                              "bytes": nbytes, "tflops": flops / k_ms / 1e9})
+            b32, b16, by, _ = bounds(flops, nbytes, peaks)
+            k1_shapes.append({"shape": label, "flag": "bf16", "ms": k_ms,
+                              "plain_ms": p_ms, "bound_ms": b32,
+                              "bound_ms_bf16": b16, "bound_by": by,
+                              "flops": flops, "bytes": nbytes,
+                              "tflops": flops / k_ms / 1e9})
             log(f"  K1 {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
                 f"{flops / k_ms / 1e9:.2f} TFLOP/s")
-    # K2 and K3 at the flagship training shape and the large grid
-    k2_shapes, k3_shapes = [], []
+    # K2 and K3, f32 and tensor-core, at the flagship training shape and
+    # the large grid; cuBLAS bf16 for their hidden products as a yardstick
+    rows = {(k, on): [] for k in ("K2", "K3") for on in (False, True)}
     gen = torch.Generator(device="cuda").manual_seed(5)
     xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
     for name, m, xx in (("flagship", train["model"], train["xb"]),
@@ -687,47 +902,67 @@ def main() -> int:
         e = torch.randn(xx.shape[0], m.z_dim, generator=gen, device="cuda")
         a, xf = train_args(m, xx, e)
         B, N = a["z"].shape[0], a["grid"].shape[0]
-        label = f"{name} B={B} N={N} H={a['Wc'].shape[1]}"
-        ws_bytes, blocks = sd.bwd_workspace(B, N, 2, a["z"].shape[1],
-                                            a["Wc"].shape[1],
-                                            a["hw"].shape[0], 1)
+        L, H, nl = a["z"].shape[1], a["Wc"].shape[1], a["hw"].shape[0]
+        label = f"{name} B={B} N={N} H={H}"
         g = torch.randn(B, N, generator=gen, device="cuda")
         w = torch.ones(B, device="cuda")
         args3 = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], xf, w,
                  a["Wc"], a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"],
                  a["bout"])
         req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
+        h16 = torch.randn(B * N, H, generator=gen, device="cuda").bfloat16()
+        d16 = torch.randn(B * N, H, generator=gen, device="cuda").bfloat16()
+        w16 = a["hw"].bfloat16()
+
+        def cublas():  # h W, h^T d and d W^T of every layer, bf16 in and out
+            for i in range(nl):
+                torch.matmul(h16, w16[i])
+                torch.matmul(h16.T, d16)
+                torch.matmul(d16, w16[i].T)
+
+        lib_ms = cuda_ms(cublas, reps=20)
+        del h16, d16
 
         def autograd_plain():
             out = sd.spatial_decoder_plain(**req)
             return torch.autograd.grad(
                 out, [req[k] for k in GRAD_NAMES], g)
 
-        for kernel_shapes, fn, plain_fn, loss_mode in (
-                (k2_shapes, lambda: K2(**a, g=g),
-                 lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False),
-                (k3_shapes, lambda: K3(*args3),
-                 lambda: sd.recon_loss_plain(*args3), True)):
-            flops, nbytes = work_bwd(a, loss_mode)
-            k_ms = cuda_ms(fn, reps=20)
-            p_ms = cuda_ms(plain_fn, reps=10)
-            b32, b16, by = bounds(flops, nbytes, peaks)
-            row = {"shape": label, "ms": k_ms, "plain_ms": p_ms,
-                   "bound_ms": b32, "bound_ms_bf16": b16, "bound_by": by,
-                   "flops": flops, "bytes": nbytes,
-                   "tflops": flops / k_ms / 1e9,
-                   "workspace_bytes": ws_bytes, "blocks": blocks}
-            if not loss_mode:
-                row["autograd_plain_ms"] = cuda_ms(autograd_plain, reps=10)
-            kernel_shapes.append(row)
-            log(f"  {'K3' if loss_mode else 'K2'} {label}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms"
-                + ("" if loss_mode else
-                   f", autograd of the plain forward "
-                   f"{row['autograd_plain_ms']:.4f} ms")
-                + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
-                f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, workspace "
-                f"{ws_bytes / 2 ** 20:.1f} MiB")
+        for on in (False, True):
+            tag = "bf16" if on else "f32"
+            with bf16_matmul(on):
+                for kname, fn, plain_fn, loss_mode in (
+                        ("K2", lambda: K2(**a, g=g),
+                         lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False),
+                        ("K3", lambda: K3(*args3),
+                         lambda: sd.recon_loss_plain(*args3), True)):
+                    ws_bytes, blocks = sd.bwd_workspace(B, N, 2, L, H, nl, 1,
+                                                        "tanh", loss_mode)
+                    flops, nbytes = work_bwd(a, loss_mode)
+                    k_ms = cuda_ms(fn, reps=20)
+                    p_ms = cuda_ms(plain_fn, reps=10)
+                    b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
+                    row = {"shape": label, "flag": tag, "ms": k_ms,
+                           "plain_ms": p_ms, "bound_ms": b16 if on else b32,
+                           "bound_by": by16 if on else by32,
+                           "bound_ms_f32": b32, "bound_ms_bf16": b16,
+                           "library_ms": lib_ms if on else None,
+                           "flops": flops, "bytes": nbytes,
+                           "tflops": flops / k_ms / 1e9,
+                           "workspace_bytes": ws_bytes, "blocks": blocks}
+                    if not on and not loss_mode:
+                        row["autograd_plain_ms"] = cuda_ms(autograd_plain,
+                                                           reps=10)
+                    rows[kname, on].append(row)
+                    log(f"  {kname} {tag} {label}: kernel {k_ms:.4f} ms, "
+                        f"plain {p_ms:.4f} ms"
+                        + ("" if "autograd_plain_ms" not in row else
+                           f", autograd of the plain forward "
+                           f"{row['autograd_plain_ms']:.4f} ms")
+                        + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms"
+                        f", cuBLAS bf16 hidden products {lib_ms:.4f} ms, "
+                        f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, "
+                        f"workspace {ws_bytes / 2 ** 20:.1f} MiB")
     request_ms = {name: host_ms(request, reps=30)
                   for name, request in requests.items()}
     log(f"  request latency, ms (host clock, median): {json.dumps(request_ms)}")
@@ -738,47 +973,55 @@ def main() -> int:
             "cached": host_ms(lambda: sd._kernel_weights(dec), reps=30)}
     log(f"  padded decoder weights, ms (host clock, median): "
         f"{json.dumps(weights_ms)}")
-    breakdown = step_breakdown(train["model"], train["xb"])
+    breakdown = {"bf16": step_breakdown(train["model"], train["xb"])}
+    with bf16_matmul(False):
+        breakdown["f32"] = step_breakdown(train32["model"], train32["xb"])
     log(f"  flagship training step breakdown (torch.profiler, 10 steps): "
         f"{json.dumps(breakdown)}")
 
-    def entry(name, source, replaces, launches_by_path, err, shapes, **more):
+    def by_path(key):
+        """Launches of one kernel on each path, each counted alone."""
+        return {"serving": serve_counts[key],
+                "training_bf16": train["train_launches"][key],
+                "one_pass_training_bf16": train["one_pass_launches"][key],
+                "training_f32": train32["train_launches"][key],
+                "one_pass_training_f32": train32["one_pass_launches"][key],
+                "large_grid_training": large["launches"][key]}
+
+    def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sum(launches_by_path.values()),
-                "launches_by_path": launches_by_path, "max_abs_err": err,
+                "replaces": replaces, "launches": sum(by_path(key).values()),
+                "launches_by_path": by_path(key), "max_abs_err": err,
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"],
                 "bound_ms_bf16": head["bound_ms_bf16"],
-                "bound_by": head["bound_by"], "library_ms": None,
-                "shapes": shapes, **more}
+                "bound_by": head["bound_by"],
+                "library_ms": head.get("library_ms"), "shapes": shapes,
+                **more}
 
-    bwd_src = "pyroved_tpu_torch/csrc/spatial_decoder_bwd.cu"
+    csrc = "pyroved_tpu_torch/csrc/"
+    bwd, tc = csrc + "spatial_decoder_bwd.cu", csrc + "spatial_decoder_bwd_tc.cu"
+    k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:531",
+                    "pyroved_tpu/ops/spatial_decoder.py:1209")
     result = {"kernels": [
-        entry("spatial_decoder_fwd",
-              "pyroved_tpu_torch/csrc/spatial_decoder_fwd.cu",
-              "pyroved_tpu/ops/spatial_decoder.py:422",
-              {"serving": serve_counts["K1"],
-               "training": train["train_launches"]["K1"],
-               "one_pass_training": train["one_pass_launches"]["K1"]},
-              k1_err, k1_shapes, launches_per_request=launches,
+        entry("spatial_decoder_fwd", csrc + "spatial_decoder_fwd.cu",
+              "pyroved_tpu/ops/spatial_decoder.py:422", "K1",
+              max(errs[False]["K1"], errs[True]["K1"], *serve_errs),
+              k1_shapes, launches_per_request=launches,
               request_ms=request_ms, weights_ms=weights_ms),
-        entry("spatial_decoder_bwd", bwd_src,
-              "pyroved_tpu/ops/spatial_decoder.py:531",
-              {"serving": serve_counts["K2"],
-               "training": train["train_launches"]["K2"],
-               "one_pass_training": train["one_pass_launches"]["K2"]},
-              max(k2_err, train["max_err"]), k2_shapes),
-        entry("bernoulli_recon_loss", bwd_src,
-              "pyroved_tpu/ops/spatial_decoder.py:1209",
-              {"serving": serve_counts["K3"],
-               "training": train["train_launches"]["K3"],
-               "one_pass_training": train["one_pass_launches"]["K3"]},
-              k3_err, k3_shapes),
-    ], "training": {k: train[k] for k in (
-        "fit_s", "loss_history", "module_loss_history", "times")},
-        "step_breakdown": breakdown}
+        entry("spatial_decoder_bwd", bwd, k2_at, "K2",
+              max(errs[False]["K2"], train32["max_err"]), rows["K2", False]),
+        entry("spatial_decoder_bwd_tc", tc, k2_at, "K2_bf16",
+              max(errs[True]["K2"], train["max_err"]), rows["K2", True]),
+        entry("bernoulli_recon_loss", bwd, k3_at, "K3", errs[False]["K3"],
+              rows["K3", False]),
+        entry("bernoulli_recon_loss_tc", tc, k3_at, "K3_bf16",
+              errs[True]["K3"], rows["K3", True]),
+    ], "training": {tag: {k: t[k] for k in (
+        "fit_s", "loss_history", "module_loss_history", "times")}
+        for tag, t in (("bf16", train), ("f32", train32))},
+        "large_grid_training": large, "step_breakdown": breakdown}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -27,7 +27,8 @@
 //
 // What bounds it: about 6 * n_layers * H^2 flops per pixel (the forward
 // recompute, dW and dh) against a few bytes per pixel, so arithmetic. This
-// first version computes in f32 on the CUDA cores; bf16 wgmma is later work.
+// version computes in f32 on the CUDA cores (BF16_MATMUL = False); the bf16
+// tensor-core version is spatial_decoder_bwd_tc.cu.
 //
 // Design:
 //  * Blocks run at once, in no order, so the TPU's serial accumulation in

@@ -11,7 +11,11 @@
 //   out[b, n, c] = (sigmoid)(h_L . wout[:, c] + bout[c])
 //
 // which is the spatial decoder on the rotated, scaled and shifted grid with
-// the transform folded into three per-sample H-vectors.
+// the transform folded into three per-sample H-vectors. With bf16 set (the
+// port's BF16_MATMUL, as the JAX kernel's :448) both operands of each
+// hidden product h_l @ W_l are rounded to bf16 first: the weights as they
+// are staged, h_l as it is stored; the head reads h_L in f32. A product of
+// two bf16 values is exact in f32, so this is the tensor cores' arithmetic.
 //
 // What bounds it: about 2 * n_layers * H^2 flops per pixel against 4 bytes
 // of output per pixel and channel, so the work is arithmetic, not traffic.
@@ -37,6 +41,7 @@
 //    in [B, N, C] layout ([B, N] when C = 1).
 //  * Nothing is allocated here and nothing synchronises with the host.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <atomic>
 #include <climits>
@@ -86,6 +91,10 @@ __device__ __forceinline__ float sigmoid(float x) {
   return e / (1.0f + e);
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __host__ __device__ constexpr size_t smem_floats(int H) {
   return (size_t)kRows * H + (size_t)kChunk * H + 3 * (size_t)H + 2 * kRows;
 }
@@ -99,7 +108,7 @@ sdec_fwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
                 const float* __restrict__ hw, const float* __restrict__ hb,
                 const float* __restrict__ wout, const float* __restrict__ bout,
                 float* __restrict__ out, int N, int D, int L, int n_layers,
-                int C, int sigmoid_out, int n_tiles) {
+                int C, int sigmoid_out, int bf16, int n_tiles) {
   constexpr int TN = H / 32;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);  // [kRows][H] activations
@@ -151,10 +160,12 @@ sdec_fwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
   }
   __syncthreads();
 
-  // h0: coordinate/latent fusion
+  // h0: coordinate/latent fusion (rounded when it feeds a bf16 product)
+  const bool round_h0 = bf16 && n_layers > 0;
   for (int i = tid; i < kRows * H; i += kThreads) {
     const int r = i / H, h = i - r * H;
-    hs[i] = h0_act<ACT>(gs[2 * r] * us[h] + gs[2 * r + 1] * vs[h] + wv[h]);
+    const float v = h0_act<ACT>(gs[2 * r] * us[h] + gs[2 * r + 1] * vs[h] + wv[h]);
+    hs[i] = round_h0 ? bf16_round(v) : v;
   }
   __syncthreads();
 
@@ -171,7 +182,16 @@ sdec_fwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
     for (int k0 = 0; k0 < H; k0 += kChunk) {
       const float4* src = reinterpret_cast<const float4*>(W + (size_t)k0 * H);
       float4* dst = reinterpret_cast<float4*>(ws);
-      for (int i = tid; i < kChunk * H / 4; i += kThreads) dst[i] = src[i];
+      for (int i = tid; i < kChunk * H / 4; i += kThreads) {
+        float4 v = src[i];
+        if (bf16) {
+          v.x = bf16_round(v.x);
+          v.y = bf16_round(v.y);
+          v.z = bf16_round(v.z);
+          v.w = bf16_round(v.w);
+        }
+        dst[i] = v;
+      }
       __syncthreads();
 #pragma unroll 2
       for (int kk = 0; kk < kChunk; kk += 4) {
@@ -198,13 +218,16 @@ sdec_fwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
       __syncthreads();
     }
     const float* bias = hb + (size_t)layer * H;
+    const bool round_out = bf16 && layer + 1 < n_layers;  // feeds a product
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = lane + 32 * j;
       const float bj = bias[col];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-        hs[(row0 + r) * H + col] = act_fn<ACT>(acc[r][j] + bj);
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        const float v = act_fn<ACT>(acc[r][j] + bj);
+        hs[(row0 + r) * H + col] = round_out ? bf16_round(v) : v;
+      }
     }
     __syncthreads();
   }
@@ -247,7 +270,7 @@ cudaError_t launch(const float* grid, const float* phi, const float* dx,
                    const float* bc, const float* wz, const float* hw,
                    const float* hb, const float* wout, const float* bout,
                    float* out, int B, int N, int D, int L, int n_layers, int C,
-                   int sigmoid_out, cudaStream_t stream) {
+                   int sigmoid_out, int bf16, cudaStream_t stream) {
   const int smem = (int)(smem_floats(H) * sizeof(float));
   cudaError_t err = allow_smem<H, ACT>(smem);
   if (err != cudaSuccess) return err;
@@ -256,7 +279,7 @@ cudaError_t launch(const float* grid, const float* phi, const float* dx,
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   sdec_fwd_kernel<H, ACT><<<(unsigned)blocks, kThreads, smem, stream>>>(
       grid, phi, dx, sc, z, wc, bc, wz, hw, hb, wout, bout, out, N, D, L,
-      n_layers, C, sigmoid_out, n_tiles);
+      n_layers, C, sigmoid_out, bf16, n_tiles);
   return cudaGetLastError();
 }
 
@@ -266,11 +289,11 @@ cudaError_t launch_act(int act, const float* grid, const float* phi,
                        const float* wc, const float* bc, const float* wz,
                        const float* hw, const float* hb, const float* wout,
                        const float* bout, float* out, int B, int N, int D,
-                       int L, int n_layers, int C, int sigmoid_out,
+                       int L, int n_layers, int C, int sigmoid_out, int bf16,
                        cudaStream_t stream) {
 #define PVT_LAUNCH(A)                                                        \
   return launch<H, A>(grid, phi, dx, sc, z, wc, bc, wz, hw, hb, wout, bout, \
-                      out, B, N, D, L, n_layers, C, sigmoid_out, stream)
+                      out, B, N, D, L, n_layers, C, sigmoid_out, bf16, stream)
   switch (act) {
     case ACT_TANH: PVT_LAUNCH(ACT_TANH);
     case ACT_RELU: PVT_LAUNCH(ACT_RELU);
@@ -288,15 +311,17 @@ cudaError_t launch_act(int act, const float* grid, const float* phi,
 // Plain C entry point (bound with ctypes). Shapes: grid [N, D], phi/sc [B],
 // dx [B, D], z [B, L], wc [D, H], bc [H], wz [L, H], hw [n_layers, H, H]
 // (input-major), hb [n_layers, H], wout [H, C], bout [C], out [B, N, C];
-// all float32, contiguous, on the device of `stream`. H is 128 or 256.
-// Returns the launch's cudaError_t (0 on success).
+// all float32, contiguous, on the device of `stream`. H is 128 or 256;
+// bf16 != 0 rounds the hidden products' operands to bf16. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int pvt_sdec_fwd(const float* grid, const float* phi,
                             const float* dx, const float* sc, const float* z,
                             const float* wc, const float* bc, const float* wz,
                             const float* hw, const float* hb,
                             const float* wout, const float* bout, float* out,
                             int B, int N, int D, int L, int H, int n_layers,
-                            int C, int act, int sigmoid_out, void* stream) {
+                            int C, int act, int sigmoid_out, int bf16,
+                            void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
   if (D < 1 || D > 2 || C < 1 || n_layers < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
@@ -305,11 +330,11 @@ extern "C" int pvt_sdec_fwd(const float* grid, const float* phi,
     case 128:
       return (int)launch_act<128>(act, grid, phi, dx, sc, z, wc, bc, wz, hw,
                                   hb, wout, bout, out, B, N, D, L, n_layers,
-                                  C, sigmoid_out, s);
+                                  C, sigmoid_out, bf16, s);
     case 256:
       return (int)launch_act<256>(act, grid, phi, dx, sc, z, wc, bc, wz, hw,
                                   hb, wout, bout, out, B, N, D, L, n_layers,
-                                  C, sigmoid_out, s);
+                                  C, sigmoid_out, bf16, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -23,12 +23,20 @@ plain version:
 
 * K1, :func:`fused_spatial_decoder_forward` (``csrc/spatial_decoder_fwd.cu``),
   plain :func:`spatial_decoder_plain`;
-* K2, :func:`fused_spatial_decoder_backward` (``csrc/spatial_decoder_bwd.cu``),
-  plain :func:`spatial_decoder_bwd_plain`: the grads of every input but the
-  grid from the output cotangent;
-* K3, :func:`fused_bernoulli_recon_loss_kernel` (the same source in loss
-  mode), plain :func:`recon_loss_plain`: the weighted Bernoulli loss and
-  all of K2's grads in one pass.
+* K2, :func:`fused_spatial_decoder_backward`, plain
+  :func:`spatial_decoder_bwd_plain`: the grads of every input but the grid
+  from the output cotangent;
+* K3, :func:`fused_bernoulli_recon_loss_kernel` (K2's source in loss mode),
+  plain :func:`recon_loss_plain`: the weighted Bernoulli loss and all of
+  K2's grads in one pass.
+
+:data:`BF16_MATMUL` mirrors the JAX package's flag of the same name and
+meaning: set (the default, as there), the operands of every hidden-layer
+product round to bf16 and the products sum in f32, in K1 and in the plain
+versions as in ``_mxu_dot``; K2 and K3 then run on the tensor cores
+(``csrc/spatial_decoder_bwd_tc.cu``). Clear, everything is f32 and K2/K3
+run on the CUDA cores (``csrc/spatial_decoder_bwd.cu``). The flag is read
+at each call.
 
 :class:`FusedSpatialDecoder` (K1 forward, K2 backward) and
 :class:`FusedBernoulliReconLoss` (K3) take the place of the JAX package's
@@ -40,6 +48,7 @@ measured on a TPU and have no counterpart here: the kernels pick their own
 tiles, and a supported configuration always runs them.
 """
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -60,6 +69,12 @@ _ACT_CODE = {name: i for i, name in enumerate(KERNEL_ACTS_WITH_APPROX)}
 #: Padded hidden widths the kernels are compiled for.
 KERNEL_WIDTHS = (128, 256)
 
+#: Hidden-layer products in bf16 x bf16 -> f32, as the JAX package's
+#: ``BF16_MATMUL`` (its default too): the forward's h_l W_l, and in the
+#: backward dwout = h_L^T dl, dW_l = h_l^T d_pre and dh = d_pre W_l^T.
+#: Heads, biases, activations and the coordinate layer stay in f32.
+BF16_MATMUL = True
+
 #: Activation buffers of one pixel tile that fit in a block's shared memory
 #: beside the backward's weight chunk: h_0 .. h_L, plus act'(pre) of each
 #: hidden layer for gelu (``csrc/spatial_decoder_bwd.cu``).
@@ -67,13 +82,26 @@ BWD_MAX_BUFFERS = 6
 
 
 def bwd_max_layers(act: str) -> int:
-    """Most hidden layers the backward kernel (K2/K3) takes: 5, or 2 with
-    gelu, whose derivative needs a buffer of its own for each layer."""
+    """Most hidden layers the backward kernels (K2/K3) take: 5, or 2 with
+    gelu, whose derivative needs a buffer of its own for each layer. The
+    f32 kernel sets the limit; the tensor-core kernel takes every such
+    configuration too (its tile and its weight staging follow the
+    decoder's size), so the limit is the same under both flags."""
     return (BWD_MAX_BUFFERS - 1) // (2 if act == "gelu" else 1)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """A hidden-layer product, ``_mxu_dot``'s: under :data:`BF16_MATMUL`
+    both operands round to bf16; their products are exact in f32, which
+    sums them."""
+    if BF16_MATMUL:
+        a = a.to(torch.bfloat16).to(a.dtype)
+        b = b.to(torch.bfloat16).to(b.dtype)
+    return a @ b
 
 
 def _pade_tanh(x: Tensor) -> Tensor:
@@ -141,7 +169,7 @@ def spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
         coords = grid[None] + dx[:, None, :]
     h = _h0_act(act, coords @ Wc + bc + (z @ Wz)[:, None, :])
     for i in range(hw.shape[0]):
-        h = _act(act, h @ hw[i] + hb[i])
+        h = _act(act, _mm(h, hw[i]) + hb[i])
     out = h @ wout + bout
     if wout.shape[1] == 1:
         out = out[..., 0]
@@ -167,7 +195,7 @@ def _folded_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, act):
         pre = gx * Wc[0] + w[:, None]
     hs, gelu_grads = [_h0_act(act, pre)], []
     for i in range(hw.shape[0]):
-        pre = hs[-1] @ hw[i] + hb[i]
+        pre = _mm(hs[-1], hw[i]) + hb[i]
         if act == "gelu":
             h, g = _gelu_and_grad(pre)
             gelu_grads.append(g)
@@ -183,16 +211,16 @@ def _backprop(grid, phi, dx, sc, z, Wc, Wz, hw, wout, act, hs, gelu_grads,
     B, N, C = dl.shape
     H = Wc.shape[1]
     dbout = dl.sum((0, 1))
-    dwout = hs[-1].reshape(-1, H).T @ dl.reshape(-1, C)
+    dwout = _mm(hs[-1].reshape(-1, H).T, dl.reshape(-1, C))
     dh = dl @ wout.T
     dhw, dhb = torch.zeros_like(hw), hw.new_zeros(hw.shape[:2])
     for i in reversed(range(hw.shape[0])):
         ag = (gelu_grads[i] if act == "gelu"
               else _act_grad_from_post(act, hs[i + 1]))
         d_pre = dh * ag
-        dhw[i] = hs[i].reshape(-1, H).T @ d_pre.reshape(-1, H)
+        dhw[i] = _mm(hs[i].reshape(-1, H).T, d_pre.reshape(-1, H))
         dhb[i] = d_pre.sum((0, 1))
-        dh = d_pre @ hw[i].T
+        dh = _mm(d_pre, hw[i].T)
     d0 = dh * (1.0 - hs[0] * hs[0])  # the coordinate layer is tanh
     dw = d0.sum(1)
     du = (grid[:, 0][None, :, None] * d0).sum(1)
@@ -260,33 +288,38 @@ def recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw, hb, wout,
 # ---------------------------------------------------------------------------
 
 _fn = None
-_bwd_fns = None
+_bwd_fns = {}
+
+#: K2/K3's sources: the tensor-core kernel under BF16_MATMUL, else f32.
+BWD_SOURCES = {True: "spatial_decoder_bwd_tc", False: "spatial_decoder_bwd"}
 
 
 def _kernel():
     global _fn
     if _fn is None:
         f = _build.load("spatial_decoder_fwd").pvt_sdec_fwd
-        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
 
 
-def _bwd_kernel():
-    """(plan, launch) of ``csrc/spatial_decoder_bwd.cu``."""
-    global _bwd_fns
-    if _bwd_fns is None:
-        lib = _build.load("spatial_decoder_bwd")
-        plan = lib.pvt_sdec_bwd_plan
+def _bwd_kernel(bf16: bool):
+    """(plan, launch) of K2/K3's source for the flag value ``bf16``
+    (:data:`BWD_SOURCES`); both take the same arguments."""
+    if bf16 not in _bwd_fns:
+        name = BWD_SOURCES[bf16]
+        lib = _build.load(name)
+        prefix = "pvt_sdec_bwd_tc" if bf16 else "pvt_sdec_bwd"
+        plan = getattr(lib, prefix + "_plan")
         plan.argtypes = [ctypes.c_int] * 9 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
         plan.restype = ctypes.c_int
-        run = lib.pvt_sdec_bwd
+        run = getattr(lib, prefix)
         run.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         run.restype = ctypes.c_int
-        _bwd_fns = (plan, run)
-    return _bwd_fns
+        _bwd_fns[bf16] = (plan, run)
+    return _bwd_fns[bf16]
 
 
 def _check(name: str, t: Tensor, shape: Tuple[int, ...], device) -> None:
@@ -366,7 +399,7 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                  Wz.data_ptr(), hw.data_ptr(), hb.data_ptr(),
                  wout.data_ptr(), bout.data_ptr(), out.data_ptr(),
                  B, N, D, L, H, nl, C, _ACT_CODE[act], int(bool(sigmoid_out)),
-                 stream)
+                 int(BF16_MATMUL), stream)
     if err != 0:
         raise RuntimeError(f"spatial-decoder kernel launch failed: CUDA error "
                            f"{err}")
@@ -379,13 +412,23 @@ fused_spatial_decoder_forward.launches = 0
 
 def bwd_workspace(B: int, N: int, D: int, L: int, H: int, nl: int, C: int,
                   act: str = "tanh", loss_mode: bool = False,
-                  device="cuda") -> Tuple[int, int]:
-    """(workspace bytes, blocks) of one K2/K3 call on ``device``: one slot
-    of weight-grad partials per block, the du/dv/dw sums of every pixel
-    tile and of every sample."""
-    plan, _ = _bwd_kernel()
+                  device="cuda", bf16: bool = None) -> Tuple[int, int]:
+    """(workspace bytes, blocks) of one K2/K3 call on ``device`` with the
+    kernel of ``bf16`` (default: :data:`BF16_MATMUL`): one slot of
+    weight-grad partials per block, the du/dv/dw sums of every pixel tile
+    and of every sample (and the bf16 weights for the tensor-core kernel).
+    Kept per shape and card: the plan depends on nothing else."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _bwd_plan(BF16_MATMUL if bf16 is None else bool(bf16), B, N, D, L,
+                     H, nl, C, act, bool(loss_mode), index)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(bf16, B, N, D, L, H, nl, C, act, loss_mode, index):
+    plan, _ = _bwd_kernel(bf16)
     floats, blocks = ctypes.c_longlong(), ctypes.c_int()
-    with torch.cuda.device(torch.device(device)):
+    with torch.cuda.device(index):
         err = plan(B, N, D, L, H, nl, C, _ACT_CODE[act], int(loss_mode),
                    ctypes.byref(floats), ctypes.byref(blocks))
     if err != 0:
@@ -395,9 +438,10 @@ def bwd_workspace(B: int, N: int, D: int, L: int, H: int, nl: int, C: int,
 
 
 def _launch_bwd(inputs, g, x, wgt, act: str, sigmoid_out: bool,
-                loss_mode: bool) -> Tuple[Tensor, ...]:
-    """Run K2 (``g``) or K3 (``x``, ``wgt``) on checked CUDA inputs; returns
-    the eleven grads, then the loss for K3."""
+                loss_mode: bool, bf16: bool) -> Tuple[Tensor, ...]:
+    """Run K2 (``g``) or K3 (``x``, ``wgt``) on checked CUDA inputs, with the
+    tensor-core kernel if ``bf16``; returns the eleven grads, then the loss
+    for K3."""
     B, N, D, L, H, nl, C = _kernel_dims(*inputs, act)
     if nl > bwd_max_layers(act):
         raise ValueError(f"the backward kernel takes at most "
@@ -412,10 +456,10 @@ def _launch_bwd(inputs, g, x, wgt, act: str, sigmoid_out: bool,
         out = torch.zeros(sum(sizes), device=dev, dtype=torch.float32)
     else:
         ws_bytes, blocks = bwd_workspace(B, N, D, L, H, nl, C, act, loss_mode,
-                                         dev)
+                                         dev, bf16)
         ws = torch.empty(ws_bytes // 4, device=dev, dtype=torch.float32)
         out = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
-        _, run = _bwd_kernel()
+        _, run = _bwd_kernel(bf16)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -439,9 +483,11 @@ def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     On CPU tensors this is the plain version. On CUDA tensors it launches
     the kernel on the current stream, or raises (inputs as
     :func:`fused_spatial_decoder_forward`, at most
-    :func:`bwd_max_layers` hidden layers). The grads are deterministic:
+    :func:`bwd_max_layers` hidden layers): the tensor-core kernel under
+    :data:`BF16_MATMUL`, else the f32 one. The grads are deterministic:
     the same inputs on the same card give bitwise-equal grads.
-    ``fused_spatial_decoder_backward.launches`` counts kernel launches."""
+    ``fused_spatial_decoder_backward.launches`` counts kernel launches,
+    ``.bf16_launches`` those of the tensor-core kernel among them."""
     if grid.device.type == "cpu":
         return spatial_decoder_bwd_plain(grid, phi, dx, sc, z, Wc, bc, Wz,
                                          hw, hb, wout, bout, g, act,
@@ -449,12 +495,15 @@ def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     inputs = (grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout)
     B, N, C = z.shape[0], grid.shape[0], wout.shape[1]
     _check("g", g, (B, N, C) if C > 1 else (B, N), grid.device)
-    grads = _launch_bwd(inputs, g, None, None, act, sigmoid_out, False)
+    bf16 = BF16_MATMUL
+    grads = _launch_bwd(inputs, g, None, None, act, sigmoid_out, False, bf16)
     fused_spatial_decoder_backward.launches += 1
+    fused_spatial_decoder_backward.bf16_launches += int(bf16)
     return grads
 
 
 fused_spatial_decoder_backward.launches = 0
+fused_spatial_decoder_backward.bf16_launches = 0
 
 
 def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
@@ -464,9 +513,10 @@ def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
     """K3: ``(loss, grads)`` of :func:`recon_loss_plain` in one pass.
 
     On CPU tensors this is the plain version. On CUDA tensors it launches
-    K2's kernel in loss mode (one channel, sigmoid head; ``x [B, N]``,
-    ``wgt [B]``) or raises. dbout comes back shaped like bout, [1].
-    ``fused_bernoulli_recon_loss_kernel.launches`` counts kernel launches."""
+    K2's kernel (chosen by :data:`BF16_MATMUL`) in loss mode (one channel,
+    sigmoid head; ``x [B, N]``, ``wgt [B]``) or raises. dbout comes back
+    shaped like bout, [1]. ``fused_bernoulli_recon_loss_kernel.launches``
+    counts kernel launches, ``.bf16_launches`` the tensor-core ones."""
     if grid.device.type == "cpu":
         return recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw,
                                 hb, wout, bout, act)
@@ -476,12 +526,15 @@ def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
         raise ValueError("the one-pass loss kernel takes one channel")
     _check("x", x, (B, N), grid.device)
     _check("wgt", wgt, (B,), grid.device)
-    *grads, loss = _launch_bwd(inputs, None, x, wgt, act, True, True)
+    bf16 = BF16_MATMUL
+    *grads, loss = _launch_bwd(inputs, None, x, wgt, act, True, True, bf16)
     fused_bernoulli_recon_loss_kernel.launches += 1
+    fused_bernoulli_recon_loss_kernel.bf16_launches += int(bf16)
     return loss, tuple(grads)
 
 
 fused_bernoulli_recon_loss_kernel.launches = 0
+fused_bernoulli_recon_loss_kernel.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------

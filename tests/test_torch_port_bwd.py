@@ -23,6 +23,15 @@ ATOL, RTOL = 1e-4, 1e-3
 GRADS = ("phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb", "wout", "bout")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def f32_port():
+    """The port's hidden products in f32, as the JAX side here, for the
+    whole module (before any module-scoped fixture computes)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsd, "BF16_MATMUL", False)
+        yield
+
+
 @pytest.fixture
 def k2_interpret(monkeypatch):
     """Run JAX's _bwd_kernel in interpret mode with f32 matmuls."""

@@ -25,6 +25,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def f32_port():
+    """The port's hidden products in f32, as the JAX side here, for the
+    whole module (before any module-scoped fixture computes)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsd, "BF16_MATMUL", False)
+        yield
+
+
 @pytest.fixture
 def k1_interpret(monkeypatch):
     """Run JAX's K1 in interpret mode with f32 matmuls (as its own tests)."""

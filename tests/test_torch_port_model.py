@@ -21,6 +21,16 @@ from pyroved_tpu_torch.utils.nn import as_numpy
 ATOL = 1e-5
 LOSS_RTOL = 1e-5
 
+
+@pytest.fixture(autouse=True, scope="module")
+def f32_port():
+    """The port's hidden products in f32, as the JAX package's CPU module
+    path computes them, for the whole module (before any module-scoped
+    fixture computes)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsd, "BF16_MATMUL", False)
+        yield
+
 CONFIGS = {
     "rot": dict(data_dim=(12, 12), invariances=["r"]),
     "rts_cond": dict(data_dim=(12, 12), invariances=["r", "t", "s"], c_dim=2),

@@ -30,6 +30,16 @@ LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
 LR = 1e-3
 
+
+@pytest.fixture(autouse=True, scope="module")
+def f32_port():
+    """The port's hidden products in f32, as the JAX package's CPU module
+    path computes them, for the whole module (before any module-scoped
+    fixture computes)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsd, "BF16_MATMUL", False)
+        yield
+
 CONFIGS = {
     "rot": dict(data_dim=(12, 12), invariances=["r"]),
     "rts": dict(data_dim=(12, 12), invariances=["r", "t", "s"]),
