@@ -37,7 +37,10 @@ the CUDA cores (``spatial_decoder_bwd.cu``).
    losses; then a few steps with ``one_pass_train=True`` (K3 once per
    step, no K1 or K2). Then the large grid (128x128, batch 64) trains 32
    steps through ``fit`` under the default flag.
-6. Times: each kernel and its plain version at the shapes of the paths
+6. Times: first K2 and K3 under each flag at the flagship training shape
+   and the large grid (B=64, N=16384), on the trained models' inputs,
+   against their plain versions and a second launch (bitwise); then each
+   kernel and its plain version at the shapes of the paths
    (median of CUDA-event timings), beside the least time the card could
    take for the same work and, for the tensor-core K2/K3, cuBLAS's bf16
    time for their hidden-layer products; request latencies and the
@@ -66,6 +69,8 @@ from pyroved_tpu_torch.models import iVAE
 from pyroved_tpu_torch.ops import _build
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
+from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, cuda_ms,
+                                             plain_versions, random_case)
 from pyroved_tpu_torch.trainers import SVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
 from pyroved_tpu_torch.utils.data import init_dataloader
@@ -127,9 +132,9 @@ BF16_KINK_GRAD_REL = 2e-2
 # Training in bf16 is chaotic in the third epoch, where the loss falls
 # fastest: on the card, scaling the initial weights by 1 + 1e-6 noise
 # moves that epoch's loss by 2.2e-2 (bf16, plain versions; f32: 7.0e-5;
-# tools/profile_bwd_tc.py), and kernel and module paths differed by up to
-# 1.8e-2 there. Per-epoch losses are
-# held to 5e-2 of the module path's. The trained model's grads are then
+# pyroved_tpu_torch/tools/profile_bwd_tc.py), and kernel and module paths
+# differed by up to 1.8e-2 there. Per-epoch losses are held to 5e-2 of
+# the module path's. The trained model's grads are then
 # held to the plain versions' on the card, in the same bf16 numerics
 # (within BF16_GRAD_REL of each tensor's largest entry; 3.0e-6 measured).
 BF16_MODULE_GRAD_REL = 2e-2
@@ -147,50 +152,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """The K1, K2 and K3 wrappers replaced by their plain versions inside
-    the block, also on CUDA tensors: the kernels' yardstick, never the
-    port's path."""
-    names = {"fused_spatial_decoder_forward": sd.spatial_decoder_plain,
-             "fused_spatial_decoder_backward": sd.spatial_decoder_bwd_plain,
-             "fused_bernoulli_recon_loss_kernel": sd.recon_loss_plain}
-    old = {n: getattr(sd, n) for n in names}
-    for n, f in names.items():
-        setattr(sd, n, f)
-    try:
-        yield
-    finally:
-        for n, f in old.items():
-            setattr(sd, n, f)
-
-
-@contextlib.contextmanager
-def bf16_matmul(on):
-    """The port's BF16_MATMUL flag set to ``on`` inside the block."""
-    old = sd.BF16_MATMUL
-    sd.BF16_MATMUL = on
-    try:
-        yield
-    finally:
-        sd.BF16_MATMUL = old
-
-
 def card_peaks(name):
     if H100_SXM not in name:
         raise RuntimeError(f"no data-sheet peaks for card {name!r}")
     return PEAKS
-
-
-def blobs(n, dim, seed):
-    """MNIST-like oriented Gaussian bumps (bench.py's data)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.linspace(-1, 1, dim[0]),
-                         np.linspace(-1, 1, dim[1]), indexing="ij")
-    cx = rng.uniform(-0.4, 0.4, n)[:, None, None]
-    cy = rng.uniform(-0.4, 0.4, n)[:, None, None]
-    s = rng.uniform(0.05, 0.2, n)[:, None, None]
-    return np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / s).astype(np.float32)
 
 
 def kernel_args(decoder, grid, z, angle=0.0, shift=(0.0, 0.0), scale=1.0):
@@ -330,22 +295,6 @@ def bounds(flops, nbytes, peaks):
             by(peak_f32), by(peak_bf16))
 
 
-def cuda_ms(fn, reps=25, warmup=3):
-    """Median of per-call CUDA-event timings after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def host_ms(fn, reps=10, warmup=2):
     """Median wall time of a whole request, ending in a synchronize."""
     for _ in range(warmup):
@@ -358,17 +307,6 @@ def host_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
-
-
-def random_case(rng, dev, D, C, H, B, N, L, nl):
-    t = lambda *s, k=1.0: torch.as_tensor(  # noqa: E731
-        rng.normal(size=s) * k, dtype=torch.float32, device=dev)
-    return dict(grid=torch.as_tensor(rng.uniform(-1, 1, (N, D)),
-                                     dtype=torch.float32, device=dev),
-                phi=t(B), dx=t(B, D, k=0.1), sc=1 + t(B, k=0.1), z=t(B, L),
-                Wc=t(D, H, k=0.5), bc=t(H, k=0.1), Wz=t(L, H, k=0.5),
-                hw=t(nl, H, H, k=1.5 / H ** 0.5), hb=t(nl, H, k=0.1),
-                wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
 
 
 def phase_k1_vs_plain(dev):
@@ -527,17 +465,19 @@ def phase_k2_k3_vs_plain(dev):
 
 
 def reset_counts():
-    for k in KERNELS:
-        k.launches = 0
-    K2.bf16_launches = K3.bf16_launches = 0
+    K1.launches = 0
+    for k in (K2, K3):
+        for source in k.launches:
+            k.launches[source] = 0
 
 
 def counts():
     """Launches of each kernel since the last reset: K2 and K3 are the f32
     kernels, K2_bf16 and K3_bf16 the tensor-core ones."""
-    return {"K1": K1.launches, "K2": K2.launches - K2.bf16_launches,
-            "K2_bf16": K2.bf16_launches,
-            "K3": K3.launches - K3.bf16_launches, "K3_bf16": K3.bf16_launches}
+    f32, tc = sd.BWD_SOURCES[False], sd.BWD_SOURCES[True]
+    return {"K1": K1.launches, "K2": K2.launches[f32],
+            "K2_bf16": K2.launches[tc], "K3": K3.launches[f32],
+            "K3_bf16": K3.launches[tc]}
 
 
 def first_step_grads(model, x, eps):
@@ -893,7 +833,10 @@ def main() -> int:
                 f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
                 f"{flops / k_ms / 1e9:.2f} TFLOP/s")
     # K2 and K3, f32 and tensor-core, at the flagship training shape and
-    # the large grid; cuBLAS bf16 for their hidden products as a yardstick
+    # the large grid: held against their plain versions and a second
+    # launch, then timed; cuBLAS bf16 for their hidden products as a
+    # yardstick. A per-sample grad sums up to 16,384 pixels here, so every
+    # grad is held to its tensor's largest entry.
     rows = {(k, on): [] for k in ("K2", "K3") for on in (False, True)}
     gen = torch.Generator(device="cuda").manual_seed(5)
     xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
@@ -936,6 +879,27 @@ def main() -> int:
                          lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False),
                         ("K3", lambda: K3(*args3),
                          lambda: sd.recon_loss_plain(*args3), True)):
+                    got, again, ref = fn(), fn(), plain_fn()
+                    torch.cuda.synchronize()
+                    what = f"{kname} {tag} {label}"
+                    if loss_mode:
+                        (loss, got), (loss2, again), (ref_loss, ref) = (
+                            got, again, ref)
+                        rel = (abs(loss.item() - ref_loss.item())
+                               / abs(ref_loss.item()))
+                        if not (torch.equal(loss, loss2) and rel <= LOSS_RTOL):
+                            raise AssertionError(f"{what}: loss {loss.item()} "
+                                                 f"and {loss2.item()} vs plain "
+                                                 f"{ref_loss.item()}")
+                    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                        raise AssertionError(f"{what}: two launches differ")
+                    err = check_grads(what, got, ref, per_sample=0,
+                                      rel=BF16_GRAD_REL if on else GRAD_RTOL)
+                    log(f"  {what} vs plain: grads max abs err {err:.3e} "
+                        f"({rel_to_max(got, ref):.1e} of the largest entry)"
+                        + (f", loss rel err {rel:.3e}" if loss_mode else "")
+                        + ", bitwise equal across launches")
+                    del got, again, ref
                     ws_bytes, blocks = sd.bwd_workspace(B, N, 2, L, H, nl, 1,
                                                         "tanh", loss_mode)
                     flops, nbytes = work_bwd(a, loss_mode)
@@ -943,7 +907,8 @@ def main() -> int:
                     p_ms = cuda_ms(plain_fn, reps=10)
                     b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
                     row = {"shape": label, "flag": tag, "ms": k_ms,
-                           "plain_ms": p_ms, "bound_ms": b16 if on else b32,
+                           "plain_ms": p_ms, "max_abs_err": err,
+                           "bound_ms": b16 if on else b32,
                            "bound_by": by16 if on else by32,
                            "bound_ms_f32": b32, "bound_ms_bf16": b16,
                            "library_ms": lib_ms if on else None,
@@ -1000,6 +965,10 @@ def main() -> int:
                 "library_ms": head.get("library_ms"), "shapes": shapes,
                 **more}
 
+    def shape_errs(kname, on):
+        """Phase 6's errors of one kernel at the paths' shapes."""
+        return [row["max_abs_err"] for row in rows[kname, bool(on)]]
+
     csrc = "pyroved_tpu_torch/csrc/"
     bwd, tc = csrc + "spatial_decoder_bwd.cu", csrc + "spatial_decoder_bwd_tc.cu"
     k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:531",
@@ -1011,13 +980,15 @@ def main() -> int:
               k1_shapes, launches_per_request=launches,
               request_ms=request_ms, weights_ms=weights_ms),
         entry("spatial_decoder_bwd", bwd, k2_at, "K2",
-              max(errs[False]["K2"], train32["max_err"]), rows["K2", False]),
+              max(errs[False]["K2"], train32["max_err"], *shape_errs("K2", 0)),
+              rows["K2", False]),
         entry("spatial_decoder_bwd_tc", tc, k2_at, "K2_bf16",
-              max(errs[True]["K2"], train["max_err"]), rows["K2", True]),
-        entry("bernoulli_recon_loss", bwd, k3_at, "K3", errs[False]["K3"],
-              rows["K3", False]),
+              max(errs[True]["K2"], train["max_err"], *shape_errs("K2", 1)),
+              rows["K2", True]),
+        entry("bernoulli_recon_loss", bwd, k3_at, "K3",
+              max(errs[False]["K3"], *shape_errs("K3", 0)), rows["K3", False]),
         entry("bernoulli_recon_loss_tc", tc, k3_at, "K3_bf16",
-              errs[True]["K3"], rows["K3", True]),
+              max(errs[True]["K3"], *shape_errs("K3", 1)), rows["K3", True]),
     ], "training": {tag: {k: t[k] for k in (
         "fit_s", "loss_history", "module_loss_history", "times")}
         for tag, t in (("bf16", train), ("f32", train32))},

@@ -79,6 +79,28 @@
 #include <cstdint>
 #include <type_traits>
 
+// Per-phase cycles of the tile loop, compiled in only with
+// -DPVT_PROFILE_PHASES (pyroved_tpu_torch/tools/profile_bwd_tc.py): thread 0
+// of block 0 adds the cycles since its previous mark to the phase that a
+// mark closes. Mark 0 closes the loop's own overhead, mark k > 0 the k-th
+// "// --" phase of the loop body.
+#ifdef PVT_PROFILE_PHASES
+constexpr int kPhaseMarks = 8;
+__device__ long long g_phase_cycles[kPhaseMarks];
+#define PHASE_CLOCK long long phase_last_ = -1
+#define PHASE_MARK(k)                                                 \
+  do {                                                                \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
+      const long long now_ = clock64();                               \
+      if (phase_last_ >= 0) g_phase_cycles[k] += now_ - phase_last_;  \
+      phase_last_ = now_;                                             \
+    }                                                                 \
+  } while (0)
+#else
+#define PHASE_CLOCK do {} while (0)
+#define PHASE_MARK(k) do {} while (0)
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;  // two warpgroups
@@ -445,12 +467,14 @@ sdec_bwd_tc_kernel(const KArgs a) {
   }
   __syncthreads();
 
+  PHASE_CLOCK;
   const int total = a.B * a.n_tiles;
   for (int t = stream; t < total; t += a.per_pass) {
     const int b = t / a.n_tiles;
     const int n0 = (t - b * a.n_tiles) * R;
     const int rows = min(R, a.N - n0);
 
+    PHASE_MARK(0);
     // -- per-sample folded transform, tile coordinates
     if (tid < H) {
       const int h = tid;
@@ -487,6 +511,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
     }
     __syncthreads();
 
+    PHASE_MARK(1);
     // -- h0 = tanh(gx u + gy v + w): level 0, and 1 - h0^2
     auto h0_pass = [&](auto pade) {
 #pragma unroll
@@ -524,6 +549,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
     fence_async_smem();
     __syncthreads();
 
+    PHASE_MARK(2);
     // -- forward recompute: level l + 1 = act(W_l^T level l + b_l)
     for (int l = 0; l < nl; ++l) {
       float acc[SPW][NV];
@@ -586,6 +612,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
       __syncthreads();
     }
 
+    PHASE_MARK(3);
     // -- head dots sum_m h_L[m][n] wout[m][c]: each thread over its rows,
     //    then the 8 lanes that share a pixel; the warps are summed below
     with_act(act, [&](auto tag) {
@@ -623,6 +650,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
     });
     __syncthreads();
 
+    PHASE_MARK(4);
     // -- head: logits, cotangents, loss; dbout and the loss in one warp
     for (int i = tid; i < R * kMaxC; i += kThreads) {
       const int n = i / kMaxC, c = i - n * kMaxC;
@@ -666,6 +694,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
       }
     }
 
+    PHASE_MARK(5);
     // -- last layer: dh = dl wout^T (f32), dwout += bf16(h_L)^T bf16(dl),
     //    d_pre = dh act'(pre) in place of h_L, db
     with_act(act, [&](auto tag) {
@@ -726,6 +755,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
     fence_async_smem();
     __syncthreads();
 
+    PHASE_MARK(6);
     // -- hidden layers, last to first: level l + 1 holds d_pre_l
     for (int l = nl - 1; l >= 0; --l) {
       const uint32_t hl = lv_addr + l * LVL, dp = lv_addr + (l + 1) * LVL;
@@ -835,6 +865,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
       fence_async_smem();
       __syncthreads();
     }
+    PHASE_MARK(7);
   }
 
   // -- the block's slot: its dW units, then db, dwout, dbout, loss
@@ -1183,3 +1214,15 @@ extern "C" int pvt_sdec_bwd_tc(const float* grid, const float* phi,
                loss_mode, n_blocks, reinterpret_cast<cudaStream_t>(stream)};
   return (int)launch(a);
 }
+
+#ifdef PVT_PROFILE_PHASES
+// The phase cycles since the last reset (reset != 0 zeroes them instead):
+// out[kPhaseMarks]. Returns a cudaError_t.
+extern "C" int pvt_sdec_bwd_tc_phase_cycles(long long* out, int reset) {
+  if (reset) {
+    const long long zero[kPhaseMarks] = {};
+    return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+}
+#endif

@@ -5,7 +5,8 @@ a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go into
 ``pyroved_tpu_torch/_build/``, named by a hash of the source and the
 command, and are built on first use in a process; a later process with the
-same source reuses the file.
+same source reuses the file. A source may also be built with preprocessor
+macros defined (``defines``), into a library of its own.
 """
 import ctypes
 import hashlib
@@ -13,7 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -24,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -35,26 +36,28 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(source: str, output: str) -> List[str]:
+def nvcc_command(source: str, output: str,
+                 defines: Sequence[str] = ()) -> List[str]:
     """The command that compiles ``source`` into the shared library
-    ``output``. ``-Xptxas=-v`` reports registers, shared memory and spills
-    into the build log."""
+    ``output``, with each macro of ``defines`` defined. ``-Xptxas=-v``
+    reports registers, shared memory and spills into the build log."""
     return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", output, source]
+            "-Xcompiler", "-fPIC", "-Xptxas=-v", *(f"-D{d}" for d in defines),
+            "-o", output, source]
 
 
-def _target(name: str) -> Tuple[str, str]:
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Tuple[str, str]:
     source = os.path.join(CSRC, name + ".cu")
     with open(source, "rb") as f:
         text = f.read()
-    cmd = " ".join(nvcc_command(source, "OUT")).encode()
+    cmd = " ".join(nvcc_command(source, "OUT", defines)).encode()
     digest = hashlib.sha256(text + b"\0" + cmd).hexdigest()[:16]
     return source, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """What ``nvcc`` printed when it built ``name`` (ptxas usage lines)."""
-    _, lib = _target(name)
+    _, lib = _target(name, tuple(defines))
     try:
         with open(lib + ".log") as f:
             return f.read()
@@ -62,18 +65,21 @@ def build_log(name: str) -> str:
         return ""
 
 
-def load_all(names: List[str]) -> List[ctypes.CDLL]:
-    """Build every ``csrc/<name>.cu`` that needs it, one ``nvcc`` each, all
-    started together, and return the loaded libraries in order."""
+def load_all(names: List[str],
+             defines: Sequence[str] = ()) -> List[ctypes.CDLL]:
+    """Build every ``csrc/<name>.cu`` that needs it (with the macros of
+    ``defines``), one ``nvcc`` each, all started together, and return the
+    loaded libraries in order."""
+    defines = tuple(defines)
     with _lock:
         builds = []
         for name in names:
-            source, lib = _target(name)
-            if name in _loaded or os.path.exists(lib):
+            source, lib = _target(name, defines)
+            if (name, defines) in _loaded or os.path.exists(lib):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(nvcc_command(source, tmp),
+            proc = subprocess.Popen(nvcc_command(source, tmp, defines),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             builds.append((source, lib, tmp, proc))
@@ -90,11 +96,12 @@ def load_all(names: List[str]) -> List[ctypes.CDLL]:
         if failures:
             raise RuntimeError("\n".join(failures))
         for name in names:
-            if name not in _loaded:
-                _loaded[name] = ctypes.CDLL(_target(name)[1])
-        return [_loaded[name] for name in names]
+            if (name, defines) not in _loaded:
+                _loaded[name, defines] = ctypes.CDLL(_target(name, defines)[1])
+        return [_loaded[name, defines] for name in names]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
-    return load_all([name])[0]
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (with the macros of ``defines``) if needed
+    and return the loaded library."""
+    return load_all([name], defines)[0]

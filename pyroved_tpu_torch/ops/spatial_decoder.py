@@ -304,21 +304,25 @@ def _kernel():
     return _fn
 
 
+def _bind_bwd(lib, bf16: bool):
+    """(plan, launch) of a library built from K2/K3's source for the flag
+    value ``bf16``; both sources take the same arguments."""
+    prefix = "pvt_sdec_bwd_tc" if bf16 else "pvt_sdec_bwd"
+    plan = getattr(lib, prefix + "_plan")
+    plan.argtypes = [ctypes.c_int] * 9 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    run = getattr(lib, prefix)
+    run.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    return plan, run
+
+
 def _bwd_kernel(bf16: bool):
     """(plan, launch) of K2/K3's source for the flag value ``bf16``
-    (:data:`BWD_SOURCES`); both take the same arguments."""
+    (:data:`BWD_SOURCES`)."""
     if bf16 not in _bwd_fns:
-        name = BWD_SOURCES[bf16]
-        lib = _build.load(name)
-        prefix = "pvt_sdec_bwd_tc" if bf16 else "pvt_sdec_bwd"
-        plan = getattr(lib, prefix + "_plan")
-        plan.argtypes = [ctypes.c_int] * 9 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
-        plan.restype = ctypes.c_int
-        run = getattr(lib, prefix)
-        run.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        run.restype = ctypes.c_int
-        _bwd_fns[bf16] = (plan, run)
+        _bwd_fns[bf16] = _bind_bwd(_build.load(BWD_SOURCES[bf16]), bf16)
     return _bwd_fns[bf16]
 
 
@@ -486,8 +490,8 @@ def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     :func:`bwd_max_layers` hidden layers): the tensor-core kernel under
     :data:`BF16_MATMUL`, else the f32 one. The grads are deterministic:
     the same inputs on the same card give bitwise-equal grads.
-    ``fused_spatial_decoder_backward.launches`` counts kernel launches,
-    ``.bf16_launches`` those of the tensor-core kernel among them."""
+    ``fused_spatial_decoder_backward.launches`` counts kernel launches by
+    source (:data:`BWD_SOURCES`)."""
     if grid.device.type == "cpu":
         return spatial_decoder_bwd_plain(grid, phi, dx, sc, z, Wc, bc, Wz,
                                          hw, hb, wout, bout, g, act,
@@ -497,13 +501,11 @@ def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     _check("g", g, (B, N, C) if C > 1 else (B, N), grid.device)
     bf16 = BF16_MATMUL
     grads = _launch_bwd(inputs, g, None, None, act, sigmoid_out, False, bf16)
-    fused_spatial_decoder_backward.launches += 1
-    fused_spatial_decoder_backward.bf16_launches += int(bf16)
+    fused_spatial_decoder_backward.launches[BWD_SOURCES[bf16]] += 1
     return grads
 
 
-fused_spatial_decoder_backward.launches = 0
-fused_spatial_decoder_backward.bf16_launches = 0
+fused_spatial_decoder_backward.launches = dict.fromkeys(BWD_SOURCES.values(), 0)
 
 
 def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
@@ -516,7 +518,7 @@ def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
     K2's kernel (chosen by :data:`BF16_MATMUL`) in loss mode (one channel,
     sigmoid head; ``x [B, N]``, ``wgt [B]``) or raises. dbout comes back
     shaped like bout, [1]. ``fused_bernoulli_recon_loss_kernel.launches``
-    counts kernel launches, ``.bf16_launches`` the tensor-core ones."""
+    counts kernel launches by source (:data:`BWD_SOURCES`)."""
     if grid.device.type == "cpu":
         return recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw,
                                 hb, wout, bout, act)
@@ -528,13 +530,12 @@ def fused_bernoulli_recon_loss_kernel(grid, phi, dx, sc, z, x, wgt, Wc, bc,
     _check("wgt", wgt, (B,), grid.device)
     bf16 = BF16_MATMUL
     *grads, loss = _launch_bwd(inputs, None, x, wgt, act, True, True, bf16)
-    fused_bernoulli_recon_loss_kernel.launches += 1
-    fused_bernoulli_recon_loss_kernel.bf16_launches += int(bf16)
+    fused_bernoulli_recon_loss_kernel.launches[BWD_SOURCES[bf16]] += 1
     return loss, tuple(grads)
 
 
-fused_bernoulli_recon_loss_kernel.launches = 0
-fused_bernoulli_recon_loss_kernel.bf16_launches = 0
+fused_bernoulli_recon_loss_kernel.launches = dict.fromkeys(
+    BWD_SOURCES.values(), 0)
 
 
 # ---------------------------------------------------------------------------

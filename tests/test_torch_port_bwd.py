@@ -253,8 +253,8 @@ def test_wrappers_run_plain_versions_on_cpu_without_launching():
     t = _torch(_inputs(D=2, C=1, B=3, N=40))
     g = torch.ones(3, 40)
     x, w = torch.full((3, 40), 0.5), torch.ones(3)
-    k2 = tsd.fused_spatial_decoder_backward.launches
-    k3 = tsd.fused_bernoulli_recon_loss_kernel.launches
+    k2 = dict(tsd.fused_spatial_decoder_backward.launches)
+    k3 = dict(tsd.fused_bernoulli_recon_loss_kernel.launches)
     grads = tsd.fused_spatial_decoder_backward(**t, g=g)
     for o, r in zip(grads, tsd.spatial_decoder_bwd_plain(**t, g=g)):
         assert torch.equal(o, r)

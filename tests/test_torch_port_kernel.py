@@ -219,6 +219,17 @@ def test_nvcc_command_targets_hopper():
     assert "-shared" in cmd and "-O3" in cmd and "-std=c++17" in cmd
 
 
+def test_nvcc_command_defines_macros_into_a_library_of_their_own():
+    """A source built with macros defined (the profiled tensor-core K2)
+    gets its own library, beside the plain build."""
+    cmd = _build.nvcc_command("k.cu", "k.so", ("PVT_PROFILE_PHASES",))
+    assert "-DPVT_PROFILE_PHASES" in cmd
+    assert cmd[-3:] == ["-o", "k.so", "k.cu"]
+    plain = _build._target("spatial_decoder_bwd_tc")
+    profiled = _build._target("spatial_decoder_bwd_tc", ("PVT_PROFILE_PHASES",))
+    assert plain[0] == profiled[0] and plain[1] != profiled[1]
+
+
 def test_port_imports_no_jax():
     """Every port module, serving and chip_smoke import in a fresh process
     without pulling in JAX, flax, optax or the JAX package."""
