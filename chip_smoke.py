@@ -8,27 +8,30 @@ Phases, in order (any failure propagates and exits non-zero):
 
 Each phase that runs a decoder kernel runs under the port's
 ``BF16_MATMUL`` flag: set (the default, as the JAX package's), hidden
-products take bf16 operands and K2/K3 run on the tensor cores
-(``spatial_decoder_bwd_tc.cu``); clear, everything is f32 and K2/K3 run on
-the CUDA cores (``spatial_decoder_bwd.cu``).
+products take bf16 operands and every kernel runs on the tensor cores (K1
+``spatial_decoder_fwd_tc.cu``, K2/K3 ``spatial_decoder_bwd_tc.cu``);
+clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
+``spatial_decoder_bwd.cu``). Launches are counted by source.
 
 1. Device and build: prints the card's name and power limit
-   (``nvidia-smi``), then builds the three decoder sources from
+   (``nvidia-smi``), then builds the four decoder sources from
    ``pyroved_tpu_torch/csrc`` (one nvcc per source, started together) and
    prints the build time and the ptxas report.
 2. Kernels against plain, under each flag: the fused forward K1 against
    ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
-   activations, hidden width 128 and 256, ragged B and N and a few edge
-   shapes; then the backward K2 against ``spatial_decoder_bwd_plain``
-   (random cotangent) and the one-pass Bernoulli kernel K3 against
-   ``recon_loss_plain`` on the same matrix (K3 with C = 1), each launched
+   activations, hidden width 128 and 256, ragged B and N, 0 to 5 hidden
+   layers for every activation at both widths, one pixel of one sample and
+   the large grid, each launched twice to show bitwise-equal outputs; then
+   the backward K2 against ``spatial_decoder_bwd_plain`` (random
+   cotangent) and the one-pass Bernoulli kernel K3 against
+   ``recon_loss_plain`` on K2's matrix (K3 with C = 1), each launched
    twice to show bitwise-equal grads. With the flag clear, a model whose
    decoder widths (96, 160) pad to 256 against its sDecoderNet module.
-3. Serving at full width (default flag): the flagship iVAE (28x28, latent
-   2, rotation, hidden 128x128, tanh, Bernoulli) from seed 0 is exported
-   and served; it answers encode, reconstruct, posed decode, manifold2d, a
-   ragged request and ELBO scoring, each checked against a plain
-   computation.
+3. Serving at full width: the flagship iVAE (28x28, latent 2, rotation,
+   hidden 128x128, tanh, Bernoulli) from seed 0 is exported and served; it
+   answers encode, reconstruct, posed decode, manifold2d, a ragged request
+   and ELBO scoring, each checked against a plain computation (default
+   flag); then the same requests with the flag clear, counted only.
 4. Large grid: a posed decode of 64 latents on the 128x128 model.
 5. Training at full width, under each flag: the flagship from seed 0
    trains 3 epochs on 10,000 blob images at batch 200 through ``fit`` (K1
@@ -36,14 +39,18 @@ the CUDA cores (``spatial_decoder_bwd.cu``).
    path, f32) is held against it, first step's grads and per-epoch
    losses; then a few steps with ``one_pass_train=True`` (K3 once per
    step, no K1 or K2). Then the large grid (128x128, batch 64) trains 32
-   steps through ``fit`` under the default flag.
+   steps through ``fit`` under each flag.
 6. Times: first K2 and K3 under each flag at the flagship training shape
    and the large grid (B=64, N=16384), on the trained models' inputs,
-   against their plain versions and a second launch (bitwise); then each
-   kernel and its plain version at the shapes of the paths
-   (median of CUDA-event timings), beside the least time the card could
-   take for the same work and, for the tensor-core K2/K3, cuBLAS's bf16
-   time for their hidden-layer products; request latencies and the
+   against their plain versions and a second launch (bitwise); K1 under
+   each flag at the four shapes of the paths, against its plain version
+   and a second launch; then each kernel and its plain version at those
+   shapes (median of CUDA-event timings of single calls, and for K1 also of
+   20 calls back to back, which hides the wrapper's host work behind the
+   device's), beside the least time the card
+   could take for the same work and cuBLAS's time for the same hidden-layer
+   products as bare matrix products (bf16 for the tensor-core kernels, f32
+   with TF32 off for the f32 ones); request latencies and the
    padded-weight build (host clock); the training step and an epoch's
    steps/s for the kernel path and the module path, and a profiler
    breakdown of the step, under each flag; the large grid's step.
@@ -70,7 +77,8 @@ from pyroved_tpu_torch.ops import _build
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
 from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, cuda_ms,
-                                             plain_versions, random_case)
+                                             cuda_ms_queued, plain_versions,
+                                             random_case)
 from pyroved_tpu_torch.trainers import SVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
 from pyroved_tpu_torch.utils.data import init_dataloader
@@ -79,8 +87,8 @@ K1 = sd.fused_spatial_decoder_forward
 K2 = sd.fused_spatial_decoder_backward
 K3 = sd.fused_bernoulli_recon_loss_kernel
 KERNELS = (K1, K2, K3)
-SOURCES = ("spatial_decoder_fwd", "spatial_decoder_bwd",
-           "spatial_decoder_bwd_tc")
+SOURCES = ("spatial_decoder_fwd", "spatial_decoder_fwd_tc",
+           "spatial_decoder_bwd", "spatial_decoder_bwd_tc")
 GRAD_NAMES = ("phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb", "wout",
               "bout")
 PER_SAMPLE = 4  # the first four grads are per sample, the rest summed
@@ -309,32 +317,59 @@ def host_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def phase_k1_vs_plain(dev):
-    """Phase 2: K1 against the plain version across the matrix, under the
-    current flag."""
-    atol, rel = (BF16_ATOL, BF16_OUT_REL) if sd.BF16_MATMUL else (ATOL, 0.0)
-    errs = [0.0]
-    rng = np.random.default_rng(0)
+def k1_cases():
+    """(D, C, act, H, B, N, L, n_layers) of K1's matrix: 51 cases over
+    dims, channels, activations and widths (N = 1000 is no multiple of 64
+    or 32), then 0 to 5 hidden layers for every activation at both widths
+    (H = 256 streams its weights), one pixel of one sample at H = 256, and
+    the large grid."""
     acts = sd.KERNEL_ACTS_WITH_APPROX
-    # (D, C, act, H, B, N, L, n_layers); N = 1000 is no multiple of 64
     cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
              for D in (1, 2) for C in (1, 3) for act in acts]
     cases += [(2, 4, "tanh", 128, 1, 1, 1, 1),      # one pixel, four channels
               (2, 2, "gelu", 256, 3, 63, 6, 3),     # one partial tile
               (1, 1, "softplus", 256, 5, 129, 4, 1)]
+    cases += [(2, 2, act, 128, 3, 150, 2, nl) for act in acts
+              for nl in (1, 3, 4, 5)]
+    cases += [(1, 1, act, 256, 2, 90, 3, 5) for act in acts]
+    cases += [(2, 1, "tanh", 128, 2, 70, 2, 0),     # no hidden layer
+              (1, 3, "gelu", 256, 1, 1, 2, 2),      # one pixel, streamed
+              (2, 1, "tanh", 128, 64, 16384, 2, 2)]  # the large grid
+    return cases
+
+
+def phase_k1_vs_plain(dev):
+    """Phase 2: K1 against the plain version across the matrix, under the
+    current flag, each case launched twice with bitwise-equal outputs."""
+    atol, rel = (BF16_ATOL, BF16_OUT_REL) if sd.BF16_MATMUL else (ATOL, 0.0)
+    errs = [0.0]
+    rng = np.random.default_rng(0)
     with all_cases("K1 vs plain") as case:
-        for i, (D, C, act, H, B, N, L, nl) in enumerate(cases):
+        for i, (D, C, act, H, B, N, L, nl) in enumerate(k1_cases()):
             sig = i % 2 == 0
             a = random_case(rng, dev, D, C, H, B, N, L, nl)
             out = K1(**a, act=act, sigmoid_out=sig)
+            again = K1(**a, act=act, sigmoid_out=sig)
             torch.cuda.synchronize()
             ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
             what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
                     f"B={B} N={N} L={L} layers={nl}")
             with case():
+                if not torch.equal(out, again):
+                    raise AssertionError(f"K1 {what}: two launches differ")
                 errs.append(check_close(f"K1 {what}", out, ref, atol, rel))
                 log(f"  K1 vs plain {what}: max abs err {errs[-1]:.3e} "
-                    f"(largest output {ref.abs().max().item():.2e})")
+                    f"(largest output {ref.abs().max().item():.2e}), "
+                    f"bitwise equal across launches")
+    if sd.BF16_MATMUL:  # a decoder the tensor-core kernel does not take
+        deep = sd.FWD_TC_MAX_LAYERS + 1
+        a = random_case(rng, dev, 2, 1, 128, 2, 70, 2, deep)
+        try:
+            K1(**a)
+        except ValueError as e:
+            log(f"  K1 with {deep} layers at H=128 raises: {e}")
+        else:
+            raise AssertionError(f"K1 took {deep} layers at H=128")
     return max(errs)
 
 
@@ -349,12 +384,13 @@ def phase_padded_model():
     z = torch.as_tensor(np.random.default_rng(1).normal(size=(256, 2)),
                         dtype=torch.float32)
     pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
-    before = K1.launches
+    source = sd.FWD_SOURCES[sd.BF16_MATMUL]
+    before = K1.launches[source]
     out = m.decode(z, **pose)
-    if K1.launches != before + 1:
+    if K1.launches[source] != before + 1:
         raise AssertionError("hidden (96, 160) decode did not launch K1")
     ref = module.decode(z, **pose)
-    if K1.launches != before + 1:
+    if K1.launches[source] != before + 1:
         raise AssertionError("the fused=False model launched K1")
     err = check_close("padded-width model decode", out, ref)
     log(f"  hidden (96, 160) -> H=256 model decode vs module: max abs err "
@@ -465,19 +501,27 @@ def phase_k2_k3_vs_plain(dev):
 
 
 def reset_counts():
-    K1.launches = 0
-    for k in (K2, K3):
+    for k in KERNELS:
         for source in k.launches:
             k.launches[source] = 0
 
 
 def counts():
-    """Launches of each kernel since the last reset: K2 and K3 are the f32
-    kernels, K2_bf16 and K3_bf16 the tensor-core ones."""
-    f32, tc = sd.BWD_SOURCES[False], sd.BWD_SOURCES[True]
-    return {"K1": K1.launches, "K2": K2.launches[f32],
-            "K2_bf16": K2.launches[tc], "K3": K3.launches[f32],
-            "K3_bf16": K3.launches[tc]}
+    """Launches of each kernel since the last reset: K1, K2 and K3 are the
+    f32 kernels, K1_bf16, K2_bf16 and K3_bf16 the tensor-core ones."""
+    out = {}
+    for name, k, sources in (("K1", K1, sd.FWD_SOURCES),
+                             ("K2", K2, sd.BWD_SOURCES),
+                             ("K3", K3, sd.BWD_SOURCES)):
+        out[name] = k.launches[sources[False]]
+        out[name + "_bf16"] = k.launches[sources[True]]
+    return out
+
+
+def only(launches, **expected):
+    """True when ``launches`` (from :func:`counts`) holds the ``expected``
+    counts and no other launch."""
+    return launches == {**dict.fromkeys(launches, 0), **expected}
 
 
 def first_step_grads(model, x, eps):
@@ -496,7 +540,7 @@ def phase_training(module_run=None):
     through fit, against the module path (f32; trained once, then passed
     back in as ``module_run``); then one-pass training."""
     on = sd.BF16_MATMUL
-    k2, k3 = ("K2_bf16", "K3_bf16") if on else ("K2", "K3")
+    k1, k2, k3 = ("K1_bf16", "K2_bf16", "K3_bf16") if on else ("K1", "K2", "K3")
     tag = "bf16" if on else "f32"
     grad_rel = BF16_MODULE_GRAD_REL if on else GRAD_RTOL
     loss_rtol = BF16_MODULE_LOSS_RTOL if on else LOSS_RTOL
@@ -531,9 +575,8 @@ def phase_training(module_run=None):
     steps = 3 * 50
     log(f"  {tag} fit(epochs=3, batch_size=200) on 10,000 images: "
         f"{fit_s:.2f} s, launches {train_counts}")
-    if train_counts != {**dict.fromkeys(train_counts, 0), "K1": steps,
-                        k2: steps}:
-        raise AssertionError(f"expected K1 and {k2} once per step: "
+    if not only(train_counts, **{k1: steps, k2: steps}):
+        raise AssertionError(f"expected {k1} and {k2} once per step: "
                              f"{train_counts}")
     hist = trainer.loss_history["training_loss"]
     if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
@@ -578,8 +621,7 @@ def phase_training(module_run=None):
     log(f"  {tag} one_pass_train: 10 steps, loss {one_loss:.4f}, launches "
         f"{one_counts}; first step vs module path: loss {loss_1:.4f}, grads "
         f"max abs err {one_err:.3e}")
-    if (one_counts != {**dict.fromkeys(one_counts, 0), k3: 10}
-            or not np.isfinite(one_loss)):
+    if not only(one_counts, **{k3: 10}) or not np.isfinite(one_loss):
         raise AssertionError(f"one-pass training: {one_counts}, {one_loss}")
 
     # times: the step (host clock) and an epoch's steps/s
@@ -610,9 +652,12 @@ def phase_training(module_run=None):
 
 
 def phase_large_grid_training():
-    """Phase 5, large grid, default flag: the 128x128 iVAE (bench.py's
-    large-grid model) trains 32 steps at batch 64 through fit; its step
-    time and the device's share of it."""
+    """Phase 5, large grid, under the current flag: the 128x128 iVAE
+    (bench.py's large-grid model) trains 32 steps at batch 64 through fit;
+    under the default flag, its step time and the device's share of it."""
+    on = sd.BF16_MATMUL
+    k1, k2 = ("K1_bf16", "K2_bf16") if on else ("K1", "K2")
+    tag = "bf16" if on else "f32"
     X = blobs(1024, (128, 128), seed=4)
     model = iVAE((128, 128), latent_dim=2, invariances=["r"], seed=0)
     if not model._fused:
@@ -624,13 +669,15 @@ def phase_large_grid_training():
     fit_s = time.perf_counter() - t0
     launches = counts()  # the large-grid training path ends here
     hist = trainer.loss_history["training_loss"]
-    log(f"  large grid fit(epochs=2, batch_size=64) on 1,024 images: "
+    log(f"  {tag} large grid fit(epochs=2, batch_size=64) on 1,024 images: "
         f"{fit_s:.2f} s, launches {launches}, losses {hist}")
-    if launches != {**dict.fromkeys(launches, 0), "K1": 32, "K2_bf16": 32}:
-        raise AssertionError(f"expected K1 and K2_bf16 once per step: "
+    if not only(launches, **{k1: 32, k2: 32}):
+        raise AssertionError(f"expected {k1} and {k2} once per step: "
                              f"{launches}")
     if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
         raise AssertionError(f"loss is not finite and falling: {hist}")
+    if not on:
+        return {"fit_s": fit_s, "launches": launches, "loss_history": hist}
     xb = torch.as_tensor(X[:64], device="cuda")
     tr = SVItrainer(model)
     w = torch.ones(64, device="cuda")
@@ -757,17 +804,31 @@ def main() -> int:
         "loss_fn_200": score,
         "large_grid_decode_64": lambda: big.decode(z_big, **pose),
     }
-    outputs, launches = {}, {}
-    reset_counts()  # the serving path starts here
-    for name, request in requests.items():
-        before = K1.launches
-        outputs[name] = request()
-        launches[name] = K1.launches - before
-    torch.cuda.synchronize()
-    serve_counts = counts()  # the serving path ends here
+    def serve():
+        """Every request once under the current flag: the outputs, K1's
+        launches per request and the path's counts."""
+        outputs, per_request = {}, {}
+        reset_counts()  # the serving path starts here
+        for name, request in requests.items():
+            before = sum(K1.launches.values())
+            outputs[name] = request()
+            per_request[name] = sum(K1.launches.values()) - before
+        torch.cuda.synchronize()
+        return outputs, per_request, counts()  # the serving path ends here
+
+    outputs, launches, serve_counts = serve()
     log(f"  launches on the serving path: {serve_counts} {launches}")
-    if serve_counts["K1"] == 0 or launches["posed_decode_1024"] == 0:
-        raise AssertionError("the serving path never launched K1")
+    if (not only(serve_counts, K1_bf16=serve_counts["K1_bf16"])
+            or launches["posed_decode_1024"] == 0):
+        raise AssertionError("the serving path did not launch the "
+                             "tensor-core K1 alone")
+    with bf16_matmul(False):
+        _, launches32, serve_counts32 = serve()
+    log(f"  f32 launches on the serving path: {serve_counts32} {launches32}")
+    if (not only(serve_counts32, K1=serve_counts32["K1"])
+            or launches32 != launches):
+        raise AssertionError("with the flag clear the serving path did not "
+                             "launch the f32 K1 alone")
 
     # outputs: shapes, finiteness, agreement with plain computations (bf16
     # like the kernel), the ELBO with the module path (f32)
@@ -809,34 +870,73 @@ def main() -> int:
         train32 = phase_training()
     train = phase_training(module_run=train32)
     large = phase_large_grid_training()
+    with bf16_matmul(False):
+        large32 = phase_large_grid_training()
 
     # -- 6. times ----------------------------------------------------------
     log("phase 6: times")
-    k1_shapes = []
+    k1_rows = {False: [], True: []}
     with torch.no_grad():
         for name, m, z in (("flagship", model, z_req),
                            ("flagship", model, z_req[:200]),
                            ("flagship", model, z_rag[2048:]),
                            ("large grid", big, z_big)):
             a = kernel_args(m.decoder_net, m.grid, z.cuda(), **pose)
-            label = f"{name} B={a['z'].shape[0]} N={a['grid'].shape[0]}"
+            B, N = a["z"].shape[0], a["grid"].shape[0]
+            H, nl = a["Wc"].shape[1], a["hw"].shape[0]
+            label = f"{name} B={B} N={N}"
             flops, nbytes = work(a)
-            k_ms = cuda_ms(lambda: K1(**a))
-            p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a), reps=20)
-            b32, b16, by, _ = bounds(flops, nbytes, peaks)
-            k1_shapes.append({"shape": label, "flag": "bf16", "ms": k_ms,
-                              "plain_ms": p_ms, "bound_ms": b32,
-                              "bound_ms_bf16": b16, "bound_by": by,
-                              "flops": flops, "bytes": nbytes,
-                              "tflops": flops / k_ms / 1e9})
-            log(f"  K1 {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
-                f"{flops / k_ms / 1e9:.2f} TFLOP/s")
+            b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
+            h32 = torch.randn(B * N, H, device="cuda")
+            w32 = a["hw"]
+            lib = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                hh, ww = h32.to(dtype), w32.to(dtype)
+                # h_l W_l of every layer as bare products, in and out dtype
+                lib[dtype] = cuda_ms(lambda: [torch.matmul(hh, ww[i])
+                                              for i in range(nl)], reps=20)
+                del hh, ww
+            del h32
+            for on in (False, True):
+                tag = "bf16" if on else "f32"
+                with bf16_matmul(on):
+                    out, again = K1(**a), K1(**a)
+                    ref = sd.spatial_decoder_plain(**a)
+                    torch.cuda.synchronize()
+                    what = f"K1 {tag} {label}"
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{what}: two launches differ")
+                    err = check_close(what, out, ref,
+                                      *((BF16_ATOL, BF16_OUT_REL) if on
+                                        else (ATOL, 0.0)))
+                    del out, again, ref
+                    k_ms = cuda_ms(lambda: K1(**a))
+                    q_ms = cuda_ms_queued(lambda: K1(**a))
+                    p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a),
+                                   reps=20)
+                lib_ms = lib[torch.bfloat16 if on else torch.float32]
+                k1_rows[on].append({
+                    "shape": label, "flag": tag, "ms": k_ms,
+                    "queued_ms": q_ms, "plain_ms": p_ms,
+                    "max_abs_err": err, "bound_ms": b16 if on else b32,
+                    "bound_by": by16 if on else by32, "bound_ms_f32": b32,
+                    "bound_ms_bf16": b16, "library_ms": lib_ms,
+                    "flops": flops, "bytes": nbytes,
+                    "tflops": flops / k_ms / 1e9})
+                log(f"  {what}: kernel {k_ms:.4f} ms (back to back "
+                    f"{q_ms:.4f} ms), plain {p_ms:.4f} ms, "
+                    f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
+                    f"cuBLAS {tag} hidden products {lib_ms:.4f} ms, "
+                    f"{flops / k_ms / 1e9:.2f} TFLOP/s, max abs err vs plain "
+                    f"{err:.3e}, bitwise equal across launches")
+            faster = k1_rows[True][-1]["ms"] < k1_rows[False][-1]["ms"]
+            log(f"  K1 {label}: tensor-core kernel faster than the f32 one: "
+                f"{faster}")
     # K2 and K3, f32 and tensor-core, at the flagship training shape and
     # the large grid: held against their plain versions and a second
-    # launch, then timed; cuBLAS bf16 for their hidden products as a
-    # yardstick. A per-sample grad sums up to 16,384 pixels here, so every
-    # grad is held to its tensor's largest entry.
+    # launch, then timed; cuBLAS for their hidden products (bf16, and f32
+    # with TF32 off) as a yardstick. A per-sample grad sums up to 16,384
+    # pixels here, so every grad is held to its tensor's largest entry.
     rows = {(k, on): [] for k in ("K2", "K3") for on in (False, True)}
     gen = torch.Generator(device="cuda").manual_seed(5)
     xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
@@ -853,18 +953,20 @@ def main() -> int:
                  a["Wc"], a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"],
                  a["bout"])
         req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
-        h16 = torch.randn(B * N, H, generator=gen, device="cuda").bfloat16()
-        d16 = torch.randn(B * N, H, generator=gen, device="cuda").bfloat16()
-        w16 = a["hw"].bfloat16()
+        lib = {}
+        for on, dtype in ((False, torch.float32), (True, torch.bfloat16)):
+            hm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
+            dm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
+            wm = a["hw"].to(dtype)
 
-        def cublas():  # h W, h^T d and d W^T of every layer, bf16 in and out
-            for i in range(nl):
-                torch.matmul(h16, w16[i])
-                torch.matmul(h16.T, d16)
-                torch.matmul(d16, w16[i].T)
+            def cublas():  # h W, h^T d and d W^T of every layer, in and out
+                for i in range(nl):  # the dtype
+                    torch.matmul(hm, wm[i])
+                    torch.matmul(hm.T, dm)
+                    torch.matmul(dm, wm[i].T)
 
-        lib_ms = cuda_ms(cublas, reps=20)
-        del h16, d16
+            lib[on] = cuda_ms(cublas, reps=20)
+            del hm, dm
 
         def autograd_plain():
             out = sd.spatial_decoder_plain(**req)
@@ -911,7 +1013,7 @@ def main() -> int:
                            "bound_ms": b16 if on else b32,
                            "bound_by": by16 if on else by32,
                            "bound_ms_f32": b32, "bound_ms_bf16": b16,
-                           "library_ms": lib_ms if on else None,
+                           "library_ms": lib[on],
                            "flops": flops, "bytes": nbytes,
                            "tflops": flops / k_ms / 1e9,
                            "workspace_bytes": ws_bytes, "blocks": blocks}
@@ -925,7 +1027,7 @@ def main() -> int:
                            f", autograd of the plain forward "
                            f"{row['autograd_plain_ms']:.4f} ms")
                         + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms"
-                        f", cuBLAS bf16 hidden products {lib_ms:.4f} ms, "
+                        f", cuBLAS {tag} hidden products {lib[on]:.4f} ms, "
                         f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, "
                         f"workspace {ws_bytes / 2 ** 20:.1f} MiB")
     request_ms = {name: host_ms(request, reps=30)
@@ -946,12 +1048,14 @@ def main() -> int:
 
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
-        return {"serving": serve_counts[key],
+        return {"serving_bf16": serve_counts[key],
+                "serving_f32": serve_counts32[key],
                 "training_bf16": train["train_launches"][key],
                 "one_pass_training_bf16": train["one_pass_launches"][key],
                 "training_f32": train32["train_launches"][key],
                 "one_pass_training_f32": train32["one_pass_launches"][key],
-                "large_grid_training": large["launches"][key]}
+                "large_grid_training_bf16": large["launches"][key],
+                "large_grid_training_f32": large32["launches"][key]}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -962,8 +1066,10 @@ def main() -> int:
                 "bound_ms": head["bound_ms"],
                 "bound_ms_bf16": head["bound_ms_bf16"],
                 "bound_by": head["bound_by"],
-                "library_ms": head.get("library_ms"), "shapes": shapes,
+                "library_ms": head["library_ms"], "shapes": shapes,
                 **more}
+
+    rows.update({("K1", on): k1_rows[on] for on in (False, True)})
 
     def shape_errs(kname, on):
         """Phase 6's errors of one kernel at the paths' shapes."""
@@ -971,13 +1077,17 @@ def main() -> int:
 
     csrc = "pyroved_tpu_torch/csrc/"
     bwd, tc = csrc + "spatial_decoder_bwd.cu", csrc + "spatial_decoder_bwd_tc.cu"
-    k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:531",
-                    "pyroved_tpu/ops/spatial_decoder.py:1209")
+    k1_at, k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:422",
+                           "pyroved_tpu/ops/spatial_decoder.py:531",
+                           "pyroved_tpu/ops/spatial_decoder.py:1209")
     result = {"kernels": [
-        entry("spatial_decoder_fwd", csrc + "spatial_decoder_fwd.cu",
-              "pyroved_tpu/ops/spatial_decoder.py:422", "K1",
-              max(errs[False]["K1"], errs[True]["K1"], *serve_errs),
-              k1_shapes, launches_per_request=launches,
+        entry("spatial_decoder_fwd", csrc + "spatial_decoder_fwd.cu", k1_at,
+              "K1", max(errs[False]["K1"], *shape_errs("K1", 0)),
+              rows["K1", False], launches_per_request=launches32),
+        entry("spatial_decoder_fwd_tc", csrc + "spatial_decoder_fwd_tc.cu",
+              k1_at, "K1_bf16",
+              max(errs[True]["K1"], *serve_errs, *shape_errs("K1", 1)),
+              rows["K1", True], launches_per_request=launches,
               request_ms=request_ms, weights_ms=weights_ms),
         entry("spatial_decoder_bwd", bwd, k2_at, "K2",
               max(errs[False]["K2"], train32["max_err"], *shape_errs("K2", 0)),
@@ -992,7 +1102,8 @@ def main() -> int:
     ], "training": {tag: {k: t[k] for k in (
         "fit_s", "loss_history", "module_loss_history", "times")}
         for tag, t in (("bf16", train), ("f32", train32))},
-        "large_grid_training": large, "step_breakdown": breakdown}
+        "large_grid_training": {"bf16": large, "f32": large32},
+        "step_breakdown": breakdown}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,16 +5,19 @@ a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. Libraries go into
 ``pyroved_tpu_torch/_build/``, named by a hash of the source and the
 command, and are built on first use in a process; a later process with the
-same source reuses the file. A source may also be built with preprocessor
-macros defined (``defines``), into a library of its own.
+same source reuses the file. The hash covers every ``csrc/*.cuh`` header the
+source includes (``#include "..."``, followed into headers), so an edit to
+a shared header never loads a stale library. A source may also be built
+with preprocessor macros defined (``defines``), into a library of its own.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -46,12 +49,28 @@ def nvcc_command(source: str, output: str,
             "-o", output, source]
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _texts(path: str, seen: List[str]) -> List[bytes]:
+    """The text of ``path`` and of every header in ``CSRC`` it includes
+    with quotes, each once, in the order first reached."""
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    texts = [text]
+    for inc in _INCLUDE.findall(text):
+        header = os.path.join(CSRC, inc.decode())
+        if header not in seen and os.path.isfile(header):
+            texts += _texts(header, seen)
+    return texts
+
+
 def _target(name: str, defines: Tuple[str, ...] = ()) -> Tuple[str, str]:
     source = os.path.join(CSRC, name + ".cu")
-    with open(source, "rb") as f:
-        text = f.read()
     cmd = " ".join(nvcc_command(source, "OUT", defines)).encode()
-    digest = hashlib.sha256(text + b"\0" + cmd).hexdigest()[:16]
+    digest = hashlib.sha256(
+        b"\0".join(_texts(source, []) + [cmd])).hexdigest()[:16]
     return source, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
@@ -65,21 +84,23 @@ def build_log(name: str, defines: Sequence[str] = ()) -> str:
         return ""
 
 
-def load_all(names: List[str],
+def load_all(names: List[Union[str, Tuple[str, Sequence[str]]]],
              defines: Sequence[str] = ()) -> List[ctypes.CDLL]:
     """Build every ``csrc/<name>.cu`` that needs it (with the macros of
     ``defines``), one ``nvcc`` each, all started together, and return the
-    loaded libraries in order."""
-    defines = tuple(defines)
+    loaded libraries in order. An entry of ``names`` may also be a
+    ``(name, defines)`` pair with macros of its own."""
+    items = [(n, tuple(defines)) if isinstance(n, str) else (n[0], tuple(n[1]))
+             for n in names]
     with _lock:
         builds = []
-        for name in names:
-            source, lib = _target(name, defines)
-            if (name, defines) in _loaded or os.path.exists(lib):
+        for name, defs in items:
+            source, lib = _target(name, defs)
+            if (name, defs) in _loaded or os.path.exists(lib):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(nvcc_command(source, tmp, defines),
+            proc = subprocess.Popen(nvcc_command(source, tmp, defs),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             builds.append((source, lib, tmp, proc))
@@ -95,10 +116,10 @@ def load_all(names: List[str],
             os.replace(tmp, lib)
         if failures:
             raise RuntimeError("\n".join(failures))
-        for name in names:
-            if (name, defines) not in _loaded:
-                _loaded[name, defines] = ctypes.CDLL(_target(name, defines)[1])
-        return [_loaded[name, defines] for name in names]
+        for item in items:
+            if item not in _loaded:
+                _loaded[item] = ctypes.CDLL(_target(*item)[1])
+        return [_loaded[item] for item in items]
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:

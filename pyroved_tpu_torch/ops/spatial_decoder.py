@@ -21,8 +21,8 @@ Three kernels, each with a plain PyTorch version and a wrapper that, on a
 CUDA tensor, launches the kernel or raises, and on a CPU tensor calls the
 plain version:
 
-* K1, :func:`fused_spatial_decoder_forward` (``csrc/spatial_decoder_fwd.cu``),
-  plain :func:`spatial_decoder_plain`;
+* K1, :func:`fused_spatial_decoder_forward`, plain
+  :func:`spatial_decoder_plain`: the decoded values;
 * K2, :func:`fused_spatial_decoder_backward`, plain
   :func:`spatial_decoder_bwd_plain`: the grads of every input but the grid
   from the output cotangent;
@@ -32,11 +32,12 @@ plain version:
 
 :data:`BF16_MATMUL` mirrors the JAX package's flag of the same name and
 meaning: set (the default, as there), the operands of every hidden-layer
-product round to bf16 and the products sum in f32, in K1 and in the plain
-versions as in ``_mxu_dot``; K2 and K3 then run on the tensor cores
-(``csrc/spatial_decoder_bwd_tc.cu``). Clear, everything is f32 and K2/K3
-run on the CUDA cores (``csrc/spatial_decoder_bwd.cu``). The flag is read
-at each call.
+product round to bf16 and the products sum in f32, in the kernels and in
+the plain versions as in ``_mxu_dot``, and the kernels run on the tensor
+cores (``csrc/spatial_decoder_fwd_tc.cu`` for K1,
+``csrc/spatial_decoder_bwd_tc.cu`` for K2/K3). Clear, everything is f32 and
+the kernels run on the CUDA cores (``csrc/spatial_decoder_fwd.cu``,
+``csrc/spatial_decoder_bwd.cu``). The flag is read at each call.
 
 :class:`FusedSpatialDecoder` (K1 forward, K2 backward) and
 :class:`FusedBernoulliReconLoss` (K3) take the place of the JAX package's
@@ -74,6 +75,12 @@ KERNEL_WIDTHS = (128, 256)
 #: backward dwout = h_L^T dl, dW_l = h_l^T d_pre and dh = d_pre W_l^T.
 #: Heads, biases, activations and the coordinate layer stay in f32.
 BF16_MATMUL = True
+
+#: Most hidden layers the tensor-core K1 takes at H = 128, where every
+#: layer's bf16 weights stay in a block's shared memory beside one tile
+#: (``csrc/spatial_decoder_fwd_tc.cu``); at H = 256 it streams them and
+#: takes any number.
+FWD_TC_MAX_LAYERS = 6
 
 #: Activation buffers of one pixel tile that fit in a block's shared memory
 #: beside the backward's weight chunk: h_0 .. h_L, plus act'(pre) of each
@@ -287,21 +294,30 @@ def recon_loss_plain(grid, phi, dx, sc, z, x, wgt, Wc, bc, Wz, hw, hb, wout,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_fn = None
+_fwd_fns = {}
 _bwd_fns = {}
 
+#: K1's sources: the tensor-core kernel under BF16_MATMUL, else f32.
+FWD_SOURCES = {True: "spatial_decoder_fwd_tc", False: "spatial_decoder_fwd"}
 #: K2/K3's sources: the tensor-core kernel under BF16_MATMUL, else f32.
 BWD_SOURCES = {True: "spatial_decoder_bwd_tc", False: "spatial_decoder_bwd"}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        f = _build.load("spatial_decoder_fwd").pvt_sdec_fwd
-        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        _fn = f
-    return _fn
+def _bind_fwd(lib, bf16: bool):
+    """K1's launch in a library built from its source for the flag value
+    ``bf16``; both sources take the same arguments."""
+    f = getattr(lib, "pvt_sdec_fwd_tc" if bf16 else "pvt_sdec_fwd")
+    f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _fwd_kernel(bf16: bool):
+    """K1's launch from its source for the flag value ``bf16``
+    (:data:`FWD_SOURCES`)."""
+    if bf16 not in _fwd_fns:
+        _fwd_fns[bf16] = _bind_fwd(_build.load(FWD_SOURCES[bf16]), bf16)
+    return _fwd_fns[bf16]
 
 
 def _bind_bwd(lib, bf16: bool):
@@ -376,9 +392,14 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
 
     On CPU tensors this is the plain version. On CUDA tensors it launches
     the kernel on the current stream, or raises when the inputs do not fit
-    it (see :func:`_kernel_dims`). It is forward only: for gradients use
-    :class:`FusedSpatialDecoder`. ``fused_spatial_decoder_forward.launches``
-    counts kernel launches."""
+    it (see :func:`_kernel_dims`; the tensor-core kernel takes at most
+    :data:`FWD_TC_MAX_LAYERS` hidden layers at width 128): the tensor-core
+    kernel under :data:`BF16_MATMUL`, else the f32 one. The output is
+    deterministic: the
+    same inputs on the same card give bitwise-equal values. It is forward
+    only: for gradients use :class:`FusedSpatialDecoder`.
+    ``fused_spatial_decoder_forward.launches`` counts kernel launches by
+    source (:data:`FWD_SOURCES`)."""
     if grid.device.type == "cpu":
         return spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                                      wout, bout, act, sigmoid_out)
@@ -390,12 +411,17 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
         raise RuntimeError("the spatial-decoder forward kernel records no "
                            "gradient: use FusedSpatialDecoder, or call it "
                            "under torch.no_grad()")
+    bf16 = BF16_MATMUL
+    if bf16 and H == 128 and nl > FWD_TC_MAX_LAYERS:
+        raise ValueError(f"the tensor-core forward kernel takes at most "
+                         f"{FWD_TC_MAX_LAYERS} hidden layers at width 128, "
+                         f"got {nl}")
     dev = grid.device
     out = torch.empty((B, N, C) if C > 1 else (B, N), device=dev,
                       dtype=torch.float32)
     if B == 0 or N == 0:  # nothing to launch
         return out
-    fn = _kernel()
+    fn = _fwd_kernel(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(grid.data_ptr(), phi.data_ptr(), dx.data_ptr(),
@@ -403,15 +429,15 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                  Wz.data_ptr(), hw.data_ptr(), hb.data_ptr(),
                  wout.data_ptr(), bout.data_ptr(), out.data_ptr(),
                  B, N, D, L, H, nl, C, _ACT_CODE[act], int(bool(sigmoid_out)),
-                 int(BF16_MATMUL), stream)
+                 int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"spatial-decoder kernel launch failed: CUDA error "
                            f"{err}")
-    fused_spatial_decoder_forward.launches += 1
+    fused_spatial_decoder_forward.launches[FWD_SOURCES[bf16]] += 1
     return out
 
 
-fused_spatial_decoder_forward.launches = 0
+fused_spatial_decoder_forward.launches = dict.fromkeys(FWD_SOURCES.values(), 0)
 
 
 def bwd_workspace(B: int, N: int, D: int, L: int, H: int, nl: int, C: int,

@@ -1,5 +1,6 @@
-"""What the port's measurement scripts share (``chip_smoke.py`` and
-:mod:`pyroved_tpu_torch.tools.profile_bwd_tc`): the flag and the plain
+"""What the port's measurement scripts share (``chip_smoke.py``,
+:mod:`pyroved_tpu_torch.tools.profile_bwd_tc` and
+:mod:`pyroved_tpu_torch.tools.profile_fwd_tc`): the flag and the plain
 versions swapped in for a block, the training data, random kernel inputs
 and CUDA-event timing."""
 import contextlib
@@ -64,6 +65,25 @@ def cuda_ms(fn, reps=25, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_queued(fn, n=20, reps=5, warmup=3):
+    """Median over ``reps`` of the CUDA-event time of ``n`` back-to-back
+    calls, over ``n``: the host queues launches ahead of the device, so a
+    kernel longer than its wrapper's host work is timed alone."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 

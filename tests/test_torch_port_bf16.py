@@ -3,8 +3,8 @@ plain versions of K1, K2 and K3 and one flagship-shaped training step
 against the JAX package's Pallas kernels in interpret mode with its own
 ``BF16_MATMUL`` set, the bf16 plain forward against the f32 one within the
 reference's own band, and the wrappers' choice of kernel by the flag. The
-tensor-core kernel itself is held against the plain versions on the card by
-``chip_smoke.py``."""
+tensor-core kernels themselves are held against the plain versions on the
+card by ``chip_smoke.py``."""
 import numpy as np
 import pytest
 import torch
@@ -34,6 +34,16 @@ GRAD_REL, GRAD_ATOL, MEAN_REL = 2.5e-3, 1e-4, 1.5e-3
 # Decoded values in (0, 1) (sigmoid head) or logits of size ~1: a flipped
 # hidden value moves the head by |wout| 2^-8 |h| (measured 1.3e-5 here).
 OUT_ATOL = 2e-4
+# Deeper or wider decoders than the flagship's two layers of 128 collect
+# more flips on the way to the head, and a flip low in the stack moves
+# every value above it: over K1_CASES below with seeds 7-9, up to 7.0e-4
+# (five layers at H = 256), at most 1% of the values beyond OUT_ATOL, mean
+# error at most 4.6e-6 (measured). With the port's flag clear 28-76% of the
+# values lie beyond OUT_ATOL and the mean error is at least 1.6e-4. Those
+# cases are held to OUT_ATOL on all but DEEP_FRAC of the values, DEEP_ATOL
+# on every value and OUT_MEAN on the mean; the flagship-depth cases keep
+# OUT_ATOL on every value.
+DEEP_ATOL, DEEP_FRAC, OUT_MEAN = 1.5e-3, 0.02, 2e-5
 # Losses sum 1,500 (K3) or 784 x 4 (training step) pixel terms; the
 # flips cancel in the sum (measured 1.7e-7).
 LOSS_RTOL = 1e-6
@@ -124,22 +134,42 @@ def test_k3_plain_matches_jax_train_call_bf16(bf16_both, monkeypatch, act, D,
     assert _grad_misses(ours()[1], ref)
 
 
+# (act, D, C, N, hidden): the shapes the tensor-core K1's branches take.
+# H = 128 tiles 64 pixels and H = 256 tiles 32, so N = 80, 144, 48 and 112
+# end on a 16-pixel tile and N = 16 is one; (96, 160) and (200,) * 5 pad
+# to H = 256, where the kernel streams its weights; 3 and 5
+# layers; C = 4; the Pade tanh.
+K1_CASES = [("tanh", 2, 1, 77, (128, 128)), ("softplus", 1, 3, 77, (128, 128)),
+            ("gelu", 2, 3, 77, (128, 128)),
+            ("tanh_approx", 2, 4, 80, (128, 128, 128)),
+            ("lrelu", 2, 1, 144, (128,) * 5),
+            ("relu", 1, 2, 48, (96, 160)),
+            ("gelu", 1, 1, 112, (256, 256, 256)),
+            ("softplus", 2, 4, 16, (200,) * 5),
+            ("tanh", 2, 3, 77, (256,) * 5)]
+
+
 # gelu: JAX's K1 takes erf from a polynomial (error <= 1.5e-7), far inside
 # OUT_ATOL
-@pytest.mark.parametrize("act,D,C", [("tanh", 2, 1), ("softplus", 1, 3),
-                                     ("gelu", 2, 3)])
-def test_k1_plain_matches_jax_fwd_bf16(bf16_both, monkeypatch, act, D, C):
-    a = _inputs(D=D, C=C, N=77, seed=7)
+@pytest.mark.parametrize("act,D,C,N,hidden", K1_CASES)
+def test_k1_plain_matches_jax_fwd_bf16(bf16_both, monkeypatch, act, D, C, N,
+                                       hidden):
+    a = _inputs(D=D, C=C, N=N, hidden=hidden, seed=7)
     ref = np.asarray(sd._fwd(**{k: jnp.asarray(v) for k, v in a.items()},
                              act=act))
+    deep = tuple(hidden) != (128, 128)
 
-    def err():
+    def close():
         out = tsd.fused_spatial_decoder_forward(**_torch(a), act=act)
-        return np.abs(out.numpy() - ref).max()
+        err = np.abs(out.numpy() - ref)
+        if not deep:
+            return err.max() <= OUT_ATOL
+        return (err.max() <= DEEP_ATOL and err.mean() <= OUT_MEAN
+                and (err > OUT_ATOL).mean() <= DEEP_FRAC)
 
-    assert err() <= OUT_ATOL
+    assert close()
     _f32_port(monkeypatch)
-    assert err() > OUT_ATOL
+    assert not close()
 
 
 def test_flagship_training_step_matches_jax_fused_bf16(bf16_both,
@@ -203,21 +233,25 @@ def test_wrappers_pick_the_kernel_by_the_flag(monkeypatch):
     x, w = torch.full((3, 40), 0.5), torch.ones(3)
     args = (t["grid"], *(t[k] for k in GRADS[:4]), x, w,
             *(t[k] for k in GRADS[4:]))
+    k1 = tsd.fused_spatial_decoder_forward
     k2, k3 = tsd.fused_spatial_decoder_backward, tsd.fused_bernoulli_recon_loss_kernel
-    before = (dict(k2.launches), dict(k3.launches))
+    before = (dict(k1.launches), dict(k2.launches), dict(k3.launches))
     plain = {}
     for flag in (True, False):
         monkeypatch.setattr(tsd, "BF16_MATMUL", flag)
         plain[flag] = (tsd.spatial_decoder_bwd_plain(**t, g=g),
-                       tsd.recon_loss_plain(*args))
+                       tsd.recon_loss_plain(*args),
+                       tsd.spatial_decoder_plain(**t))
         for o, r in zip(k2(**t, g=g), plain[flag][0]):
             assert torch.equal(o, r)
         loss, grads = k3(*args)
         assert torch.equal(loss, plain[flag][1][0])
         for o, r in zip(grads, plain[flag][1][1]):
             assert torch.equal(o, r)
+        assert torch.equal(k1(**t), plain[flag][2])
     assert not torch.equal(plain[True][0][7], plain[False][0][7])  # dhw
-    assert (k2.launches, k3.launches) == before
+    assert not torch.equal(plain[True][2], plain[False][2])  # decoded
+    assert (k1.launches, k2.launches, k3.launches) == before
 
     loaded = []
 
@@ -229,11 +263,17 @@ def test_wrappers_pick_the_kernel_by_the_flag(monkeypatch):
 
     monkeypatch.setattr(tsd._build, "load", lambda name: loaded.append(name)
                         or Lib())
+    monkeypatch.setattr(tsd, "_fwd_fns", {})
     monkeypatch.setattr(tsd, "_bwd_fns", {})
-    tsd._bwd_kernel(True)
-    tsd._bwd_kernel(False)
-    assert loaded == ["spatial_decoder_bwd_tc", "pvt_sdec_bwd_tc_plan",
-                      "pvt_sdec_bwd_tc", "spatial_decoder_bwd",
+    for flag in (True, False):
+        tsd._fwd_kernel(flag)
+        tsd._bwd_kernel(flag)
+    assert loaded == ["spatial_decoder_fwd_tc", "pvt_sdec_fwd_tc",
+                      "spatial_decoder_bwd_tc", "pvt_sdec_bwd_tc_plan",
+                      "pvt_sdec_bwd_tc", "spatial_decoder_fwd",
+                      "pvt_sdec_fwd", "spatial_decoder_bwd",
                       "pvt_sdec_bwd_plan", "pvt_sdec_bwd"]
+    assert tsd.FWD_SOURCES == {True: "spatial_decoder_fwd_tc",
+                               False: "spatial_decoder_fwd"}
     assert tsd.BWD_SOURCES == {True: "spatial_decoder_bwd_tc",
                                False: "spatial_decoder_bwd"}

@@ -153,7 +153,9 @@ def test_padded_weights_match_jax_and_are_exact():
 
 def test_wrapper_runs_plain_version_on_cpu_without_launching():
     a = {k: torch.from_numpy(v) for k, v in _inputs(D=2, C=1, N=40).items()}
-    before = tsd.fused_spatial_decoder_forward.launches
+    launches = tsd.fused_spatial_decoder_forward.launches
+    assert set(launches) == set(tsd.FWD_SOURCES.values())
+    before = dict(launches)
     out = tsd.fused_spatial_decoder_forward(**a, act="gelu")
     ref = tsd.spatial_decoder_plain(**a, act="gelu")
     assert tsd.fused_spatial_decoder_forward.launches == before
@@ -228,6 +230,38 @@ def test_nvcc_command_defines_macros_into_a_library_of_their_own():
     plain = _build._target("spatial_decoder_bwd_tc")
     profiled = _build._target("spatial_decoder_bwd_tc", ("PVT_PROFILE_PHASES",))
     assert plain[0] == profiled[0] and plain[1] != profiled[1]
+
+
+def test_build_name_follows_the_included_headers(monkeypatch, tmp_path):
+    """A library's name hashes its source and every header in ``CSRC`` it
+    includes, followed into headers: editing a shared header renames the
+    library, so no stale build is loaded; a header it does not include
+    does not."""
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n'
+                                   "int k() { return A; }\n")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n'
+                                    "constexpr int A = B;\n")
+    (tmp_path / "b.cuh").write_text("constexpr int B = 1;\n")
+    (tmp_path / "c.cuh").write_text("constexpr int C = 1;\n")
+    names = [_build._target("k")[1]]
+    (tmp_path / "c.cuh").write_text("constexpr int C = 2;\n")
+    names.append(_build._target("k")[1])
+    (tmp_path / "b.cuh").write_text("constexpr int B = 2;\n")
+    names.append(_build._target("k")[1])
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n'
+                                    "constexpr int A = B + 1;\n")
+    names.append(_build._target("k")[1])
+    assert names[0] == names[1]
+    assert len(set(names[1:])) == 3
+    assert all(os.path.basename(n).startswith("k-") for n in names)
+    # the port's own sources: both tensor-core kernels include the header
+    for name in ("spatial_decoder_fwd_tc", "spatial_decoder_bwd_tc"):
+        monkeypatch.setattr(_build, "CSRC", _build.__dict__["_PKG"] + "/csrc")
+        seen = []
+        _build._texts(_build._target(name)[0], seen)
+        assert [os.path.basename(p) for p in seen] == [name + ".cu",
+                                                       "sm90_common.cuh"]
 
 
 def test_port_imports_no_jax():
