@@ -320,9 +320,9 @@ def host_ms(fn, reps=10, warmup=2):
 def k1_cases():
     """(D, C, act, H, B, N, L, n_layers) of K1's matrix: 51 cases over
     dims, channels, activations and widths (N = 1000 is no multiple of 64
-    or 32), then 0 to 5 hidden layers for every activation at both widths
-    (H = 256 streams its weights), one pixel of one sample at H = 256, and
-    the large grid."""
+    or 32), then 1 to 5 hidden layers for every activation at both widths
+    (H = 256 streams its weights), no hidden layer at both widths, one
+    pixel of one sample at H = 256, and the large grid: 85 cases."""
     acts = sd.KERNEL_ACTS_WITH_APPROX
     cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
              for D in (1, 2) for C in (1, 3) for act in acts]
@@ -333,6 +333,7 @@ def k1_cases():
               for nl in (1, 3, 4, 5)]
     cases += [(1, 1, act, 256, 2, 90, 3, 5) for act in acts]
     cases += [(2, 1, "tanh", 128, 2, 70, 2, 0),     # no hidden layer
+              (1, 1, "tanh", 256, 2, 70, 2, 0),     # no hidden layer, H=256
               (1, 3, "gelu", 256, 1, 1, 2, 2),      # one pixel, streamed
               (2, 1, "tanh", 128, 64, 16384, 2, 2)]  # the large grid
     return cases
@@ -362,7 +363,7 @@ def phase_k1_vs_plain(dev):
                     f"(largest output {ref.abs().max().item():.2e}), "
                     f"bitwise equal across launches")
     if sd.BF16_MATMUL:  # a decoder the tensor-core kernel does not take
-        deep = sd.FWD_TC_MAX_LAYERS + 1
+        deep = sd.fwd_tc_max_layers(128, 1, dev) + 1
         a = random_case(rng, dev, 2, 1, 128, 2, 70, 2, deep)
         try:
             K1(**a)

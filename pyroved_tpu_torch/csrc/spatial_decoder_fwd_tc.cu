@@ -74,15 +74,11 @@
 // (PVT_PROFILE_PHASES, pyroved_tpu_torch/tools/profile_fwd_tc.py).
 #include "sm90_common.cuh"
 
-// Warpgroups a block holds at most; more share the weights and hide more
-// latency, fewer leave each thread more registers (128 at four).
-#ifndef PVT_FWD_WARPGROUPS
-#define PVT_FWD_WARPGROUPS 4
-#endif
-
 namespace {
 
-constexpr int kMaxWG = PVT_FWD_WARPGROUPS;
+// Warpgroups a block holds at most; more share the weights and hide more
+// latency, fewer leave each thread more registers (128 at four).
+constexpr int kMaxWG = 4;
 constexpr int kMaxThreads = 128 * kMaxWG;
 constexpr int kMaxC = 4;
 constexpr int kMaxDevices = 64;
@@ -261,7 +257,7 @@ sdec_fwd_tc_kernel(const KArgs a) {
   const int t_begin = (int)(g * total / W), t_end = (int)((g + 1) * total / W);
   if (t_begin >= t_end) return;
   int q = 0;  // streamed products so far: slot q & 1 holds the next one
-  if constexpr (STREAM) {
+  if (STREAM && nl > 0) {  // the first product's panel
     round_panels<H>(slots, a.hw, 0, 1, wi, 4, lane);
     fence_async_smem();
   }
@@ -594,6 +590,19 @@ extern "C" int pvt_sdec_fwd_tc(const float* grid, const float* phi,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The most hidden layers pvt_sdec_fwd_tc takes at width H with C channels
+// on the current device: those whose biases (and at H = 128 bf16 weights)
+// fit in a block's shared memory beside one warpgroup. -1 for a width or
+// channel count it does not take, or when the device cannot be read.
+extern "C" int pvt_sdec_fwd_tc_max_layers(int H, int C) {
+  if ((H != 128 && H != 256) || C < 1 || C > kMaxC) return -1;
+  int dev = 0, optin = 0, sms = 0;
+  if (device_limits(&dev, &optin, &sms) != cudaSuccess) return -1;
+  int nl = -1;
+  while (smem_bytes(H, nl + 1, C, 1) <= (size_t)optin) ++nl;
+  return nl;
 }
 
 PVT_PHASE_READER(pvt_sdec_fwd_tc_phase_cycles)

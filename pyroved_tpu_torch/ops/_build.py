@@ -17,7 +17,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -84,23 +84,21 @@ def build_log(name: str, defines: Sequence[str] = ()) -> str:
         return ""
 
 
-def load_all(names: List[Union[str, Tuple[str, Sequence[str]]]],
+def load_all(names: List[str],
              defines: Sequence[str] = ()) -> List[ctypes.CDLL]:
     """Build every ``csrc/<name>.cu`` that needs it (with the macros of
     ``defines``), one ``nvcc`` each, all started together, and return the
-    loaded libraries in order. An entry of ``names`` may also be a
-    ``(name, defines)`` pair with macros of its own."""
-    items = [(n, tuple(defines)) if isinstance(n, str) else (n[0], tuple(n[1]))
-             for n in names]
+    loaded libraries in order."""
+    defines = tuple(defines)
     with _lock:
         builds = []
-        for name, defs in items:
-            source, lib = _target(name, defs)
-            if (name, defs) in _loaded or os.path.exists(lib):
+        for name in names:
+            source, lib = _target(name, defines)
+            if (name, defines) in _loaded or os.path.exists(lib):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(nvcc_command(source, tmp, defs),
+            proc = subprocess.Popen(nvcc_command(source, tmp, defines),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             builds.append((source, lib, tmp, proc))
@@ -116,10 +114,10 @@ def load_all(names: List[Union[str, Tuple[str, Sequence[str]]]],
             os.replace(tmp, lib)
         if failures:
             raise RuntimeError("\n".join(failures))
-        for item in items:
-            if item not in _loaded:
-                _loaded[item] = ctypes.CDLL(_target(*item)[1])
-        return [_loaded[item] for item in items]
+        for name in names:
+            if (name, defines) not in _loaded:
+                _loaded[name, defines] = ctypes.CDLL(_target(name, defines)[1])
+        return [_loaded[name, defines] for name in names]
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:

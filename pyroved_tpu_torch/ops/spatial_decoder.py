@@ -76,12 +76,6 @@ KERNEL_WIDTHS = (128, 256)
 #: Heads, biases, activations and the coordinate layer stay in f32.
 BF16_MATMUL = True
 
-#: Most hidden layers the tensor-core K1 takes at H = 128, where every
-#: layer's bf16 weights stay in a block's shared memory beside one tile
-#: (``csrc/spatial_decoder_fwd_tc.cu``); at H = 256 it streams them and
-#: takes any number.
-FWD_TC_MAX_LAYERS = 6
-
 #: Activation buffers of one pixel tile that fit in a block's shared memory
 #: beside the backward's weight chunk: h_0 .. h_L, plus act'(pre) of each
 #: hidden layer for gelu (``csrc/spatial_decoder_bwd.cu``).
@@ -320,6 +314,29 @@ def _fwd_kernel(bf16: bool):
     return _fwd_fns[bf16]
 
 
+def fwd_tc_max_layers(H: int, C: int, device="cuda") -> int:
+    """Most hidden layers the tensor-core K1 takes at width ``H`` with ``C``
+    channels on ``device``, as its source works them out from its
+    shared-memory layout (at H = 128 every layer's bf16 weights stay
+    resident). Kept per width, channels and card."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _fwd_tc_max_layers(H, C, index)
+
+
+@functools.lru_cache(maxsize=16)
+def _fwd_tc_max_layers(H, C, index):
+    f = _build.load(FWD_SOURCES[True]).pvt_sdec_fwd_tc_max_layers
+    f.argtypes = [ctypes.c_int, ctypes.c_int]
+    f.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        n = f(H, C)
+    if n < 0:
+        raise RuntimeError(f"the tensor-core forward kernel's layer limit at "
+                           f"H={H}, C={C} could not be read")
+    return n
+
+
 def _bind_bwd(lib, bf16: bool):
     """(plan, launch) of a library built from K2/K3's source for the flag
     value ``bf16``; both sources take the same arguments."""
@@ -393,9 +410,8 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     On CPU tensors this is the plain version. On CUDA tensors it launches
     the kernel on the current stream, or raises when the inputs do not fit
     it (see :func:`_kernel_dims`; the tensor-core kernel takes at most
-    :data:`FWD_TC_MAX_LAYERS` hidden layers at width 128): the tensor-core
-    kernel under :data:`BF16_MATMUL`, else the f32 one. The output is
-    deterministic: the
+    :func:`fwd_tc_max_layers` hidden layers): the tensor-core kernel under
+    :data:`BF16_MATMUL`, else the f32 one. The output is deterministic: the
     same inputs on the same card give bitwise-equal values. It is forward
     only: for gradients use :class:`FusedSpatialDecoder`.
     ``fused_spatial_decoder_forward.launches`` counts kernel launches by
@@ -412,11 +428,11 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                            "gradient: use FusedSpatialDecoder, or call it "
                            "under torch.no_grad()")
     bf16 = BF16_MATMUL
-    if bf16 and H == 128 and nl > FWD_TC_MAX_LAYERS:
-        raise ValueError(f"the tensor-core forward kernel takes at most "
-                         f"{FWD_TC_MAX_LAYERS} hidden layers at width 128, "
-                         f"got {nl}")
     dev = grid.device
+    if bf16 and nl > fwd_tc_max_layers(H, C, dev):
+        raise ValueError(f"the tensor-core forward kernel takes at most "
+                         f"{fwd_tc_max_layers(H, C, dev)} hidden layers at "
+                         f"width {H} with {C} channels, got {nl}")
     out = torch.empty((B, N, C) if C > 1 else (B, N), device=dev,
                       dtype=torch.float32)
     if B == 0 or N == 0:  # nothing to launch

@@ -6,18 +6,10 @@ Run from the repository root on a machine with one Hopper GPU:
 
 Builds the source as the port does, with ``PVT_PROFILE_PHASES`` defined
 (a ``clock64()`` mark before each ``// --`` phase of the tile loop, read by
-thread 0 of block 0, so of its first warpgroup) and with at most 3 and 2
-warpgroups a block (``PVT_FWD_WARPGROUPS``; the port's build takes 4), one
-nvcc each, all started together, and prints each build's ptxas report.
-Then, on random inputs at the four shapes ``chip_smoke.py`` times (the
-flagship decoder, H=128, two tanh layers, at B = 1024, 200 and 452 with
-N = 784; the large grid, B = 64, N = 16384):
-
-1. cycles per tile of the first warpgroup by phase, from the profiled
-   build, at B = 1024 and 200;
-2. K1's time for each warpgroup count (CUDA events over 20 calls back to
-   back), the builds taken in turns (4, 3, 2, 2, 3, 4), and each build's
-   largest difference from the port's build on the same inputs.
+thread 0 of block 0, so of its first warpgroup), and prints its ptxas
+report. Then, on random inputs of the flagship decoder (H=128, two tanh
+layers) at B = 1024 and 200 with N = 784, prints the first warpgroup's
+cycles per tile by phase.
 """
 import contextlib
 import ctypes
@@ -29,15 +21,14 @@ import torch
 
 from ..ops import _build
 from ..ops import spatial_decoder as sd
-from .measure import bf16_matmul, cuda_ms_queued, random_case
+from .measure import bf16_matmul, random_case
 
 NAME = "spatial_decoder_fwd_tc"
 #: What each mark of the profiled source closes, in mark order.
 PHASES = ("(loop)", "per-sample transform", "h0", "products",
           "layer epilogues", "head dots", "logits out")
 PROFILED = ("PVT_PROFILE_PHASES",)
-WARPGROUPS = {4: (), 3: ("PVT_FWD_WARPGROUPS=3",), 2: ("PVT_FWD_WARPGROUPS=2",)}
-SHAPES = ((1024, 784), (200, 784), (452, 784), (64, 16384))
+SHAPES = ((1024, 784), (200, 784))
 
 
 def first_warpgroup_tiles(B, N, wgs=4, tile=64):
@@ -89,44 +80,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    variants = [PROFILED, *WARPGROUPS.values()]
-    libs = dict(zip(variants, _build.load_all([(NAME, d) for d in variants])))
-    for d in variants:
-        usage = [line.strip() for line in _build.build_log(NAME, d).splitlines()
-                 if "registers" in line or "spill" in line]
-        print(f"ptxas, {' '.join(d) or 'the port build'} (12 instances: H 128, "
-              f"256 x six activations): {usage}", flush=True)
+    lib = _build.load(NAME, PROFILED)
+    usage = [line.strip()
+             for line in _build.build_log(NAME, PROFILED).splitlines()
+             if "registers" in line or "spill" in line]
+    print(f"ptxas (12 instances: H 128, 256 x six activations): {usage}",
+          flush=True)
     rng = np.random.default_rng(0)
-    cases = {s: random_case(rng, "cuda", 2, 1, 128, s[0], s[1], 2, 2)
-             for s in SHAPES}
     with bf16_matmul(True), torch.no_grad():
-        # 1. phases
-        for shape in SHAPES[:2]:
-            phases = phase_cycles(libs[PROFILED], cases[shape])
-            print(f"B={shape[0]} N={shape[1]}: cycles per tile of the first "
-                  f"warpgroup by phase {phases}; total "
-                  f"{sum(phases.values()):.0f}", flush=True)
-        # 2. warpgroups a block, in turns
-        order = [4, 3, 2, 2, 3, 4]
-        times = {n: {s: [] for s in SHAPES} for n in WARPGROUPS}
-        ref = {}
-        for n in order:
-            with bound(libs[WARPGROUPS[n]]):
-                for s, a in cases.items():
-                    out = sd.fused_spatial_decoder_forward(**a)
-                    if n == 4:
-                        ref[s] = out
-                    elif s in ref:
-                        diff = (out - ref[s]).abs().max().item()
-                        times[n].setdefault("max_diff", []).append(diff)
-                    times[n][s].append(cuda_ms_queued(
-                        lambda: sd.fused_spatial_decoder_forward(**a)))
-        for n in WARPGROUPS:
-            print(f"{n} warpgroups a block: K1 ms (back to back, each turn) "
-                  + ", ".join(f"B={s[0]} N={s[1]} {times[n][s]}"
-                              for s in SHAPES)
-                  + f"; largest difference from 4 warpgroups "
-                  f"{max(times[n].get('max_diff', [0.0])):.3e}", flush=True)
+        for B, N in SHAPES:
+            phases = phase_cycles(lib, random_case(rng, "cuda", 2, 1, 128, B,
+                                                   N, 2, 2))
+            print(f"B={B} N={N}: cycles per tile of the first warpgroup by "
+                  f"phase {phases}; total {sum(phases.values()):.0f}",
+                  flush=True)
     return 0
 
 

@@ -5,6 +5,8 @@ against the JAX package's Pallas kernels in interpret mode with its own
 reference's own band, and the wrappers' choice of kernel by the flag. The
 tensor-core kernels themselves are held against the plain versions on the
 card by ``chip_smoke.py``."""
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -277,3 +279,35 @@ def test_wrappers_pick_the_kernel_by_the_flag(monkeypatch):
                                False: "spatial_decoder_fwd"}
     assert tsd.BWD_SOURCES == {True: "spatial_decoder_bwd_tc",
                                False: "spatial_decoder_bwd"}
+
+
+@pytest.mark.parametrize("limit", [6, -1])
+def test_k1_layer_limit_comes_from_the_tensor_core_source(monkeypatch, limit):
+    """The tensor-core K1's layer limit is the one its source works out from
+    its shared-memory layout (the loader and the device are stubbed here:
+    nothing is built); a limit the source cannot read raises."""
+    asked = []
+
+    class MaxLayers:  # a ctypes function: takes argtypes and restype
+        def __call__(self, H, C):
+            asked.append((H, C))
+            return limit
+
+    class Lib:
+        pvt_sdec_fwd_tc_max_layers = MaxLayers()
+
+    lib = Lib()
+    monkeypatch.setattr(tsd._build, "load", lambda name: asked.append(name)
+                        or lib)
+    monkeypatch.setattr(tsd.torch.cuda, "device", lambda index: nullcontext())
+    tsd._fwd_tc_max_layers.cache_clear()
+    try:
+        if limit < 0:
+            with pytest.raises(RuntimeError, match="could not be read"):
+                tsd.fwd_tc_max_layers(128, 3, "cuda:0")
+        else:
+            assert tsd.fwd_tc_max_layers(128, 3, "cuda:0") == limit
+            assert tsd.fwd_tc_max_layers(128, 3, "cuda:0") == limit  # kept
+        assert asked == ["spatial_decoder_fwd_tc", (128, 3)]
+    finally:
+        tsd._fwd_tc_max_layers.cache_clear()
