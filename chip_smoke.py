@@ -54,6 +54,24 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    padded-weight build (host clock); the training step and an epoch's
    steps/s for the kernel path and the module path, and a profiler
    breakdown of the step, under each flag; the large grid's step.
+7. The discrete-latent and semi-supervised families, under each flag, at
+   the width of ``benchmarks/enum_bench.py`` (28x28, latent 2, rotation,
+   10 classes, hidden 128x128, tanh, Bernoulli, batch 200, seed 0), on
+   2,000 blob images labelled by the bin of their x centre: jiVAE trains
+   2 epochs through ``fit`` (each step K1 and K2 once on the enumerated
+   decode, K*B = 2,000 rows at L = 12), held against the ``fused=False``
+   module path (f32) with phase 5's tolerances, first step's grads and
+   per-epoch losses; 5 steps with ``enum_topk=3`` (600 rows); it serves
+   encode, posed decode and manifold2d, and its export encode and decode.
+   ssiVAE (400 labeled images) trains 2 epochs through ``fit``, its
+   accuracy in ``history["test"]``, held to the module path likewise; its
+   export serves classify, the auto-labelled encode and decode. ss_reg_iVAE
+   trains 2 trainer steps. Every path counts its launches alone: one K1
+   and one K2 per training step, K1 once per decode, the flag's sources
+   only. Then K1 and K2 at the enumerated shape join phase 6's table
+   (against plain, a second launch, bound, plain time, cuBLAS), and the
+   enumerated jiVAE step's wall time, alone and in epochs back to back,
+   with its profiler breakdown, under each flag.
 
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
@@ -72,16 +90,18 @@ import time
 import numpy as np
 import torch
 
-from pyroved_tpu_torch.models import iVAE
+from pyroved_tpu_torch.models import iVAE, jiVAE, ss_reg_iVAE, ssiVAE
 from pyroved_tpu_torch.ops import _build
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
 from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, cuda_ms,
                                              cuda_ms_queued, plain_versions,
                                              random_case)
-from pyroved_tpu_torch.trainers import SVItrainer
+from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
-from pyroved_tpu_torch.utils.data import init_dataloader
+from pyroved_tpu_torch.utils.data import (init_dataloader,
+                                          init_ssvae_dataloaders)
+from pyroved_tpu_torch.utils.nn import to_onehot
 
 K1 = sd.fused_spatial_decoder_forward
 K2 = sd.fused_spatial_decoder_backward
@@ -735,6 +755,441 @@ def step_breakdown(model, xb):
             "top_kernels_ms_per_step": sorted(top, reverse=True)[:12]}
 
 
+def time_k1(name, a, peaks):
+    """K1 under each flag at one shape of the paths: held against its plain
+    version and a second launch, then timed beside the least time the card
+    could take, its plain version and cuBLAS's bare products of the same
+    hidden layers. Returns one row per flag, keyed by the flag."""
+    B, N = a["z"].shape[0], a["grid"].shape[0]
+    H, nl = a["Wc"].shape[1], a["hw"].shape[0]
+    label = f"{name} B={B} N={N}"
+    flops, nbytes = work(a)
+    b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
+    h32 = torch.randn(B * N, H, device="cuda")
+    w32 = a["hw"]
+    lib = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        hh, ww = h32.to(dtype), w32.to(dtype)
+        # h_l W_l of every layer as bare products, in and out dtype
+        lib[dtype] = cuda_ms(lambda: [torch.matmul(hh, ww[i])
+                                      for i in range(nl)], reps=20)
+        del hh, ww
+    del h32
+    rows = {}
+    for on in (False, True):
+        tag = "bf16" if on else "f32"
+        with bf16_matmul(on):
+            out, again = K1(**a), K1(**a)
+            ref = sd.spatial_decoder_plain(**a)
+            torch.cuda.synchronize()
+            what = f"K1 {tag} {label}"
+            if not torch.equal(out, again):
+                raise AssertionError(f"{what}: two launches differ")
+            err = check_close(what, out, ref,
+                              *((BF16_ATOL, BF16_OUT_REL) if on
+                                else (ATOL, 0.0)))
+            del out, again, ref
+            k_ms = cuda_ms(lambda: K1(**a))
+            q_ms = cuda_ms_queued(lambda: K1(**a))
+            p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a), reps=20)
+        lib_ms = lib[torch.bfloat16 if on else torch.float32]
+        rows[on] = {
+            "shape": label, "flag": tag, "ms": k_ms, "queued_ms": q_ms,
+            "plain_ms": p_ms, "max_abs_err": err,
+            "bound_ms": b16 if on else b32, "bound_by": by16 if on else by32,
+            "bound_ms_f32": b32, "bound_ms_bf16": b16, "library_ms": lib_ms,
+            "flops": flops, "bytes": nbytes, "tflops": flops / k_ms / 1e9}
+        log(f"  {what}: kernel {k_ms:.4f} ms (back to back {q_ms:.4f} ms), "
+            f"plain {p_ms:.4f} ms, bound f32 {b32:.4f} ms, bound bf16 "
+            f"{b16:.4f} ms, cuBLAS {tag} hidden products {lib_ms:.4f} ms, "
+            f"{flops / k_ms / 1e9:.2f} TFLOP/s, max abs err vs plain "
+            f"{err:.3e}, bitwise equal across launches")
+    log(f"  K1 {label}: tensor-core kernel faster than the f32 one: "
+        f"{rows[True]['ms'] < rows[False]['ms']}")
+    return rows
+
+
+def time_bwd(name, a, xf, gen, peaks, with_k3=True):
+    """K2 (and K3 when ``with_k3``; ``xf`` its observations), f32 and
+    tensor-core, at one training shape: held against their plain versions
+    and a second launch, then timed beside the least time the card could
+    take and cuBLAS's time for their hidden products (bf16, and f32 with
+    TF32 off). Every grad is held to its tensor's largest entry. Returns
+    one row per (kernel, flag)."""
+    B, N = a["z"].shape[0], a["grid"].shape[0]
+    L, H, nl = a["z"].shape[1], a["Wc"].shape[1], a["hw"].shape[0]
+    label = f"{name} B={B} N={N} H={H}"
+    g = torch.randn(B, N, generator=gen, device="cuda")
+    w = torch.ones(B, device="cuda")
+    args3 = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], xf, w, a["Wc"],
+             a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"], a["bout"])
+    req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
+    lib = {}
+    for on, dtype in ((False, torch.float32), (True, torch.bfloat16)):
+        hm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
+        dm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
+        wm = a["hw"].to(dtype)
+
+        def cublas():  # h W, h^T d and d W^T of every layer, in and out
+            for i in range(nl):  # the dtype
+                torch.matmul(hm, wm[i])
+                torch.matmul(hm.T, dm)
+                torch.matmul(dm, wm[i].T)
+
+        lib[on] = cuda_ms(cublas, reps=20)
+        del hm, dm
+
+    def autograd_plain():
+        out = sd.spatial_decoder_plain(**req)
+        return torch.autograd.grad(out, [req[k] for k in GRAD_NAMES], g)
+
+    kernels = [("K2", lambda: K2(**a, g=g),
+                lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False)]
+    if with_k3:
+        kernels.append(("K3", lambda: K3(*args3),
+                        lambda: sd.recon_loss_plain(*args3), True))
+    rows = {}
+    for on in (False, True):
+        tag = "bf16" if on else "f32"
+        with bf16_matmul(on):
+            for kname, fn, plain_fn, loss_mode in kernels:
+                got, again, ref = fn(), fn(), plain_fn()
+                torch.cuda.synchronize()
+                what = f"{kname} {tag} {label}"
+                if loss_mode:
+                    (loss, got), (loss2, again), (ref_loss, ref) = (
+                        got, again, ref)
+                    rel = abs(loss.item() - ref_loss.item()) / abs(
+                        ref_loss.item())
+                    if not (torch.equal(loss, loss2) and rel <= LOSS_RTOL):
+                        raise AssertionError(f"{what}: loss {loss.item()} and "
+                                             f"{loss2.item()} vs plain "
+                                             f"{ref_loss.item()}")
+                if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                    raise AssertionError(f"{what}: two launches differ")
+                err = check_grads(what, got, ref, per_sample=0,
+                                  rel=BF16_GRAD_REL if on else GRAD_RTOL)
+                log(f"  {what} vs plain: grads max abs err {err:.3e} "
+                    f"({rel_to_max(got, ref):.1e} of the largest entry)"
+                    + (f", loss rel err {rel:.3e}" if loss_mode else "")
+                    + ", bitwise equal across launches")
+                del got, again, ref
+                ws_bytes, blocks = sd.bwd_workspace(B, N, 2, L, H, nl, 1,
+                                                    "tanh", loss_mode)
+                flops, nbytes = work_bwd(a, loss_mode)
+                k_ms = cuda_ms(fn, reps=20)
+                p_ms = cuda_ms(plain_fn, reps=10)
+                b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
+                row = {"shape": label, "flag": tag, "ms": k_ms,
+                       "plain_ms": p_ms, "max_abs_err": err,
+                       "bound_ms": b16 if on else b32,
+                       "bound_by": by16 if on else by32,
+                       "bound_ms_f32": b32, "bound_ms_bf16": b16,
+                       "library_ms": lib[on], "flops": flops,
+                       "bytes": nbytes, "tflops": flops / k_ms / 1e9,
+                       "workspace_bytes": ws_bytes, "blocks": blocks}
+                if not on and not loss_mode:
+                    row["autograd_plain_ms"] = cuda_ms(autograd_plain,
+                                                       reps=10)
+                rows[kname, on] = row
+                log(f"  {kname} {tag} {label}: kernel {k_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms"
+                    + ("" if "autograd_plain_ms" not in row else
+                       f", autograd of the plain forward "
+                       f"{row['autograd_plain_ms']:.4f} ms")
+                    + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms"
+                    f", cuBLAS {tag} hidden products {lib[on]:.4f} ms, "
+                    f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, "
+                    f"workspace {ws_bytes / 2 ** 20:.1f} MiB")
+    return rows
+
+
+# Phase 7: the discrete-latent and semi-supervised families at the width
+# of benchmarks/enum_bench.py:31-35, 68-74: latent 2, rotation, 10 classes,
+# hidden (128, 128), tanh, Bernoulli, batch 200.
+FAMILY = dict(latent_dim=2, invariances=["r"], seed=0)
+FAMILY_DIM = (28, 28)
+N_CLASSES = 10
+
+
+def family_data():
+    """Phase 7's data: 2,000 blob images, each with the class of its x
+    centre (ten equal bins) and the centre itself as a continuous label."""
+    X, cx = blobs(2000, FAMILY_DIM, seed=6, centers=True)
+    y = np.digitize(cx, np.linspace(-0.4, 0.4, N_CLASSES + 1)[1:-1])
+    return X, y, cx
+
+
+def run_path(fn):
+    """``fn()`` as one path: the counts set to 0 just before it and read
+    just after. Returns (its result, seconds, the path's launches)."""
+    reset_counts()  # the path starts here
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, counts()  # the path ends here
+
+
+def expect_steps(what, launches, steps):
+    """One K1 and one K2 per training step, from the flag's sources only."""
+    k1, k2 = ("K1_bf16", "K2_bf16") if sd.BF16_MATMUL else ("K1", "K2")
+    if not only(launches, **{k1: steps, k2: steps}):
+        raise AssertionError(f"{what}: expected {k1} and {k2} once per step "
+                             f"({steps} steps): {launches}")
+    log(f"  {what}: launches {launches}")
+
+
+def first_step_vs_module(what, model, module, xb, eps):
+    """One step's loss and grads, kernel path against the module path
+    (f32), with phase 5's tolerances for the flag."""
+    on = sd.BF16_MATMUL
+    loss_k, grads_k = first_step_grads(model, xb, eps)
+    loss_m, grads_m = first_step_grads(module, xb, eps)
+    names = [n for n, _ in model.nets.named_parameters()]
+    err = check_grads(f"{what} first step, kernel vs module path", grads_k,
+                      grads_m, names, per_sample=0,
+                      rel=BF16_MODULE_GRAD_REL if on else GRAD_RTOL)
+    loss_rtol = BF16_MODULE_LOSS_RTOL if on else LOSS_RTOL
+    if abs(loss_k - loss_m) > loss_rtol * abs(loss_m):
+        raise AssertionError(f"{what} first step loss {loss_k} vs {loss_m}")
+    log(f"  {what} first step, kernel path vs module path: loss "
+        f"{loss_k:.4f} vs {loss_m:.4f}, grads max abs err {err:.3e} "
+        f"({rel_to_max(grads_k, grads_m):.1e} of the largest entry)")
+    return err
+
+
+def check_epochs(what, hist, hist_m):
+    """Per-epoch losses finite and falling, and within phase 5's tolerance
+    for the flag of the module path's."""
+    rtol = BF16_EPOCH_RTOL if sd.BF16_MATMUL else EPOCH_RTOL
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"{what}: loss is not finite and falling: {hist}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_m))
+    log(f"  {what} per-epoch losses, kernel path {hist}, module path "
+        f"{hist_m}: max rel diff {rel:.3e}")
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: per-epoch losses differ by {rel:.3e}")
+
+
+def check_decode(what, model, z, out, pose):
+    """A posed decode of decoder inputs ``z`` against the plain version on
+    the same inputs, with phase 2's tolerance for the flag."""
+    atol, rel = (BF16_ATOL, BF16_OUT_REL) if sd.BF16_MATMUL else (ATOL, 0.0)
+    with torch.no_grad():
+        ref = sd.spatial_decoder_plain(**kernel_args(
+            model.decoder_net, model.grid, z, **pose))
+    return check_close(what, out.reshape(z.shape[0], -1), ref, atol, rel)
+
+
+def served(model, name):
+    """``model`` exported and served from the archive alone."""
+    with tempfile.TemporaryDirectory() as tmp:
+        export_model(model, f"{tmp}/{name}.npz")
+        return ServedModel(f"{tmp}/{name}.npz")
+
+
+def phase_families(data, module_runs):
+    """Phase 7, under the current flag: jiVAE, ssiVAE and ss_reg_iVAE at
+    full width train and serve, each path counted alone. ``module_runs``
+    holds the module path's per-epoch losses (f32; trained on the first
+    call, then reused)."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    k1 = "K1_bf16" if on else "K1"
+    X, y, cx = data
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xb = torch.as_tensor(X[:200], device="cuda")
+    xs = X[:1000]
+    rng = np.random.default_rng(8)
+    zc = torch.as_tensor(rng.normal(size=(1024, 2)), dtype=torch.float32,
+                         device="cuda")
+    y1h = to_onehot(rng.integers(0, N_CLASSES, 1024), N_CLASSES, "cuda")
+    zy = torch.cat([zc, y1h], -1)
+    pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
+    launches, fit_s, hists = {}, {}, {}
+    # K1 against its plain version; first steps against the module path
+    errs1, errs2 = [0.0], []
+
+    # jiVAE: 2 epochs of 2,000 images at batch 200 through fit; each step
+    # decodes K*B = 2,000 rows at L = 12
+    kw = dict(FAMILY, discrete_dim=N_CLASSES)
+    jm, jmod = jiVAE(FAMILY_DIM, **kw), jiVAE(FAMILY_DIM, fused=False, **kw)
+    if not jm._fused or jmod._fused:
+        raise AssertionError("jiVAE is not routed as configured")
+    eps = torch.randn(200, jm.z_dim, generator=gen, device="cuda")
+    errs2.append(first_step_vs_module(f"{tag} jiVAE", jm, jmod, xb, eps))
+    tr, fit_s["jivae"], launches["jivae_training"] = run_path(
+        lambda: jm.fit(X, epochs=2, batch_size=200))
+    expect_steps(f"{tag} jiVAE fit(epochs=2, batch_size=200) on 2,000 "
+                 f"images, {fit_s['jivae']:.2f} s", launches["jivae_training"],
+                 20)
+    if "jivae" not in module_runs:
+        module_runs["jivae"] = jmod.fit(
+            X, epochs=2, batch_size=200).loss_history["training_loss"]
+    hists["jivae"] = tr.loss_history["training_loss"]
+    check_epochs(f"{tag} jiVAE", hists["jivae"], module_runs["jivae"])
+
+    # enum_topk=3: five steps of K*B = 600 rows
+    top = jiVAE(FAMILY_DIM, enum_topk=3, **kw)
+    topm = jiVAE(FAMILY_DIM, enum_topk=3, fused=False, **kw)
+    errs2.append(first_step_vs_module(f"{tag} jiVAE enum_topk=3", top, topm,
+                                     xb, eps))
+    loader = init_dataloader(X[:1000], batch_size=200)
+    loss, _, launches["jivae_topk_training"] = run_path(
+        lambda: SVItrainer(top).train(loader))
+    expect_steps(f"{tag} jiVAE enum_topk=3, 5 steps, loss {loss:.4f}",
+                 launches["jivae_topk_training"], 5)
+    if not np.isfinite(loss):
+        raise AssertionError(f"enum_topk=3 loss {loss}")
+
+    # jiVAE serving: the model's encode, posed decode and manifold2d, and
+    # the export's encode and decode
+    sj = served(jm, "jivae")
+    out, _, launches["jivae_serving"] = run_path(lambda: {
+        "encode": jm.encode(xs, logits=True),
+        "decode": jm.decode(zc, y1h, **pose),
+        "manifold2d": jm.manifold2d(10, disc_idx=3),
+        "served_encode": sj.encode(xs),
+        "served_decode": sj.decode(zy, **pose)})
+    log(f"  {tag} jiVAE serving: launches {launches['jivae_serving']}")
+    if not only(launches["jivae_serving"], **{k1: 3}):
+        raise AssertionError("jiVAE serving: expected K1 once per decode")
+    loc, scale, probs = out["encode"]
+    if (loc.shape != (1000, 3) or probs.shape != (1000, N_CLASSES)
+            or not bool((scale > 0).all())):
+        raise AssertionError("jiVAE encode: bad shapes or non-positive sigma")
+    for o, r in zip(out["served_encode"], out["encode"]):
+        check_close(f"{tag} served jiVAE encode", o, r)
+    errs1.append(check_decode(f"{tag} jiVAE decode", jm, zy, out["decode"],
+                             pose))
+    check_close(f"{tag} served jiVAE decode", out["served_decode"],
+                out["decode"])
+    man = out["manifold2d"]
+    if man.shape != (100,) + FAMILY_DIM or not torch.isfinite(man).all():
+        raise AssertionError("jiVAE manifold2d: bad shape or values")
+
+    # ssiVAE: 2,000 unlabeled and 400 labeled images at batch 200 through
+    # fit, its accuracy on the labeled set after each epoch; an unlabeled
+    # step decodes [10, 200] rows, a labeled one 200
+    kw = dict(FAMILY, num_classes=N_CLASSES)
+    sm, smod = ssiVAE(FAMILY_DIM, **kw), ssiVAE(FAMILY_DIM, fused=False, **kw)
+    (shape,) = sm.noise_shapes(200)
+    eps_u = torch.randn(shape, generator=gen, device="cuda")
+    errs2.append(first_step_vs_module(f"{tag} ssiVAE unlabeled", sm, smod, xb,
+                                     eps_u))
+    labeled = (X[:400], y[:400])
+    tr, fit_s["ssivae"], launches["ssivae_training"] = run_path(
+        lambda: sm.fit(X, labeled, epochs=2, batch_size=200))
+    acc = tr.history["test"]
+    expect_steps(f"{tag} ssiVAE fit(epochs=2, batch_size=200), "
+                 f"{fit_s['ssivae']:.2f} s, accuracy {acc}",
+                 launches["ssivae_training"], 24)
+    if len(acc) != 2 or not all(0.0 <= a <= 1.0 for a in acc):
+        raise AssertionError(f"ssiVAE accuracy {acc}")
+    if "ssivae" not in module_runs:
+        module_runs["ssivae"] = smod.fit(
+            X, labeled, epochs=2, batch_size=200).history["training_loss"]
+    hists["ssivae"] = tr.history["training_loss"]
+    check_epochs(f"{tag} ssiVAE", hists["ssivae"], module_runs["ssivae"])
+
+    # ssiVAE served: classify, the auto-labelled encode, posed decode
+    ss = served(sm, "ssivae")
+    out, _, launches["ssivae_serving"] = run_path(lambda: {
+        "classify": ss.classify(xs), "encode": ss.encode(xs),
+        "decode": ss.decode(zy, **pose),
+        "model_decode": sm.decode(zc, y1h, **pose)})
+    log(f"  {tag} ssiVAE serving: launches {launches['ssivae_serving']}")
+    if not only(launches["ssivae_serving"], **{k1: 2}):
+        raise AssertionError("ssiVAE serving: expected K1 once per decode")
+    check_close(f"{tag} served ssiVAE classify", out["classify"],
+                sm.guide_probs(xs))
+    for o, r in zip(out["encode"], sm.encode(xs)):
+        check_close(f"{tag} served ssiVAE encode", o, r)
+    errs1.append(check_decode(f"{tag} ssiVAE decode", sm, zy, out["decode"],
+                             pose))
+    check_close(f"{tag} served ssiVAE decode", out["decode"],
+                out["model_decode"])
+
+    # ss_reg_iVAE: two trainer steps (epochs) of 600 unlabeled and 200
+    # labeled images at batch 200, B = 200 rows at L = 3
+    kw = dict(FAMILY, reg_dim=1)
+    rm, rmod = ss_reg_iVAE(FAMILY_DIM, **kw), ss_reg_iVAE(
+        FAMILY_DIM, fused=False, **kw)
+    eps_r = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in rm.noise_shapes(200))
+    errs2.append(first_step_vs_module(f"{tag} ss_reg_iVAE unlabeled", rm, rmod,
+                                     xb, eps_r))
+    loaders = init_ssvae_dataloaders(X[:600], (X[:200], cx[:200]),
+                                     (X[200:400], cx[200:400]),
+                                     batch_size=200)
+    rt = auxSVItrainer(rm)
+
+    def two_steps():
+        for _ in range(2):
+            rt.step(*loaders)
+
+    _, fit_s["ss_reg"], launches["ss_reg_training"] = run_path(two_steps)
+    mse = rt.history["test"]
+    hists["ss_reg"] = rt.history["training_loss"]
+    expect_steps(f"{tag} ss_reg_iVAE 2 steps, losses {hists['ss_reg']}, "
+                 f"MSE {mse}", launches["ss_reg_training"], 8)
+    if not all(np.isfinite(hists["ss_reg"] + mse)):
+        raise AssertionError("ss_reg_iVAE: non-finite loss or MSE")
+    return {"launches": launches, "fit_s": fit_s, "loss_history": hists,
+            "ssivae_accuracy": acc, "ss_reg_mse": mse,
+            "module_loss_history": dict(module_runs), "k1_err": max(errs1),
+            "first_step_err": max(errs2),
+            "jivae": jm, "xb": xb}
+
+
+def enum_args(model, xb, eps):
+    """K1/K2 inputs of a jiVAE training step's enumerated decode of images
+    ``xb`` with latent noise ``eps``: every class's one-hot code beside the
+    shared z, K*B rows (detached weights)."""
+    with torch.no_grad():
+        B, K = xb.shape[0], model.discrete_dim
+        mu, sig, _ = model.encoder_net(xb.reshape(B, -1))
+        phi, dx, sc, zc = model.split_latent_full(mu + sig * eps)
+        codes = torch.eye(K, device=xb.device)[:, None, :].expand(K, B, K)
+        z = torch.cat([zc.expand((K,) + zc.shape), codes], -1)
+        a = dict(grid=model.grid, phi=phi.repeat(K), dx=dx.repeat(K, 1),
+                 sc=sc.repeat(K), z=z.reshape(K * B, -1).contiguous())
+        a.update(zip(("Wc", "bc", "Wz", "hw", "hb", "wout", "bout"),
+                     (t.detach() for t in
+                      sd.padded_sdecoder_weights(model.decoder_net))))
+    return a
+
+
+def step_report(model, X):
+    """Training steps of ``model`` at batch 200 of images ``X``: one step
+    alone (host clock from a synchronized start to the step's end, median
+    of 20), the steps of 3 epochs back to back (the host queues a step
+    while the device runs the last, as in ``fit``), the card's clock,
+    power draw and temperature right after, the profiler's breakdown of 10
+    steps, and the device's idle share of each."""
+    xb = torch.as_tensor(X[:200], device="cuda")
+    tr = SVItrainer(model)
+    w = torch.ones(xb.shape[0], device="cuda")
+    step = host_ms(lambda: tr.train_step((xb,), w), reps=20, warmup=3)
+    loader = init_dataloader(X, batch_size=200)
+    tr.train(loader)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tr.train(loader)
+    queued = 1e3 * (time.perf_counter() - t0) / (3 * len(loader))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    breakdown = step_breakdown(model, xb)
+    device = breakdown["device_ms"]
+    return {"step_ms": step, "epoch_step_ms": queued,
+            "clocks_power_temp": smi, "idle_share": 1.0 - device / step,
+            "epoch_idle_share": 1.0 - device / queued,
+            "breakdown": breakdown}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -883,61 +1338,12 @@ def main() -> int:
                            ("flagship", model, z_rag[2048:]),
                            ("large grid", big, z_big)):
             a = kernel_args(m.decoder_net, m.grid, z.cuda(), **pose)
-            B, N = a["z"].shape[0], a["grid"].shape[0]
-            H, nl = a["Wc"].shape[1], a["hw"].shape[0]
-            label = f"{name} B={B} N={N}"
-            flops, nbytes = work(a)
-            b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
-            h32 = torch.randn(B * N, H, device="cuda")
-            w32 = a["hw"]
-            lib = {}
-            for dtype in (torch.float32, torch.bfloat16):
-                hh, ww = h32.to(dtype), w32.to(dtype)
-                # h_l W_l of every layer as bare products, in and out dtype
-                lib[dtype] = cuda_ms(lambda: [torch.matmul(hh, ww[i])
-                                              for i in range(nl)], reps=20)
-                del hh, ww
-            del h32
-            for on in (False, True):
-                tag = "bf16" if on else "f32"
-                with bf16_matmul(on):
-                    out, again = K1(**a), K1(**a)
-                    ref = sd.spatial_decoder_plain(**a)
-                    torch.cuda.synchronize()
-                    what = f"K1 {tag} {label}"
-                    if not torch.equal(out, again):
-                        raise AssertionError(f"{what}: two launches differ")
-                    err = check_close(what, out, ref,
-                                      *((BF16_ATOL, BF16_OUT_REL) if on
-                                        else (ATOL, 0.0)))
-                    del out, again, ref
-                    k_ms = cuda_ms(lambda: K1(**a))
-                    q_ms = cuda_ms_queued(lambda: K1(**a))
-                    p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a),
-                                   reps=20)
-                lib_ms = lib[torch.bfloat16 if on else torch.float32]
-                k1_rows[on].append({
-                    "shape": label, "flag": tag, "ms": k_ms,
-                    "queued_ms": q_ms, "plain_ms": p_ms,
-                    "max_abs_err": err, "bound_ms": b16 if on else b32,
-                    "bound_by": by16 if on else by32, "bound_ms_f32": b32,
-                    "bound_ms_bf16": b16, "library_ms": lib_ms,
-                    "flops": flops, "bytes": nbytes,
-                    "tflops": flops / k_ms / 1e9})
-                log(f"  {what}: kernel {k_ms:.4f} ms (back to back "
-                    f"{q_ms:.4f} ms), plain {p_ms:.4f} ms, "
-                    f"bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
-                    f"cuBLAS {tag} hidden products {lib_ms:.4f} ms, "
-                    f"{flops / k_ms / 1e9:.2f} TFLOP/s, max abs err vs plain "
-                    f"{err:.3e}, bitwise equal across launches")
-            faster = k1_rows[True][-1]["ms"] < k1_rows[False][-1]["ms"]
-            log(f"  K1 {label}: tensor-core kernel faster than the f32 one: "
-                f"{faster}")
+            for on, row in time_k1(name, a, peaks).items():
+                k1_rows[on].append(row)
     # K2 and K3, f32 and tensor-core, at the flagship training shape and
-    # the large grid: held against their plain versions and a second
-    # launch, then timed; cuBLAS for their hidden products (bf16, and f32
-    # with TF32 off) as a yardstick. A per-sample grad sums up to 16,384
-    # pixels here, so every grad is held to its tensor's largest entry.
+    # the large grid, on the trained models' inputs. A per-sample grad sums
+    # up to 16,384 pixels here, so every grad is held to its tensor's
+    # largest entry.
     rows = {(k, on): [] for k in ("K2", "K3") for on in (False, True)}
     gen = torch.Generator(device="cuda").manual_seed(5)
     xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
@@ -945,92 +1351,8 @@ def main() -> int:
                         ("large grid", big, xl)):
         e = torch.randn(xx.shape[0], m.z_dim, generator=gen, device="cuda")
         a, xf = train_args(m, xx, e)
-        B, N = a["z"].shape[0], a["grid"].shape[0]
-        L, H, nl = a["z"].shape[1], a["Wc"].shape[1], a["hw"].shape[0]
-        label = f"{name} B={B} N={N} H={H}"
-        g = torch.randn(B, N, generator=gen, device="cuda")
-        w = torch.ones(B, device="cuda")
-        args3 = (a["grid"], a["phi"], a["dx"], a["sc"], a["z"], xf, w,
-                 a["Wc"], a["bc"], a["Wz"], a["hw"], a["hb"], a["wout"],
-                 a["bout"])
-        req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
-        lib = {}
-        for on, dtype in ((False, torch.float32), (True, torch.bfloat16)):
-            hm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
-            dm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
-            wm = a["hw"].to(dtype)
-
-            def cublas():  # h W, h^T d and d W^T of every layer, in and out
-                for i in range(nl):  # the dtype
-                    torch.matmul(hm, wm[i])
-                    torch.matmul(hm.T, dm)
-                    torch.matmul(dm, wm[i].T)
-
-            lib[on] = cuda_ms(cublas, reps=20)
-            del hm, dm
-
-        def autograd_plain():
-            out = sd.spatial_decoder_plain(**req)
-            return torch.autograd.grad(
-                out, [req[k] for k in GRAD_NAMES], g)
-
-        for on in (False, True):
-            tag = "bf16" if on else "f32"
-            with bf16_matmul(on):
-                for kname, fn, plain_fn, loss_mode in (
-                        ("K2", lambda: K2(**a, g=g),
-                         lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False),
-                        ("K3", lambda: K3(*args3),
-                         lambda: sd.recon_loss_plain(*args3), True)):
-                    got, again, ref = fn(), fn(), plain_fn()
-                    torch.cuda.synchronize()
-                    what = f"{kname} {tag} {label}"
-                    if loss_mode:
-                        (loss, got), (loss2, again), (ref_loss, ref) = (
-                            got, again, ref)
-                        rel = (abs(loss.item() - ref_loss.item())
-                               / abs(ref_loss.item()))
-                        if not (torch.equal(loss, loss2) and rel <= LOSS_RTOL):
-                            raise AssertionError(f"{what}: loss {loss.item()} "
-                                                 f"and {loss2.item()} vs plain "
-                                                 f"{ref_loss.item()}")
-                    if not all(torch.equal(p, q) for p, q in zip(got, again)):
-                        raise AssertionError(f"{what}: two launches differ")
-                    err = check_grads(what, got, ref, per_sample=0,
-                                      rel=BF16_GRAD_REL if on else GRAD_RTOL)
-                    log(f"  {what} vs plain: grads max abs err {err:.3e} "
-                        f"({rel_to_max(got, ref):.1e} of the largest entry)"
-                        + (f", loss rel err {rel:.3e}" if loss_mode else "")
-                        + ", bitwise equal across launches")
-                    del got, again, ref
-                    ws_bytes, blocks = sd.bwd_workspace(B, N, 2, L, H, nl, 1,
-                                                        "tanh", loss_mode)
-                    flops, nbytes = work_bwd(a, loss_mode)
-                    k_ms = cuda_ms(fn, reps=20)
-                    p_ms = cuda_ms(plain_fn, reps=10)
-                    b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
-                    row = {"shape": label, "flag": tag, "ms": k_ms,
-                           "plain_ms": p_ms, "max_abs_err": err,
-                           "bound_ms": b16 if on else b32,
-                           "bound_by": by16 if on else by32,
-                           "bound_ms_f32": b32, "bound_ms_bf16": b16,
-                           "library_ms": lib[on],
-                           "flops": flops, "bytes": nbytes,
-                           "tflops": flops / k_ms / 1e9,
-                           "workspace_bytes": ws_bytes, "blocks": blocks}
-                    if not on and not loss_mode:
-                        row["autograd_plain_ms"] = cuda_ms(autograd_plain,
-                                                           reps=10)
-                    rows[kname, on].append(row)
-                    log(f"  {kname} {tag} {label}: kernel {k_ms:.4f} ms, "
-                        f"plain {p_ms:.4f} ms"
-                        + ("" if "autograd_plain_ms" not in row else
-                           f", autograd of the plain forward "
-                           f"{row['autograd_plain_ms']:.4f} ms")
-                        + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms"
-                        f", cuBLAS {tag} hidden products {lib[on]:.4f} ms, "
-                        f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, "
-                        f"workspace {ws_bytes / 2 ** 20:.1f} MiB")
+        for key, row in time_bwd(name, a, xf, gen, peaks).items():
+            rows[key].append(row)
     request_ms = {name: host_ms(request, reps=30)
                   for name, request in requests.items()}
     log(f"  request latency, ms (host clock, median): {json.dumps(request_ms)}")
@@ -1047,6 +1369,33 @@ def main() -> int:
     log(f"  flagship training step breakdown (torch.profiler, 10 steps): "
         f"{json.dumps(breakdown)}")
 
+    # -- 7. the discrete-latent and semi-supervised families ---------------
+    log("phase 7: jiVAE, ssiVAE and ss_reg_iVAE train and serve")
+    t7 = time.perf_counter()
+    fam_data = family_data()
+    module_runs = {}
+    with bf16_matmul(False):
+        fam32 = phase_families(fam_data, module_runs)
+    fam = phase_families(fam_data, module_runs)
+    # K1 and K2 at the enumerated decode's shape (B = 2,000, L = 12), on
+    # the trained jiVAE's inputs, added to phase 6's table
+    e = torch.randn(200, fam["jivae"].z_dim, generator=gen, device="cuda")
+    a = enum_args(fam["jivae"], fam["xb"], e)
+    with torch.no_grad():
+        for on, row in time_k1("jiVAE enumerated L=12", a, peaks).items():
+            k1_rows[on].append(row)
+    for key, row in time_bwd("jiVAE enumerated L=12", a, None, gen, peaks,
+                             with_k3=False).items():
+        rows[key].append(row)
+    del a
+    enum_step = {"bf16": step_report(fam["jivae"], fam_data[0])}
+    with bf16_matmul(False):
+        enum_step["f32"] = step_report(fam32["jivae"], fam_data[0])
+    log(f"  jiVAE enumerated training step: alone and in epochs (host "
+        f"clock), breakdown (torch.profiler, 10 steps): "
+        f"{json.dumps(enum_step)}")
+    log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -1056,7 +1405,10 @@ def main() -> int:
                 "training_f32": train32["train_launches"][key],
                 "one_pass_training_f32": train32["one_pass_launches"][key],
                 "large_grid_training_bf16": large["launches"][key],
-                "large_grid_training_f32": large32["launches"][key]}
+                "large_grid_training_f32": large32["launches"][key],
+                **{f"{path}_{tag}": n[key]
+                   for tag, f in (("bf16", fam), ("f32", fam32))
+                   for path, n in f["launches"].items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -1083,18 +1435,22 @@ def main() -> int:
                            "pyroved_tpu/ops/spatial_decoder.py:1209")
     result = {"kernels": [
         entry("spatial_decoder_fwd", csrc + "spatial_decoder_fwd.cu", k1_at,
-              "K1", max(errs[False]["K1"], *shape_errs("K1", 0)),
+              "K1", max(errs[False]["K1"], fam32["k1_err"],
+                        *shape_errs("K1", 0)),
               rows["K1", False], launches_per_request=launches32),
         entry("spatial_decoder_fwd_tc", csrc + "spatial_decoder_fwd_tc.cu",
               k1_at, "K1_bf16",
-              max(errs[True]["K1"], *serve_errs, *shape_errs("K1", 1)),
+              max(errs[True]["K1"], *serve_errs, fam["k1_err"],
+                  *shape_errs("K1", 1)),
               rows["K1", True], launches_per_request=launches,
               request_ms=request_ms, weights_ms=weights_ms),
         entry("spatial_decoder_bwd", bwd, k2_at, "K2",
-              max(errs[False]["K2"], train32["max_err"], *shape_errs("K2", 0)),
+              max(errs[False]["K2"], train32["max_err"],
+                  *shape_errs("K2", 0)),
               rows["K2", False]),
         entry("spatial_decoder_bwd_tc", tc, k2_at, "K2_bf16",
-              max(errs[True]["K2"], train["max_err"], *shape_errs("K2", 1)),
+              max(errs[True]["K2"], train["max_err"],
+                  *shape_errs("K2", 1)),
               rows["K2", True]),
         entry("bernoulli_recon_loss", bwd, k3_at, "K3",
               max(errs[False]["K3"], *shape_errs("K3", 0)), rows["K3", False]),
@@ -1104,7 +1460,12 @@ def main() -> int:
         "fit_s", "loss_history", "module_loss_history", "times")}
         for tag, t in (("bf16", train), ("f32", train32))},
         "large_grid_training": {"bf16": large, "f32": large32},
-        "step_breakdown": breakdown}
+        "step_breakdown": breakdown,
+        "families": {tag: {k: f[k] for k in (
+            "fit_s", "loss_history", "module_loss_history",
+            "ssivae_accuracy", "ss_reg_mse", "first_step_err")}
+            for tag, f in (("bf16", fam), ("f32", fam32))},
+        "enumerated_step": enum_step}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,13 +1,16 @@
 """Base class for the variational encoder-decoder models.
 
-Counterpart of the parts of ``pyroved_tpu/models/base.py`` that iVAE
-uses: invariance bookkeeping (1-D data allows only ``['t']``; in 2-D
-``'t'`` takes two latent slots), the coordinate grid and the priors, the
-latent split in the order rotation -> translation -> scale -> content,
-the transformed grids and chunked encode/decode.
+Counterpart of the parts of ``pyroved_tpu/models/base.py`` that the
+ported families use: invariance bookkeeping (1-D data allows only
+``['t']``; in 2-D ``'t'`` takes two latent slots), the coordinate grid and
+the priors, the latent split in the order rotation -> translation -> scale
+-> content, the decoder and the routing of its decodes, the transformed
+grids, P-fold particle tiling, chunked encode/decode and the
+semi-supervised ``fit`` loop.
 
 Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
-package's top-level names (``encoder_z``, ``decoder``) on ``self.device``.
+package's top-level names (``encoder_z``, ``encoder_y``, ``decoder``) on
+``self.device``.
 """
 from typing import List, Optional, Sequence, Tuple
 
@@ -15,11 +18,41 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.spatial_decoder import apply_fused_sdecoder
+from ..nets.fc import fcDecoderNet, sDecoderNet
+from ..ops.spatial_decoder import (apply_fused_sdecoder,
+                                   sdecoder_supports_fusion)
 from ..utils.coord import generate_grid, transform_coordinates
 from ..utils.nn import as_f32, later_slice, resolve_device
 
 Tensor = torch.Tensor
+
+#: Keywords every model takes (as the JAX package's); a model adds its own.
+MODEL_KWARGS = ("channels", "dx_prior", "dy_prior", "sc_prior",
+                "decoder_sig", "kl", "num_particles", "approx_tanh", "fused")
+
+
+def check_kwargs(model: str, kwargs, allowed) -> None:
+    """Reject keywords ``model`` does not take. ``pixel_chunks`` (the JAX
+    package's pixel partitioning) raises ``NotImplementedError`` naming its
+    ROADMAP item."""
+    if kwargs.get("pixel_chunks"):
+        raise later_slice(f"{model}(pixel_chunks=...)", "pixel partitioning")
+    unknown = sorted(set(kwargs) - set(allowed) - {"pixel_chunks"})
+    if unknown:
+        raise TypeError(f"{model} got unsupported keywords {unknown}; "
+                        f"supported: {list(allowed)}")
+
+
+def with_labels(zc: Tensor, y: Optional[Tensor]) -> Tensor:
+    """The decoder input: content latents, then the labels if any."""
+    return zc if y is None else torch.cat([zc, y], dim=-1)
+
+
+def tile_rows(a: Optional[Tensor], P: int) -> Optional[Tensor]:
+    """``a [B, ...]`` repeated P times along its rows: ``[P*B, ...]``."""
+    if a is None:
+        return None
+    return a.expand((P,) + a.shape).reshape((P * a.shape[0],) + a.shape[1:])
 
 
 def posed_decode(decoder: nn.Module, grid: Optional[Tensor], z: Tensor,
@@ -114,6 +147,42 @@ class baseVAE:
 
         self.nets: Optional[nn.ModuleDict] = None  # set by subclasses
         self.z_dim = None
+        self.num_particles = int(kwargs.get("num_particles", 1))
+        self.kl_mode = kwargs.get("kl", "mc")
+
+    def _make_decoder(self, zc_dim: int, hidden_dim_d, activation: str,
+                      sigmoid_d: bool, kwargs) -> nn.Module:
+        """The decoder of ``zc_dim`` latent inputs (an ``sDecoderNet`` over
+        the grid with invariances, else an ``fcDecoderNet``) and the routing
+        of its decodes: the kernels when the configuration supports them
+        and ``fused`` is not False (``_fused``), the Pade tanh on the ELBO
+        path under ``approx_tanh`` (``_dec_act``)."""
+        if self.coord > 0:
+            decoder = sDecoderNet(self.grid.shape[-1], zc_dim, hidden_dim_d,
+                                  activation, sigmoid_out=sigmoid_d,
+                                  channels=self.channels)
+        else:
+            decoder = fcDecoderNet(zc_dim, self.out_shape, hidden_dim_d,
+                                   activation, sigmoid_out=sigmoid_d)
+        self.activation = activation
+        self._dec_sig = bool(sigmoid_d)
+        self._fused = (bool(kwargs.get("fused", True))
+                       and sdecoder_supports_fusion(
+                           hidden_dim_d, activation, sigmoid_d, self.coord,
+                           self.channels, self.device))
+        # opt-in Pade tanh on the ELBO path (max abs error < 2e-4)
+        self._dec_act = ("tanh_approx" if kwargs.get("approx_tanh")
+                         and activation == "tanh" and self._fused
+                         else activation)
+        return decoder
+
+    @property
+    def encoder_net(self) -> nn.Module:
+        return self.nets["encoder_z"]
+
+    @property
+    def decoder_net(self) -> nn.Module:
+        return self.nets["decoder"]
 
     # ------------------------------------------------------------------
     # Latent bookkeeping
@@ -189,6 +258,51 @@ class baseVAE:
         grid = self.grid.expand(z.shape[:-1] + self.grid.shape)
         return transform_coordinates(grid, phi, dx[..., None, :], sc), z
 
+    def _module_decode(self, z: Tensor, y: Optional[Tensor] = None):
+        """(decoded loc, warped grid or None) of latents ``z`` (and labels
+        ``y``) through the decoder module."""
+        coords, zc = self.transformed_grid(z)
+        zc = with_labels(zc, y)
+        if coords is None:
+            return self.decoder_net(zc), None
+        return self.decoder_net(coords, zc), coords
+
+    def _decode_train(self, z: Tensor, y: Optional[Tensor] = None) -> Tensor:
+        """The decoded loc ``[..., N(, C)]`` (or ``[..., prod(out)]``) of
+        latents ``z [..., z_dim]``, their content joined by labels ``y``
+        (``[..., *]``, or None): through the fused kernels when routed
+        there, else the decoder module on the transformed grid."""
+        if self.coord > 0 and self._fused:
+            phi, dx, sc, zc = self.split_latent_full(z)
+            return apply_fused_sdecoder(self.decoder_net, self.grid, phi, dx,
+                                        sc, with_labels(zc, y), self._dec_act,
+                                        self._dec_sig)
+        return self._module_decode(z, y)[0]
+
+    def _particles(self, single, x: Tensor, y: Optional[Tensor], beta,
+                   eps) -> Tensor:
+        """``single(x, y, beta, eps)`` averaged over ``num_particles``
+        estimates, the batch tiled P-fold into one call as the JAX package
+        does (``eps`` then holds P*B rows). Returns ``[B]``."""
+        P = self.num_particles
+        if P <= 1:
+            return single(x, y, beta, eps)
+        per = single(tile_rows(x, P), tile_rows(y, P), beta, eps)
+        return per.reshape(P, x.shape[0]).mean(0)
+
+    @torch.no_grad()
+    def _decode_posed(self, z: Tensor, angle=0.0, shift=0.0, scale=1.0,
+                      batch_size: Optional[int] = None, **kwargs) -> Tensor:
+        """Decode decoder inputs ``z [B, *]`` under one fixed pose, chunked
+        at ``batch_size`` rows; returns ``[B, *data_dim(, C)]``."""
+        def dec(zz):
+            return posed_decode(self.decoder_net, self.grid, zz, self._fused,
+                                self.activation, self._dec_sig, angle, shift,
+                                scale)
+
+        loc = chunked(dec, z, batch_size=batch_size)
+        return loc.reshape((z.shape[0],) + self.out_shape)
+
     # ------------------------------------------------------------------
     # Weights
     # ------------------------------------------------------------------
@@ -197,7 +311,8 @@ class baseVAE:
 
     def load_jax_params(self, params) -> None:
         """Load the JAX model's parameter tree (``{"encoder_z": ...,
-        "decoder": ...}``, numpy leaves), with strict key and shape checks."""
+        "decoder": ...}``, plus ``"encoder_y"`` for the semi-supervised
+        models; numpy leaves), with strict key and shape checks."""
         from ..weights import from_jax_params
         self.nets.load_state_dict(from_jax_params(params), strict=True)
 
@@ -286,3 +401,46 @@ class baseVAE:
             trainer.step(loader, test_loader, scale_factor=scale_factor)
             trainer.print_statistics()
         return trainer
+
+
+_TRAINER_KWARGS = ("mesh", "checkpoint_path", "checkpoint_every", "log_file",
+                   "optimizer", "seed", "task")
+
+
+def fit_semi_supervised(model, X_unsup, labeled, val, epochs, batch_size, lr,
+                        verbose, trainer, data_scale, kwargs):
+    """The ``fit`` of ssiVAE and ss_reg_iVAE: loaders for the unlabeled,
+    labeled and validation sets on the model's device, an auxSVItrainer,
+    then its ``run``; with ``verbose`` or another trainer, one ``step``
+    (and ``print_statistics``) per epoch. ``patience``, ``on_segment`` and
+    ``enum_schedule`` raise ``NotImplementedError`` naming their ROADMAP
+    item."""
+    from ..trainers.auxsvi import auxSVItrainer
+    from ..utils.data import init_ssvae_dataloaders
+    Xl, yl = labeled
+    model._check_data_scale(X_unsup, data_scale)
+    model._check_data_scale(Xl, data_scale)
+    Xv, yv = val if val is not None else (Xl, yl)
+    loaders = init_ssvae_dataloaders(
+        X_unsup, (Xl, model._labels(yl)), (Xv, model._labels(yv)),
+        batch_size=batch_size, scale=data_scale, device=model.device)
+    tkw = {k: kwargs.pop(k) for k in _TRAINER_KWARGS if k in kwargs}
+    if trainer is not None and tkw:
+        raise ValueError(
+            "fit() got both an explicit trainer= and trainer-level "
+            f"kwargs {sorted(tkw)}; configure them on the trainer you "
+            "pass, or drop trainer= to have fit() build one.")
+    trainer = trainer or auxSVItrainer(model, lr=lr, **tkw)
+    if not verbose and isinstance(trainer, auxSVItrainer):
+        trainer.run(loaders[0], loaders[1], int(epochs),
+                    loader_val=loaders[2], **kwargs)
+        return trainer
+    for key in ("patience", "on_segment", "enum_schedule"):
+        if kwargs.pop(key, None) is not None:
+            raise later_slice(f"fit({key}=...)", "trainer surface")
+    kwargs.pop("min_delta", None)  # read by patience only
+    for _ in range(int(epochs)):
+        trainer.step(*loaders, **kwargs)
+        if verbose:
+            trainer.print_statistics()
+    return trainer

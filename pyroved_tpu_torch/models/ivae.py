@@ -17,19 +17,17 @@ import torch.nn as nn
 
 from ..infer.dists import get_sampler
 from ..infer.elbo import normal_latent_site, obs_site
-from ..nets.fc import fcDecoderNet, fcEncoderNet, init_from, sDecoderNet
+from ..nets.fc import fcEncoderNet, init_from
 from ..ops.spatial_decoder import (KERNEL_ACTS_WITH_APPROX,
-                                   apply_fused_recon_loss,
-                                   apply_fused_sdecoder,
-                                   sdecoder_supports_fusion)
+                                   apply_fused_recon_loss)
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
-from .base import baseVAE, chunked, later_slice, posed_decode
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked, later_slice,
+                   with_labels)
 
 Tensor = torch.Tensor
 
-_KWARGS = ("channels", "dx_prior", "dy_prior", "sc_prior", "decoder_sig",
-           "kl", "num_particles", "approx_tanh", "one_pass_train", "fused")
+_KWARGS = MODEL_KWARGS + ("one_pass_train",)
 
 
 class iVAE(baseVAE):
@@ -63,53 +61,31 @@ class iVAE(baseVAE):
         device=None,
         **kwargs,
     ) -> None:
-        unknown = sorted(set(kwargs) - set(_KWARGS))
-        if unknown:
-            raise TypeError(f"iVAE got unsupported keywords {unknown}; "
-                            f"supported: {list(_KWARGS)}")
+        check_kwargs("iVAE", kwargs, _KWARGS)
         super().__init__(data_dim, invariances, device=device, **kwargs)
         self.generator = set_deterministic_mode(seed)
         self.latent_dim = int(latent_dim)
         self.z_dim = self.latent_dim + self.coord
         self.c_dim = int(c_dim)
-        self.kl_mode = kwargs.get("kl", "mc")
-        self.num_particles = int(kwargs.get("num_particles", 1))
-        self.activation = activation
 
         encoder = fcEncoderNet(self.out_shape, self.z_dim, self.c_dim,
                                hidden_dim_e, activation, softplus_out=True)
-        zc_dim = self.latent_dim + self.c_dim
-        if self.coord > 0:
-            decoder = sDecoderNet(self.grid.shape[-1], zc_dim, hidden_dim_d,
-                                  activation, sigmoid_out=sigmoid_d,
-                                  channels=self.channels)
-        else:
-            decoder = fcDecoderNet(zc_dim, self.out_shape, hidden_dim_d,
-                                   activation, sigmoid_out=sigmoid_d)
+        decoder = self._make_decoder(self.latent_dim + self.c_dim,
+                                     hidden_dim_d, activation, sigmoid_d,
+                                     kwargs)
         self.nets = nn.ModuleDict({
             "encoder_z": init_from(encoder, self.generator),
             "decoder": init_from(decoder, self.generator),
         }).to(self.device)
         self.sampler_d = get_sampler(sampler_d, **kwargs)
-
-        self._dec_sig = bool(sigmoid_d)
-        self._fused = (bool(kwargs.get("fused", True))
-                       and sdecoder_supports_fusion(
-                           hidden_dim_d, activation, sigmoid_d, self.coord,
-                           self.channels, self.device))
         self.one_pass_train = bool(kwargs.get("one_pass_train", False))
-        # opt-in Pade tanh on the ELBO path (max abs error < 2e-4)
-        self._dec_act = ("tanh_approx" if kwargs.get("approx_tanh")
-                         and activation == "tanh" and self._fused
-                         else activation)
 
-    @property
-    def encoder_net(self) -> fcEncoderNet:
-        return self.nets["encoder_z"]
-
-    @property
-    def decoder_net(self) -> nn.Module:
-        return self.nets["decoder"]
+    def noise_shapes(self, batch_size: int, labeled: bool = False):
+        """Shape of the standard-normal latent noise one batch needs, like
+        the posterior: ``[B, z_dim]``, or ``[P, B, z_dim]`` with
+        ``num_particles=P``."""
+        P = self.num_particles
+        return (((P,) if P > 1 else ()) + (batch_size, self.z_dim),)
 
     # ------------------------------------------------------------------
     # ELBO
@@ -135,17 +111,6 @@ class iVAE(baseVAE):
                                             eps=eps, generator=self.generator)
         return xf, y, mu, sig, z, latent_term
 
-    def _with_y(self, zc, y):
-        return zc if y is None else torch.cat([zc, y], dim=-1)
-
-    def _module_decode(self, z, y):
-        """(decoded loc, warped grid or None) through the decoder module."""
-        coords, zc = self.transformed_grid(z)
-        zc = self._with_y(zc, y)
-        if coords is None:
-            return self.decoder_net(zc), None
-        return self.decoder_net(coords, zc), coords
-
     def loss_fn(self, x, y=None, beta: float = 1.0, eps=None) -> Tensor:
         """Per-example negative ELBO ``[B]`` of a batch ``x`` (and ``y``).
 
@@ -157,13 +122,7 @@ class iVAE(baseVAE):
         then runs the backward kernel too); score under
         ``torch.no_grad()``."""
         xf, y, _, _, z, latent_term = self._posterior(x, y, beta, eps)
-        if self.coord > 0 and self._fused:
-            phi, dx, sc, zc = self.split_latent_full(z)
-            loc = apply_fused_sdecoder(self.decoder_net, self.grid, phi, dx,
-                                       sc, self._with_y(zc, y), self._dec_act,
-                                       self._dec_sig)
-        else:
-            loc, _ = self._module_decode(z, y)
+        loc = self._decode_train(z, y)
         recon = obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
         per_example = -(recon + latent_term)
         return per_example.mean(0) if self.num_particles > 1 else per_example
@@ -190,7 +149,7 @@ class iVAE(baseVAE):
         xf, y, _, _, z, latent_term = self._posterior(x, y, beta, eps)
         phi, dx, sc, zc = self.split_latent_full(z)
         recon_neg = apply_fused_recon_loss(
-            self.decoder_net, self.grid, phi, dx, sc, self._with_y(zc, y), xf,
+            self.decoder_net, self.grid, phi, dx, sc, with_labels(zc, y), xf,
             weights, self._dec_act)
         return recon_neg - torch.sum(weights * latent_term)
 
@@ -238,14 +197,7 @@ class iVAE(baseVAE):
         z = self._as_f32(z)
         if y is not None:
             z = torch.cat([z, self._as_f32(y).reshape(z.shape[0], -1)], -1)
-
-        def dec(zz):
-            return posed_decode(self.decoder_net, self.grid, zz, self._fused,
-                                self.activation, self._dec_sig, angle, shift,
-                                scale)
-
-        loc = chunked(dec, z, batch_size=batch_size)
-        return loc.reshape((z.shape[0],) + self.out_shape)
+        return self._decode_posed(z, angle, shift, scale, batch_size)
 
     def reconstruct(self, x_new, y=None, **kwargs) -> Tensor:
         """Encode, then decode the posterior mean's content latents (in the

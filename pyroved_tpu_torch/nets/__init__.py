@@ -1,4 +1,6 @@
 """Neural-net modules (torch.nn)."""
-from .fc import MLP, Dense, fcDecoderNet, fcEncoderNet, sDecoderNet
+from .fc import (MLP, Dense, fcClassifierNet, fcDecoderNet, fcEncoderNet,
+                 fcRegressorNet, jfcEncoderNet, sDecoderNet)
 
-__all__ = ["Dense", "MLP", "fcEncoderNet", "fcDecoderNet", "sDecoderNet"]
+__all__ = ["Dense", "MLP", "fcEncoderNet", "jfcEncoderNet", "fcClassifierNet",
+           "fcRegressorNet", "fcDecoderNet", "sDecoderNet"]

@@ -1,8 +1,8 @@
 """Fully-connected encoder and decoder modules.
 
 Counterpart of ``pyroved_tpu/nets/fc.py``. Submodules carry the flax tree's
-names (``MLP_0.Dense_i``, ``fc11``, ``fc12``, ``fc_coord``, ``fc_latent``,
-``out``), so JAX weights load by a rename and a transpose
+names (``MLP_0.Dense_i``, ``fc11``, ``fc12``, ``fc13``, ``fc_coord``,
+``fc_latent``, ``out``), so JAX weights load by a rename and a transpose
 (:mod:`pyroved_tpu_torch.weights`). Initialization is torch's
 ``nn.Linear`` default, U(+-1/sqrt(fan_in)) for weight and bias, drawn from
 an explicit generator.
@@ -83,8 +83,7 @@ class fcEncoderNet(nn.Module):
         self.softplus_out = softplus_out
 
     def forward(self, x: Tensor, y: Optional[Tensor] = None):
-        if x.shape[-1] != self.flat_dim:  # trailing dims are the event dims
-            x = x.reshape(x.shape[:-len(self.in_dim)] + (self.flat_dim,))
+        x = _flatten_events(x, self.in_dim, self.flat_dim)
         if y is not None:
             y = y.expand(x.shape[:-1] + (y.shape[-1],))
             x = torch.cat([x, y], dim=-1)
@@ -94,6 +93,76 @@ class fcEncoderNet(nn.Module):
         if self.softplus_out:
             sigma = F.softplus(sigma)
         return mu, sigma
+
+
+def _flatten_events(x: Tensor, in_dim: Tuple[int, ...], flat_dim: int) -> Tensor:
+    """``x`` with its trailing event dims flattened to ``flat_dim``."""
+    if x.shape[-1] != flat_dim:
+        x = x.reshape(x.shape[:-len(in_dim)] + (flat_dim,))
+    return x
+
+
+class jfcEncoderNet(nn.Module):
+    """Joint encoder: (mu, sigma) of q(z|x), softplus sigma, and the class
+    probabilities alpha of q(k|x), a softmax over ``discrete_dim``."""
+
+    def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
+                 discrete_dim: int = 0,
+                 hidden_dim: Optional[Sequence[int]] = None,
+                 activation: str = "tanh", softplus_out: bool = True):
+        super().__init__()
+        self.in_dim = tuple(in_dim)
+        self.flat_dim = int(np.prod(self.in_dim))
+        hidden = _default_hidden(hidden_dim)
+        self.MLP_0 = MLP(self.flat_dim, hidden, activation)
+        self.fc11 = Dense(hidden[-1], latent_dim)
+        self.fc12 = Dense(hidden[-1], latent_dim)
+        self.fc13 = Dense(hidden[-1], discrete_dim)
+        self.softplus_out = softplus_out
+
+    def forward(self, x: Tensor):
+        h = self.MLP_0(_flatten_events(x, self.in_dim, self.flat_dim))
+        mu = self.fc11(h)
+        sigma = self.fc12(h)
+        if self.softplus_out:
+            sigma = F.softplus(sigma)
+        return mu, sigma, torch.softmax(self.fc13(h), dim=-1)
+
+
+class fcClassifierNet(nn.Module):
+    """MLP classifier: class probabilities, a softmax over ``num_classes``."""
+
+    def __init__(self, in_dim: Tuple[int, ...], num_classes: int,
+                 hidden_dim: Optional[Sequence[int]] = None,
+                 activation: str = "tanh"):
+        super().__init__()
+        self.in_dim = tuple(in_dim)
+        self.flat_dim = int(np.prod(self.in_dim))
+        hidden = _default_hidden(hidden_dim)
+        self.MLP_0 = MLP(self.flat_dim, hidden, activation)
+        self.out = Dense(hidden[-1], int(num_classes))
+
+    def forward(self, x: Tensor) -> Tensor:
+        h = self.MLP_0(_flatten_events(x, self.in_dim, self.flat_dim))
+        return torch.softmax(self.out(h), dim=-1)
+
+
+class fcRegressorNet(nn.Module):
+    """MLP regressor with a linear head of ``c_dim`` outputs."""
+
+    def __init__(self, in_dim: Tuple[int, ...], c_dim: int,
+                 hidden_dim: Optional[Sequence[int]] = None,
+                 activation: str = "tanh"):
+        super().__init__()
+        self.in_dim = tuple(in_dim)
+        self.flat_dim = int(np.prod(self.in_dim))
+        hidden = _default_hidden(hidden_dim)
+        self.MLP_0 = MLP(self.flat_dim, hidden, activation)
+        self.out = Dense(hidden[-1], int(c_dim))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.out(self.MLP_0(_flatten_events(x, self.in_dim,
+                                                   self.flat_dim)))
 
 
 class fcDecoderNet(nn.Module):

@@ -41,15 +41,18 @@ def bf16_matmul(on):
         sd.BF16_MATMUL = old
 
 
-def blobs(n, dim, seed):
-    """MNIST-like oriented Gaussian bumps (bench.py's data)."""
+def blobs(n, dim, seed, centers=False):
+    """MNIST-like oriented Gaussian bumps (bench.py's data); with
+    ``centers``, also each bump's x centre in [-0.4, 0.4] (the labels of
+    the semi-supervised runs)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.meshgrid(np.linspace(-1, 1, dim[0]),
                          np.linspace(-1, 1, dim[1]), indexing="ij")
     cx = rng.uniform(-0.4, 0.4, n)[:, None, None]
     cy = rng.uniform(-0.4, 0.4, n)[:, None, None]
     s = rng.uniform(0.05, 0.2, n)[:, None, None]
-    return np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / s).astype(np.float32)
+    X = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / s).astype(np.float32)
+    return (X, cx.ravel().astype(np.float32)) if centers else X
 
 
 def cuda_ms(fn, reps=25, warmup=3):

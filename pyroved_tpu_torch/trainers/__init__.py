@@ -1,4 +1,5 @@
 """Trainers."""
+from .auxsvi import auxSVItrainer
 from .svi import SVItrainer
 
-__all__ = ["SVItrainer"]
+__all__ = ["SVItrainer", "auxSVItrainer"]

@@ -12,8 +12,11 @@ epoch's indices are uploaded once, the per-step losses stay on the device,
 and the host reads them once, at the end of the epoch. Optimization is
 ``torch.optim.Adam(lr=1e-3)`` (betas 0.9/0.999, eps 1e-8, as
 ``optax.adam``). The latent noise comes from a ``torch.Generator`` on the
-model's device seeded from ``seed``; it cannot reproduce JAX's random
-bits, so :meth:`SVItrainer.train_step` also takes injected noise.
+model's device seeded from ``seed``, in the shapes the model states
+(``noise_shapes``); it cannot reproduce JAX's random bits, so
+:meth:`SVItrainer.train_step` also takes injected noise. A model with
+``prep_beta`` (jiVAE) takes the KL scale as a ``[beta_cont, beta_disc]``
+pair.
 """
 import time
 from typing import Optional
@@ -31,6 +34,28 @@ _TRAINER_ITEM = "trainer surface"
 _LATER_KWARGS = {"mesh": None, "grad_accum": 1, "remat": False,
                  "checkpoint_path": None, "log_file": None}
 _LATER_RUN_KWARGS = ("patience", "on_segment", "enum_schedule")
+
+
+def draw_noise(model, generator: torch.Generator, batch_size: int,
+               labeled: bool = False):
+    """Standard-normal noise of one batch of ``batch_size`` rows from
+    ``generator``, in the shapes ``model.noise_shapes`` states: one tensor,
+    or a tuple when the model needs several (None where it needs none)."""
+    eps = tuple(None if s is None else
+                torch.randn(s, generator=generator, device=generator.device)
+                for s in model.noise_shapes(batch_size, labeled))
+    return eps[0] if len(eps) == 1 else eps
+
+
+def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero grad for every parameter that got none, so that the step
+    moves it by its momentum and advances its count, as ``optax.adam``
+    updates every leaf at every step (``torch.optim.Adam`` skips a
+    parameter whose grad is None)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 class _PendingLoss:
@@ -90,12 +115,14 @@ class SVItrainer:
         self.current_epoch = 0
 
     # ------------------------------------------------------------------
-    def _noise(self, batch_size: int) -> Tensor:
-        """Standard-normal latent noise for one batch, shaped like the
-        posterior (with a leading particle axis for ``num_particles > 1``)."""
-        P = int(getattr(self.model, "num_particles", 1))
-        shape = ((P,) if P > 1 else ()) + (batch_size, self.model.z_dim)
-        return torch.randn(shape, generator=self.generator, device=self.device)
+    def _noise(self, batch_size: int):
+        """The latent noise of one batch (``model.noise_shapes``)."""
+        return draw_noise(self.model, self.generator, batch_size)
+
+    def _prep_beta(self, scale_factor):
+        """The KL scale as the model takes it (a pair for jiVAE)."""
+        prep = getattr(self.model, "prep_beta", None)
+        return scale_factor if prep is None else prep(scale_factor)
 
     def train_step(self, batch, weights: Tensor, beta=1.0,
                    eps: Optional[Tensor] = None) -> Tensor:
@@ -110,6 +137,7 @@ class SVItrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.weighted_loss_fn(x, y, weights, beta, eps=eps)
         loss.backward()
+        fill_zero_grads(self.optimizer)
         self.optimizer.step()
         return loss.detach()
 
@@ -120,8 +148,9 @@ class SVItrainer:
                               "trainer surface: streaming loaders")
         return loader
 
-    def _epoch(self, loader: DataLoader, beta, train: bool) -> Tensor:
+    def _epoch(self, loader: DataLoader, scale_factor, train: bool) -> Tensor:
         """Sum of the epoch's batch losses as a 0-d device tensor."""
+        beta = self._prep_beta(scale_factor)
         idx, w = loader.epoch_indices()
         idx = torch.as_tensor(idx, device=loader.device)
         w = torch.as_tensor(w, device=loader.device)

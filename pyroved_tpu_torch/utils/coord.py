@@ -88,3 +88,21 @@ def generate_latent_grid(d: Union[int, Sequence[int]], **kwargs
     xx, yy = torch.meshgrid(grid_x, grid_y, indexing="ij")
     z = torch.stack([xx.ravel(), yy.ravel()], dim=-1).float()
     return z, (grid_x, grid_y)
+
+
+def generate_latent_grid_traversal(d: int, cont_dim: int, disc_dim: int,
+                                   cont_idx: int, cont_idx_fixed: float,
+                                   num_samples: int
+                                   ) -> Tuple[Tensor, Tensor]:
+    """Latents of a joint traversal: ``[num_samples, cont_dim]`` continuous
+    rows, all ``cont_idx_fixed`` but column ``cont_idx``, which sweeps the
+    standard-normal quantiles 0.95 -> 0.05 (row i*d + j takes the j-th),
+    and ``[d*d, disc_dim]`` one-hot rows, block i (d rows) of class
+    ``i % disc_dim``."""
+    cont = _norm_icdf(torch.linspace(0.95, 0.05, d))
+    samples_cont = torch.full((num_samples, cont_dim), float(cont_idx_fixed))
+    samples_cont[:, cont_idx] = cont.repeat(num_samples // d + 1)[:num_samples]
+    classes = torch.arange(d) % disc_dim
+    samples_disc = torch.zeros(d, d, disc_dim)
+    samples_disc[torch.arange(d), :, classes] = 1.0
+    return samples_cont, samples_disc.reshape(d * d, disc_dim)

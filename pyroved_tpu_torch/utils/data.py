@@ -11,7 +11,7 @@ device with ``index_select``.
 The trailing partial batch is padded with index 0 and weight 0, so every
 step has the same shape and the padding adds nothing to the loss.
 """
-from typing import Iterator, Tuple
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,3 +152,26 @@ def init_dataloader(*args, random_sampler: bool = False, shuffle: bool = True,
     (``batch_size``, ``seed``, ``scale``, ``device``) goes to
     :class:`DataLoader`."""
     return DataLoader(*args, shuffle=shuffle or random_sampler, **kwargs)
+
+
+def init_ssvae_dataloaders(data_unsup, data_sup: Sequence, data_val: Sequence,
+                           **kwargs) -> Tuple[DataLoader, DataLoader,
+                                              DataLoader]:
+    """Unlabeled, labeled and validation loaders of a semi-supervised model,
+    as the JAX package builds them: the labeled loader always shuffles, and
+    ``scale=(x_scale, y_scale)`` is refitted to each loader (the unlabeled
+    one holds X only). Other keywords (``batch_size``, ``seed``,
+    ``device``) go to every loader."""
+    scale = kwargs.pop("scale", None)
+    if isinstance(scale, (tuple, list)):
+        x_scale = scale[0]
+        y_scale = scale[1] if len(scale) > 1 else None
+    else:
+        x_scale, y_scale = scale, None
+    pair_scale = (None if x_scale is None and y_scale is None
+                  else (x_scale, y_scale))
+    loader_unsup = init_dataloader(data_unsup, scale=x_scale, **kwargs)
+    loader_sup = init_dataloader(*data_sup, random_sampler=True,
+                                 scale=pair_scale, **kwargs)
+    loader_val = init_dataloader(*data_val, scale=pair_scale, **kwargs)
+    return loader_unsup, loader_sup, loader_val

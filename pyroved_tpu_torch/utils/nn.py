@@ -4,7 +4,7 @@ Counterpart of ``pyroved_tpu/utils/nn.py``. Seeding hands out an explicit
 ``torch.Generator`` instead of a JAX PRNG key; nothing touches torch's
 global generator.
 """
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -58,6 +58,27 @@ def as_f32(x, device) -> Tensor:
     if isinstance(x, Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def to_onehot(idx, n: int, device=None) -> Tensor:
+    """One-hot float32 rows ``[len(idx), n]`` of integer labels; raises
+    when a label lies outside [0, n)."""
+    idx = torch.as_tensor(as_numpy(idx)).reshape(-1)
+    if idx.numel() and (int(idx.max()) >= n or int(idx.min()) < 0):
+        raise AssertionError(
+            "Labelling must start from 0 and "
+            "maximum label value must be less than total number of classes")
+    return F.one_hot(idx.long(), n).to(device=device, dtype=torch.float32)
+
+
+def average_weights(ensemble: Mapping[int, Mapping[str, Tensor]]
+                    ) -> Dict[str, Tensor]:
+    """Elementwise mean of state dicts with the same keys (stochastic
+    weight averaging over the snapshots in ``ensemble``)."""
+    trees = list(ensemble.values())
+    if not trees:
+        raise ValueError("Empty ensemble")
+    return {k: sum(t[k] for t in trees) / float(len(trees)) for k in trees[0]}
 
 
 def as_numpy(x) -> np.ndarray:

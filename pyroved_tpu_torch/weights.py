@@ -2,9 +2,11 @@
 
 The JAX model keeps its parameters as a flax tree,
 ``{"encoder_z": {"MLP_0": {"Dense_0": {"kernel", "bias"}, ...}, "fc11":
-...}, "decoder": {...}}``, with ``[in, out]`` kernels. The port's modules
-carry the same names, so the tree maps onto a ``state_dict`` by joining
-the path with dots and transposing each kernel to torch's ``[out, in]``.
+...}, "decoder": {...}}`` (with ``"encoder_y"``, the classifier or
+regressor, for the semi-supervised models, and ``fc13``, the class head, in
+jiVAE's encoder), with ``[in, out]`` kernels. The port's modules carry the
+same names, so the tree maps onto a ``state_dict`` by joining the path with
+dots and transposing each kernel to torch's ``[out, in]``.
 """
 from collections.abc import Mapping
 from typing import Dict

@@ -199,7 +199,7 @@ def test_device_rule_and_later_slices(tmp_path):
         tm.fit(np.zeros((4, 12, 12), np.float32), patience=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.manifold2d(3, plot=True)
-    with pytest.raises(TypeError, match="pixel_chunks"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*pixel"):
         tmodels.iVAE((12, 12), invariances=["r"], device="cpu",
                      pixel_chunks=4)
 
