@@ -72,6 +72,21 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    (against plain, a second launch, bound, plain time, cuBLAS), and the
    enumerated jiVAE step's wall time, alone and in epochs back to back,
    with its profiler breakdown, under each flag.
+8. VED and checkpoints. The im2spec VED at the reference notebook's
+   width (16x16 images to 2048-long spectra, default filters, lrelu,
+   Bernoulli, sigmoid head, seed 0), with cuDNN's TF32 allowed as
+   PyTorch's default has it: its first step on the card against the same
+   model on the CPU (f32), 3 epochs of 2,000 pairs at batch 100 through
+   ``fit`` (``scale_factor=4``), then encode, decode, predict (30
+   samples) and manifold2d against the CPU model, and ``export_model``'s
+   refusal. The stretch width (256x256 to 2048, batch 16): 8 steps each
+   under f32, bf16 towers and f32 with batchnorm, median step time, peak
+   memory and a profiler breakdown. Under each flag, a bit-exact resume: the flagship iVAE
+   (``SVItrainer``) and ssiVAE at phase 7's width (``auxSVItrainer``)
+   train 4 epochs, and again 2, a checkpoint, a fresh model and trainer
+   that resume, 2 more: per-epoch history and parameters bitwise equal,
+   the resumed epochs one K1 and one K2 per step of the flag's sources.
+   Then ``save_weights`` / ``load_weights`` on the card.
 
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
@@ -90,7 +105,7 @@ import time
 import numpy as np
 import torch
 
-from pyroved_tpu_torch.models import iVAE, jiVAE, ss_reg_iVAE, ssiVAE
+from pyroved_tpu_torch.models import VED, iVAE, jiVAE, ss_reg_iVAE, ssiVAE
 from pyroved_tpu_torch.ops import _build
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
@@ -101,6 +116,7 @@ from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
 from pyroved_tpu_torch.utils.data import (init_dataloader,
                                           init_ssvae_dataloaders)
+from pyroved_tpu_torch.utils.checkpoint import save_checkpoint
 from pyroved_tpu_torch.utils.nn import to_onehot
 
 K1 = sd.fused_spatial_decoder_forward
@@ -122,6 +138,12 @@ ATOL = 1e-4
 GRAD_RTOL = 1e-3
 # Per-example negative ELBO sums ~800 pixel terms of size ~1: relative.
 LOSS_RTOL = 1e-4
+# VED on the card against the same model on the CPU, both f32 (cuDNN's
+# TF32 kept off by the port's convolutions): the port's f32 tolerances,
+# outputs atol 1e-5, per-example losses rtol 1e-5; grads as above, each
+# summed weight grad held to its tensor's largest entry.
+VED_ATOL = 1e-5
+VED_LOSS_RTOL = 1e-5
 # Kernel path against the module path in training: the first step's grads
 # as above; the per-epoch losses after 50-150 Adam steps, relative.
 EPOCH_RTOL = 1e-3
@@ -710,23 +732,25 @@ def phase_large_grid_training():
             "step_ms": step, "step_breakdown": breakdown}
 
 
-def step_breakdown(model, xb):
-    """Device time of one training step by kernel family (K2: K2 or K3's
-    kernels, f32 or tensor-core, with their prep and reductions), from a
-    torch.profiler trace of 10 steps, against the step's wall time under
-    the profiler (which slows the host: compare the device time with the
-    unprofiled step time too)."""
+def step_breakdown(model, xb, y=None):
+    """Device time of one training step on batch ``xb`` (and targets
+    ``y``) by kernel family (K2: K2 or K3's kernels, f32 or tensor-core,
+    with their prep and reductions; "gemm" holds cuBLAS's and cuDNN's
+    products and convolutions), from a torch.profiler trace of 10 steps,
+    against the step's wall time under the profiler (which slows the host:
+    compare the device time with the unprofiled step time too)."""
     trainer = SVItrainer(model)
+    batch = (xb,) if y is None else (xb, y)
     w = torch.ones(xb.shape[0], device="cuda")
     for _ in range(5):
-        trainer.train_step((xb,), w)
+        trainer.train_step(batch, w)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(10):
-            trainer.train_step((xb,), w)
+            trainer.train_step(batch, w)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / 10
     buckets = {"K1": 0.0, "K2": 0.0, "Adam": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1048,7 +1072,7 @@ def phase_families(data, module_runs):
     out, _, launches["jivae_serving"] = run_path(lambda: {
         "encode": jm.encode(xs, logits=True),
         "decode": jm.decode(zc, y1h, **pose),
-        "manifold2d": jm.manifold2d(10, disc_idx=3),
+        "manifold2d": jm.manifold2d(10, disc_idx=3, plot=False),
         "served_encode": sj.encode(xs),
         "served_decode": sj.decode(zy, **pose)})
     log(f"  {tag} jiVAE serving: launches {launches['jivae_serving']}")
@@ -1190,6 +1214,247 @@ def step_report(model, X):
             "breakdown": breakdown}
 
 
+# -- phase 8: VED and the conv nets; checkpoints and weights ----------------
+
+def im2spec_pairs(n, img=16, spec=2048, seed=0):
+    """examples/im2spec_ved.py's pairs with ``spec``-long spectra: blobs
+    whose width sets the paired spectrum's peak."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, img), np.linspace(-1, 1, img),
+                         indexing="ij")
+    t = np.linspace(0, 1, spec)
+    w = rng.uniform(0.05, 0.3, n)
+    imgs = np.exp(-(xx[None] ** 2 + yy[None] ** 2) / w[:, None, None])
+    specs = np.exp(-((t[None] - w[:, None]) ** 2) / 0.005)
+    return imgs.astype(np.float32), specs.astype(np.float32)
+
+
+def ved_first_step(model, x, y, eps):
+    """Per-example losses and every parameter grad of one weighted loss."""
+    model.nets.zero_grad(set_to_none=True)
+    per = model.loss_fn(x, y, 4.0, eps=eps)
+    per.sum().backward()
+    grads = [p.grad.detach().cpu().clone() for p in model.nets.parameters()]
+    model.nets.zero_grad(set_to_none=True)
+    return per.detach().cpu(), grads
+
+
+def phase_ved_im2spec():
+    """Phase 8, part 1, with cuDNN's TF32 allowed (PyTorch's default; this
+    script turns it off everywhere else), so that the port's own scoping
+    of TF32 is what keeps the VED's convolutions f32."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return ved_im2spec()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def ved_im2spec():
+    """Phase 8, part 1: the im2spec VED at the reference notebook's width
+    (16x16 -> 2048, default filters, lrelu, Bernoulli, sigmoid), with
+    cuDNN's TF32 allowed as PyTorch's default has it: the first step on the
+    card against the same model on the CPU at f32 tolerance, 3 epochs of
+    2,000 pairs at batch 100 through fit (scale_factor 4), then encode,
+    decode, predict, manifold2d and the export's refusal."""
+    X, Y = im2spec_pairs(2000)
+    kw = dict(latent_dim=2, seed=0)
+    ved = VED((16, 16), (2048,), **kw)
+    cpu = VED((16, 16), (2048,), device="cpu", **kw)
+    cpu.nets.load_state_dict(ved.nets.state_dict())
+    eps = torch.randn(100, 2, generator=torch.Generator().manual_seed(4))
+    per, grads = ved_first_step(ved, X[:100], Y[:100], eps)
+    if torch.backends.cudnn.allow_tf32 is not True:
+        raise AssertionError("VED changed the caller's TF32 flag")
+    per_c, grads_c = ved_first_step(cpu, X[:100], Y[:100], eps)
+    rel = ((per - per_c).abs() / per_c.abs()).max().item()
+    if not rel <= VED_LOSS_RTOL:
+        raise AssertionError(f"VED first step losses, card vs CPU: {rel:.3e}")
+    names = [n for n, _ in ved.nets.named_parameters()]
+    err = check_grads("VED first step, card vs CPU", grads, grads_c, names,
+                      per_sample=0, rel=GRAD_RTOL)
+    log(f"  VED 16x16 -> 2048 first step (TF32 allowed), card vs CPU: losses "
+        f"max rel err {rel:.3e}, grads max abs err {err:.3e} "
+        f"({rel_to_max(grads, grads_c):.1e} of the largest entry)")
+    t0 = time.perf_counter()
+    trainer = ved.fit(X, Y, epochs=3, batch_size=100, scale_factor=4.0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    hist = trainer.loss_history["training_loss"]
+    if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"VED loss is not finite and falling: {hist}")
+    log(f"  VED fit(epochs=3, batch_size=100, scale_factor=4) on 2,000 "
+        f"pairs: {fit_s:.2f} s, losses {hist}")
+    # serving through the model's own methods, held to the CPU model
+    cpu.nets.load_state_dict(ved.nets.state_dict())
+    z_loc, z_scale = ved.encode(X[:500], batch_size=200)
+    if z_loc.shape != (500, 2) or not bool((z_scale > 0).all()):
+        raise AssertionError("VED encode: bad shape or non-positive sigma")
+    for o, r in zip((z_loc, z_scale), cpu.encode(X[:500])):
+        check_close("VED encode, card vs CPU", o.cpu(), r, VED_ATOL)
+    z = torch.as_tensor(np.random.default_rng(5).normal(size=(64, 2)),
+                        dtype=torch.float32)
+    out = ved.decode(z)
+    if out.shape != (64, 2048):
+        raise AssertionError(f"VED decode shape {tuple(out.shape)}")
+    dec_err = check_close("VED decode, card vs CPU", out.cpu(),
+                          cpu.decode(z), VED_ATOL)
+    e30 = torch.randn(30, 200, 2, generator=torch.Generator().manual_seed(6))
+    mean, std = ved.predict(X[:200], num_samples=30, eps=e30)
+    mean_c, std_c = cpu.predict(X[:200], num_samples=30, eps=e30)
+    if mean.shape != (200, 2048) or not bool((std >= 0).all()):
+        raise AssertionError("VED predict: bad shape or negative std")
+    check_close("VED predict mean, card vs CPU", mean.cpu(), mean_c,
+                VED_ATOL)
+    check_close("VED predict std, card vs CPU", std.cpu(), std_c, VED_ATOL)
+    man = ved.manifold2d(8, plot=False)
+    if man.shape != (64, 2048) or not torch.isfinite(man).all():
+        raise AssertionError("VED manifold2d: bad shape or values")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            export_model(ved, f"{tmp}/ved.npz")
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("export_model(VED) did not raise")
+    log(f"  VED encode, decode, predict(30 samples) and manifold2d on the "
+        f"card match the CPU model (decode max abs err {dec_err:.3e}); "
+        f"export_model refuses a VED")
+    return {"model": ved, "fit_s": fit_s, "loss_history": hist,
+            "first_step_loss_rel": rel, "first_step_grad_err": err}
+
+
+def phase_ved_stretch(smi):
+    """Phase 8, part 2: the stretch width (256x256 -> 2048, batch 16, 256
+    pairs), 8 steps each under f32, bf16 (pool="max") and f32 with
+    batchnorm: median step time on the host clock and peak memory."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(0, 1, (256, 256, 256)),
+                        dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(rng.uniform(0, 1, (256, 2048)),
+                        dtype=torch.float32, device="cuda")
+    out = {}
+    for tag, kw in (("f32", {}), ("bf16", dict(compute_dtype="bfloat16")),
+                    ("f32_batchnorm", dict(batchnorm=True))):
+        model = VED((256, 256), (2048,), latent_dim=2, seed=0, pool="max",
+                    **kw)
+        trainer = SVItrainer(model)
+        w = torch.ones(16, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(8):
+            t0 = time.perf_counter()
+            loss = trainer.train_step((x[16 * i:16 * i + 16],
+                                       y[16 * i:16 * i + 16]), w)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss.item())
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"VED stretch {tag}: losses {losses}")
+        out[tag] = {"step_ms_median": statistics.median(times[1:]),
+                    "first_step_ms": times[0],
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                    "losses": losses,
+                    "breakdown": step_breakdown(model, x[:16], y[:16])}
+        del model, trainer
+    log(f"  VED 256x256 -> 2048, batch 16, 8 steps (host clock, median of "
+        f"steps 2-8), then a profile of 10 (torch.profiler), on {smi}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def resumed_run(what, make, run, loaders, steps):
+    """4 epochs in one go against 2, a checkpoint, a fresh model and trainer
+    (other seeds) that resume, and 2 more: per-epoch history and final
+    parameters bitwise equal. The resumed 2 epochs run as one path: one K1
+    and one K2 per step, of the flag's sources. Returns their launches."""
+    whole_model, whole = make(0)
+    run(whole, loaders(0), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ckpt.npz"
+        first_model, first = make(0)
+        run(first, loaders(0), 2)
+        save_checkpoint(path, first_model, first)
+        model, trainer = make(1)
+        if trainer.resume(path) != 2:
+            raise AssertionError(f"{what}: resume() did not return 2")
+    fresh = loaders(2)
+    _, seconds, launches = run_path(lambda: run(trainer, fresh, 2))
+    hist = getattr(trainer, "loss_history", None) or trainer.history
+    ref = getattr(whole, "loss_history", None) or whole.history
+    if hist != ref:
+        raise AssertionError(f"{what}: resumed history {hist} != {ref}")
+    for (n, p), q in zip(model.nets.named_parameters(),
+                         whole_model.nets.parameters()):
+        if not torch.equal(p, q):
+            gap = (p - q).abs().max().item()
+            raise AssertionError(f"{what}: {n} differs by {gap:.3e}")
+    expect_steps(f"{what} resumed 2 epochs ({seconds:.2f} s), history and "
+                 f"parameters bitwise equal to 4 epochs in one go", launches,
+                 steps)
+    return launches
+
+
+def phase_resume(fam_data):
+    """Phase 8, part 3, under the current flag: bit-exact resume of the
+    flagship iVAE (SVItrainer, 2,000 blob images at batch 200) and of
+    ssiVAE at phase 7's width (auxSVItrainer, 2,000 unlabeled and 400
+    labeled images, its accuracy after every epoch)."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    X = blobs(2000, (28, 28), seed=1)
+
+    def make_ivae(seed):
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=seed)
+        return m, SVItrainer(m, seed=seed + 3)
+
+    def ivae_loaders(epoch):
+        loader = init_dataloader(X, batch_size=200, seed=2)
+        loader.set_epoch(epoch)
+        return loader
+
+    launches = {"resume_ivae": resumed_run(
+        f"{tag} iVAE", make_ivae,
+        lambda t, ld, n: t.run(ld, n), ivae_loaders, 2 * 10)}
+    Xf, y, _ = fam_data
+    yl = to_onehot(y[:400], N_CLASSES)
+
+    def make_ssivae(seed):
+        m = ssiVAE(FAMILY_DIM, num_classes=N_CLASSES, latent_dim=2,
+                   invariances=["r"], seed=seed)
+        return m, auxSVItrainer(m, seed=seed + 3)
+
+    def ss_loaders(epoch):
+        lds = init_ssvae_dataloaders(Xf, (Xf[:400], yl), (Xf[:400], yl),
+                                     batch_size=200)
+        for ld in lds:
+            ld.set_epoch(epoch)
+        return lds
+
+    launches["resume_ssivae"] = resumed_run(
+        f"{tag} ssiVAE", make_ssivae,
+        lambda t, lds, n: t.run(lds[0], lds[1], n, loader_val=lds[2]),
+        ss_loaders, 2 * 12)
+    return launches
+
+
+def phase_weights(ved):
+    """Phase 8, part 4: save_weights / load_weights on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ved.save_weights(f"{tmp}/ved")
+        other = VED((16, 16), (2048,), latent_dim=2, seed=9)
+        other.load_weights(f"{tmp}/ved.pvt")
+    for (n, p), q in zip(ved.nets.named_parameters(),
+                         other.nets.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"load_weights: {n} differs")
+    z = torch.zeros(4, 2)
+    if not torch.equal(ved.decode(z), other.decode(z)):
+        raise AssertionError("load_weights: decodes differ")
+    log("  save_weights / load_weights on the card: parameters and "
+        "decodes bitwise equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1255,7 +1520,7 @@ def main() -> int:
         "encode_1000": lambda: served.encode(x[:1000]),
         "reconstruct_200": lambda: model.reconstruct(x[:200]),
         "posed_decode_1024": lambda: served.decode(z_req, **pose),
-        "manifold2d_32": lambda: model.manifold2d(32),
+        "manifold2d_32": lambda: model.manifold2d(32, plot=False),
         "ragged_decode_2500": lambda: served.decode(z_rag),
         "loss_fn_200": score,
         "large_grid_decode_64": lambda: big.decode(z_big, **pose),
@@ -1396,6 +1661,18 @@ def main() -> int:
         f"{json.dumps(enum_step)}")
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s")
 
+    # -- 8. VED and the conv nets; checkpoints and weights ------------------
+    log("phase 8: VED trains and serves; bit-exact resume; weights")
+    t8 = time.perf_counter()
+    ved = phase_ved_im2spec()
+    stretch = phase_ved_stretch(smi)
+    resume = {}
+    with bf16_matmul(False):
+        resume[False] = phase_resume(fam_data)
+    resume[True] = phase_resume(fam_data)
+    phase_weights(ved.pop("model"))
+    log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -1408,7 +1685,10 @@ def main() -> int:
                 "large_grid_training_f32": large32["launches"][key],
                 **{f"{path}_{tag}": n[key]
                    for tag, f in (("bf16", fam), ("f32", fam32))
-                   for path, n in f["launches"].items()}}
+                   for path, n in f["launches"].items()},
+                **{f"{path}_{'bf16' if on else 'f32'}": n[key]
+                   for on, paths in resume.items()
+                   for path, n in paths.items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -1465,7 +1745,8 @@ def main() -> int:
             "fit_s", "loss_history", "module_loss_history",
             "ssivae_accuracy", "ss_reg_mse", "first_step_err")}
             for tag, f in (("bf16", fam), ("f32", fam32))},
-        "enumerated_step": enum_step}
+        "enumerated_step": enum_step,
+        "ved": {"im2spec": ved, "stretch": stretch}}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,12 @@
 """pyroved_tpu_torch: the PyTorch/CUDA port of pyroved_tpu.
 
 Trains and serves the invariant VAE (iVAE), the joint discrete-continuous
-jiVAE and the semi-supervised ssiVAE and ss_reg_iVAE on an NVIDIA Hopper
-card: ``fit`` with ``SVItrainer`` or ``auxSVItrainer`` and device-resident
-``DataLoader``s; encode, classify/regress, posed decode, latent manifolds
-and per-example ELBO scoring. Every spatial decode, the enumerated ones on
+jiVAE, the semi-supervised ssiVAE and ss_reg_iVAE and the conv
+encoder-decoder VED on an NVIDIA Hopper card: ``fit`` with ``SVItrainer``
+or ``auxSVItrainer`` and device-resident ``DataLoader``s, checkpoints that
+resume bit-exactly, and pickle-free weights; encode, classify/regress,
+posed decode, latent manifolds, VED's predictions and per-example ELBO
+scoring. Every spatial decode, the enumerated ones on
 K*B rows included, goes through hand-written CUDA kernels
 (``ops.spatial_decoder``): the fused forward, its backward, and the
 one-pass Bernoulli train kernel. The JAX package ``pyroved_tpu`` stays the

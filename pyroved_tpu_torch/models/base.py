@@ -5,8 +5,11 @@ ported families use: invariance bookkeeping (1-D data allows only
 ``['t']``; in 2-D ``'t'`` takes two latent slots), the coordinate grid and
 the priors, the latent split in the order rotation -> translation -> scale
 -> content, the decoder and the routing of its decodes, the transformed
-grids, P-fold particle tiling, chunked encode/decode and the
-semi-supervised ``fit`` loop.
+grids, P-fold particle tiling, chunked encode/decode, the
+semi-supervised ``fit`` loop and pickle-free ``save_weights`` /
+``load_weights``. A model without invariances has no grid: VED builds on
+this base with ``data_dim`` its output and its own conv decoder, and uses
+only the grid-free parts (``fit``, ``chunked``, the latent plane, weights).
 
 Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
 package's top-level names (``encoder_z``, ``encoder_y``, ``decoder``) on
@@ -308,6 +311,36 @@ class baseVAE:
     # ------------------------------------------------------------------
     def state_dict(self):
         return self.nets.state_dict()
+
+    def save_weights(self, filepath: str) -> None:
+        """Write the parameters (and the model's generator state) to
+        ``filepath + '.pvt'``: a pickle-free ``np.savez`` archive of named
+        f32 arrays and a JSON manifest, so loading an untrusted file cannot
+        run code."""
+        from ..utils.checkpoint import WEIGHTS_FORMAT, write_archive
+        arrays = {f"w_{k}": v.detach().cpu().numpy().astype(np.float32)
+                  for k, v in self.nets.state_dict().items()}
+        gen = getattr(self, "generator", None)
+        if gen is not None:
+            arrays["generator"] = gen.get_state().numpy()
+        write_archive(filepath + ".pvt", arrays, {"format": WEIGHTS_FORMAT})
+
+    def load_weights(self, filepath: str) -> None:
+        """Load the parameters :meth:`save_weights` wrote (the ``.pvt``
+        suffix is added when missing), with strict key and shape checks. A
+        ``.pvt`` of the JAX package (flax msgpack bytes) raises; its
+        parameter tree crosses over through :meth:`load_jax_params`."""
+        from ..utils.checkpoint import WEIGHTS_FORMAT, check_state, read_archive
+        if not filepath.endswith(".pvt"):
+            filepath = filepath + ".pvt"
+        _, arrays = read_archive(filepath, WEIGHTS_FORMAT)
+        state = {k[2:]: v for k, v in arrays.items() if k.startswith("w_")}
+        check_state(self.nets.state_dict(), state, filepath)
+        self.nets.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in state.items()}, strict=True)
+        gen = getattr(self, "generator", None)
+        if gen is not None and "generator" in arrays:
+            gen.set_state(torch.from_numpy(arrays["generator"]))
 
     def load_jax_params(self, params) -> None:
         """Load the JAX model's parameter tree (``{"encoder_z": ...,

@@ -205,10 +205,11 @@ class iVAE(baseVAE):
         z_loc, _ = self.encode(x_new, y, **kwargs)
         return self.decode(z_loc[:, self.coord:], y, **kwargs)
 
-    def manifold2d(self, d: int, y=None, plot: bool = False, **kwargs) -> Tensor:
+    def manifold2d(self, d: int, y=None, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the 2-D latent plane. For
         ``latent_dim > 2`` pass ``which_dims=(i, j)`` (and ``z_fixed``);
-        ``z_coord=`` sets the bounds. Plotting waits for a later slice."""
+        ``z_coord=`` sets the bounds. Plotting, the default as in the JAX
+        package, waits for a later slice and raises; pass ``plot=False``."""
         if plot:
             raise later_slice("manifold2d(plot=True)", "viz")
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)

@@ -250,7 +250,7 @@ class jiVAE(baseVAE):
         z = torch.cat([z, self._as_f32(y).reshape(z.shape[0], -1)], -1)
         return self._decode_posed(z, angle, shift, scale, batch_size)
 
-    def manifold2d(self, d: int, disc_idx: int = 0, plot: bool = False,
+    def manifold2d(self, d: int, disc_idx: int = 0, plot: bool = True,
                    **kwargs) -> Tensor:
         """Decode a d x d grid over the continuous latent plane for the
         class ``disc_idx``. ``which_dims``/``z_fixed`` pick the plane when
@@ -266,7 +266,7 @@ class jiVAE(baseVAE):
         return self.decode(z, z_disc.expand(z.shape[0], -1), **kwargs)
 
     def manifold_traversal(self, d: int, cont_idx: int,
-                           cont_idx_fixed: int = 0, plot: bool = False,
+                           cont_idx_fixed: int = 0, plot: bool = True,
                            **kwargs) -> Tensor:
         """Decode a joint traversal: continuous latent ``cont_idx`` swept
         over d values for each of d class codes (``d*d`` images)."""

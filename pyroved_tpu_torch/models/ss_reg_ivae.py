@@ -202,7 +202,7 @@ class ss_reg_iVAE(baseVAE):
         z = torch.cat([z, self._as_f32(y).reshape(z.shape[0], -1)], -1)
         return self._decode_posed(z, angle, shift, scale, batch_size)
 
-    def manifold2d(self, d: int, y, plot: bool = False, **kwargs) -> Tensor:
+    def manifold2d(self, d: int, y, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the latent plane conditioned on the
         label vector ``y``. ``which_dims``, ``z_fixed`` and ``z_coord`` as
         iVAE's."""

@@ -256,7 +256,7 @@ class ssiVAE(baseVAE):
         z = torch.cat([z, self._as_f32(y).reshape(z.shape[0], -1)], -1)
         return self._decode_posed(z, angle, shift, scale, batch_size)
 
-    def manifold2d(self, d: int, plot: bool = False, **kwargs) -> Tensor:
+    def manifold2d(self, d: int, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the latent plane for the class
         ``label=`` (an index or a one-hot row; default 0). ``which_dims``,
         ``z_fixed`` and ``z_coord`` as iVAE's."""
@@ -273,7 +273,7 @@ class ssiVAE(baseVAE):
                            **kwargs)
 
     def manifold_traversal(self, d: int, cont_idx: int,
-                           cont_idx_fixed: int = 0, plot: bool = False,
+                           cont_idx_fixed: int = 0, plot: bool = True,
                            **kwargs) -> Tensor:
         """Decode a joint traversal over the classes and one continuous
         latent (``d*d`` images)."""

@@ -1,0 +1,216 @@
+"""Variational encoder-decoder (VED): input and output domains differ.
+
+Counterpart of ``pyroved_tpu/models/ved.py`` for im2spec / spec2im
+problems: a conv encoder over ``input_dim`` and a conv decoder to
+``output_dim`` (:mod:`pyroved_tpu_torch.nets.conv`), with no invariances.
+Public arrays keep the JAX package's channels-last layout: inputs and
+targets are ``[B, *dim]`` (a singleton channel is appended) or
+``[B, *dim, C]``, and single-channel outputs come back without the channel.
+
+It trains on (x, y) pairs (:meth:`VED.weighted_loss_fn` under ``fit`` and
+``SVItrainer``; the ELBO scores the target y) and serves through its own
+methods: ``encode``, ``decode``, ``predict`` (posterior samples decoded in
+one batched call, their mean and std) and ``manifold2d``. Batchnorm always
+normalizes with the batch's own statistics, as the JAX package's
+stateless batchnorm does. No VED function runs a hand-written kernel: the
+convolutions are cuDNN's on the card.
+"""
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..infer.dists import get_sampler
+from ..infer.elbo import normal_latent_site, obs_site
+from ..nets.conv import convDecoderNet, convEncoderNet
+from ..nets.fc import init_from
+from ..utils.coord import generate_latent_grid
+from ..utils.nn import set_deterministic_mode
+from .base import baseVAE, check_kwargs, chunked, later_slice
+
+Tensor = torch.Tensor
+
+_KWARGS = ("decoder_sig", "kl", "num_particles", "compute_dtype", "pool",
+           "conv_first")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class VED(baseVAE):
+    """im2spec / spec2im variational encoder-decoder.
+
+    Arguments as in the JAX package: ``input_dim``, ``output_dim``,
+    ``input_channels``, ``output_channels``, ``latent_dim``,
+    ``hidden_dim_e`` / ``hidden_dim_d`` (conv filters per block, default
+    ((32,), (64, 64), (128, 128)) and its mirror), ``activation`` (lrelu),
+    ``batchnorm``, ``sampler_d``, ``sigmoid_d``, ``seed``; keywords ``kl``,
+    ``num_particles``, ``decoder_sig``, ``compute_dtype`` ("bfloat16" runs
+    the conv towers in bf16, the latent and observation heads in f32),
+    ``pool`` ("max", or the opt-in "avg" and "stride") and ``conv_first``
+    (the commuted upsampler). Plus ``device``: None means "cuda"; without
+    CUDA pass ``device="cpu"``. Weights are drawn from ``seed`` with
+    torch's default Linear and conv init.
+    """
+
+    def __init__(
+        self,
+        input_dim: Sequence[int],
+        output_dim: Sequence[int],
+        input_channels: int = 1,
+        output_channels: int = 1,
+        latent_dim: int = 2,
+        hidden_dim_e: Optional[Sequence[Sequence[int]]] = None,
+        hidden_dim_d: Optional[Sequence[Sequence[int]]] = None,
+        activation: str = "lrelu",
+        batchnorm: bool = False,
+        sampler_d: str = "bernoulli",
+        sigmoid_d: bool = True,
+        seed: int = 1,
+        device=None,
+        **kwargs,
+    ) -> None:
+        check_kwargs("VED", kwargs, _KWARGS)
+        # the base's data_dim is the decoder's output, and no invariance
+        # means no coordinate grid
+        super().__init__(output_dim, None, device=device,
+                         kl=kwargs.get("kl", "mc"),
+                         num_particles=kwargs.get("num_particles", 1))
+        self.generator = set_deterministic_mode(seed)
+        self.input_dim = tuple(int(d) for d in input_dim)
+        self.output_dim = tuple(int(d) for d in output_dim)
+        self.input_channels = int(input_channels)
+        self.output_channels = int(output_channels)
+        self.z_dim = self.latent_dim = int(latent_dim)
+        self.batchnorm = bool(batchnorm)
+        cd = kwargs.get("compute_dtype", "float32")
+        if cd not in _DTYPES:
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {cd!r}")
+        self.compute_dtype = cd
+        pool = kwargs.get("pool", "max")
+        if pool not in ("max", "avg", "stride"):
+            raise ValueError(f"pool must be max, avg or stride, got {pool!r}")
+        self.pool = pool
+        dtype = _DTYPES[cd]
+        encoder = convEncoderNet(
+            self.input_dim, self.input_channels, self.z_dim, hidden_dim_e,
+            self.batchnorm, activation, softplus_out=True, dtype=dtype,
+            pool=pool)
+        decoder = convDecoderNet(
+            self.output_dim, self.z_dim, self.output_channels, hidden_dim_d,
+            self.batchnorm, activation, sigmoid_out=sigmoid_d, dtype=dtype,
+            conv_first=bool(kwargs.get("conv_first", False)))
+        self.nets = nn.ModuleDict({
+            "encoder_z": init_from(encoder, self.generator),
+            "decoder": init_from(decoder, self.generator),
+        }).to(self.device)
+        self.sampler_d = get_sampler(sampler_d, **kwargs)
+
+    def noise_shapes(self, batch_size: int, labeled: bool = False):
+        """Shape of the standard-normal latent noise one batch needs:
+        ``[B, z_dim]``, or ``[P, B, z_dim]`` with ``num_particles=P``."""
+        P = self.num_particles
+        return (((P,) if P > 1 else ()) + (batch_size, self.z_dim),)
+
+    def _with_channels(self, x, spatial: Tuple[int, ...]) -> Tensor:
+        """``x`` as f32 on the model's device, with a singleton channel
+        appended when it has none."""
+        x = self._as_f32(x)
+        return x[..., None] if x.dim() == len(spatial) + 1 else x
+
+    # ------------------------------------------------------------------
+    # ELBO
+    # ------------------------------------------------------------------
+    def loss_fn(self, x, y, beta: float = 1.0, eps=None) -> Tensor:
+        """Per-example negative ELBO ``[B]`` of the pairs (x, y): q(z|x),
+        p(y|z). ``eps`` is the latent noise shaped like the posterior
+        (``noise_shapes``), drawn from the model's generator when not
+        given; ``beta`` scales the latent term."""
+        x = self._with_channels(x, self.input_dim)
+        y = self._with_channels(y, self.output_dim)
+        B = x.shape[0]
+        mu, sig = self.encoder_net(x)
+        P = self.num_particles
+        if P > 1:
+            mu = mu.expand((P,) + mu.shape)
+            sig = sig.expand((P,) + sig.shape)
+        if eps is not None:
+            eps = self._as_f32(eps)
+        z, latent_term = normal_latent_site(mu, sig, beta, self.kl_mode,
+                                            eps=eps, generator=self.generator)
+        loc = self.decoder_net(z.reshape(-1, z.shape[-1]))
+        recon = obs_site(self.sampler_d, y.reshape(B, -1),
+                         loc.reshape(z.shape[:-1] + (-1,)))
+        per_example = -(recon + latent_term)
+        return per_example.mean(0) if P > 1 else per_example
+
+    def weighted_loss_fn(self, x, y, weights, beta: float = 1.0,
+                         eps=None) -> Tensor:
+        """The scalar training loss ``sum_b weights_b * (-ELBO_b)``."""
+        return torch.sum(self.loss_fn(x, y, beta, eps)
+                         * self._as_f32(weights))
+
+    # ------------------------------------------------------------------
+    # Inference / generation
+    # ------------------------------------------------------------------
+    def _chunked(self, fn, a: Tensor, batch_size: Optional[int]):
+        """``fn`` over chunks of ``batch_size`` rows. With batchnorm each
+        chunk is normalized by its own statistics, and the last one is
+        zero-padded to ``batch_size`` rows first, as the JAX package pads
+        every chunk: the padding rows enter its statistics there too."""
+        n = a.shape[0]
+        if not (self.batchnorm and batch_size and n > batch_size):
+            return chunked(fn, a, batch_size=batch_size)
+        pad = -n % batch_size
+        a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+        out = chunked(fn, a, batch_size=batch_size)
+        if isinstance(out, tuple):
+            return tuple(o[:n] for o in out)
+        return out[:n]
+
+    @torch.no_grad()
+    def encode(self, x_new, batch_size: Optional[int] = None, **kwargs):
+        """``(z_loc, z_scale)`` of q(z|x); ``batch_size`` chunks the rows."""
+        x = self._with_channels(x_new, self.input_dim)
+        return self._chunked(self.encoder_net, x, batch_size)
+
+    def _squeeze(self, out: Tensor) -> Tensor:
+        return out[..., 0] if self.output_channels == 1 else out
+
+    @torch.no_grad()
+    def decode(self, z, batch_size: Optional[int] = None, **kwargs) -> Tensor:
+        """Decode latents into the target space, ``[B, *output_dim]`` (or
+        ``[B, *output_dim, C]``)."""
+        z = self._as_f32(z)
+        return self._squeeze(self._chunked(self.decoder_net, z, batch_size))
+
+    @torch.no_grad()
+    def predict(self, x_new, num_samples: int = 30, eps=None,
+                **kwargs) -> Tuple[Tensor, Tensor]:
+        """Encode, draw ``num_samples`` posterior samples, decode all S*B of
+        them in one batched call, and return their (mean, std) over samples
+        (population std). ``eps`` ``[S, B, z_dim]`` is the standard-normal
+        noise, drawn from the model's generator when not given."""
+        x = self._with_channels(x_new, self.input_dim)
+        mu, sig = self.encoder_net(x)
+        shape = (int(num_samples),) + mu.shape
+        if eps is None:
+            eps = torch.randn(shape, generator=self.generator)
+        eps = self._as_f32(eps).reshape(shape)
+        zs = mu[None] + sig[None] * eps
+        ys = self.decoder_net(zs.reshape(-1, zs.shape[-1]))
+        ys = ys.reshape(shape[:2] + ys.shape[1:])
+        return (self._squeeze(ys.mean(0)),
+                self._squeeze(ys.std(0, correction=0)))
+
+    def manifold2d(self, d: int, plot: bool = True, **kwargs) -> Tensor:
+        """Decode a d x d grid over the 2-D latent plane; ``which_dims`` /
+        ``z_fixed`` pick the plane when ``latent_dim > 2``, ``z_coord`` sets
+        the bounds. Plotting, the default as in the JAX package, waits for a
+        later slice and raises; pass ``plot=False``."""
+        if plot:
+            raise later_slice("VED.manifold2d(plot=True)", "viz")
+        which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
+        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z = self._embed_latent_plane(z.to(self.device), self.z_dim, which,
+                                     zfix)
+        return self.decode(z, **kwargs)

@@ -59,10 +59,11 @@ class MLP(nn.Module):
 
 
 def init_from(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every Dense of ``module`` from ``generator``, in
+    """Re-draw every layer of ``module`` that has a ``reset_from`` (Dense,
+    and the conv nets' convolutions and batchnorms) from ``generator``, in
     registration order."""
     for m in module.modules():
-        if isinstance(m, Dense):
+        if hasattr(m, "reset_from"):
             m.reset_from(generator)
     return module
 

@@ -24,9 +24,11 @@ import numpy as np
 import torch
 
 from .models.base import chunked, later_slice, posed_decode
+from .models.ved import VED
 from .nets.fc import (fcClassifierNet, fcDecoderNet, fcEncoderNet,
                       fcRegressorNet, jfcEncoderNet, sDecoderNet)
 from .ops.spatial_decoder import sdecoder_supports_fusion
+from .utils.checkpoint import write_archive
 from .utils.coord import generate_grid
 from .utils.nn import as_f32, resolve_device, to_onehot
 
@@ -43,6 +45,13 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
     if quantize is not None:
         raise later_slice(f"export_model(quantize={quantize!r})",
                           "int8 serving")
+    if isinstance(model, VED):
+        raise NotImplementedError(
+            "export_model does not take a VED: the JAX package's export of "
+            "one fails (pyroved_tpu/serving.py builds the encode spec from "
+            "data_dim, a VED's output_dim), so there is no archive to hold "
+            "the port to; serve a VED through its own encode, decode, "
+            "predict and manifold2d")
     dec = model.decoder_net
     spatial = isinstance(dec, sDecoderNet)
     head = getattr(model, "encoder_y_net", None)
@@ -71,10 +80,7 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
     }
     arrays = {_W + k: v.detach().cpu().numpy().astype(np.float32)
               for k, v in model.state_dict().items()}
-    arrays["manifest"] = np.frombuffer(
-        json.dumps(manifest).encode("utf-8"), np.uint8)
-    with open(path, "wb") as f:
-        np.savez(f, **arrays)
+    write_archive(path, arrays, manifest)
 
 
 class ServedModel:

@@ -26,15 +26,14 @@ import torch
 
 from ..utils.data import DataLoader
 from ..utils.nn import average_weights, later_slice
-from .svi import _PendingLoss, draw_noise, fill_zero_grads
+from .svi import _PendingLoss, draw_noise, fill_zero_grads, save_if_due
 
 Tensor = torch.Tensor
 
 _TRAINER_ITEM = "trainer surface"
 # keywords of the JAX trainer that a later slice brings, with the values
 # that mean "off"
-_LATER_KWARGS = {"mesh": None, "grad_accum": 1, "checkpoint_path": None,
-                 "log_file": None}
+_LATER_KWARGS = {"mesh": None, "grad_accum": 1, "log_file": None}
 _LATER_RUN_KWARGS = ("patience", "on_segment", "enum_schedule")
 
 
@@ -50,9 +49,12 @@ class auxSVItrainer:
             one of its type and defaults over ``encoder_y``'s.
         seed: seed of the noise.
         lr: learning rate of the default optimizers (5e-4).
+        checkpoint_path: where to save the training state (both optimizers
+            included), after every ``checkpoint_every``-th epoch (default
+            10); :meth:`resume` restores it.
 
-    ``mesh``, ``grad_accum``, ``checkpoint_path`` and ``log_file`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``mesh``, ``grad_accum`` and ``log_file`` raise ``NotImplementedError``
+    naming their ROADMAP item.
     """
 
     def __init__(self, model, task: Optional[str] = None,
@@ -66,7 +68,8 @@ class auxSVItrainer:
         for key, off in _LATER_KWARGS.items():
             if key in kwargs and kwargs.pop(key) != off:
                 raise later_slice(f"auxSVItrainer({key}=...)", _TRAINER_ITEM)
-        kwargs.pop("checkpoint_every", None)  # read with checkpoint_path only
+        self.checkpoint_path = kwargs.pop("checkpoint_path", None)
+        self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
             raise TypeError(
                 f"auxSVItrainer got unexpected keywords {sorted(kwargs)}")
@@ -233,6 +236,7 @@ class auxSVItrainer:
             self.history["test"].append(self.evaluate(loader_val))
         self.epoch_times.append(time.perf_counter() - t0)
         self.current_epoch += 1
+        save_if_due(self)
 
     def run(self, loader_unsup: DataLoader, loader_sup: DataLoader,
             epochs: int, **kwargs) -> list:
@@ -276,9 +280,14 @@ class auxSVItrainer:
                     hist[i] = float(v)
 
     def resume(self, checkpoint_path: Optional[str] = None) -> int:
-        """Restoring from a checkpoint waits for a later slice: raises
-        ``NotImplementedError`` naming its ROADMAP item."""
-        raise later_slice("auxSVItrainer.resume", "Checkpoints and weights")
+        """Restore the model, both optimizers, the noise generator, epoch
+        and history from a checkpoint (``checkpoint_path``, else the
+        trainer's own); returns the epoch to continue from. Loaders built
+        afresh take it through ``set_epoch``."""
+        from ..utils.checkpoint import load_checkpoint
+        load_checkpoint(checkpoint_path or self.checkpoint_path, self.model,
+                        self)
+        return self.current_epoch
 
     # ------------------------------------------------------------------
     def save_running_weights(self, net: str = "encoder_y") -> None:

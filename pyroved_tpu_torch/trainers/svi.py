@@ -17,6 +17,12 @@ model's device seeded from ``seed``, in the shapes the model states
 :meth:`SVItrainer.train_step` also takes injected noise. A model with
 ``prep_beta`` (jiVAE) takes the KL scale as a ``[beta_cont, beta_disc]``
 pair.
+
+``checkpoint_path=`` saves the full training state
+(:mod:`~pyroved_tpu_torch.utils.checkpoint`) after every
+``checkpoint_every``-th epoch (default 10) of ``step`` and ``run``, at the
+epochs where the JAX trainer saves, and :meth:`SVItrainer.resume` restores
+it.
 """
 import time
 from typing import Optional
@@ -32,7 +38,7 @@ _TRAINER_ITEM = "trainer surface"
 # keywords of the JAX trainer that a later slice brings, with the values
 # that mean "off"
 _LATER_KWARGS = {"mesh": None, "grad_accum": 1, "remat": False,
-                 "checkpoint_path": None, "log_file": None}
+                 "log_file": None}
 _LATER_RUN_KWARGS = ("patience", "on_segment", "enum_schedule")
 
 
@@ -56,6 +62,15 @@ def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+
+def save_if_due(trainer) -> None:
+    """Save ``trainer``'s checkpoint when it has a ``checkpoint_path`` and
+    its ``current_epoch`` is a multiple of ``checkpoint_every``."""
+    if (trainer.checkpoint_path
+            and trainer.current_epoch % trainer.checkpoint_every == 0):
+        from ..utils.checkpoint import save_checkpoint
+        save_checkpoint(trainer.checkpoint_path, trainer.model, trainer)
 
 
 class _PendingLoss:
@@ -87,9 +102,11 @@ class SVItrainer:
         enumerate_parallel: accepted for the JAX package's signature.
         seed: seed of the latent noise.
         lr: learning rate of the default optimizer (1e-3).
+        checkpoint_path: where to save the training state, after every
+            ``checkpoint_every``-th epoch (default 10).
 
-    ``mesh``, ``grad_accum``, ``remat``, ``checkpoint_path`` and
-    ``log_file`` raise ``NotImplementedError`` naming their ROADMAP item.
+    ``mesh``, ``grad_accum``, ``remat`` and ``log_file`` raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(self, model, optimizer: Optional[torch.optim.Optimizer] = None,
@@ -100,6 +117,8 @@ class SVItrainer:
         for key, off in _LATER_KWARGS.items():
             if key in kwargs and kwargs.pop(key) != off:
                 raise later_slice(f"SVItrainer({key}=...)", _TRAINER_ITEM)
+        self.checkpoint_path = kwargs.pop("checkpoint_path", None)
+        self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
             raise TypeError(f"SVItrainer got unexpected keywords {sorted(kwargs)}")
         if loss is not None:
@@ -202,6 +221,7 @@ class SVItrainer:
                 self.evaluate(test_loader, **kwargs))
         self.epoch_times.append(time.perf_counter() - t0)
         self.current_epoch += 1
+        save_if_due(self)
 
     def run(self, train_loader: DataLoader, epochs: int, **kwargs) -> list:
         """Train ``epochs`` epochs; returns the per-epoch losses, also
@@ -237,6 +257,17 @@ class SVItrainer:
             for i, v in enumerate(hist):
                 if not isinstance(v, float):
                     hist[i] = float(v)
+
+    def resume(self, checkpoint_path: Optional[str] = None) -> int:
+        """Restore the model, optimizer, noise generator, epoch and loss
+        history from a checkpoint (``checkpoint_path``, else the trainer's
+        own); returns the epoch to continue from. A loader built afresh
+        takes it through ``set_epoch`` to visit the rows in the order of
+        the uninterrupted run."""
+        from ..utils.checkpoint import load_checkpoint
+        load_checkpoint(checkpoint_path or self.checkpoint_path, self.model,
+                        self)
+        return self.current_epoch
 
     def print_statistics(self) -> None:
         """Prints the current epoch's losses."""

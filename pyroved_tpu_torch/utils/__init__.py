@@ -1,5 +1,7 @@
 """Coordinate math, NN helpers and the data loader."""
 from ..infer.dists import get_sampler
+from .checkpoint import (load_checkpoint, save_checkpoint,
+                         wait_for_checkpoints)
 from .coord import (generate_grid, generate_latent_grid,
                     generate_latent_grid_traversal, grid2xy, imcoordgrid,
                     rotate_coordinates, scale_coordinates,
@@ -16,5 +18,6 @@ __all__ = [
     "DataLoader", "init_dataloader", "init_ssvae_dataloaders",
     "shuffle_indices", "as_numpy", "average_weights", "get_activation",
     "resolve_device", "set_deterministic_mode", "to_onehot",
-    "get_sampler",
+    "get_sampler", "save_checkpoint", "load_checkpoint",
+    "wait_for_checkpoints",
 ]

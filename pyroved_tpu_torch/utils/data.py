@@ -102,6 +102,13 @@ class DataLoader:
     def num_batches(self) -> int:
         return -(-self.dataset_size // self.batch_size)
 
+    def set_epoch(self, epoch: int) -> None:
+        """Set the loader's epoch counter, which keys the next epoch's
+        permutation: a loader built afresh for a resumed run takes the
+        trainer's ``current_epoch`` to visit the rows as the uninterrupted
+        run would have."""
+        self._epoch = int(epoch)
+
     def epoch_indices(self, epoch=None) -> Tuple[np.ndarray, np.ndarray]:
         """Permuted, padded row indices ``[num_batches, batch_size]``
         (int32) and weights of the same shape (float32, 0 marks padding)

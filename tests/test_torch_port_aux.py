@@ -268,7 +268,7 @@ def test_golden_ss_reg_ivae_band(dataset):
     assert h[0] > h[-1]
 
 
-def test_later_slice_trainer_features_raise_naming_roadmap():
+def test_later_slice_trainer_features_raise_naming_roadmap(tmp_path):
     m, xu, xl, yl = _ss_setup()
     for kw in (dict(mesh=object()), dict(grad_accum=2),
                dict(log_file="log.jsonl")):
@@ -284,5 +284,9 @@ def test_later_slice_trainer_features_raise_naming_roadmap():
             t.run(loaders[0], loaders[1], 1, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.train(iter([]), loaders[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Checkpoints"):
-        t.resume("ckpt")
+    # checkpoints are ported: resume restores what the trainer saved
+    ckpt = str(tmp_path / "ckpt.npz")
+    saving = auxSVItrainer(m, checkpoint_path=ckpt, checkpoint_every=1)
+    saving.step(*loaders[:2])
+    assert t.resume(ckpt) == 1
+    assert t.history == saving.history

@@ -20,6 +20,7 @@ import pyroved_tpu.ops.spatial_decoder as sd
 import pyroved_tpu.serving as jserving
 import pyroved_tpu_torch.models as tmodels
 import pyroved_tpu_torch.serving as tserving
+from pyroved_tpu_torch.trainers import auxSVItrainer
 from pyroved_tpu_torch.ops import spatial_decoder as tsd
 from pyroved_tpu_torch.utils.nn import as_numpy
 from pyroved_tpu_torch.weights import from_jax_params
@@ -181,9 +182,9 @@ def test_jivae_trace_encode_decode_match_jax():
     y = np.eye(K, dtype=np.float32)[[0, 1, 2, 2, 1, 0]]
     pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
     _close(tm.decode(z, y, **pose), jm.decode(z, y, **pose))
-    _close(tm.manifold2d(3, disc_idx=1), jm.manifold2d(3, disc_idx=1,
+    _close(tm.manifold2d(3, disc_idx=1, plot=False), jm.manifold2d(3, disc_idx=1,
                                                       plot=False))
-    _close(tm.manifold_traversal(3, 1),
+    _close(tm.manifold_traversal(3, 1, plot=False),
            jm.manifold_traversal(3, 1, plot=False))
 
 
@@ -239,8 +240,9 @@ def test_ssivae_aux_loss_classifier_trace_match_jax():
                                np.asarray(ref["branch_elbo"]), rtol=LOSS_RTOL)
     z = np.random.default_rng(5).normal(size=(4, 2)).astype(np.float32)
     _close(tm.decode(z, y[:4], angle=0.4), jm.decode(z, y[:4], angle=0.4))
-    _close(tm.manifold2d(3, label=2), jm.manifold2d(3, label=2, plot=False))
-    _close(tm.manifold_traversal(3, 0),
+    _close(tm.manifold2d(3, label=2, plot=False),
+           jm.manifold2d(3, label=2, plot=False))
+    _close(tm.manifold_traversal(3, 0, plot=False),
            jm.manifold_traversal(3, 0, plot=False))
 
 
@@ -287,7 +289,7 @@ def test_ss_reg_aux_loss_regressor_match_jax():
     _close(tm.decode(z, y[:, None], scale=0.9),
            jm.decode(z, y[:, None], scale=0.9))
     y0 = np.array([0.4], np.float32)
-    _close(tm.manifold2d(3, y0), jm.manifold2d(3, y0, plot=False))
+    _close(tm.manifold2d(3, y0, plot=False), jm.manifold2d(3, y0, plot=False))
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +332,7 @@ def test_served_families_match_jax(family, tmp_path):
         _close(ts.decode(z, **pose), js.decode(z, **pose))
 
 
-def test_later_slice_features_raise_naming_roadmap():
+def test_later_slice_features_raise_naming_roadmap(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.*pixel"):
         tmodels.jiVAE(DATA, 2, K, device="cpu", pixel_chunks=2, **CFG)
     m = tmodels.ssiVAE(DATA, 2, K, device="cpu", **CFG)
@@ -340,9 +342,14 @@ def test_later_slice_features_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.*trainer surface"):
         m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
               enum_schedule=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*trainer surface"):
-        m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
-              checkpoint_path="ckpt")
+    # checkpoints are ported: the keywords reach the trainer and work
+    ckpt = str(tmp_path / "ckpt.npz")
+    tr = m.fit(x, (x, np.arange(8) % K), epochs=2, batch_size=4,
+               checkpoint_path=ckpt, checkpoint_every=2)
+    assert (tr.checkpoint_path, tr.checkpoint_every) == (ckpt, 2)
+    fresh = auxSVItrainer(tmodels.ssiVAE(DATA, 2, K, device="cpu", **CFG))
+    assert fresh.resume(ckpt) == 2
+    assert fresh.history == tr.history
     with pytest.raises(NotImplementedError, match="ROADMAP.*viz"):
         m.manifold2d(3, plot=True)
     j = tmodels.jiVAE(DATA, 2, K, device="cpu", **CFG)
@@ -404,3 +411,4 @@ def test_jivae_enumerated_loss_and_grads_match_jax_bf16(monkeypatch):
     assert _bf16_misses(grads, ref_grads) == []
     monkeypatch.setattr(tsd, "BF16_MATMUL", False)
     assert _bf16_misses(ours()[1], ref_grads)
+

@@ -95,7 +95,8 @@ def test_reconstruct_and_manifold_match_jax(pair):
     x, y = _data(cfg, 6)
     _close(tm.reconstruct(x, y), jm.reconstruct(x, y))
     yc = None if y is None else y[0]
-    _close(tm.manifold2d(4, y=yc), jm.manifold2d(4, y=yc, plot=False))
+    _close(tm.manifold2d(4, y=yc, plot=False),
+           jm.manifold2d(4, y=yc, plot=False))
 
 
 def test_loss_fn_matches_jax(pair):
@@ -136,7 +137,8 @@ def test_padded_width_gelu_gaussian_model_matches_jax():
     np.testing.assert_allclose(as_numpy(tm.loss_fn(x, eps=eps)),
                                np.asarray(ref), rtol=LOSS_RTOL)
     kw = dict(which_dims=(2, 0), z_fixed=[0.3, -0.2, 0.1])
-    _close(tm.manifold2d(3, **kw), jm.manifold2d(3, plot=False, **kw))
+    _close(tm.manifold2d(3, plot=False, **kw),
+           jm.manifold2d(3, plot=False, **kw))
     z = np.random.default_rng(6).normal(size=(4, 3)).astype(np.float32)
     _close(tm.decode(z, angle=-0.4, scale=0.9), jm.decode(z, angle=-0.4,
                                                           scale=0.9))
@@ -178,7 +180,7 @@ def test_spatial_decodes_go_through_the_fused_wrapper(monkeypatch):
     x, _ = _data(cfg, 5)
     tm.decode(np.zeros((3, 2), np.float32))
     tm.reconstruct(x)
-    tm.manifold2d(3)
+    tm.manifold2d(3, plot=False)
     tm.loss_fn(x)
     assert calls == [3, 5, 9, 5]
 

@@ -337,14 +337,19 @@ def test_print_statistics_prints_the_jax_text(capsys):
         hist["training_loss"][-1], hist["test_loss"][-1])
 
 
-def test_unported_options_raise_naming_the_roadmap_item():
+def test_unported_options_raise_naming_the_roadmap_item(tmp_path):
     _, tm = _pair(CONFIGS["rot"])
     x, _ = _data(CONFIGS["rot"], 8)
     loader = init_dataloader(x, batch_size=8, device="cpu")
     for kw in (dict(mesh=object()), dict(grad_accum=2), dict(remat=True),
-               dict(checkpoint_path="ckpt"), dict(log_file="log.jsonl")):
+               dict(log_file="log.jsonl")):
         with pytest.raises(NotImplementedError, match="ROADMAP.*trainer"):
             SVItrainer(tm, **kw)
+    # checkpoints are ported: the keywords are taken and a save happens
+    ckpt = str(tmp_path / "ckpt.npz")
+    saving = SVItrainer(tm, checkpoint_path=ckpt, checkpoint_every=1)
+    saving.step(loader)
+    assert SVItrainer(_pair(CONFIGS["rot"])[1]).resume(ckpt) == 1
     trainer = SVItrainer(tm, remat=False, grad_accum=1)  # the "off" values
     for kw in (dict(patience=2), dict(on_segment=print),
                dict(enum_schedule=1)):
@@ -410,7 +415,7 @@ def test_fused_false_routes_every_decode_to_the_module_path(monkeypatch):
     x, _ = _data(cfg, 8)
     tm.decode(np.zeros((3, 2), np.float32), angle=0.3)
     tm.reconstruct(x)
-    tm.manifold2d(3)
+    tm.manifold2d(3, plot=False)
     with torch.no_grad():
         tm.loss_fn(x)
     tm.fit(x, epochs=1, batch_size=4)
