@@ -87,6 +87,28 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    that resume, 2 more: per-epoch history and parameters bitwise equal,
    the resumed epochs one K1 and one K2 per step of the flag's sources.
    Then ``save_weights`` / ``load_weights`` on the card.
+9. The trainer surface, under each flag. Out of core
+   (``examples/out_of_core_training.py``): 200,000 uniform 28x28 rows in a
+   memmap (627 MB, in a temporary directory; 20,000 of them with the flag
+   clear) and its uint8 copy; one epoch of the flagship (seed 1, batch
+   200) each resident, streamed per batch, in chunks of 64 batches, from
+   the uint8 copy (``scale=1/255``) resident and in chunks, and narrowed
+   to bfloat16 in chunks: streamed parameters bitwise equal to resident
+   ones, steps/s, host-to-device GB/s and the device's idle share. The
+   flagship at batch 50 x ``grad_accum=4`` for 2 epochs of 4,000 rotated
+   bars (``examples/large_effective_batch.py``): one K1 and one K2 a
+   micro-step, against the module path (f32); with ``remat=True``
+   bitwise equal, two K1 and one K2 a micro-step; the large grid's peak
+   memory with and without ``remat``, on the kernel and the module path. The enumerated jiVAE (``enum_topk=3``)
+   runs 3 epochs with ``enum_schedule=1`` (10 steps of K1 and K2 at 2,000
+   rows, then 20 at 600), held against the module path, 10 epochs of
+   ``("auto", 0.9)``, and ssiVAE's ``fit(enum_schedule=1)``. The flagship
+   ``fit`` for up to 40 epochs with a held-out set, a JSONL log,
+   checkpoints every 10 epochs, ``on_segment`` and ``patience=5``: the log
+   against the history (bitwise), the checkpoint epochs, the stop against
+   the rule, the callbacks' records against the log. Then K1, K2 and K3
+   at B = 50 and K1 and K2 at the 600 enumerated rows join phase 6's
+   table.
 
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
@@ -364,7 +386,9 @@ def k1_cases():
     dims, channels, activations and widths (N = 1000 is no multiple of 64
     or 32), then 1 to 5 hidden layers for every activation at both widths
     (H = 256 streams its weights), no hidden layer at both widths, one
-    pixel of one sample at H = 256, and the large grid: 85 cases."""
+    pixel of one sample at H = 256, the large grid, and the flagship's
+    shapes of phase 9 (B = 600 enumerated rows at L = 12, and B = 50 under
+    grad_accum): 87 cases."""
     acts = sd.KERNEL_ACTS_WITH_APPROX
     cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
              for D in (1, 2) for C in (1, 3) for act in acts]
@@ -377,7 +401,9 @@ def k1_cases():
     cases += [(2, 1, "tanh", 128, 2, 70, 2, 0),     # no hidden layer
               (1, 1, "tanh", 256, 2, 70, 2, 0),     # no hidden layer, H=256
               (1, 3, "gelu", 256, 1, 1, 2, 2),      # one pixel, streamed
-              (2, 1, "tanh", 128, 64, 16384, 2, 2)]  # the large grid
+              (2, 1, "tanh", 128, 64, 16384, 2, 2),  # the large grid
+              (2, 1, "tanh", 128, 600, 784, 12, 2),  # enum_topk=3, phase 9
+              (2, 1, "tanh", 128, 50, 784, 2, 2)]    # grad_accum, phase 9
     return cases
 
 
@@ -451,7 +477,9 @@ def bwd_cases():
               (2, 2, "gelu", 256, 3, 63, 6, 2),      # one partial tile, gelu
               (2, 2, "tanh", 256, 3, 63, 6, 3),      # three layers
               (1, 1, "softplus", 256, 5, 129, 4, 1),
-              (2, 1, "relu", 128, 4, 200, 2, 5)]     # the layer limit
+              (2, 1, "relu", 128, 4, 200, 2, 5),     # the layer limit
+              (2, 1, "tanh", 128, 600, 784, 12, 2),  # enum_topk=3, phase 9
+              (2, 1, "tanh", 128, 50, 784, 2, 2)]    # grad_accum, phase 9
     return cases
 
 
@@ -1455,6 +1483,457 @@ def phase_weights(ved):
         "decodes bitwise equal")
 
 
+# -- phase 9: the trainer surface ------------------------------------------
+# The out-of-core flagship of examples/out_of_core_training.py:35-60: 200,000
+# uniform 28x28 rows in a memmap, iVAE((28, 28), latent_dim=2,
+# invariances=['r'], seed=1) at batch 200.
+OOC_ROWS = 200_000
+OOC_ROWS_F32 = 20_000  # the cut under BF16_MATMUL = False
+OOC_SLAB = 50_000
+
+
+def write_memmaps(tmp, rows):
+    """``rows`` uniform float32 28x28 images (seed 0, written in slabs as
+    the example writes them) and their uint8 copy, as memmaps in ``tmp``,
+    opened read-only."""
+    f32 = np.lib.format.open_memmap(f"{tmp}/x.npy", mode="w+",
+                                    dtype=np.float32, shape=(rows, 28, 28))
+    u8 = np.lib.format.open_memmap(f"{tmp}/x8.npy", mode="w+",
+                                   dtype=np.uint8, shape=(rows, 28, 28))
+    rng = np.random.default_rng(0)
+    for lo in range(0, rows, OOC_SLAB):
+        hi = min(lo + OOC_SLAB, rows)
+        f32[lo:hi] = rng.uniform(0, 1, (hi - lo, 28, 28)).astype(np.float32)
+        u8[lo:hi] = np.rint(f32[lo:hi] * 255.0).astype(np.uint8)
+    f32.flush()
+    u8.flush()
+    del f32, u8
+    return (np.load(f"{tmp}/x.npy", mmap_mode="r"),
+            np.load(f"{tmp}/x8.npy", mmap_mode="r"))
+
+
+def device_busy_ms(fn):
+    """Milliseconds the device was busy (the union of its kernels' and
+    copies' intervals, torch.profiler) while ``fn()`` ran, and the wall
+    milliseconds under the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "#" not in ev.name)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / 1e3, wall
+
+
+def ooc_variant(name, make_loader, rows, ref=None):
+    """One epoch of the out-of-core flagship from the loader
+    ``make_loader(rows)`` builds, counted alone as a path: steps/s,
+    host-to-device GB/s, launches (one K1 and one K2 a step), and the
+    device's idle share (its busy time per step from a profiled 20-step
+    epoch of the same loader kind, against the unprofiled step). With
+    ``ref`` (a variant's result), the parameters must equal its bitwise."""
+    k1, k2 = ("K1_bf16", "K2_bf16") if sd.BF16_MATMUL else ("K1", "K2")
+    t0 = time.perf_counter()
+    loader = make_loader(rows)
+    build_s = time.perf_counter() - t0
+    model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=1)
+    trainer = SVItrainer(model)
+    loss, epoch_s, launches = run_path(lambda: trainer.train(loader))
+    steps = len(loader)
+    if not only(launches, **{k1: steps, k2: steps}) or not np.isfinite(loss):
+        raise AssertionError(f"out-of-core {name}: loss {loss}, launches "
+                             f"{launches}, expected {steps} of {k1} and {k2}")
+    params = [p.detach().clone() for p in model.nets.parameters()]
+    if ref is not None:
+        for (n, p), q in zip(model.nets.named_parameters(), ref["params"]):
+            if not torch.equal(p, q):
+                raise AssertionError(
+                    f"out-of-core {name}: {n} differs from {ref['name']} by "
+                    f"{(p - q).abs().max().item():.3e}")
+    small = make_loader(20 * 200)
+    busy, prof_wall = device_busy_ms(lambda: SVItrainer(model).train(small))
+    step_ms = 1e3 * epoch_s / steps
+    out = {"name": name, "rows": rows, "loss": loss,
+           "loader_build_s": build_s, "epoch_s": epoch_s,
+           "steps_per_s": steps / epoch_s, "step_ms": step_ms,
+           "h2d_bytes": loader.host_to_device_bytes,
+           "h2d_gb_per_s": loader.host_to_device_bytes / epoch_s / 1e9,
+           "device_busy_ms_per_step": busy / 20,
+           "profiled_wall_ms_per_step": prof_wall / 20,
+           "idle_share": 1.0 - busy / 20 / step_ms, "launches": launches,
+           "bitwise_equal_to": None if ref is None else ref["name"],
+           "params": params}
+    log(f"  out-of-core {name}: {rows} rows, {steps} steps in {epoch_s:.2f} s "
+        f"({out['steps_per_s']:.1f} steps/s, loader built in {build_s:.2f} "
+        f"s), host to device {out['h2d_gb_per_s']:.3f} GB/s, device busy "
+        f"{out['device_busy_ms_per_step']:.3f} of {step_ms:.3f} ms a step "
+        f"(idle {out['idle_share']:.1%}), loss {loss:.4f}, launches "
+        f"{launches}" + ("" if ref is None else
+                         f", parameters bitwise equal to {ref['name']}"))
+    return out
+
+
+def phase_out_of_core():
+    """Phase 9, part 1, under the current flag: one epoch of the
+    out-of-core flagship each resident, streamed per batch, streamed in
+    chunks of 64 batches, from the uint8 copy with scale=1/255 (resident
+    and streamed) and narrowed to bfloat16 (streamed). Streamed parameters
+    bitwise equal to the resident ones of the same data."""
+    rows = OOC_ROWS if sd.BF16_MATMUL else OOC_ROWS_F32
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    if rows != OOC_ROWS:
+        log(f"  {tag}: cut to the first {rows:,} of {OOC_ROWS:,} rows")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        x32, x8 = write_memmaps(tmp, OOC_ROWS)
+        log(f"  wrote {OOC_ROWS:,} rows to a memmap ({x32.nbytes / 1e6:.0f} "
+            f"MB) and its uint8 copy in {time.perf_counter() - t0:.1f} s")
+        s8 = 1.0 / 255.0
+
+        def loader(src, **kw):
+            return lambda n: init_dataloader(src[:n], batch_size=200, seed=0,
+                                             **kw)
+
+        res = ooc_variant(f"{tag} resident", loader(x32), rows)
+        out = [res,
+               ooc_variant(f"{tag} streamed", loader(
+                   x32, device_resident=False), rows, res),
+               ooc_variant(f"{tag} stream_chunks=64", loader(
+                   x32, device_resident=False, stream_chunks=64), rows, res)]
+        res8 = ooc_variant(f"{tag} uint8 resident", loader(x8, scale=s8),
+                           rows)
+        out += [res8,
+                ooc_variant(f"{tag} uint8 stream_chunks=64", loader(
+                    x8, scale=s8, device_resident=False, stream_chunks=64),
+                    rows, res8),
+                ooc_variant(f"{tag} store_dtype=bfloat16 stream_chunks=64",
+                            loader(x32, store_dtype="bfloat16",
+                                   device_resident=False, stream_chunks=64),
+                            rows)]
+        del x32, x8
+    for o in out:
+        del o["params"]
+    return out
+
+
+@contextlib.contextmanager
+def kernel_rows():
+    """The rows (B) of every K1 and K2 call inside the block, in order, as
+    ("K1", B) and ("K2", B): the wrappers wrapped, their counts untouched."""
+    calls = []
+    fwd, bwd = sd.fused_spatial_decoder_forward, sd.fused_spatial_decoder_backward
+
+    def fwd_rows(grid, phi, dx, sc, z, *a, **k):
+        calls.append(("K1", z.shape[0]))
+        return fwd(grid, phi, dx, sc, z, *a, **k)
+
+    def bwd_rows(grid, phi, dx, sc, z, *a, **k):
+        calls.append(("K2", z.shape[0]))
+        return bwd(grid, phi, dx, sc, z, *a, **k)
+
+    fwd_rows.launches, bwd_rows.launches = fwd.launches, bwd.launches
+    sd.fused_spatial_decoder_forward = fwd_rows
+    sd.fused_spatial_decoder_backward = bwd_rows
+    try:
+        yield calls
+    finally:
+        sd.fused_spatial_decoder_forward = fwd
+        sd.fused_spatial_decoder_backward = bwd
+
+
+def row_counts(calls):
+    """{"K1 B=2000": n, ...} of :func:`kernel_rows`' calls."""
+    out = {}
+    for k, b in calls:
+        out[f"{k} B={b}"] = out.get(f"{k} B={b}", 0) + 1
+    return out
+
+
+def bars(n, seed=0):
+    """examples/large_effective_batch.py:35-41's rotated bars."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, 2 * np.pi, n)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, 28), np.linspace(-1, 1, 28),
+                         indexing="ij")
+    xr = (xx[None] * np.cos(th)[:, None, None]
+          - yy[None] * np.sin(th)[:, None, None])
+    return np.exp(-(xr ** 2) / 0.05 - (yy[None] ** 2) / 0.3).astype(
+        np.float32)
+
+
+def accum_run(X, fused=True, **kw):
+    """examples/large_effective_batch.py:44-49 for 2 epochs: batch 50 and
+    the trainer's keywords; returns (trainer, model)."""
+    model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=4,
+                 fused=fused)
+    trainer = SVItrainer(model, seed=2, **kw)
+    trainer.run(init_dataloader(X, batch_size=50, seed=0), 2)
+    return trainer, model
+
+
+def peak_mib(model, xb, remat):
+    """Peak device memory (MiB) over 3 steps of ``model`` on batch ``xb``
+    above what was allocated before them."""
+    tr = SVItrainer(model, remat=remat)
+    w = torch.ones(xb.shape[0], device="cuda")
+    tr.train_step((xb,), w)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        tr.train_step((xb,), w)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase_accum_remat(module_runs):
+    """Phase 9, part 2, under the current flag: the flagship at batch 50 x
+    grad_accum=4 trains 2 epochs of 4,000 rotated bars (80 micro-steps an
+    epoch, one K1 and one K2 each), held against the module path (f32)
+    with phase 5's tolerances; again with remat=True, bitwise equal, two
+    K1 and one K2 a micro-step; the large grid's peak memory with and
+    without remat, on the kernel and the module path."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    k1, k2 = ("K1_bf16", "K2_bf16") if on else ("K1", "K2")
+    X = bars(4000)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    probe = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=4)
+    module = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=4,
+                  fused=False)
+    xb = torch.as_tensor(X[:50], device="cuda")
+    eps = torch.randn(50, probe.z_dim, generator=gen, device="cuda")
+    err = first_step_vs_module(f"{tag} batch 50", probe, module, xb, eps)
+    (tr, model), secs, launches = run_path(
+        lambda: accum_run(X, grad_accum=4))
+    micro = 2 * 80
+    if not only(launches, **{k1: micro, k2: micro}):
+        raise AssertionError(f"grad_accum: expected 4 {k1} and 4 {k2} per "
+                             f"update ({micro} micro-steps): {launches}")
+    if "accum" not in module_runs:
+        module_runs["accum"] = accum_run(X, fused=False, grad_accum=4)[
+            0].loss_history["training_loss"]
+    hist = tr.loss_history["training_loss"]
+    check_epochs(f"{tag} batch 50 x grad_accum=4", hist, module_runs["accum"])
+    if tr.optimizer.state_dict()["state"][0]["step"].item() != micro // 4:
+        raise AssertionError("grad_accum: Adam did not step once per update")
+    (tr_r, model_r), secs_r, launches_r = run_path(
+        lambda: accum_run(X, grad_accum=4, remat=True))
+    if not only(launches_r, **{k1: 2 * micro, k2: micro}):
+        raise AssertionError(f"remat: expected 2 {k1} and 1 {k2} per "
+                             f"micro-step: {launches_r}")
+    for (n, p), q in zip(model_r.nets.named_parameters(),
+                         model.nets.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"remat: {n} differs by "
+                                 f"{(p - q).abs().max().item():.3e}")
+    if tr_r.loss_history != tr.loss_history:
+        raise AssertionError("remat: the loss history differs")
+    # the kernel path saves only the decoder's inputs already; the module
+    # path saves every hidden layer's [64 * 16384, 128] activations
+    xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
+    peaks = {}
+    for path, fused in (("kernel", True), ("module", False)):
+        big = iVAE((128, 128), latent_dim=2, invariances=["r"], seed=0,
+                   fused=fused)
+        peaks[path] = {"no_remat": peak_mib(big, xl, False),
+                       "remat": peak_mib(big, xl, True)}
+        del big
+    log(f"  {tag} batch 50 x grad_accum=4, 2 epochs: {secs:.2f} s, "
+        f"launches {launches}, losses {hist}; with remat: {secs_r:.2f} s, "
+        f"launches {launches_r}, parameters and losses bitwise equal; large "
+        f"grid batch 64 peak memory above the model (MiB), kernel and "
+        f"module paths: {peaks}")
+    return {"launches": {"grad_accum": launches, "grad_accum_remat":
+                         launches_r},
+            "seconds": {"grad_accum": secs, "grad_accum_remat": secs_r},
+            "loss_history": hist, "module_loss_history": module_runs["accum"],
+            "large_grid_peak_mib": peaks, "first_step_err": err,
+            "model": model, "xb": xb}
+
+
+def phase_enum_schedule(data, module_runs):
+    """Phase 9, part 3, under the current flag: the enumerated jiVAE
+    (enum_topk=3) runs 3 epochs with enum_schedule=1, its kernels at 2,000
+    rows in the exact epoch and 600 after, held against the module path
+    (f32); 10 epochs of ("auto", 0.9); ssiVAE with enum_schedule=1 through
+    fit (auxSVItrainer)."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    X, y, _ = data
+    kw = dict(FAMILY, discrete_dim=N_CLASSES, enum_topk=3)
+
+    def scheduled(fused=True):
+        m = jiVAE(FAMILY_DIM, fused=fused, **kw)
+        t = SVItrainer(m)
+        t.run(init_dataloader(X, batch_size=200), 3, enum_schedule=1)
+        return t, m
+
+    with kernel_rows() as calls:
+        (tr, model), secs, launches = run_path(scheduled)
+    rows = row_counts(calls)
+    if rows != {"K1 B=2000": 10, "K2 B=2000": 10, "K1 B=600": 20,
+                "K2 B=600": 20} or calls[:20] != [("K1", 2000), ("K2", 2000)] * 10:
+        raise AssertionError(f"enum_schedule=1: kernel rows {rows}")
+    expect_steps(f"{tag} jiVAE run(3, enum_schedule=1), {secs:.2f} s, rows "
+                 f"{rows}", launches, 30)
+    if model.enum_topk != 3:
+        raise AssertionError("enum_schedule did not restore enum_topk")
+    if "enum_schedule" not in module_runs:
+        module_runs["enum_schedule"] = scheduled(fused=False)[
+            0].loss_history["training_loss"]
+    hist = tr.loss_history["training_loss"]
+    check_epochs(f"{tag} jiVAE enum_schedule=1", hist,
+                 module_runs["enum_schedule"])
+    auto_model = jiVAE(FAMILY_DIM, **kw)
+    auto = SVItrainer(auto_model)
+    with kernel_rows() as auto_calls:
+        _, auto_s, auto_launches = run_path(lambda: auto.run(
+            init_dataloader(X, batch_size=200), 10,
+            enum_schedule=("auto", 0.9)))
+    expect_steps(f"{tag} jiVAE enum_schedule=('auto', 0.9), 10 epochs, "
+                 f"{auto_s:.2f} s, probes {auto.enum_probe_history}, switch "
+                 f"epoch {auto.enum_switch_epoch}, rows "
+                 f"{row_counts(auto_calls)}", auto_launches, 100)
+    sm = ssiVAE(FAMILY_DIM, **dict(FAMILY, num_classes=N_CLASSES,
+                                   enum_topk=3))
+    with kernel_rows() as ss_calls:
+        ss, ss_s, ss_launches = run_path(lambda: sm.fit(
+            X, (X[:400], y[:400]), epochs=2, batch_size=200,
+            enum_schedule=1))
+    ss_rows = row_counts(ss_calls)
+    if ss_rows != {"K1 B=2000": 10, "K2 B=2000": 10, "K1 B=600": 10,
+                   "K2 B=600": 10, "K1 B=200": 4, "K2 B=200": 4}:
+        raise AssertionError(f"ssiVAE enum_schedule=1: kernel rows {ss_rows}")
+    expect_steps(f"{tag} ssiVAE fit(epochs=2, enum_schedule=1), {ss_s:.2f} "
+                 f"s, accuracy {ss.history['test']}, rows {ss_rows}",
+                 ss_launches, 24)
+    if not all(np.isfinite(ss.history["training_loss"])):
+        raise AssertionError("ssiVAE enum_schedule: non-finite loss")
+    return {"launches": {"jivae_enum_schedule": launches,
+                         "jivae_enum_auto": auto_launches,
+                         "ssivae_enum_schedule": ss_launches},
+            "rows": {"jivae": rows, "jivae_auto": row_counts(auto_calls),
+                     "ssivae": ss_rows},
+            "loss_history": hist,
+            "module_loss_history": module_runs["enum_schedule"],
+            "auto_probe_history": auto.enum_probe_history,
+            "auto_switch_epoch": auto.enum_switch_epoch,
+            "ssivae_accuracy": ss.history["test"],
+            "seconds": {"jivae": secs, "auto": auto_s, "ssivae": ss_s},
+            "model": model}
+
+
+def expected_stop(test_losses, start, patience, seg):
+    """The epoch at which the JAX package's blocking runner stops on
+    ``test_losses`` (epochs ``start + 1 ...``), checking at every ``seg``-th
+    epoch: (stop epoch or None, best epoch)."""
+    best, best_epoch = float("inf"), start
+    for e, v in enumerate(test_losses, start + 1):
+        if v < best:
+            best, best_epoch = v, e
+        if e % seg == 0 and e - best_epoch >= patience:
+            return e, best_epoch
+    return None, best_epoch
+
+
+def phase_observability():
+    """Phase 9, part 4, under the current flag: the flagship fit for up to
+    40 epochs with a held-out set, a JSONL log, checkpoints every 10
+    epochs, on_segment and patience=5; the log against loss_history
+    (bitwise), the checkpoint epochs, the stop against the rule, the
+    callbacks' records against the log."""
+    import pyroved_tpu_torch.utils.checkpoint as ckpt_module
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    k1, k2 = ("K1_bf16", "K2_bf16") if sd.BF16_MATMUL else ("K1", "K2")
+    X, X_val = blobs(2400, (28, 28), seed=9), blobs(600, (28, 28), seed=10)
+    saved, records = [], []
+    save = ckpt_module.save_checkpoint
+
+    def recording_save(path, model, trainer=None, **kw):
+        saved.append(trainer.current_epoch)
+        return save(path, model, trainer, **kw)
+
+    ckpt_module.save_checkpoint = recording_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+            tr, secs, launches = run_path(lambda: model.fit(
+                X, epochs=40, batch_size=200, test_data=X_val,
+                log_file=f"{tmp}/train.jsonl",
+                checkpoint_path=f"{tmp}/state.npz", checkpoint_every=10,
+                on_segment=records.extend, patience=5))
+            log_records = [json.loads(line)
+                           for line in open(f"{tmp}/train.jsonl")]
+    finally:
+        ckpt_module.save_checkpoint = save
+    hist = tr.loss_history
+    n = tr.current_epoch
+    steps = n * 12 + n * 3  # 12 training steps, then 3 held-out decodes
+    if launches != {**dict.fromkeys(launches, 0), k1: steps, k2: n * 12}:
+        raise AssertionError(f"observability: launches {launches}")
+    if [r["epoch"] for r in log_records] != list(range(1, n + 1)):
+        raise AssertionError("JSONL epochs are not 1..current_epoch")
+    if ([r["training_loss"] for r in log_records] != hist["training_loss"]
+            or [r["test_loss"] for r in log_records] != hist["test_loss"]):
+        raise AssertionError("JSONL losses are not the loss history")
+    if saved != list(range(10, n + 1, 10)):
+        raise AssertionError(f"checkpoints at epochs {saved}")
+    stop, best = expected_stop(hist["test_loss"], 0, 5, 5)
+    if (tr.stopped_early, tr.best_epoch) != (stop is not None, best) or (
+            stop is not None and stop != n):
+        raise AssertionError(f"early stop: stopped {tr.stopped_early} at "
+                             f"{n}, best {tr.best_epoch}; the rule gives "
+                             f"{stop}, best {best}")
+    if tr.stopped_early and not 5 <= n - tr.best_epoch < 10:
+        raise AssertionError(f"stopped {n - tr.best_epoch} epochs after the "
+                             f"best")
+    strip = [{k: v for k, v in r.items() if k != "epoch_seconds"}
+             for r in log_records]
+    if records != strip:
+        raise AssertionError("on_segment records are not the log's")
+    log(f"  {tag} observability: fit stopped early {tr.stopped_early} at "
+        f"epoch {n} (best {tr.best_epoch}, {tr.best_metric:.4f}), "
+        f"{secs:.2f} s, {len(log_records)} JSONL records equal to the "
+        f"history, checkpoints at {saved}, on_segment records equal to the "
+        f"log, launches {launches}")
+    return {"epochs": n, "stopped_early": tr.stopped_early,
+            "best_epoch": tr.best_epoch, "checkpoint_epochs": saved,
+            "seconds": secs, "launches": launches,
+            "training_loss": hist["training_loss"],
+            "test_loss": hist["test_loss"]}
+
+
+def surface_launches(surface):
+    """Phase 9's launches under one flag, by path."""
+    out = {f"out_of_core_{v['name'].split(' ', 1)[1]}": v["launches"]
+           for v in surface["out_of_core"]}
+    out.update(surface["accum"]["launches"])
+    out.update(surface["enum"]["launches"])
+    out["observability"] = surface["observability"]["launches"]
+    return out
+
+
+def phase_trainer_surface(fam_data, module_runs):
+    """Phase 9 under the current flag: returns each part's results."""
+    return {"out_of_core": phase_out_of_core(),
+            "accum": phase_accum_remat(module_runs),
+            "enum": phase_enum_schedule(fam_data, module_runs),
+            "observability": phase_observability()}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1673,6 +2152,45 @@ def main() -> int:
     phase_weights(ved.pop("model"))
     log(f"phase 8 took {time.perf_counter() - t8:.1f} s")
 
+    # -- 9. the trainer surface -------------------------------------------
+    log("phase 9: out-of-core training, grad_accum and remat, "
+        "enum_schedule, segmented runs with logs and early stopping")
+    t9 = time.perf_counter()
+    surface_runs = {}  # the module path's losses (f32), computed once
+    with bf16_matmul(False):
+        surface32 = phase_trainer_surface(fam_data, surface_runs)
+    surface = phase_trainer_surface(fam_data, surface_runs)
+    # K1 and K2 (and K3) at the new shapes join phase 6's table: the
+    # flagship at B = 50 (grad_accum) and the enumerated decode of
+    # enum_topk=3, 600 rows at L = 12
+    acc_model, acc_xb = surface["accum"].pop("model"), surface["accum"].pop(
+        "xb")
+    e = torch.randn(50, acc_model.z_dim, generator=gen, device="cuda")
+    a, xf = train_args(acc_model, acc_xb, e)
+    with torch.no_grad():
+        for on, row in time_k1("flagship grad_accum", a, peaks).items():
+            k1_rows[on].append(row)
+    for key, row in time_bwd("flagship grad_accum", a, xf, gen,
+                             peaks).items():
+        rows[key].append(row)
+    enum_model = surface["enum"].pop("model")
+    e = torch.randn(200, enum_model.z_dim, generator=gen, device="cuda")
+    a = enum_args(enum_model, fam["xb"], e)
+    for k in ("phi", "dx", "sc", "z"):  # three classes of every example
+        a[k] = a[k][:600].contiguous()
+    with torch.no_grad():
+        for on, row in time_k1("jiVAE enum_topk=3 L=12", a, peaks).items():
+            k1_rows[on].append(row)
+    for key, row in time_bwd("jiVAE enum_topk=3 L=12", a, None, gen, peaks,
+                             with_k3=False).items():
+        rows[key].append(row)
+    del a, xf
+    for k in ("model", "xb"):
+        surface32["accum"].pop(k)
+    surface32["enum"].pop("model")
+    phase9_s = time.perf_counter() - t9
+    log(f"phase 9 took {phase9_s:.1f} s")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -1688,7 +2206,10 @@ def main() -> int:
                    for path, n in f["launches"].items()},
                 **{f"{path}_{'bf16' if on else 'f32'}": n[key]
                    for on, paths in resume.items()
-                   for path, n in paths.items()}}
+                   for path, n in paths.items()},
+                **{f"{path}_{tag}": n[key]
+                   for tag, f in (("bf16", surface), ("f32", surface32))
+                   for path, n in surface_launches(f).items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -1746,7 +2267,9 @@ def main() -> int:
             "ssivae_accuracy", "ss_reg_mse", "first_step_err")}
             for tag, f in (("bf16", fam), ("f32", fam32))},
         "enumerated_step": enum_step,
-        "ved": {"im2spec": ved, "stretch": stretch}}
+        "ved": {"im2spec": ved, "stretch": stretch},
+        "trainer_surface": {"bf16": surface, "f32": surface32,
+                            "seconds": phase9_s}}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

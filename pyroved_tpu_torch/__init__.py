@@ -3,8 +3,11 @@
 Trains and serves the invariant VAE (iVAE), the joint discrete-continuous
 jiVAE, the semi-supervised ssiVAE and ss_reg_iVAE and the conv
 encoder-decoder VED on an NVIDIA Hopper card: ``fit`` with ``SVItrainer``
-or ``auxSVItrainer`` and device-resident ``DataLoader``s, checkpoints that
-resume bit-exactly, and pickle-free weights; encode, classify/regress,
+or ``auxSVItrainer`` over device-resident or streamed ``DataLoader``s (or
+any iterable of batches), with segmented runs (JSONL logs, early stopping,
+``on_segment`` callbacks), ``enum_schedule``, ``grad_accum`` and
+``remat``, checkpoints that resume bit-exactly, and pickle-free weights;
+encode, classify/regress,
 posed decode, latent manifolds, VED's predictions and per-example ELBO
 scoring. Every spatial decode, the enumerated ones on
 K*B rows included, goes through hand-written CUDA kernels

@@ -382,26 +382,26 @@ class baseVAE:
     def fit(self, X, y=None, epochs: int = 100, batch_size: int = 100,
             lr: float = 1e-3, scale_factor=1.0, test_data=None,
             verbose: bool = False, trainer=None, patience=None,
-            on_segment=None, data_scale=None, **kwargs):
+            min_delta: float = 0.0, on_segment=None, data_scale=None,
+            **kwargs):
         """Train for ``epochs`` epochs and return the trainer (its
         ``loss_history`` holds the per-epoch losses).
 
         ``X`` is an array or a DataLoader; ``y`` adds conditional features.
         ``test_data`` (an array, a tuple of arrays or a DataLoader) is
-        evaluated after every epoch. ``data_scale=s`` keeps narrow-dtype
-        ``X`` (e.g. raw uint8 images) in that dtype on the device and
-        normalizes each batch by ``s``; integer ``X`` without it is
-        rejected. Without ``verbose`` the trainer's ``run`` drives the
-        epochs; with it, one ``step`` and ``print_statistics`` per epoch.
-        Other keywords go to the trainer. ``patience``, ``on_segment`` and
-        ``enum_schedule`` raise ``NotImplementedError`` naming their
-        ROADMAP item."""
+        evaluated after every epoch. ``patience=P`` (needs ``test_data``)
+        stops once the held-out loss has not improved by more than
+        ``min_delta`` for ``P`` epochs; ``on_segment`` receives the epochs'
+        records; ``enum_schedule`` (jiVAE) trains the first epochs with
+        exact enumeration. ``data_scale=s`` keeps narrow-dtype ``X`` (e.g.
+        raw uint8 images) in that dtype on the device and normalizes each
+        batch by ``s``; integer ``X`` without it is rejected. Without
+        ``verbose`` the trainer's ``run`` drives the epochs; with it, one
+        ``step`` and ``print_statistics`` per epoch (``enum_schedule``
+        then raises). Other keywords go to the trainer."""
         from ..trainers.svi import SVItrainer
         from ..utils.data import DataLoader, init_dataloader
-        for key, val in (("patience", patience), ("on_segment", on_segment),
-                         ("enum_schedule", kwargs.pop("enum_schedule", None))):
-            if val is not None:
-                raise later_slice(f"fit({key}=...)", "trainer surface")
+        enum_schedule = kwargs.pop("enum_schedule", None)
         if isinstance(X, DataLoader):
             loader = X
         else:
@@ -426,28 +426,79 @@ class baseVAE:
                 f"kwargs {sorted(kwargs)}; configure them on the trainer "
                 "you pass, or drop trainer= to have fit() build one.")
         trainer = trainer or SVItrainer(self, lr=lr, **kwargs)
+        if patience is not None and test_loader is None:
+            raise ValueError("fit(patience=) needs test_data= to monitor")
         if not verbose:
+            run_kwargs = {} if test_loader is None else {
+                "test_loader": test_loader}
+            if patience is not None:
+                run_kwargs.update(patience=patience, min_delta=min_delta)
+            if on_segment is not None:
+                run_kwargs.update(on_segment=on_segment)
+            if enum_schedule is not None:
+                run_kwargs.update(enum_schedule=enum_schedule)
             trainer.run(loader, int(epochs), scale_factor=scale_factor,
-                        test_loader=test_loader)
+                        **run_kwargs)
             return trainer
-        for _ in range(int(epochs)):
-            trainer.step(loader, test_loader, scale_factor=scale_factor)
-            trainer.print_statistics()
-        return trainer
+        if enum_schedule is not None:
+            raise ValueError(
+                "enum_schedule= rides the run path; it is not supported "
+                "with verbose=True — call trainer.run(..., "
+                "enum_schedule=E).")
+        return step_loop(
+            trainer, lambda: trainer.step(loader, test_loader,
+                                          scale_factor=scale_factor),
+            epochs, verbose, patience, min_delta, on_segment,
+            test_loader is not None)
 
 
+# keywords of the semi-supervised fits that configure the trainer
 _TRAINER_KWARGS = ("mesh", "checkpoint_path", "checkpoint_every", "log_file",
-                   "optimizer", "seed", "task")
+                   "grad_accum", "optimizer", "seed", "task")
+
+
+def step_loop(trainer, step, epochs, verbose, patience, min_delta,
+              on_segment, has_metric):
+    """The per-epoch loop of ``fit(verbose=True)``: ``step()`` then, per
+    epoch, the statistics, an ``on_segment`` record and the early-stopping
+    check on the trainer's held-out metric (a loss, or for a
+    classification trainer the accuracy, which should rise)."""
+    hist = getattr(trainer, "loss_history", None)
+    key = "test_loss" if hist is not None else "test"
+    hist = hist if hist is not None else trainer.history
+    sign = -1.0 if getattr(trainer, "task", "") == "classification" else 1.0
+    trainer.stopped_early = False  # as run() resets it
+    best, best_epoch = float("inf"), trainer.current_epoch
+    for _ in range(int(epochs)):
+        step()
+        if verbose:
+            trainer.print_statistics()
+        if on_segment is not None:
+            rec = {"epoch": trainer.current_epoch,
+                   "training_loss": hist["training_loss"][-1]}
+            if has_metric:
+                rec[key] = hist[key][-1]
+            on_segment([rec])
+        if patience is not None:
+            v = sign * hist[key][-1]
+            if v < best - min_delta:
+                best, best_epoch = v, trainer.current_epoch
+            trainer.best_epoch, trainer.best_metric = best_epoch, sign * best
+            if trainer.current_epoch - best_epoch >= int(patience):
+                trainer.stopped_early = True
+                break
+    return trainer
 
 
 def fit_semi_supervised(model, X_unsup, labeled, val, epochs, batch_size, lr,
                         verbose, trainer, data_scale, kwargs):
     """The ``fit`` of ssiVAE and ss_reg_iVAE: loaders for the unlabeled,
     labeled and validation sets on the model's device, an auxSVItrainer,
-    then its ``run``; with ``verbose`` or another trainer, one ``step``
-    (and ``print_statistics``) per epoch. ``patience``, ``on_segment`` and
-    ``enum_schedule`` raise ``NotImplementedError`` naming their ROADMAP
-    item."""
+    then its ``run`` (``patience``, ``min_delta``, ``on_segment`` and
+    ``enum_schedule`` go there; the metric of ``patience`` is the
+    validation accuracy or MSE); with ``verbose`` or another trainer, one
+    ``step`` (and ``print_statistics``) per epoch, where
+    ``enum_schedule`` raises."""
     from ..trainers.auxsvi import auxSVItrainer
     from ..utils.data import init_ssvae_dataloaders
     Xl, yl = labeled
@@ -468,12 +519,12 @@ def fit_semi_supervised(model, X_unsup, labeled, val, epochs, batch_size, lr,
         trainer.run(loaders[0], loaders[1], int(epochs),
                     loader_val=loaders[2], **kwargs)
         return trainer
-    for key in ("patience", "on_segment", "enum_schedule"):
-        if kwargs.pop(key, None) is not None:
-            raise later_slice(f"fit({key}=...)", "trainer surface")
-    kwargs.pop("min_delta", None)  # read by patience only
-    for _ in range(int(epochs)):
-        trainer.step(*loaders, **kwargs)
-        if verbose:
-            trainer.print_statistics()
-    return trainer
+    patience = kwargs.pop("patience", None)
+    min_delta = float(kwargs.pop("min_delta", 0.0))
+    on_segment = kwargs.pop("on_segment", None)
+    if kwargs.pop("enum_schedule", None) is not None:
+        raise ValueError(
+            "enum_schedule= rides the run path; it is not supported with "
+            "verbose=True — call trainer.run(..., enum_schedule=E).")
+    return step_loop(trainer, lambda: trainer.step(*loaders, **kwargs),
+                     epochs, verbose, patience, min_delta, on_segment, True)

@@ -199,8 +199,10 @@ class ssiVAE(baseVAE):
         holds the per-epoch losses and validation metrics. Without
         ``verbose`` its ``run`` drives the epochs; other keywords go to
         ``run`` (``scale_factor``, ``aux_loss_multiplier``, ``sup_period``,
-        ...) or, for ``optimizer``, ``seed``, ``task`` and the later-slice
-        ``mesh``/``checkpoint_path``/``log_file``, to the trainer."""
+        ``patience`` on the validation accuracy, ``min_delta``,
+        ``on_segment``, ``enum_schedule``) or, for ``optimizer``, ``seed``,
+        ``task``, ``checkpoint_path``, ``checkpoint_every``, ``log_file``,
+        ``grad_accum`` and ``mesh``, to the trainer."""
         return fit_semi_supervised(self, X_unsup, labeled, val, epochs,
                                    batch_size, lr, verbose, trainer,
                                    data_scale, kwargs)

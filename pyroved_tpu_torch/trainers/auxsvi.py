@@ -1,22 +1,34 @@
 """SVI trainer with an auxiliary supervised objective (semi-supervised
 models).
 
-Counterpart of ``pyroved_tpu/trainers/auxsvi.py`` for device-resident
-loaders: an epoch walks the unlabeled batches and, after every p-th of
-them, takes one labeled batch (``p = (n_sup + n_unsup) // n_sup``, at
-``i % p == 1``; every step when p == 1). A labeled step is two updates: the
-basic Adam over every network on the labeled ELBO, then a second Adam, of
-its own, over ``encoder_y`` alone on the auxiliary loss, evaluated after
-the first update. The reported epoch loss is the unlabeled losses' sum over
-the unlabeled count. Accuracy (classification) or MSE (regression) on a
-validation loader, and stochastic weight averaging of a sub-network.
+Counterpart of ``pyroved_tpu/trainers/auxsvi.py``: an epoch walks the
+unlabeled batches and, after every p-th of them, takes one labeled batch
+(``p = (n_sup + n_unsup) // n_sup``, at ``i % p == 1``; every step when
+p == 1). A labeled step is two updates: the basic Adam over every network
+on the labeled ELBO, then a second Adam, of its own, over ``encoder_y``
+alone on the auxiliary loss, evaluated after the first update. The reported
+epoch loss is the unlabeled losses' sum over the unlabeled count. Accuracy
+(classification) or MSE (regression) on a validation loader, and
+stochastic weight averaging of a sub-network.
+
+Loaders are :class:`~pyroved_tpu_torch.utils.data.DataLoader`\\ s, resident
+or streaming, or any iterables of batches. With two DataLoaders the
+labeled batch of each step comes from the labeled loader's epoch
+permutation, cycled (the schedule of the JAX package's resident and
+chunked paths), so a streamed epoch is bitwise equal to a resident one.
+With an iterable the loaders are iterated, the labeled one afresh whenever
+it runs out, and ``sup_period`` gives p when they have no length.
 
 Adam follows ``optax.adam``: every parameter steps at every update, by its
 momentum where the loss does not reach it (a labeled batch's basic loss
-does not reach ``encoder_y``), so that the step counts stay equal. The
-noise comes from a ``torch.Generator`` on the model's device in the shapes
-the model states (``noise_shapes``); :meth:`auxSVItrainer.draw_noise` is
-where a test injects the JAX package's.
+does not reach ``encoder_y``), so that the step counts stay equal.
+``grad_accum=k`` averages the basic objective's gradients over k basic
+micro-steps (unlabeled steps and the basic half of labeled ones) per
+update; the auxiliary Adam keeps its cadence. The noise comes from a
+``torch.Generator`` on the model's device in the shapes the model states
+(``noise_shapes``); :meth:`auxSVItrainer.draw_noise` is where a test
+injects the JAX package's. ``run`` takes ``patience`` (on the validation
+metric), ``on_segment`` and ``enum_schedule`` (:mod:`._segmented`).
 """
 import time
 from typing import Dict, Optional
@@ -25,19 +37,16 @@ import numpy as np
 import torch
 
 from ..utils.data import DataLoader
-from ..utils.nn import average_weights, later_slice
-from .svi import _PendingLoss, draw_noise, fill_zero_grads, save_if_due
+from ..utils.nn import average_weights
+from ._segmented import SegmentedRunsMixin
+from .svi import (GradAccumulator, _PendingLoss, apply_update, draw_noise,
+                  pad_batch, reject_mesh, save_if_due, streamed_batches,
+                  to_device)
 
 Tensor = torch.Tensor
 
-_TRAINER_ITEM = "trainer surface"
-# keywords of the JAX trainer that a later slice brings, with the values
-# that mean "off"
-_LATER_KWARGS = {"mesh": None, "grad_accum": 1, "log_file": None}
-_LATER_RUN_KWARGS = ("patience", "on_segment", "enum_schedule")
 
-
-class auxSVItrainer:
+class auxSVItrainer(SegmentedRunsMixin):
     """Trainer of ssiVAE and ss_reg_iVAE (the task comes from the model;
     ``task=`` overrides it).
 
@@ -49,12 +58,14 @@ class auxSVItrainer:
             one of its type and defaults over ``encoder_y``'s.
         seed: seed of the noise.
         lr: learning rate of the default optimizers (5e-4).
+        grad_accum: update the basic objective once every ``grad_accum``
+            basic micro-steps on the mean of their gradients.
+        log_file: append one JSONL record per epoch.
         checkpoint_path: where to save the training state (both optimizers
             included), after every ``checkpoint_every``-th epoch (default
             10); :meth:`resume` restores it.
 
-    ``mesh``, ``grad_accum`` and ``log_file`` raise ``NotImplementedError``
-    naming their ROADMAP item.
+    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
     """
 
     def __init__(self, model, task: Optional[str] = None,
@@ -64,10 +75,10 @@ class auxSVItrainer:
         if task not in ("classification", "regression"):
             raise ValueError(
                 "Choose between 'classification' and 'regression' tasks")
+        reject_mesh("auxSVItrainer", kwargs)
         lr = float(kwargs.pop("lr", 5e-4))
-        for key, off in _LATER_KWARGS.items():
-            if key in kwargs and kwargs.pop(key) != off:
-                raise later_slice(f"auxSVItrainer({key}=...)", _TRAINER_ITEM)
+        self.grad_accum = int(kwargs.pop("grad_accum", 1) or 1)
+        self.log_file = kwargs.pop("log_file", None)
         self.checkpoint_path = kwargs.pop("checkpoint_path", None)
         self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
@@ -84,11 +95,18 @@ class auxSVItrainer:
             self.optimizer = optimizer
             self.aux_optimizer = type(optimizer)(aux_params,
                                                  **optimizer.defaults)
+        self.grad_accumulator = (GradAccumulator(self.optimizer,
+                                                 self.grad_accum)
+                                 if self.grad_accum > 1 else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self.history = {"training_loss": [], "test": []}
         self.epoch_times = []
         self.current_epoch = 0
+        self.stopped_early = False
+        self.best_epoch = None  # set by patience= runs
+        self.best_metric = None
+        self._deferred_records = []
         self.running_weights: Dict[int, Dict[str, Tensor]] = {}
 
     # ------------------------------------------------------------------
@@ -97,66 +115,122 @@ class auxSVItrainer:
         generator (``model.noise_shapes``)."""
         return draw_noise(self.model, self.generator, batch_size, labeled)
 
-    def _update(self, optimizer: torch.optim.Optimizer, loss: Tensor) -> None:
-        loss.backward()
-        fill_zero_grads(optimizer)
-        optimizer.step()
-
     def unsup_step(self, x: Tensor, weights: Tensor, beta=1.0,
                    eps=None) -> Tensor:
-        """One basic Adam step on an unlabeled batch; returns its weighted
-        loss (0-d, on the device, without waiting)."""
+        """One basic step on an unlabeled batch (an Adam update, or a
+        micro-step of one under ``grad_accum``); returns its weighted loss
+        (0-d, on the device, without waiting)."""
         if eps is None:
             eps = self.draw_noise(x.shape[0], False)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.weighted_loss_fn(x, None, weights, beta, eps=eps)
-        self._update(self.optimizer, loss)
+        loss.backward()
+        apply_update(self.optimizer, self.grad_accumulator)
         return loss.detach()
 
     def sup_step(self, x: Tensor, y: Tensor, weights: Tensor, beta=1.0,
                  aux_loss_multiplier=20.0, eps=None) -> Tensor:
-        """A labeled step: the basic Adam step on the labeled ELBO, then the
+        """A labeled step: the basic step on the labeled ELBO, then the
         auxiliary Adam step on ``encoder_y``; returns the sum of the two
         weighted losses."""
         if eps is None:
             eps = self.draw_noise(x.shape[0], True)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.weighted_loss_fn(x, y, weights, beta, eps=eps)
-        self._update(self.optimizer, loss)
+        loss.backward()
+        apply_update(self.optimizer, self.grad_accumulator)
         self.aux_optimizer.zero_grad(set_to_none=True)
         aux = torch.sum(self.model.aux_loss_fn(x, y, aux_loss_multiplier)
                         * weights)
-        self._update(self.aux_optimizer, aux)
+        aux.backward()
+        apply_update(self.aux_optimizer, None)
         return loss.detach() + aux.detach()
 
     @staticmethod
-    def _check_loaders(*loaders) -> None:
-        for loader in loaders:
-            if not isinstance(loader, DataLoader):
-                raise later_slice(f"training on a {type(loader).__name__}",
-                                  "trainer surface: streaming loaders")
+    def _period(loader_unsup, loader_sup, sup_period=None) -> int:
+        """The labeled-step cadence p: ``sup_period``, else
+        ``(n_sup + n_unsup) // n_sup`` from the loaders' lengths."""
+        if sup_period is not None:
+            return max(int(sup_period), 1)
+        try:
+            n_u, n_s = len(loader_unsup), len(loader_sup)
+        except TypeError:
+            raise TypeError(
+                "Streaming loaders without __len__ need an explicit "
+                "sup_period= (labeled step every p-th unlabeled batch)")
+        return max((n_s + n_u) // max(n_s, 1), 1)
 
-    @staticmethod
-    def _schedule(loader_unsup, loader_sup, nb: int, n_sup_rows: int,
+    @classmethod
+    def _schedule(cls, loader_unsup, loader_sup, nb: int, n_sup_rows: int,
                   sup_period=None):
         """The epoch's interleave: (mask [nb] bool, the labeled batch of
-        each step [nb] int32). One labeled step every ``p = (n_sup +
-        n_unsup) // n_sup`` unlabeled ones at ``i % p == 1``; with p == 1
-        every step is labeled (the reference's cadence would never fire).
-        ``sup_period`` sets p."""
-        if sup_period is not None:
-            p = max(int(sup_period), 1)
-        else:
-            p = ((len(loader_sup) + len(loader_unsup))
-                 // max(len(loader_sup), 1))
-        p = max(p, 1)
+        each step [nb] int32). One labeled step every p unlabeled ones at
+        ``i % p == 1``; with p == 1 every step is labeled (the reference's
+        cadence would never fire)."""
+        p = cls._period(loader_unsup, loader_sup, sup_period)
         sup_mask = np.asarray([p == 1 or i % p == 1 for i in range(nb)], bool)
         sup_j = np.zeros(nb, np.int32)
         sup_j[sup_mask] = np.arange(int(sup_mask.sum())) % n_sup_rows
         return sup_mask, sup_j
 
-    def train(self, loader_unsup: DataLoader, loader_sup: DataLoader,
-              **kwargs):
+    def _epoch_indexed(self, loader_unsup: DataLoader,
+                       loader_sup: DataLoader, beta, aux_mult, sup_period):
+        """An epoch over two DataLoaders (either resident or streaming):
+        (sum of the unlabeled losses, the unlabeled count)."""
+        idx_u, w_u = loader_unsup.epoch_indices()
+        idx_s, w_s = loader_sup.epoch_indices()
+        mask, sup_j = self._schedule(loader_unsup, loader_sup,
+                                     idx_u.shape[0], idx_s.shape[0],
+                                     sup_period)
+        wu = torch.as_tensor(w_u, device=self.device)
+        ws = torch.as_tensor(w_s, device=self.device)
+        sup_rows = (torch.as_tensor(idx_s, device=loader_sup.device)
+                    if loader_sup.device_resident else idx_s)
+        losses = []
+        for i, (x,) in enumerate(loader_unsup.padded_batches(idx_u)):
+            losses.append(self.unsup_step(x, wu[i], beta))
+            if mask[i]:
+                j = int(sup_j[i])
+                xs, ys = loader_sup.batch_at(sup_rows[j])
+                self.sup_step(xs, ys, ws[j], beta, aux_mult)
+        return torch.stack(losses).sum(), max(float(w_u.sum()), 1.0)
+
+    def _epoch_streamed(self, loader_unsup, loader_sup, beta, aux_mult,
+                        sup_period):
+        """An epoch over iterables of batches: the unlabeled batches in
+        order, a labeled one (from ``loader_sup``, iterated afresh when it
+        runs out) after every p-th; short batches padded."""
+        p = self._period(loader_unsup, loader_sup, sup_period)
+        sup_iter = iter(loader_sup)
+        labeled = None
+        losses, count = [], 0
+        for i, ((x,), w, n) in enumerate(streamed_batches(
+                ((b[0] if isinstance(b, (tuple, list)) else b,)
+                 for b in loader_unsup), self.device)):
+            count += n
+            losses.append(self.unsup_step(x, w, beta))
+            if not (p == 1 or i % p == 1):
+                continue
+            try:
+                sup_batch = next(sup_iter)
+            except StopIteration:  # cycle the (smaller) labeled loader
+                sup_iter = iter(loader_sup)
+                sup_batch = next(sup_iter)
+            sup_batch = tuple(to_device(b, self.device) for b in sup_batch)
+            if labeled is None:
+                labeled = sup_batch[0].shape[0]
+            if sup_batch[0].shape[0] > labeled:
+                raise ValueError(
+                    f"Labeled streaming batch has {sup_batch[0].shape[0]} "
+                    f"examples, larger than the first labeled batch "
+                    f"({labeled}); use a fixed batch size.")
+            (xs, ys), sw = pad_batch(sup_batch, labeled)
+            self.sup_step(xs, ys, sw, beta, aux_mult)
+        if not losses:
+            return torch.zeros((), device=self.device), 1.0
+        return torch.stack(losses).sum(), max(count, 1)
+
+    def train(self, loader_unsup, loader_sup, **kwargs):
         """One epoch over the unlabeled loader, interleaving labeled batches;
         returns the unlabeled losses' sum over the unlabeled count.
 
@@ -166,124 +240,151 @@ class auxSVItrainer:
             sup_period: the labeled-step cadence p.
             sync: ``False`` returns a pending loss without waiting.
         """
-        self._check_loaders(loader_unsup, loader_sup)
         beta = kwargs.get("scale_factor", 1.0)
         aux_mult = float(kwargs.get("aux_loss_multiplier", 20))
-        idx_u, w_u = loader_unsup.epoch_indices()
-        idx_s, w_s = loader_sup.epoch_indices()
-        mask, sup_j = self._schedule(loader_unsup, loader_sup,
-                                     idx_u.shape[0], idx_s.shape[0],
-                                     kwargs.get("sup_period"))
-        dev = loader_unsup.device
-        iu, wu = torch.as_tensor(idx_u, device=dev), torch.as_tensor(w_u,
-                                                                     device=dev)
-        is_, ws = (torch.as_tensor(idx_s, device=loader_sup.device),
-                   torch.as_tensor(w_s, device=loader_sup.device))
-        losses = []
-        for i in range(idx_u.shape[0]):
-            (x,) = loader_unsup.gather(iu[i])
-            losses.append(self.unsup_step(x, wu[i], beta))
-            if mask[i]:
-                j = int(sup_j[i])
-                xs, ys = loader_sup.gather(is_[j])
-                self.sup_step(xs, ys, ws[j], beta, aux_mult)
-        total = torch.stack(losses).sum()
-        norm = max(float(w_u.sum()), 1.0)
+        sup_period = kwargs.get("sup_period")
+        if isinstance(loader_unsup, DataLoader) and isinstance(loader_sup,
+                                                               DataLoader):
+            total, norm = self._epoch_indexed(loader_unsup, loader_sup, beta,
+                                              aux_mult, sup_period)
+        else:
+            total, norm = self._epoch_streamed(loader_unsup, loader_sup,
+                                               beta, aux_mult, sup_period)
         if not kwargs.get("sync", True):
             return _PendingLoss(total, norm)
         return float(total) / norm
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def evaluate(self, loader_val: DataLoader) -> float:
+    def evaluate(self, loader_val) -> float:
         """Accuracy (classification) or mean squared error (regression) of
         the ``encoder_y`` head on a labeled loader."""
-        if self.task == "classification":
-            return self.evaluate_cls(loader_val)
-        return self.evaluate_reg(loader_val)
+        return float(self._metric(loader_val,
+                                  self.task == "classification"))
 
-    @torch.no_grad()
-    def evaluate_cls(self, loader_val: DataLoader) -> float:
+    def evaluate_cls(self, loader_val) -> float:
         """Share of the rows whose predicted class is the label's."""
-        correct, total = 0, 0
-        for data, labels in loader_val:
-            predicted = self.model.classifier(data)
-            correct = correct + (predicted == labels.argmax(1)).sum()
-            total += data.shape[0]
-        return int(correct) / total
+        return float(self._metric(loader_val, True))
+
+    def evaluate_reg(self, loader_val) -> float:
+        """Mean over batches of each batch's mean squared error."""
+        return float(self._metric(loader_val, False))
 
     @torch.no_grad()
-    def evaluate_reg(self, loader_val: DataLoader) -> float:
-        """Mean over batches of each batch's mean squared error."""
+    def _metric(self, loader_val, classification: bool) -> _PendingLoss:
+        """The metric of :meth:`evaluate_cls` or :meth:`evaluate_reg`,
+        without waiting for the device."""
+        if classification:
+            correct, total = 0, 0
+            for data, labels in loader_val:
+                predicted = self.model.classifier(data)
+                correct = correct + (predicted == labels.argmax(1)).sum()
+                total += data.shape[0]
+            return _PendingLoss(correct, total)
         total, batches = 0.0, 0
         for data, gt in loader_val:
             predicted = self.model.regressor(data)
             total = total + torch.mean((predicted - gt.reshape(
                 predicted.shape)) ** 2)
             batches += 1
-        return float(total) / max(batches, 1)
+        return _PendingLoss(total, max(batches, 1))
 
-    def step(self, loader_unsup: DataLoader, loader_sup: DataLoader,
-             loader_val: Optional[DataLoader] = None, **kwargs) -> None:
-        """One training epoch (and an evaluation on ``loader_val``),
-        appended to ``history``; keywords as :meth:`train`. With
-        ``sync=False`` the training loss stays pending until
-        :meth:`sync_history` (the evaluation waits regardless)."""
-        t0 = time.perf_counter()
-        self.history["training_loss"].append(
-            self.train(loader_unsup, loader_sup, **kwargs))
+    def _seg_epoch(self, loaders, scale_factor, kwargs) -> None:
+        """One epoch queued (and the metric on ``loader_val``), appended to
+        ``history`` as pending values."""
+        step_kwargs = {k: kwargs[k] for k in ("aux_loss_multiplier",
+                                              "sup_period") if k in kwargs}
+        self.history["training_loss"].append(self.train(
+            loaders[0], loaders[1], scale_factor=scale_factor, sync=False,
+            **step_kwargs))
+        loader_val = kwargs.get("loader_val")
         if loader_val is not None:
-            self.history["test"].append(self.evaluate(loader_val))
-        self.epoch_times.append(time.perf_counter() - t0)
+            self.history["test"].append(self._metric(
+                loader_val, self.task == "classification"))
         self.current_epoch += 1
+
+    def step(self, loader_unsup, loader_sup, loader_val=None,
+             **kwargs) -> None:
+        """One training epoch (and the metric on ``loader_val``), appended
+        to ``history``; with a ``log_file`` its JSONL record. Keywords as
+        :meth:`train`; with ``sync=False`` the values stay pending until
+        :meth:`sync_history`."""
+        sync = kwargs.get("sync", True)
+        t0 = time.perf_counter()
+        self._seg_epoch((loader_unsup, loader_sup),
+                        kwargs.get("scale_factor", 1.0),
+                        dict(kwargs, loader_val=loader_val))
+        if sync:
+            self.sync_history()
+        self.epoch_times.append(time.perf_counter() - t0)
+        self._record_step(loader_val is not None, sync)
         save_if_due(self)
 
-    def run(self, loader_unsup: DataLoader, loader_sup: DataLoader,
-            epochs: int, **kwargs) -> list:
+    def run(self, loader_unsup, loader_sup, epochs: int, **kwargs) -> list:
         """Train ``epochs`` epochs; returns the per-epoch losses, also
         appended to ``history`` (and the metric on ``loader_val`` after
         every epoch to ``history["test"]``). The same as ``epochs`` calls of
-        :meth:`step`, pipelined (``sync=False``) and read once at the end.
+        :meth:`step`, queued (``sync=False``) and read at segment ends.
 
         Keyword Args:
             scale_factor: KL scale beta of every epoch.
             scale_schedule: per-epoch betas (length ``epochs``).
             aux_loss_multiplier, sup_period: as :meth:`train`.
             loader_val: labeled loader evaluated after every epoch.
-        ``patience``, ``on_segment`` and ``enum_schedule`` raise
-        ``NotImplementedError`` naming their ROADMAP item."""
-        for key in _LATER_RUN_KWARGS:
-            if kwargs.get(key) is not None:
-                raise later_slice(f"auxSVItrainer.run({key}=...)",
-                                  _TRAINER_ITEM)
-        epochs = int(epochs)
-        schedule = kwargs.get("scale_schedule")
-        if schedule is not None and len(schedule) != epochs:
-            raise ValueError(f"scale_schedule has {len(schedule)} entries for "
-                             f"{epochs} epochs")
-        step_kwargs = {k: kwargs[k] for k in ("aux_loss_multiplier",
-                                              "sup_period") if k in kwargs}
-        start = len(self.history["training_loss"])
-        for e in range(epochs):
-            sf = (schedule[e] if schedule is not None
-                  else kwargs.get("scale_factor", 1.0))
-            self.step(loader_unsup, loader_sup, kwargs.get("loader_val"),
-                      scale_factor=sf, sync=False, **step_kwargs)
-        self.sync_history()
-        return self.history["training_loss"][start:]
+            patience: stop once the metric on ``loader_val`` (accuracy:
+                higher is better; MSE: lower) has not improved by more
+                than ``min_delta`` for ``patience`` epochs.
+            on_segment: called at each segment end with its epochs'
+                records (``epoch``, ``training_loss`` and ``test``).
+            enum_schedule: ``E`` exact epochs, then the model's
+                ``enum_topk``; or ``"auto"`` / ``("auto", threshold)``.
+        """
+        enum_schedule = kwargs.pop("enum_schedule", None)
+        if enum_schedule is not None:
+            return self._run_enum_schedule((loader_unsup, loader_sup),
+                                           int(epochs), enum_schedule, kwargs)
+        return self._run_segmented((loader_unsup, loader_sup), int(epochs),
+                                   kwargs)
+
+    # SegmentedRunsMixin hooks
+    def _seg_metric_key(self):
+        return "test"  # history["test"]: accuracy or validation MSE
+
+    def _seg_history(self):
+        return self.history
+
+    def _seg_has_metric(self, kwargs):
+        return kwargs.get("loader_val") is not None
+
+    def _seg_monitor_kwarg(self):
+        return "loader_val"
+
+    def _seg_monitor_sign(self):
+        # classification monitors accuracy (higher is better)
+        return -1.0 if self.task == "classification" else 1.0
+
+    def _seg_resident(self, loaders, kwargs):
+        return all(isinstance(ld, DataLoader) and ld.device_resident
+                   for ld in (*loaders, kwargs.get("loader_val"))
+                   if ld is not None)
+
+    def _seg_sub_run(self, loaders, n, kwargs):
+        return self.run(loaders[0], loaders[1], n, **kwargs)
 
     def sync_history(self) -> None:
-        """Materialize every pending ``step(sync=False)`` loss."""
+        """Materialize every pending ``step(sync=False)`` value and write
+        the JSONL records that waited for them."""
         for hist in self.history.values():
             for i, v in enumerate(hist):
                 if not isinstance(v, float):
                     hist[i] = float(v)
+        self._flush_deferred()
 
     def resume(self, checkpoint_path: Optional[str] = None) -> int:
-        """Restore the model, both optimizers, the noise generator, epoch
-        and history from a checkpoint (``checkpoint_path``, else the
-        trainer's own); returns the epoch to continue from. Loaders built
-        afresh take it through ``set_epoch``."""
+        """Restore the model, both optimizers (and the ``grad_accum``
+        window), the noise generator, epoch and history from a checkpoint
+        (``checkpoint_path``, else the trainer's own); returns the epoch to
+        continue from. Loaders built afresh take it through
+        ``set_epoch``."""
         from ..utils.checkpoint import load_checkpoint
         load_checkpoint(checkpoint_path or self.checkpoint_path, self.model,
                         self)

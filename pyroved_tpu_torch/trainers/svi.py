@@ -6,40 +6,41 @@ Counterpart of ``pyroved_tpu/trainers/svi.py`` with the same surface:
 negative ELBOs and each epoch's loss normalized by the dataset size.
 
 The JAX trainer runs an epoch as one compiled ``lax.scan``. Here an epoch
-is a Python loop over batches gathered on the device from a
-device-resident :class:`~pyroved_tpu_torch.utils.data.DataLoader`: the
-epoch's indices are uploaded once, the per-step losses stay on the device,
-and the host reads them once, at the end of the epoch. Optimization is
-``torch.optim.Adam(lr=1e-3)`` (betas 0.9/0.999, eps 1e-8, as
-``optax.adam``). The latent noise comes from a ``torch.Generator`` on the
-model's device seeded from ``seed``, in the shapes the model states
-(``noise_shapes``); it cannot reproduce JAX's random bits, so
+is a Python loop over batches: gathered on the device from a
+device-resident :class:`~pyroved_tpu_torch.utils.data.DataLoader`, staged
+from the host for a streaming one (``device_resident=False``), or taken
+from any iterable of batches (a short final batch padded with zero
+weights). The per-step losses stay on the device and the host reads them
+once, at the end of the epoch. Optimization is ``torch.optim.Adam(lr=1e-3)``
+(betas 0.9/0.999, eps 1e-8, as ``optax.adam``). The latent noise comes from
+a ``torch.Generator`` on the model's device seeded from ``seed``, in the
+shapes the model states (``noise_shapes``), one draw per step in the order
+of the steps whatever the loader; it cannot reproduce JAX's random bits, so
 :meth:`SVItrainer.train_step` also takes injected noise. A model with
 ``prep_beta`` (jiVAE) takes the KL scale as a ``[beta_cont, beta_disc]``
 pair.
 
-``checkpoint_path=`` saves the full training state
+``grad_accum=k`` averages the gradients of k consecutive steps and updates
+once (``optax.MultiSteps``); ``remat=True`` recomputes each step's forward
+in its backward (``torch.utils.checkpoint``). ``log_file`` appends one
+JSONL record per epoch; ``checkpoint_path`` saves the full training state
 (:mod:`~pyroved_tpu_torch.utils.checkpoint`) after every
-``checkpoint_every``-th epoch (default 10) of ``step`` and ``run``, at the
-epochs where the JAX trainer saves, and :meth:`SVItrainer.resume` restores
-it.
+``checkpoint_every``-th epoch (default 10) of ``step`` and ``run``, and
+:meth:`SVItrainer.resume` restores it. ``run`` takes ``patience``,
+``on_segment`` and ``enum_schedule`` (:mod:`._segmented`).
 """
 import time
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _remat
 
 from ..utils.data import DataLoader
 from ..utils.nn import later_slice
+from ._segmented import SegmentedRunsMixin
 
 Tensor = torch.Tensor
-
-_TRAINER_ITEM = "trainer surface"
-# keywords of the JAX trainer that a later slice brings, with the values
-# that mean "off"
-_LATER_KWARGS = {"mesh": None, "grad_accum": 1, "remat": False,
-                 "log_file": None}
-_LATER_RUN_KWARGS = ("patience", "on_segment", "enum_schedule")
 
 
 def draw_noise(model, generator: torch.Generator, batch_size: int,
@@ -64,6 +65,56 @@ def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def reject_mesh(what: str, kwargs) -> None:
+    if kwargs.pop("mesh", None) is not None:
+        raise later_slice(f"{what}(mesh=...)", "parallel")
+
+
+class GradAccumulator:
+    """``optax.MultiSteps(optimizer, every_k_schedule=k)`` over a torch
+    optimizer: :meth:`step` folds the parameters' grads into their running
+    mean (``acc + (g - acc) / (n + 1)``, n the micro-step in the window)
+    and steps the optimizer on every k-th call only, with the mean as the
+    grad; between updates the optimizer does not step at all, so its
+    step counts advance once per update. ``acc`` and ``mini_step`` are the
+    window's state (saved by checkpoints)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, k: int):
+        self.optimizer = optimizer
+        self.k = int(k)
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params()]
+
+    def params(self) -> list:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def step(self) -> None:
+        params = self.params()
+        grads = [p.grad for p in params]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step < self.k - 1:
+            self.mini_step += 1
+            return
+        for p, a in zip(params, self.acc):
+            p.grad = a.clone()
+        self.optimizer.step()
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+
+
+def apply_update(optimizer: torch.optim.Optimizer,
+                 accumulator: Optional[GradAccumulator]) -> None:
+    """Step ``optimizer`` on its parameters' grads (every parameter gets
+    one), through ``accumulator`` when it has one."""
+    fill_zero_grads(optimizer)
+    if accumulator is None:
+        optimizer.step()
+    else:
+        accumulator.step()
+
+
 def save_if_due(trainer) -> None:
     """Save ``trainer``'s checkpoint when it has a ``checkpoint_path`` and
     its ``current_epoch`` is a multiple of ``checkpoint_every``."""
@@ -73,13 +124,52 @@ def save_if_due(trainer) -> None:
         save_checkpoint(trainer.checkpoint_path, trainer.model, trainer)
 
 
+def streamed_batches(loader, device):
+    """``(batch, weights, rows)`` of each batch of an iterable of batches
+    (tuples of arrays or tensors, or bare arrays), on ``device``; a batch
+    shorter than the first is padded with zero rows of weight 0, a longer
+    one raises ``ValueError``."""
+    bs = None
+    for i, batch in enumerate(loader):
+        if not isinstance(batch, (tuple, list)):
+            batch = (batch,)
+        batch = tuple(to_device(b, device) for b in batch)
+        n = batch[0].shape[0]
+        bs = bs or n
+        if n > bs:
+            raise ValueError(
+                f"Streaming batch {i} has {n} examples, larger than the "
+                f"first batch ({bs}); yield batches of a fixed size (a "
+                "short FINAL batch is fine — it is padded).")
+        yield pad_batch(batch, bs) + (n,)
+
+
+def to_device(b, device) -> Tensor:
+    """An array or tensor on ``device``; floats become float32."""
+    t = b if isinstance(b, Tensor) else torch.as_tensor(np.asarray(b))
+    t = t.to(device)
+    return t.to(torch.float32) if t.is_floating_point() else t
+
+
+def pad_batch(batch, batch_size: int):
+    """(batch padded to ``batch_size`` rows with zeros, weights: 1 for the
+    real rows, 0 for the padding)."""
+    n = batch[0].shape[0]
+    w = torch.ones(batch_size, device=batch[0].device)
+    if n == batch_size:
+        return batch, w
+    w[n:] = 0.0
+    return tuple(torch.cat([b, b.new_zeros((batch_size - n,) + b.shape[1:])])
+                 for b in batch), w
+
+
 class _PendingLoss:
     """A queued epoch loss from ``step(sync=False)``: the 0-d device total
     and the host normalizer. ``float()`` waits for the device and divides
     on the host in float64, exactly as the synchronous path does."""
     __slots__ = ("total", "norm")
 
-    def __init__(self, total: Tensor, norm: int):
+    def __init__(self, total: Tensor, norm):
         self.total, self.norm = total, norm
 
     def __float__(self) -> float:
@@ -89,7 +179,7 @@ class _PendingLoss:
         return f"_PendingLoss(norm={self.norm})"
 
 
-class SVItrainer:
+class SVItrainer(SegmentedRunsMixin):
     """Epoch-level SVI trainer for one-encoder/one-decoder models.
 
     Args:
@@ -102,21 +192,25 @@ class SVItrainer:
         enumerate_parallel: accepted for the JAX package's signature.
         seed: seed of the latent noise.
         lr: learning rate of the default optimizer (1e-3).
+        grad_accum: update once every ``grad_accum`` steps on the mean of
+            their gradients (the window carries across epochs).
+        remat: recompute each step's forward in its backward.
+        log_file: append one JSONL record per epoch.
         checkpoint_path: where to save the training state, after every
             ``checkpoint_every``-th epoch (default 10).
 
-    ``mesh``, ``grad_accum``, ``remat`` and ``log_file`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
     """
 
     def __init__(self, model, optimizer: Optional[torch.optim.Optimizer] = None,
                  loss=None, enumerate_parallel: bool = False, seed: int = 1,
                  **kwargs):
         del enumerate_parallel  # enumeration lives in the models' loss_fn
+        reject_mesh("SVItrainer", kwargs)
         lr = float(kwargs.pop("lr", 1e-3))
-        for key, off in _LATER_KWARGS.items():
-            if key in kwargs and kwargs.pop(key) != off:
-                raise later_slice(f"SVItrainer({key}=...)", _TRAINER_ITEM)
+        self.grad_accum = int(kwargs.pop("grad_accum", 1) or 1)
+        self.remat = bool(kwargs.pop("remat", False))
+        self.log_file = kwargs.pop("log_file", None)
         self.checkpoint_path = kwargs.pop("checkpoint_path", None)
         self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
@@ -127,11 +221,18 @@ class SVItrainer:
         self.device = model.device
         self.optimizer = (optimizer if optimizer is not None
                           else torch.optim.Adam(model.nets.parameters(), lr=lr))
+        self.grad_accumulator = (GradAccumulator(self.optimizer,
+                                                 self.grad_accum)
+                                 if self.grad_accum > 1 else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self.loss_history = {"training_loss": [], "test_loss": []}
         self.epoch_times = []
         self.current_epoch = 0
+        self.stopped_early = False
+        self.best_epoch = None  # set by patience= runs
+        self.best_metric = None
+        self._deferred_records = []
 
     # ------------------------------------------------------------------
     def _noise(self, batch_size: int):
@@ -143,127 +244,176 @@ class SVItrainer:
         prep = getattr(self.model, "prep_beta", None)
         return scale_factor if prep is None else prep(scale_factor)
 
+    def _loss(self, x, y, weights, beta, eps) -> Tensor:
+        """The step's weighted loss; under ``remat`` its forward runs again
+        in the backward, on the same noise."""
+        fn = self.model.weighted_loss_fn
+        if not self.remat:
+            return fn(x, y, weights, beta, eps=eps)
+        return _remat(lambda x_, y_, w_, e_: fn(x_, y_, w_, beta, eps=e_),
+                      x, y, weights, eps, use_reentrant=False)
+
     def train_step(self, batch, weights: Tensor, beta=1.0,
                    eps: Optional[Tensor] = None) -> Tensor:
-        """One Adam step on ``sum_b weights_b * (-ELBO_b)`` of ``batch``
-        (``(x,)`` or ``(x, y)``, tensors on the model's device). ``eps`` is
-        the latent noise; it is drawn from the trainer's generator when not
+        """One step on ``sum_b weights_b * (-ELBO_b)`` of ``batch``
+        (``(x,)`` or ``(x, y)``, tensors on the model's device): an Adam
+        update, or under ``grad_accum`` a micro-step of one. ``eps`` is the
+        latent noise; it is drawn from the trainer's generator when not
         given. Returns the loss as a 0-d device tensor, without waiting."""
         x = batch[0]
         y = batch[1] if len(batch) > 1 else None
         if eps is None:
             eps = self._noise(x.shape[0])
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.weighted_loss_fn(x, y, weights, beta, eps=eps)
+        loss = self._loss(x, y, weights, beta, eps)
         loss.backward()
-        fill_zero_grads(self.optimizer)
-        self.optimizer.step()
+        apply_update(self.optimizer, self.grad_accumulator)
         return loss.detach()
 
-    @staticmethod
-    def _check_loader(loader) -> DataLoader:
-        if not isinstance(loader, DataLoader):
-            raise later_slice(f"training on a {type(loader).__name__}",
-                              "trainer surface: streaming loaders")
-        return loader
+    def _batch_loss(self, batch, w: Tensor, beta, train: bool) -> Tensor:
+        if train:
+            return self.train_step(batch, w, beta)
+        x = batch[0]
+        y = batch[1] if len(batch) > 1 else None
+        with torch.no_grad():
+            return self.model.weighted_loss_fn(x, y, w, beta,
+                                               eps=self._noise(x.shape[0]))
 
-    def _epoch(self, loader: DataLoader, scale_factor, train: bool) -> Tensor:
-        """Sum of the epoch's batch losses as a 0-d device tensor."""
+    def _epoch(self, loader, scale_factor, train: bool):
+        """(sum of the epoch's batch losses as a 0-d device tensor, the
+        rows it covered) over a DataLoader, resident or streaming, or an
+        iterable of batches."""
         beta = self._prep_beta(scale_factor)
-        idx, w = loader.epoch_indices()
-        idx = torch.as_tensor(idx, device=loader.device)
-        w = torch.as_tensor(w, device=loader.device)
         losses = []
-        for i in range(idx.shape[0]):
-            batch = loader.gather(idx[i])
-            if train:
-                losses.append(self.train_step(batch, w[i], beta))
-                continue
-            x = batch[0]
-            y = batch[1] if len(batch) > 1 else None
-            with torch.no_grad():
-                losses.append(self.model.weighted_loss_fn(
-                    x, y, w[i], beta, eps=self._noise(x.shape[0])))
-        return torch.stack(losses).sum()
+        if isinstance(loader, DataLoader):
+            idx, w = loader.epoch_indices()
+            w = torch.as_tensor(w, device=self.device)
+            for i, batch in enumerate(loader.padded_batches(idx)):
+                losses.append(self._batch_loss(batch, w[i], beta, train))
+            norm = loader.dataset_size
+        else:
+            norm = 0
+            for batch, w, n in streamed_batches(loader, self.device):
+                losses.append(self._batch_loss(batch, w, beta, train))
+                norm += n
+        if not losses:
+            return torch.zeros((), device=self.device), 1
+        return torch.stack(losses).sum(), max(norm, 1)
 
-    def train(self, train_loader: DataLoader, **kwargs):
+    def train(self, train_loader, **kwargs):
         """One training epoch; returns loss / dataset_size.
 
         ``scale_factor`` is the KL scale beta (default 1). ``sync=False``
         returns a pending loss handle without waiting for the device; call
         :meth:`sync_history` or ``float()`` on it."""
-        loader = self._check_loader(train_loader)
-        total = self._epoch(loader, kwargs.get("scale_factor", 1.0), True)
+        total, norm = self._epoch(train_loader,
+                                  kwargs.get("scale_factor", 1.0), True)
         if not kwargs.get("sync", True):
-            return _PendingLoss(total, loader.dataset_size)
-        return float(total) / loader.dataset_size
+            return _PendingLoss(total, norm)
+        return float(total) / norm
 
-    def evaluate(self, test_loader: DataLoader, **kwargs):
+    def evaluate(self, test_loader, **kwargs):
         """Loss over a held-out set, with no parameter update; keywords as
         :meth:`train`."""
-        loader = self._check_loader(test_loader)
-        total = self._epoch(loader, kwargs.get("scale_factor", 1.0), False)
+        total, norm = self._epoch(test_loader,
+                                  kwargs.get("scale_factor", 1.0), False)
         if not kwargs.get("sync", True):
-            return _PendingLoss(total, loader.dataset_size)
-        return float(total) / loader.dataset_size
+            return _PendingLoss(total, norm)
+        return float(total) / norm
 
-    def step(self, train_loader: DataLoader,
-             test_loader: Optional[DataLoader] = None, **kwargs) -> None:
-        """One epoch of training (and evaluation), appended to
-        ``loss_history``. With ``sync=False`` the history holds pending
-        handles until :meth:`sync_history`, and ``epoch_times`` measures
-        the host's dispatch time."""
-        t0 = time.perf_counter()
-        self.loss_history["training_loss"].append(
-            self.train(train_loader, **kwargs))
+    def _seg_epoch(self, loaders, scale_factor, kwargs) -> None:
+        """One epoch queued (and its evaluation), appended to
+        ``loss_history`` as pending losses."""
+        hist = self.loss_history
+        hist["training_loss"].append(self.train(
+            loaders[0], scale_factor=scale_factor, sync=False))
+        test_loader = kwargs.get("test_loader")
         if test_loader is not None:
-            self.loss_history["test_loss"].append(
-                self.evaluate(test_loader, **kwargs))
-        self.epoch_times.append(time.perf_counter() - t0)
+            hist["test_loss"].append(self.evaluate(
+                test_loader, scale_factor=scale_factor, sync=False))
         self.current_epoch += 1
+
+    def step(self, train_loader, test_loader=None, **kwargs) -> None:
+        """One epoch of training (and evaluation), appended to
+        ``loss_history``; with a ``log_file`` its JSONL record. With
+        ``sync=False`` the history holds pending handles (and the record
+        waits) until :meth:`sync_history`, and ``epoch_times`` measures
+        the host's dispatch time."""
+        sync = kwargs.get("sync", True)
+        t0 = time.perf_counter()
+        self._seg_epoch((train_loader,), kwargs.get("scale_factor", 1.0),
+                        dict(kwargs, test_loader=test_loader))
+        if sync:
+            self.sync_history()
+        self.epoch_times.append(time.perf_counter() - t0)
+        self._record_step(test_loader is not None, sync)
         save_if_due(self)
 
-    def run(self, train_loader: DataLoader, epochs: int, **kwargs) -> list:
+    def run(self, train_loader, epochs: int, **kwargs) -> list:
         """Train ``epochs`` epochs; returns the per-epoch losses, also
         appended to ``loss_history``. The same as ``epochs`` calls of
-        :meth:`step`, pipelined (``sync=False``) and read once at the end.
+        :meth:`step`, queued (``sync=False``) and read at segment ends.
 
         Keyword Args:
             scale_factor: KL scale beta of every epoch.
             scale_schedule: per-epoch betas (length ``epochs``).
             test_loader: held-out loader evaluated after every epoch.
-        ``patience``, ``on_segment`` and ``enum_schedule`` raise
-        ``NotImplementedError`` naming their ROADMAP item."""
-        for key in _LATER_RUN_KWARGS:
-            if kwargs.get(key) is not None:
-                raise later_slice(f"SVItrainer.run({key}=...)", _TRAINER_ITEM)
-        epochs = int(epochs)
-        schedule = kwargs.get("scale_schedule")
-        if schedule is not None and len(schedule) != epochs:
-            raise ValueError(f"scale_schedule has {len(schedule)} entries for "
-                             f"{epochs} epochs")
-        test_loader = kwargs.get("test_loader")
-        start = len(self.loss_history["training_loss"])
-        for e in range(epochs):
-            sf = (schedule[e] if schedule is not None
-                  else kwargs.get("scale_factor", 1.0))
-            self.step(train_loader, test_loader, scale_factor=sf, sync=False)
-        self.sync_history()
-        return self.loss_history["training_loss"][start:]
+            patience: stop once the held-out loss has not improved by
+                more than ``min_delta`` (default 0) for ``patience``
+                epochs, checked at segment ends; ``stopped_early``,
+                ``best_epoch`` and ``best_metric`` tell the outcome.
+            on_segment: called at each segment end with the list of its
+                epochs' records (``epoch``, ``training_loss`` and
+                ``test_loss``).
+            enum_schedule: ``E`` exact epochs, then the model's
+                ``enum_topk``; or ``"auto"`` / ``("auto", threshold)``.
+        """
+        enum_schedule = kwargs.pop("enum_schedule", None)
+        if enum_schedule is not None:
+            return self._run_enum_schedule((train_loader,), int(epochs),
+                                           enum_schedule, kwargs)
+        return self._run_segmented((train_loader,), int(epochs), kwargs)
+
+    # SegmentedRunsMixin hooks
+    def _seg_metric_key(self):
+        return "test_loss"
+
+    def _seg_history(self):
+        return self.loss_history
+
+    def _seg_has_metric(self, kwargs):
+        return kwargs.get("test_loader") is not None
+
+    def _seg_monitor_kwarg(self):
+        return "test_loader"
+
+    def _seg_monitor_sign(self):
+        return 1.0  # held-out loss: lower is better
+
+    def _seg_resident(self, loaders, kwargs):
+        return all(isinstance(ld, DataLoader) and ld.device_resident
+                   for ld in (loaders[0], kwargs.get("test_loader"))
+                   if ld is not None)
+
+    def _seg_sub_run(self, loaders, n, kwargs):
+        return self.run(loaders[0], n, **kwargs)
 
     def sync_history(self) -> None:
-        """Materialize every pending ``step(sync=False)`` loss."""
+        """Materialize every pending ``step(sync=False)`` loss and write
+        the JSONL records that waited for them."""
         for hist in self.loss_history.values():
             for i, v in enumerate(hist):
                 if not isinstance(v, float):
                     hist[i] = float(v)
+        self._flush_deferred()
 
     def resume(self, checkpoint_path: Optional[str] = None) -> int:
-        """Restore the model, optimizer, noise generator, epoch and loss
-        history from a checkpoint (``checkpoint_path``, else the trainer's
-        own); returns the epoch to continue from. A loader built afresh
-        takes it through ``set_epoch`` to visit the rows in the order of
-        the uninterrupted run."""
+        """Restore the model, optimizer (and ``grad_accum`` window), noise
+        generator, epoch and loss history from a checkpoint
+        (``checkpoint_path``, else the trainer's own); returns the epoch
+        to continue from. A loader built afresh takes it through
+        ``set_epoch`` to visit the rows in the order of the uninterrupted
+        run."""
         from ..utils.checkpoint import load_checkpoint
         load_checkpoint(checkpoint_path or self.checkpoint_path, self.model,
                         self)

@@ -19,6 +19,10 @@ loading an untrusted file cannot run code. The archive holds:
   state (``exp_avg``, ``exp_avg_sq``, ``step`` for Adam), for
   ``optimizer`` and ``aux_optimizer``; their hyperparameters sit in the
   manifest;
+- ``accum.<parameter name>``: under ``grad_accum``, the running mean of
+  the window's gradients; the manifest holds ``k`` and the micro-step, so
+  that a resume in the middle of a window is bitwise equal to an
+  uninterrupted run;
 - ``generator``: the trainer's ``torch.Generator`` state (uint8);
 - ``manifest``: the format tag, ``current_epoch``, the loss history (the
   trainer's ``loss_history``, or ``history`` for ``auxSVItrainer``).
@@ -205,6 +209,12 @@ def _snapshot(model, trainer):
                 arr, desc = _optimizer_payload(model, opt, name)
                 arrays.update(arr)
                 manifest["optimizers"][name] = desc
+        accum = getattr(trainer, "grad_accumulator", None)
+        if accum is not None:
+            names = _param_names(model, accum.optimizer)
+            arrays.update({f"accum.{n}": _to_numpy(a)
+                           for n, a in zip(names, accum.acc)})
+            manifest["accum"] = {"k": accum.k, "mini_step": accum.mini_step}
         arrays["generator"] = _to_numpy(trainer.generator.get_state())
     return arrays, manifest
 
@@ -295,6 +305,29 @@ def save_checkpoint(path: str, model, trainer=None, backend: str = "msgpack",
         t.start()
 
 
+def _accum_state(model, trainer, manifest, arrays, path):
+    """(the window's mean gradients, micro-step) to restore into the
+    trainer's ``grad_accumulator``, checked; None when neither has one."""
+    saved = manifest.get("accum")
+    accum = getattr(trainer, "grad_accumulator", None)
+    if saved is None and accum is None:
+        return None
+    if saved is None or accum is None or int(saved["k"]) != accum.k:
+        raise ValueError(
+            f"{path} was saved with grad_accum="
+            f"{1 if saved is None else saved['k']}, the trainer has "
+            f"grad_accum={1 if accum is None else accum.k}")
+    names = _param_names(model, accum.optimizer)
+    acc = []
+    for name, a in zip(names, accum.acc):
+        v = arrays.get(f"accum.{name}")
+        if v is None or tuple(v.shape) != tuple(a.shape):
+            raise ValueError(f"{path}: the grad_accum window of {name} is "
+                             "missing or of another shape")
+        acc.append(torch.from_numpy(np.array(v)))
+    return acc, int(saved["mini_step"])
+
+
 def load_checkpoint(path: str, model, trainer=None,
                     backend: str = "msgpack") -> None:
     """Restore the state :func:`save_checkpoint` wrote into ``model`` (and
@@ -317,6 +350,7 @@ def load_checkpoint(path: str, model, trainer=None,
                                  f"{type(trainer).__name__} does not have")
             opt_states[name] = _optimizer_state(model, opt, desc, arrays,
                                                 name)
+        accum = _accum_state(model, trainer, manifest, arrays, path)
         hist_attr = ("loss_history" if manifest["history_kind"]
                      == "loss_history" and hasattr(trainer, "loss_history")
                      else "history")
@@ -331,6 +365,11 @@ def load_checkpoint(path: str, model, trainer=None,
         return
     for name, sd in opt_states.items():
         getattr(trainer, name).load_state_dict(sd)
+    if accum is not None:
+        acc, mini_step = accum
+        for a, v in zip(trainer.grad_accumulator.acc, acc):
+            a.copy_(v)
+        trainer.grad_accumulator.mini_step = mini_step
     trainer.generator.set_state(torch.from_numpy(np.array(
         arrays["generator"])))
     trainer.current_epoch = int(manifest["current_epoch"])

@@ -4,6 +4,8 @@ noise and interleave, the interleave schedule itself, ``run`` against
 sequential ``train`` calls, SWA and the evaluation metrics; and the golden
 convergence bands of ``tests/test_golden_bands.py`` reached by the port
 with its own noise, for jiVAE, ssiVAE and ss_reg_iVAE, on the CPU."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -269,21 +271,37 @@ def test_golden_ss_reg_ivae_band(dataset):
 
 
 def test_later_slice_trainer_features_raise_naming_roadmap(tmp_path):
+    """The trainer surface is ported: ``grad_accum``, ``log_file``,
+    ``patience``, ``on_segment``, ``enum_schedule`` and iterables of
+    batches run (each held against the JAX package in
+    tests/test_torch_port_segmented.py and its siblings); ``mesh`` still
+    raises, naming its item ('parallel')."""
     m, xu, xl, yl = _ss_setup()
-    for kw in (dict(mesh=object()), dict(grad_accum=2),
-               dict(log_file="log.jsonl")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            auxSVItrainer(m, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        auxSVItrainer(m, mesh=object())
     loaders = init_ssvae_dataloaders(xu, (xl, m._labels(yl)),
                                      (xl, m._labels(yl)), batch_size=8,
                                      device="cpu")
+    log = str(tmp_path / "log.jsonl")
+    for kw in (dict(grad_accum=2), dict(log_file=log)):
+        a = auxSVItrainer(m, **kw)
+        a.run(*loaders[:2], 2)
+        assert a.current_epoch == 2
+    assert [json.loads(l)["epoch"] for l in open(log)] == [1, 2]
     t = auxSVItrainer(m)
-    for kw in (dict(patience=2), dict(on_segment=print),
-               dict(enum_schedule=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.run(loaders[0], loaders[1], 1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.train(iter([]), loaders[1])
+    records = []
+    t.run(loaders[0], loaders[1], 2, loader_val=loaders[2], patience=5,
+          on_segment=records.extend, enum_schedule=1)
+    assert [r["epoch"] for r in records] == [1, 2]
+    assert all(0.0 <= r["test"] <= 1.0 for r in records)
+    with pytest.raises(ValueError, match="loader_val"):
+        t.run(loaders[0], loaders[1], 1, patience=2)
+    # an iterable of batches trains, with its cadence from sup_period
+    loss = t.train(iter([(xu[:8],), (xu[8:16],)]),
+                   [(xl[:8], m._labels(yl[:8]))], sup_period=1)
+    assert np.isfinite(loss)
+    with pytest.raises(TypeError, match="sup_period"):
+        t.train(iter([(xu[:8],)]), loaders[1])
     # checkpoints are ported: resume restores what the trainer saved
     ckpt = str(tmp_path / "ckpt.npz")
     saving = auxSVItrainer(m, checkpoint_path=ckpt, checkpoint_every=1)

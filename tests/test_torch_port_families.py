@@ -335,13 +335,21 @@ def test_served_families_match_jax(family, tmp_path):
 def test_later_slice_features_raise_naming_roadmap(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.*pixel"):
         tmodels.jiVAE(DATA, 2, K, device="cpu", pixel_chunks=2, **CFG)
-    m = tmodels.ssiVAE(DATA, 2, K, device="cpu", **CFG)
+    m = tmodels.ssiVAE(DATA, 2, K, device="cpu", enum_topk=2, **CFG)
     x = _x(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*trainer surface"):
-        m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4, patience=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*trainer surface"):
+    # the trainer surface is ported: patience and enum_schedule run
+    tr = m.fit(x, (x, np.arange(8) % K), epochs=3, batch_size=4, patience=1,
+               min_delta=1e9)
+    assert tr.stopped_early and tr.current_epoch == 2
+    tr = m.fit(x, (x, np.arange(8) % K), epochs=2, batch_size=4,
+               enum_schedule=1)
+    assert tr.current_epoch == 2 and m.enum_topk == 2
+    with pytest.raises(ValueError, match="enum_schedule"):
         m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
-              enum_schedule=1)
+              enum_schedule=1, verbose=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
+              mesh=object())
     # checkpoints are ported: the keywords reach the trainer and work
     ckpt = str(tmp_path / "ckpt.npz")
     tr = m.fit(x, (x, np.arange(8) % K), epochs=2, batch_size=4,
@@ -352,9 +360,9 @@ def test_later_slice_features_raise_naming_roadmap(tmp_path):
     assert fresh.history == tr.history
     with pytest.raises(NotImplementedError, match="ROADMAP.*viz"):
         m.manifold2d(3, plot=True)
-    j = tmodels.jiVAE(DATA, 2, K, device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*trainer surface"):
-        j.fit(x, epochs=1, batch_size=4, enum_schedule=1)
+    j = tmodels.jiVAE(DATA, 2, K, device="cpu", enum_topk=2, **CFG)
+    tr = j.fit(x, epochs=2, batch_size=4, enum_schedule=1)
+    assert tr.current_epoch == 2 and j.enum_topk == 2
 
 
 # ---------------------------------------------------------------------------

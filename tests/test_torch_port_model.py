@@ -197,8 +197,11 @@ def test_device_rule_and_later_slices(tmp_path):
         tserving.ServedModel(path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserving.export_model(tm, path, quantize="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # patience is ported: it needs held-out data to watch
+    with pytest.raises(ValueError, match="test_data"):
         tm.fit(np.zeros((4, 12, 12), np.float32), patience=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        tm.fit(np.zeros((4, 12, 12), np.float32), mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.manifold2d(3, plot=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*pixel"):

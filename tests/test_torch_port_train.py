@@ -2,6 +2,8 @@
 Adam, ``SVItrainer``, the device-resident ``DataLoader`` and ``fit``,
 against the JAX package on the same weights, noise and batches, on the CPU
 (where the port's decoder kernels run their plain versions)."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -234,11 +236,16 @@ def test_loader_scale_and_device_rules():
     if not torch.cuda.is_available():  # without CUDA the default raises
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DataLoader(x8)
-    for kw, item in ((dict(device_resident=False), "streaming"),
-                     (dict(stream_chunks=4), "streaming"),
-                     (dict(store_dtype="bfloat16"), "streaming")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            DataLoader(x8, device="cpu", **kw)
+    # the streaming options are ported: each loader yields the same batch
+    x16 = x8.astype(np.float16)  # exact: integers below 2048
+    for arr, kw in ((x8, dict(device_resident=False, scale=1 / 255.0)),
+                    (x8, dict(device_resident=False, stream_chunks=4,
+                              scale=1 / 255.0)),
+                    (x16, dict(store_dtype="float16", scale=1 / 255.0))):
+        (got,) = next(iter(DataLoader(arr, batch_size=2, shuffle=False,
+                                      device="cpu", **kw)))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), batch.numpy())
     _, tm = _pair(CONFIGS["rot"])
     trainer = tm.fit(x8, epochs=1, batch_size=2, data_scale=1 / 255.0)
     assert trainer.generator.device == tm.device == torch.device("cpu")
@@ -338,25 +345,40 @@ def test_print_statistics_prints_the_jax_text(capsys):
 
 
 def test_unported_options_raise_naming_the_roadmap_item(tmp_path):
+    """The trainer surface is ported: every keyword runs (each keyword is
+    held against the JAX package in tests/test_torch_port_segmented.py,
+    _enum_schedule.py, _streaming.py and _accum.py); ``mesh`` still raises,
+    naming its item ('parallel')."""
     _, tm = _pair(CONFIGS["rot"])
     x, _ = _data(CONFIGS["rot"], 8)
     loader = init_dataloader(x, batch_size=8, device="cpu")
-    for kw in (dict(mesh=object()), dict(grad_accum=2), dict(remat=True),
-               dict(log_file="log.jsonl")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*trainer"):
-            SVItrainer(tm, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        SVItrainer(tm, mesh=object())
+    log = str(tmp_path / "log.jsonl")
+    for kw in (dict(grad_accum=2), dict(remat=True), dict(log_file=log)):
+        t = SVItrainer(tm, **kw)
+        t.run(loader, 2)
+        assert t.current_epoch == 2
+    assert [json.loads(l)["epoch"] for l in open(log)] == [1, 2]
     # checkpoints are ported: the keywords are taken and a save happens
     ckpt = str(tmp_path / "ckpt.npz")
     saving = SVItrainer(tm, checkpoint_path=ckpt, checkpoint_every=1)
     saving.step(loader)
     assert SVItrainer(_pair(CONFIGS["rot"])[1]).resume(ckpt) == 1
     trainer = SVItrainer(tm, remat=False, grad_accum=1)  # the "off" values
-    for kw in (dict(patience=2), dict(on_segment=print),
-               dict(enum_schedule=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*trainer"):
-            trainer.run(loader, 1, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*trainer"):
-            tm.fit(x, epochs=1, **kw)
+    # no improvement counts (min_delta): the run stops one epoch after
+    # its first, patience=1
+    out = trainer.run(loader, 4, test_loader=loader, patience=1,
+                      min_delta=1e9)
+    assert trainer.stopped_early and len(out) == 2
+    records = []
+    trainer.run(loader, 2, on_segment=records.extend, enum_schedule=1)
+    assert [r["epoch"] for r in records] == [3, 4]
+    fitted = tm.fit(x, epochs=3, test_data=x, patience=1, min_delta=1e9,
+                    on_segment=records.extend)
+    assert fitted.stopped_early and fitted.current_epoch == 2
+    with pytest.raises(ValueError, match="test_data"):
+        tm.fit(x, epochs=1, patience=2)
     with pytest.raises(TypeError, match="bogus"):
         SVItrainer(tm, bogus=1)
 
