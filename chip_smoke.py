@@ -109,6 +109,34 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    the rule, the callbacks' records against the log. Then K1, K2 and K3
    at B = 50 and K1 and K2 at the 600 enumerated rows join phase 6's
    table.
+10. Pixel partitioning, int8 serving, the plots' GP, under each flag
+   unless named. (a) ``benchmarks/pixel_chunk_scale.py:29-34``: the
+   512x512 iVAE (N = 262,144, rotation, hidden 128x128, tanh, Bernoulli,
+   seed 0) trains 3 epochs of 400 blob rows at batch 200 through ``fit``
+   on the kernels over the full grid (one K1 and one K2 a step), on the
+   kernels with ``pixel_chunks=16`` (16 and 16 a step) and, with the flag
+   clear, on the module path with 16 tiles (each tile rematerialized),
+   each held against the full grid (first step's loss and grads,
+   per-epoch losses), with its fit time, a profiled step's wall and
+   device time and its peak memory; the module path's full grid is not
+   run (its activations alone: B*N*H*4 bytes each). (b) With the flag
+   clear, the large grid's peak memory on the module path with 8 tiles
+   against the full grid (at most a third), and on the kernel path. (c)
+   jiVAE (exact and ``enum_topk=3``) and ssiVAE at phase 7's width train
+   2 epochs on 4 tiles (4 K1 and 4 K2 a step) against the full grid. (d)
+   The trained flagship and the large grid exported with
+   ``quantize="int8"`` and served through K1: encode 1000, posed decode
+   1024, large-grid decode 64, each counted alone, held against the
+   float32 exports (rel 0.05) and against the same archive served on the
+   CPU; archive sizes (the flagship's at most 0.35 of the f32 one) and
+   request latencies. (e) Under the default flag, ``predict_on_latent``
+   (d = 12, 5 GP steps, 1,000 blobs) at the flagship's width without
+   invariances (the GP's inputs are the 2-D encoded latents) against the
+   same weights on the CPU. (f) K1 and K2 against their plain versions
+   and a second launch, timed, at a 512x512 tile (B = 200, N = 16,384),
+   the whole 512x512 grid at B = 8, a large-grid tile (B = 64, N =
+   2,048) and the flagship's padded last tile of 3 (262 rows), and K1 on
+   the int8 archives' weights: rows of phase 6's table.
 
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
@@ -118,6 +146,7 @@ Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 """
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -760,27 +789,28 @@ def phase_large_grid_training():
             "step_ms": step, "step_breakdown": breakdown}
 
 
-def step_breakdown(model, xb, y=None):
+def step_breakdown(model, xb, y=None, warmup=5, steps=10):
     """Device time of one training step on batch ``xb`` (and targets
     ``y``) by kernel family (K2: K2 or K3's kernels, f32 or tensor-core,
     with their prep and reductions; "gemm" holds cuBLAS's and cuDNN's
-    products and convolutions), from a torch.profiler trace of 10 steps,
-    against the step's wall time under the profiler (which slows the host:
-    compare the device time with the unprofiled step time too)."""
+    products and convolutions), from a torch.profiler trace of ``steps``
+    steps after ``warmup``, against the step's wall time under the
+    profiler (which slows the host: compare the device time with the
+    unprofiled step time too)."""
     trainer = SVItrainer(model)
     batch = (xb,) if y is None else (xb, y)
     w = torch.ones(xb.shape[0], device="cuda")
-    for _ in range(5):
+    for _ in range(warmup):
         trainer.train_step(batch, w)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(steps):
             trainer.train_step(batch, w)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     buckets = {"K1": 0.0, "K2": 0.0, "Adam": 0.0, "gemm": 0.0, "other": 0.0}
     launches = {k: 0 for k in buckets}
     top = []
@@ -791,15 +821,15 @@ def step_breakdown(model, xb, y=None):
             continue
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
-        top.append((t / 1e3 / 10, ev.count / 10, ev.key[:80]))
+        top.append((t / 1e3 / steps, ev.count / steps, ev.key[:80]))
         name = ev.key.lower()
         key = ("K1" if "sdec_fwd" in name else
                "K2" if "sdec_bwd" in name or "sdec_tc" in name else
                "Adam" if "adam" in name or "multi_tensor" in name else
                "gemm" if "gemm" in name or "sm90" in name or "cutlass" in name
                else "other")
-        buckets[key] += t / 1e3 / 10  # us -> ms per step
-        launches[key] += ev.count / 10
+        buckets[key] += t / 1e3 / steps  # us -> ms per step
+        launches[key] += ev.count / steps
     device_ms = sum(buckets.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms, "by_family_ms": buckets,
@@ -982,12 +1012,14 @@ def run_path(fn):
     return result, time.perf_counter() - t0, counts()  # the path ends here
 
 
-def expect_steps(what, launches, steps):
-    """One K1 and one K2 per training step, from the flag's sources only."""
+def expect_steps(what, launches, steps, tiles=1):
+    """``tiles`` K1 and ``tiles`` K2 per training step (one each on the
+    full grid), from the flag's sources only."""
     k1, k2 = ("K1_bf16", "K2_bf16") if sd.BF16_MATMUL else ("K1", "K2")
-    if not only(launches, **{k1: steps, k2: steps}):
-        raise AssertionError(f"{what}: expected {k1} and {k2} once per step "
-                             f"({steps} steps): {launches}")
+    n = steps * tiles
+    if not only(launches, **{k1: n, k2: n}):
+        raise AssertionError(f"{what}: expected {tiles} {k1} and {tiles} "
+                             f"{k2} a step ({steps} steps): {launches}")
     log(f"  {what}: launches {launches}")
 
 
@@ -1010,17 +1042,20 @@ def first_step_vs_module(what, model, module, xb, eps):
     return err
 
 
-def check_epochs(what, hist, hist_m):
+def check_epochs(what, hist, hist_m, ref="module path"):
     """Per-epoch losses finite and falling, and within phase 5's tolerance
-    for the flag of the module path's."""
+    for the flag of the reference's (the module path's, or the full
+    grid's); returns the largest relative difference."""
     rtol = BF16_EPOCH_RTOL if sd.BF16_MATMUL else EPOCH_RTOL
     if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
         raise AssertionError(f"{what}: loss is not finite and falling: {hist}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_m))
-    log(f"  {what} per-epoch losses, kernel path {hist}, module path "
-        f"{hist_m}: max rel diff {rel:.3e}")
+    log(f"  {what} per-epoch losses {hist}, {ref} {hist_m}: max rel diff "
+        f"{rel:.3e}")
     if not rel <= rtol:
-        raise AssertionError(f"{what}: per-epoch losses differ by {rel:.3e}")
+        raise AssertionError(f"{what}: per-epoch losses differ from the "
+                             f"{ref}'s by {rel:.3e}")
+    return rel
 
 
 def check_decode(what, model, z, out, pose):
@@ -1934,6 +1969,313 @@ def phase_trainer_surface(fam_data, module_runs):
             "enum": phase_enum_schedule(fam_data, module_runs),
             "observability": phase_observability()}
 
+# -- phase 10: pixel-partitioned training, int8 serving, plots and the GP ---
+
+# benchmarks/pixel_chunk_scale.py:29-34: the 512x512 grid (N = 262,144),
+# batch 200, hidden 128, 16 tiles, 400 rows, 3 epochs
+PIXEL_DIM = (512, 512)
+PIXEL_CHUNKS = 16
+PIXEL = dict(latent_dim=2, invariances=["r"], seed=0)
+# the large grid's module path: the full grid against 8 tiles
+LARGE_CHUNKS = 8
+# the families on 4 tiles of 196 pixels
+FAMILY_CHUNKS = 4
+
+
+def first_step_vs(what, got, ref, loss_rtol, grad_rel):
+    """One step's (loss, grads) against another path's: the loss within
+    ``loss_rtol``, every grad within 1e-4 + ``grad_rel`` of its tensor's
+    largest entry."""
+    (loss, grads), (loss_r, grads_r) = got, ref
+    err = check_grads(f"{what} first step", grads, grads_r,
+                      [str(i) for i in range(len(grads))], per_sample=0,
+                      rel=grad_rel)
+    rel = abs(loss - loss_r) / abs(loss_r)
+    if not rel <= loss_rtol:
+        raise AssertionError(f"{what} first step loss {loss} vs {loss_r}")
+    log(f"  {what} first step: loss {loss:.6g} vs {loss_r:.6g} (rel "
+        f"{rel:.2e}), grads max abs err {err:.3e} "
+        f"({rel_to_max(grads, grads_r):.1e} of the largest entry)")
+    return err
+
+
+def pixel_way(X, xb, eps, fused, chunks):
+    """Phase 10 (a), one way: the 512x512 iVAE (kernels or module path,
+    ``chunks`` tiles or the full grid) from seed 0: its first step's loss
+    and grads, 3 epochs through fit (6 steps) counted alone, the peak
+    device memory of the fit above what was allocated before it, and 2
+    profiled steps."""
+    model = iVAE(PIXEL_DIM, fused=fused, pixel_chunks=chunks, **PIXEL)
+    if model._fused != fused:
+        raise AssertionError("the 512x512 model is not routed as configured")
+    first = first_step_grads(model, xb, eps)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, fit_s, launches = run_path(
+        lambda: model.fit(X, epochs=3, batch_size=200))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    hist = trainer.loss_history["training_loss"]
+    prof = step_breakdown(model, xb, warmup=1, steps=2)
+    out = {"fit_s": fit_s, "fit_step_ms": 1e3 * fit_s / 6,
+           "step_wall_ms": prof["wall_ms"], "step_device_ms": prof["device_ms"],
+           "idle_share": prof["idle_share"], "peak_mib": peak,
+           "launches": launches, "loss_history": hist,
+           "by_family_ms": prof["by_family_ms"]}
+    return model, first, out
+
+
+def phase_pixel_512(smi):
+    """Phase 10 (a) under the current flag: the 512x512 config through the
+    kernels on the full grid (1 K1 + 1 K2 a step) and on 16 tiles (16 + 16
+    a step), and with the flag clear through the module path on 16 tiles;
+    each held against the full grid: the first step's loss and grads, the
+    per-epoch losses. The module path is not run on the full grid: its
+    [B, N, H] activations alone take B*N*H*4 bytes each."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    N = PIXEL_DIM[0] * PIXEL_DIM[1]
+    X = blobs(400, PIXEL_DIM, seed=9)
+    xb = torch.as_tensor(X[:200], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    eps = torch.randn(200, 3, generator=gen, device="cuda")
+    loss_rtol = LOSS_RTOL if on else 1e-5
+    grad_rel = BF16_GRAD_REL if on else GRAD_RTOL
+    ways, firsts = {}, {}
+    for name, fused, chunks in (("kernels_full", True, 0),
+                                ("kernels_chunked", True, PIXEL_CHUNKS),
+                                ("module_chunked", False, PIXEL_CHUNKS)):
+        if name == "module_chunked" and on:
+            continue  # the module path is f32
+        model, firsts[name], ways[name] = pixel_way(X, xb, eps, fused,
+                                                    chunks)
+        w = ways[name]
+        what = f"{tag} 512x512 {name}"
+        if fused:
+            expect_steps(f"{what} fit(epochs=3, batch_size=200), "
+                         f"{w['fit_s']:.2f} s", w["launches"], 6,
+                         chunks or 1)
+        elif not only(w["launches"]):
+            raise AssertionError(f"{what}: the module path launched "
+                                 f"{w['launches']}")
+        log(f"  {what}: {w['fit_step_ms']:.1f} ms a step in fit, "
+            f"{w['step_wall_ms']:.1f} ms wall / {w['step_device_ms']:.1f} ms "
+            f"device a profiled step (idle {w['idle_share']:.3f}), peak "
+            f"{w['peak_mib']:.1f} MiB above the model, losses "
+            f"{w['loss_history']} ({smi})")
+        if name == "kernels_full":
+            full = model
+            if not (all(np.isfinite(w["loss_history"]))
+                    and w["loss_history"][-1] < w["loss_history"][0]):
+                raise AssertionError(f"{what}: loss is not finite and "
+                                     f"falling: {w['loss_history']}")
+            continue
+        tol = ((loss_rtol, grad_rel) if fused
+               else (LOSS_RTOL, GRAD_RTOL))  # kernels against the module
+        w["first_step_err"] = first_step_vs(f"{what} vs kernels_full",
+                                            firsts[name],
+                                            firsts["kernels_full"], *tol)
+        w["epoch_rel"] = check_epochs(what, w["loss_history"],
+                                      ways["kernels_full"]["loss_history"],
+                                      "full grid")
+        del model
+    predicted = 200 * N * 128 * 4
+    log(f"  {tag} 512x512 module path on the full grid: not run; its "
+        f"[200, {N}, 128] activations take {predicted / 1e9:.1f} GB each")
+    a, _ = train_args(full, xb, eps)
+    return {"ways": ways, "module_full_activation_bytes": predicted,
+            "args": a}
+
+
+def phase_pixel_large_grid():
+    """Phase 10 (b), f32: the large grid's peak memory over training steps
+    of the module path with 8 tiles against the full grid, and of the
+    kernel path likewise (MiB above what was allocated before)."""
+    xl = torch.as_tensor(blobs(64, (128, 128), seed=2), device="cuda")
+    peaks = {}
+    for path, fused in (("module", False), ("kernel", True)):
+        for chunks in (0, LARGE_CHUNKS):
+            m = iVAE((128, 128), latent_dim=2, invariances=["r"], seed=0,
+                     fused=fused, pixel_chunks=chunks)
+            peaks[f"{path}_{'chunked' if chunks else 'full'}"] = peak_mib(
+                m, xl, False)
+            del m
+    ratio = peaks["module_chunked"] / peaks["module_full"]
+    log(f"  f32 large grid batch 64, peak memory above the model (MiB), "
+        f"full grid and {LARGE_CHUNKS} tiles: {json.dumps(peaks)}; module "
+        f"path chunked / full {ratio:.3f}")
+    if not ratio <= 1 / 3:
+        raise AssertionError(f"the module path's peak with {LARGE_CHUNKS} "
+                             f"tiles is {ratio:.3f} of the full grid's")
+    return {"peak_mib": peaks, "module_ratio": ratio}
+
+
+def phase_pixel_families(data):
+    """Phase 10 (c) under the current flag: jiVAE (exact and enum_topk=3)
+    and ssiVAE train 2 epochs through fit on 4 tiles (4 K1 + 4 K2 a step),
+    each against the same run on the full grid."""
+    X, y, _ = data
+    labeled = (X[:400], y[:400])
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    runs = (("jivae", 20, lambda **k: jiVAE(
+                FAMILY_DIM, discrete_dim=N_CLASSES, **FAMILY, **k),
+             lambda m: m.fit(X, epochs=2, batch_size=200), "loss_history"),
+            ("jivae_topk3", 20, lambda **k: jiVAE(
+                FAMILY_DIM, discrete_dim=N_CLASSES, enum_topk=3, **FAMILY,
+                **k),
+             lambda m: m.fit(X, epochs=2, batch_size=200), "loss_history"),
+            ("ssivae", 24, lambda **k: ssiVAE(
+                FAMILY_DIM, num_classes=N_CLASSES, **FAMILY, **k),
+             lambda m: m.fit(X, labeled, epochs=2, batch_size=200),
+             "history"))
+    launches, hists, rels = {}, {}, {}
+    for name, steps, make, fit, key in runs:
+        full = getattr(fit(make()), key)["training_loss"]
+        tr, secs, launches[name] = run_path(
+            lambda: fit(make(pixel_chunks=FAMILY_CHUNKS)))
+        expect_steps(f"{tag} {name} on {FAMILY_CHUNKS} tiles, 2 epochs, "
+                     f"{secs:.2f} s", launches[name], steps, FAMILY_CHUNKS)
+        hists[name] = getattr(tr, key)["training_loss"]
+        rels[name] = check_epochs(f"{tag} {name} on {FAMILY_CHUNKS} tiles",
+                                  hists[name], full, "full grid")
+    return {"launches": launches, "loss_history": hists, "epoch_rel": rels}
+
+
+def phase_int8(flagship, big, x, z_req, z_big, pose):
+    """Phase 10 (d) under the current flag: the trained flagship and the
+    large grid exported with quantize="int8" and served on the card (encode
+    1000, posed decode 1024; posed decode 64), each request counted alone;
+    held against the float32 exports (rel 0.05) and the same int8 archive
+    served on the CPU (K1's tolerance; the decodes' first 128 rows); the
+    archive sizes; the latencies."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    k1 = "K1_bf16" if on else "K1"
+    tol = (BF16_ATOL, BF16_OUT_REL) if on else (ATOL, 0.0)
+    out = {"sizes": {}, "ms": {}, "rel_to_f32": {}, "err_to_cpu": {}}
+    launches, served8 = {}, {}
+    # each request on its first n rows (the CPU's reference takes fewer
+    # rows: a row's output depends on that row alone)
+    requests = {"flagship": {
+                    "encode_1000": lambda s, n=1000: s.encode(x[:n])[0],
+                    "posed_decode_1024":
+                        lambda s, n=1024: s.decode(z_req[:n], **pose)},
+                "large_grid": {"posed_decode_64":
+                               lambda s, n=64: s.decode(z_big[:n], **pose)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, m in (("flagship", flagship), ("large_grid", big)):
+            p32, p8 = f"{tmp}/{name}_f32.npz", f"{tmp}/{name}_int8.npz"
+            export_model(m, p32)
+            export_model(m, p8, quantize="int8")
+            out["sizes"][name] = {"f32": os.path.getsize(p32),
+                                  "int8": os.path.getsize(p8)}
+            s32, s8 = ServedModel(p32), ServedModel(p8)
+            cpu8 = ServedModel(p8, device="cpu")
+            if s8.quantize != "int8" or not s8._fused:
+                raise AssertionError(f"{name}: the int8 archive is not "
+                                     "served through K1")
+            served8[name] = s8
+            for req, fn in requests[name].items():
+                got, _, launches[f"{name}_{req}"] = run_path(lambda: fn(s8))
+                expect = 0 if req.startswith("encode") else 1
+                ref32, ref_cpu = fn(s32), fn(cpu8, 128 if expect else 1000)
+                if not only(launches[f"{name}_{req}"], **{k1: expect}):
+                    raise AssertionError(f"int8 {name} {req}: launches "
+                                         f"{launches[f'{name}_{req}']}")
+                rel = ((got - ref32).abs().max()
+                       / ref32.abs().max()).item()
+                out["rel_to_f32"][f"{name}_{req}"] = rel
+                if not rel < 0.05:
+                    raise AssertionError(f"int8 {name} {req}: {rel:.3e} of "
+                                         "the float32 export's largest value")
+                out["err_to_cpu"][f"{name}_{req}"] = check_close(
+                    f"{tag} int8 {name} {req}, card vs CPU",
+                    got[:ref_cpu.shape[0]].cpu(), ref_cpu,
+                    *(tol if expect else (ATOL, 0.0)))
+                out["ms"][f"{name}_{req}"] = {
+                    "int8": host_ms(lambda: fn(s8), reps=20),
+                    "f32": host_ms(lambda: fn(s32), reps=20)}
+    ratio = out["sizes"]["flagship"]["int8"] / out["sizes"]["flagship"]["f32"]
+    out["flagship_size_ratio"] = ratio
+    log(f"  {tag} int8 serving: archive bytes {json.dumps(out['sizes'])}, "
+        f"outputs against the f32 exports (of the largest value) "
+        f"{json.dumps(out['rel_to_f32'])}, card against the CPU's int8 "
+        f"serving (max abs) {json.dumps(out['err_to_cpu'])}, request ms "
+        f"(host clock, median of 20) {json.dumps(out['ms'])}, launches "
+        f"{json.dumps(launches)}")
+    if not ratio <= 0.35:
+        raise AssertionError(f"the flagship's int8 archive is {ratio:.3f} of "
+                             "the float32 one")
+    out["launches"] = launches
+    return out, served8
+
+
+def phase_predict_on_latent():
+    """Phase 10 (e): predict_on_latent at the flagship's width without
+    invariances (examples/vae_gp.py: the GP's inputs are the encoded
+    latents, which must be 2-D like the latent grid), 1,000 blobs labelled
+    by their x centre, 5 GP steps, d = 12, on the card against the same
+    weights on the CPU."""
+    X, cx = blobs(1000, (28, 28), seed=10, centers=True)
+    vae = iVAE((28, 28), latent_dim=2, invariances=None, seed=0)
+    cpu = iVAE((28, 28), latent_dim=2, invariances=None, seed=0,
+               device="cpu")
+    cpu.nets.load_state_dict({k: v.cpu() for k, v in
+                              vae.nets.state_dict().items()})
+    t0 = time.perf_counter()
+    (z, dec), pred = vae.predict_on_latent(X, cx, gp_iterations=5, d=12)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    (zc, dec_c), pred_c = cpu.predict_on_latent(X, cx, gp_iterations=5, d=12)
+    if pred.shape != (144,) or dec.shape != (144, 28, 28):
+        raise AssertionError("predict_on_latent: bad shapes")
+    err = check_close("predict_on_latent predictions, card vs CPU",
+                      pred.cpu(), pred_c, 1e-4)
+    dec_err = check_close("predict_on_latent decoded grid, card vs CPU",
+                          dec.cpu(), dec_c)
+    log(f"  predict_on_latent (d=12, 5 GP steps, 1,000 points): {secs:.2f} s "
+        f"on the card; predictions within {err:.3e} of the CPU's (range "
+        f"[{pred.min().item():.4f}, {pred.max().item():.4f}]), decoded grid "
+        f"within {dec_err:.3e}")
+    return {"seconds": secs, "max_abs_err": err, "decoded_err": dec_err}
+
+
+def tile_args(a, rows, B=None):
+    """Kernel inputs ``a`` cut to the grid rows ``rows`` (and the first
+    ``B`` samples): one tile's K1/K2 call."""
+    a = dict(a)
+    a["grid"] = a["grid"][rows].contiguous()
+    if B is not None:
+        for k in ("phi", "dx", "sc", "z"):
+            a[k] = a[k][:B].contiguous()
+    return a
+
+
+def phase_pixel(smi, fam_data, flagship, big, x, z_req, z_big, pose):
+    """Phase 10 under the current flag; (b) and the module path of (a)
+    with the flag clear only, (e) under the default flag only."""
+    on = sd.BF16_MATMUL
+    res = {"512": phase_pixel_512(smi)}
+    if not on:
+        res["large_grid"] = phase_pixel_large_grid()
+    res["families"] = phase_pixel_families(fam_data)
+    res["int8"], res["served_int8"] = phase_int8(flagship, big, x, z_req,
+                                                 z_big, pose)
+    if on:
+        res["predict_on_latent"] = phase_predict_on_latent()
+    return res
+
+
+def pixel_launches(res):
+    """Phase 10's launches under one flag, by path."""
+    out = {f"pixel_512_{k}": w["launches"]
+           for k, w in res["512"]["ways"].items()}
+    out.update({f"pixel_{k}": n
+                for k, n in res["families"]["launches"].items()})
+    out.update({f"int8_{k}": n for k, n in res["int8"]["launches"].items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2191,6 +2533,52 @@ def main() -> int:
     phase9_s = time.perf_counter() - t9
     log(f"phase 9 took {phase9_s:.1f} s")
 
+    # -- 10. pixel-partitioned training, int8 serving, plots and the GP ----
+    log("phase 10: pixel_chunks at 512x512, the large grid and the "
+        "families; int8 serving; predict_on_latent; K1/K2 at the tiles")
+    t10 = time.perf_counter()
+    flagship = train["model"]
+    with bf16_matmul(False):
+        pix32 = phase_pixel(smi, fam_data, flagship, big, x, z_req, z_big,
+                            pose)
+    pix = phase_pixel(smi, fam_data, flagship, big, x, z_req, z_big, pose)
+    # (f) K1 and K2 at the tiles' shapes join phase 6's table: a tile of
+    # the 512x512 grid (B = 200, N = 16,384), the whole grid at B = 8, a
+    # tile of the large grid (B = 64, N = 2,048) and the padded last tile
+    # of the flagship on 3 tiles (262 rows, 2 of them padding); then K1 on
+    # the int8 exports' dequantized weights at their requests' shapes
+    a512 = pix["512"].pop("args")
+    pix32["512"].pop("args")
+    e = torch.randn(64, big.z_dim, generator=gen, device="cuda")
+    a_large, _ = train_args(big, xl, e)
+    e = torch.randn(200, flagship.z_dim, generator=gen, device="cuda")
+    a_tail, _ = train_args(flagship, train["xb"], e)
+    grid = a_tail["grid"]
+    a_tail["grid"] = torch.cat([grid, grid.new_zeros(2, 2)])[524:].contiguous()
+    for name, a in (("512x512 tile of 16", tile_args(a512, slice(0, 16384))),
+                    ("512x512 whole grid", tile_args(a512, slice(None), B=8)),
+                    ("large grid tile of 8", tile_args(a_large,
+                                                       slice(0, 2048))),
+                    ("flagship padded last tile of 3", a_tail)):
+        with torch.no_grad():
+            for on, row in time_k1(name, a, peaks).items():
+                k1_rows[on].append(row)
+        for key, row in time_bwd(name, a, None, gen, peaks,
+                                 with_k3=False).items():
+            rows[key].append(row)
+    del a512, a_large, a_tail, a
+    for name, z in (("flagship", z_req), ("large_grid", z_big)):
+        s8 = pix["served_int8"][name]
+        a = kernel_args(s8.decoder, s8.grid, z.cuda(), **pose)
+        with torch.no_grad():
+            for on, row in time_k1(f"int8 {name} served", a, peaks).items():
+                k1_rows[on].append(row)
+    del a, s8
+    for res in (pix, pix32):
+        res.pop("served_int8")
+    phase10_s = time.perf_counter() - t10
+    log(f"phase 10 took {phase10_s:.1f} s")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -2209,7 +2597,10 @@ def main() -> int:
                    for path, n in paths.items()},
                 **{f"{path}_{tag}": n[key]
                    for tag, f in (("bf16", surface), ("f32", surface32))
-                   for path, n in surface_launches(f).items()}}
+                   for path, n in surface_launches(f).items()},
+                **{f"{path}_{tag}": n[key]
+                   for tag, f in (("bf16", pix), ("f32", pix32))
+                   for path, n in pixel_launches(f).items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -2269,7 +2660,9 @@ def main() -> int:
         "enumerated_step": enum_step,
         "ved": {"im2spec": ved, "stretch": stretch},
         "trainer_surface": {"bf16": surface, "f32": surface32,
-                            "seconds": phase9_s}}
+                            "seconds": phase9_s},
+        "pixel_int8_viz": {"bf16": pix, "f32": pix32,
+                           "seconds": phase10_s}}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

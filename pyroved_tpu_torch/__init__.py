@@ -6,10 +6,11 @@ encoder-decoder VED on an NVIDIA Hopper card: ``fit`` with ``SVItrainer``
 or ``auxSVItrainer`` over device-resident or streamed ``DataLoader``s (or
 any iterable of batches), with segmented runs (JSONL logs, early stopping,
 ``on_segment`` callbacks), ``enum_schedule``, ``grad_accum`` and
-``remat``, checkpoints that resume bit-exactly, and pickle-free weights;
-encode, classify/regress,
-posed decode, latent manifolds, VED's predictions and per-example ELBO
-scoring. Every spatial decode, the enumerated ones on
+``remat``, ``pixel_chunks`` for large grids, checkpoints that resume
+bit-exactly, and pickle-free weights; encode, classify/regress, posed
+decode, latent manifolds (plotted by default), VED's predictions,
+per-example ELBO scoring, a GP surrogate on the latents and float32 or
+int8 serving archives. Every spatial decode, the enumerated ones on
 K*B rows included, goes through hand-written CUDA kernels
 (``ops.spatial_decoder``): the fused forward, its backward, and the
 one-pass Bernoulli train kernel. The JAX package ``pyroved_tpu`` stays the

@@ -5,7 +5,8 @@ ported families use: invariance bookkeeping (1-D data allows only
 ``['t']``; in 2-D ``'t'`` takes two latent slots), the coordinate grid and
 the priors, the latent split in the order rotation -> translation -> scale
 -> content, the decoder and the routing of its decodes, the transformed
-grids, P-fold particle tiling, chunked encode/decode, the
+grids, the pixel-partitioned reconstruction term (``pixel_chunks``), P-fold
+particle tiling, chunked encode/decode, the
 semi-supervised ``fit`` loop and pickle-free ``save_weights`` /
 ``load_weights``. A model without invariances has no grid: VED builds on
 this base with ``data_dim`` its output and its own conv decoder, and uses
@@ -20,27 +21,26 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from ..infer.elbo import obs_site
 from ..nets.fc import fcDecoderNet, sDecoderNet
 from ..ops.spatial_decoder import (apply_fused_sdecoder,
                                    sdecoder_supports_fusion)
 from ..utils.coord import generate_grid, transform_coordinates
-from ..utils.nn import as_f32, later_slice, resolve_device
+from ..utils.nn import as_f32, resolve_device
 
 Tensor = torch.Tensor
 
 #: Keywords every model takes (as the JAX package's); a model adds its own.
 MODEL_KWARGS = ("channels", "dx_prior", "dy_prior", "sc_prior",
-                "decoder_sig", "kl", "num_particles", "approx_tanh", "fused")
+                "decoder_sig", "kl", "num_particles", "approx_tanh", "fused",
+                "pixel_chunks")
 
 
 def check_kwargs(model: str, kwargs, allowed) -> None:
-    """Reject keywords ``model`` does not take. ``pixel_chunks`` (the JAX
-    package's pixel partitioning) raises ``NotImplementedError`` naming its
-    ROADMAP item."""
-    if kwargs.get("pixel_chunks"):
-        raise later_slice(f"{model}(pixel_chunks=...)", "pixel partitioning")
-    unknown = sorted(set(kwargs) - set(allowed) - {"pixel_chunks"})
+    """Reject keywords ``model`` does not take."""
+    unknown = sorted(set(kwargs) - set(allowed))
     if unknown:
         raise TypeError(f"{model} got unsupported keywords {unknown}; "
                         f"supported: {list(allowed)}")
@@ -89,6 +89,22 @@ def fixed_transform_grid(grid: Tensor, angle=0.0, shift=0.0, scale=1.0
         v, dtype=torch.float32, device=grid.device)
     return transform_coordinates(grid[None], as_t(angle)[None], as_t(shift),
                                  as_t(scale)[None])[0]
+
+
+def plot_manifold(ndim: int, loc: Tensor, d: int, axes, kwargs) -> None:
+    """Show a decoded d x d manifold as the JAX package's models do: an
+    image grid spanning the latent bounds ``axes`` (the grid's x and y
+    values) for 2-D data, a grid of spectra for 1-D; ``kwargs`` reach the
+    plot."""
+    from ..utils import viz
+    if ndim == 2:
+        grid_x, grid_y = axes
+        viz.plot_img_grid(loc, d, extent=[float(grid_x.min()),
+                                          float(grid_x.max()),
+                                          float(grid_y.min()),
+                                          float(grid_y.max())], **kwargs)
+    elif ndim == 1:
+        viz.plot_spect_grid(loc, d, **kwargs)
 
 
 def chunked(fn, *arrays: Tensor, batch_size: Optional[int] = None):
@@ -147,6 +163,15 @@ class baseVAE:
             self.sc_prior = float(kwargs.get("sc_prior", 0.1))
         else:
             self.sc_prior = None
+
+        # pixel_chunks=k: the training-path reconstruction term runs over k
+        # tiles of the grid, one at a time (see _recon_pixel_chunked)
+        self.pixel_chunks = int(kwargs.get("pixel_chunks", 0) or 0)
+        if self.pixel_chunks and self.coord == 0:
+            raise ValueError(
+                "pixel_chunks requires a spatial decoder (invariances=...); "
+                "models without a coordinate grid have no pixel axis to "
+                "partition")
 
         self.nets: Optional[nn.ModuleDict] = None  # set by subclasses
         self.z_dim = None
@@ -270,17 +295,99 @@ class baseVAE:
             return self.decoder_net(zc), None
         return self.decoder_net(coords, zc), coords
 
-    def _decode_train(self, z: Tensor, y: Optional[Tensor] = None) -> Tensor:
-        """The decoded loc ``[..., N(, C)]`` (or ``[..., prod(out)]``) of
-        latents ``z [..., z_dim]``, their content joined by labels ``y``
-        (``[..., *]``, or None): through the fused kernels when routed
-        there, else the decoder module on the transformed grid."""
-        if self.coord > 0 and self._fused:
+    def _recon(self, z: Tensor, y: Optional[Tensor], xf: Tensor) -> Tensor:
+        """The reconstruction term ``log p(x | decode(z, y))`` summed over
+        the pixels, ``[...]``, of latents ``z [..., z_dim]`` whose content
+        is joined by labels ``y`` (``[..., *]``, or None), for flat
+        observations ``xf`` broadcastable to ``[..., N*C]``: over the whole
+        grid (:meth:`_decode_grid`), tile by tile under ``pixel_chunks``,
+        or through the plain decoder without invariances."""
+        if self.coord == 0:
+            loc = self.decoder_net(with_labels(z, y))
+        else:
             phi, dx, sc, zc = self.split_latent_full(z)
-            return apply_fused_sdecoder(self.decoder_net, self.grid, phi, dx,
-                                        sc, with_labels(zc, y), self._dec_act,
-                                        self._dec_sig)
-        return self._module_decode(z, y)[0]
+            zc = with_labels(zc, y)
+            if self._pixel_mode():
+                return self._recon_pixel_chunked(phi, dx, sc, zc, xf)
+            loc = self._decode_grid(self.grid, phi, dx, sc, zc)
+        return obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
+
+    # ------------------------------------------------------------------
+    # Pixel-partitioned reconstruction (training path)
+    # ------------------------------------------------------------------
+    def _pixel_mode(self) -> Optional[str]:
+        """``"chunk"`` when ``pixel_chunks`` > 1, else None (the full-grid
+        paths). Read at every loss, so setting ``model.pixel_chunks`` takes
+        effect at the next step."""
+        return "chunk" if int(self.pixel_chunks or 0) > 1 else None
+
+    def _padded_pixel_arrays(self, xp: Tensor, multiple: int):
+        """(grid, pixel mask, observations) with zero grid rows, mask 0 and
+        zero observations padding the pixel count up to a multiple of
+        ``multiple``; ``xp`` is ``[batch..., N]`` or ``[batch..., N, C]``."""
+        N, D = self.grid.shape
+        pad = (-N) % multiple
+        grid = self.grid
+        mask = grid.new_ones((N,))
+        if pad:
+            grid = torch.cat([grid, grid.new_zeros((pad, D))])
+            mask = torch.cat([mask, mask.new_zeros((pad,))])
+            widths = (0, pad) if self.channels == 1 else (0, 0, 0, pad)
+            xp = torch.nn.functional.pad(xp, widths)
+        return grid, mask, xp
+
+    def _decode_grid(self, grid: Tensor, phi, dx, sc, zc: Tensor) -> Tensor:
+        """The decoded loc ``[batch..., n(, C)]`` over the grid rows
+        ``grid [n, D]`` (the whole grid or a tile of it) under the
+        per-sample transforms, for decoder inputs ``zc [batch..., L]``:
+        through the kernels when routed there, else the decoder module on
+        the transformed coordinates."""
+        if self._fused:
+            return apply_fused_sdecoder(self.decoder_net, grid, phi, dx, sc,
+                                        zc, self._dec_act, self._dec_sig)
+        coords = transform_coordinates(
+            grid.expand(zc.shape[:-1] + grid.shape), phi, dx[..., None, :],
+            sc)
+        return self.decoder_net(coords, zc)
+
+    def _tile_recon(self, grid_t, x_t, m_t, phi, dx, sc, zc) -> Tensor:
+        """One tile's masked reconstruction term, ``[batch...]``."""
+        lp = self.sampler_d.log_prob(x_t, self._decode_grid(grid_t, phi, dx,
+                                                            sc, zc))
+        if self.channels > 1:
+            lp = torch.sum(lp, dim=-1)
+        return torch.sum(lp * m_t, dim=-1)
+
+    def _recon_pixel_chunked(self, phi, dx, sc, zc: Tensor,
+                             xf: Tensor) -> Tensor:
+        """The reconstruction term over ``pixel_chunks`` grid tiles, in
+        order, summed into a zero accumulator (exact: the observation
+        log-density factorizes over pixels; a pixel count that k does not
+        divide is padded and masked). On the module path with autograd on,
+        each tile runs under a checkpoint, so the backward holds one tile's
+        ``[batch..., N/k, H]`` activations at a time; the kernels save
+        only their inputs, so their tiles run plain: k K1 and k K2 a
+        step. The tiles draw no random numbers."""
+        k = int(self.pixel_chunks)
+        C = self.channels
+        N = self.grid.shape[0]
+        batch = zc.shape[:-1]
+        xf = xf.expand(batch + xf.shape[-1:])
+        xp = xf.reshape(batch + ((N, C) if C > 1 else (N,)))
+        grid, mask, xp = self._padded_pixel_arrays(xp, k)
+        tile = grid.shape[0] // k
+        remat = torch.is_grad_enabled() and not self._fused
+        acc = xf.new_zeros(batch)
+        for t in range(k):
+            rows = slice(t * tile, (t + 1) * tile)
+            args = (grid[rows], xp[..., rows] if C == 1 else xp[..., rows, :],
+                    mask[rows], phi, dx, sc, zc)
+            if remat:
+                acc = acc + checkpoint(self._tile_recon, *args,
+                                       use_reentrant=False)
+            else:
+                acc = acc + self._tile_recon(*args)
+        return acc
 
     def _particles(self, single, x: Tensor, y: Optional[Tensor], beta,
                    eps) -> Tensor:

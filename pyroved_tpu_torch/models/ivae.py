@@ -8,7 +8,9 @@ reconstruct, latent manifolds and per-example ELBO scoring
 (:meth:`iVAE.loss_fn`). Every spatial decode runs through the fused decoder
 kernels when the configuration supports them: the forward kernel, its
 backward kernel under autograd, or, with ``one_pass_train=True``, the
-one-pass Bernoulli train kernel.
+one-pass Bernoulli train kernel; ``pixel_chunks=k`` runs the training
+decode over k grid tiles. :meth:`iVAE.predict_on_latent` fits a GP
+surrogate on the encoded latents.
 """
 from typing import List, Optional, Sequence
 
@@ -22,8 +24,8 @@ from ..ops.spatial_decoder import (KERNEL_ACTS_WITH_APPROX,
                                    apply_fused_recon_loss)
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
-from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked, later_slice,
-                   with_labels)
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
+                   plot_manifold, with_labels)
 
 Tensor = torch.Tensor
 
@@ -40,8 +42,10 @@ class iVAE(baseVAE):
     ``sampler_d``, ``sigmoid_d``, ``seed``; keywords ``dx_prior``,
     ``dy_prior``, ``sc_prior``, ``decoder_sig``, ``kl`` ('mc' or
     'analytic'), ``num_particles``, ``approx_tanh``, ``channels``,
-    ``fused`` (False sends every decode to the ``sDecoderNet`` module) and
-    ``one_pass_train`` (train through the one-pass loss kernel). Plus
+    ``fused`` (False sends every decode to the ``sDecoderNet`` module),
+    ``one_pass_train`` (train through the one-pass loss kernel) and
+    ``pixel_chunks`` (the training-path reconstruction over k grid tiles;
+    needs invariances). Plus
     ``device``: None means "cuda"; without CUDA pass ``device="cpu"``.
     Weights are drawn from ``seed`` with torch's default Linear init.
     """
@@ -122,17 +126,16 @@ class iVAE(baseVAE):
         then runs the backward kernel too); score under
         ``torch.no_grad()``."""
         xf, y, _, _, z, latent_term = self._posterior(x, y, beta, eps)
-        loc = self._decode_train(z, y)
-        recon = obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
-        per_example = -(recon + latent_term)
+        per_example = -(self._recon(z, y, xf) + latent_term)
         return per_example.mean(0) if self.num_particles > 1 else per_example
 
     def _one_pass(self) -> bool:
         """The gate of the one-pass train kernel: opted in, a fused spatial
-        decoder with one channel and a sigmoid head, a Bernoulli sampler
-        and one particle."""
+        decoder with one channel and a sigmoid head, a Bernoulli sampler,
+        one particle and the full grid (no ``pixel_chunks``)."""
         return (self.one_pass_train and self.coord > 0 and self._fused
-                and self.num_particles == 1 and self.channels == 1
+                and self.num_particles == 1 and self._pixel_mode() is None
+                and self.channels == 1
                 and self.sampler_d.name == "bernoulli" and self._dec_sig
                 and self._dec_act in KERNEL_ACTS_WITH_APPROX)
 
@@ -208,12 +211,11 @@ class iVAE(baseVAE):
     def manifold2d(self, d: int, y=None, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the 2-D latent plane. For
         ``latent_dim > 2`` pass ``which_dims=(i, j)`` (and ``z_fixed``);
-        ``z_coord=`` sets the bounds. Plotting, the default as in the JAX
-        package, waits for a later slice and raises; pass ``plot=False``."""
-        if plot:
-            raise later_slice("manifold2d(plot=True)", "viz")
+        ``z_coord=`` sets the bounds. ``plot`` (the default, as in the JAX
+        package) shows the decoded grid with matplotlib; other keywords
+        reach the plot (``cmap``, ``origin``, ...)."""
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
-        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z, axes = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
         z = self._embed_latent_plane(z.to(self.device), self.latent_dim,
                                      which, zfix)
         if self.c_dim > 0:
@@ -222,7 +224,34 @@ class iVAE(baseVAE):
             y = self._as_f32(y)
             y = y[None] if y.ndim < 2 else y
             y = y.expand((z.shape[0],) + y.shape[1:])
-        return self.decode(z, y, **kwargs)
+        loc = self.decode(z, y, **kwargs)
+        if plot:
+            plot_manifold(self.ndim, loc, d, axes, kwargs)
+        return loc
 
-    def predict_on_latent(self, *args, **kwargs):
-        raise later_slice("iVAE.predict_on_latent", "viz")
+    def predict_on_latent(self, train_data, gp_labels, gp_iterations: int = 1,
+                          d: int = 12, plot: bool = False):
+        """Fit an exact RBF-kernel GP on the encoded ``train_data`` (the
+        posterior means, all ``z_dim`` dims) against ``gp_labels`` and
+        predict over the d x d latent grid. Returns ``((grid latents [d*d,
+        2], the grid decoded by manifold2d), predictions [d*d])``; ``plot``
+        shows the decoded grid and the prediction heatmap. The grid is
+        2-D, so the encoded latents must be too (``z_dim == 2``: no
+        invariances and ``latent_dim=2``), as in the JAX package."""
+        from ..utils.gp import gp_model
+        if self.z_dim != 2:
+            raise ValueError(
+                f"predict_on_latent fits the GP on the {self.z_dim}-D "
+                "encoded latents and predicts over a 2-D latent grid; it "
+                "needs z_dim == 2 (no invariances, latent_dim=2)")
+        encoded = self.encode(train_data)[0]
+        gpr = gp_model(input_dim=encoded.shape[1], encoded_X=encoded,
+                       y=self._as_f32(gp_labels), gp_iterations=gp_iterations)
+        z, _ = generate_latent_grid(d)
+        predictions, _ = gpr.predict(z.to(self.device))
+        z_decoded = self.manifold2d(d, plot=False)
+        if plot:
+            from ..utils import viz
+            viz.plot_img_grid(z_decoded, d, cmap="viridis")
+            viz.plot_latent_predictions(predictions, d)
+        return (z, z_decoded), predictions

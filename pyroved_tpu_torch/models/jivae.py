@@ -11,9 +11,11 @@ enumerated branches:
 The K branches decode in one call with leading dims [K, B]: through the
 fused kernels (K1 forward, K2 backward) on K*B rows when the configuration
 supports them, else through the decoder module with the coordinate head
-computed once for the batch and broadcast over the branches.
-``enum_topk=k`` decodes only the k most probable classes per example and
-renormalizes their weights; the discrete term stays exact.
+computed once for the batch and broadcast over the branches. Under
+``pixel_chunks`` the branches ride as a leading batch dim of every grid
+tile's decode. ``enum_topk=k`` decodes only the k most probable classes
+per example and renormalizes their weights; the discrete term stays
+exact.
 """
 import math
 from typing import List, Optional, Sequence
@@ -27,8 +29,9 @@ from ..infer.elbo import normal_latent_site, obs_site
 from ..nets.fc import init_from, jfcEncoderNet
 from ..ops.spatial_decoder import apply_fused_sdecoder
 from ..utils.coord import generate_latent_grid, generate_latent_grid_traversal
-from ..utils.nn import later_slice, set_deterministic_mode, to_onehot
-from .base import MODEL_KWARGS, baseVAE, check_kwargs, chunked
+from ..utils.nn import set_deterministic_mode, to_onehot
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
+                   plot_manifold)
 
 Tensor = torch.Tensor
 
@@ -152,6 +155,20 @@ class jiVAE(baseVAE):
         # branch's latent head (the module broadcasts [B, N, H] + [K, B, 1, H])
         return coords, self.decoder_net(coords, zc_k)
 
+    def _enum_recon_pp(self, z: Tensor, onehots: Tensor,
+                       xf: Tensor) -> Tensor:
+        """Per-branch reconstruction term ``[Ke, B]`` over the grid tiles of
+        ``pixel_chunks``: the branches ``onehots [Ke, B, K]`` ride as a
+        leading batch dim (Ke*B kernel rows a tile), so neither the
+        ``[Ke, B, N, H]`` activations nor the ``[Ke, B, N]`` locs exist in
+        full."""
+        Ke = onehots.shape[0]
+        phi, dx, sc, zc = self.split_latent_full(z)
+        zc_k = torch.cat([zc.expand((Ke,) + zc.shape), onehots], -1)
+        return self._recon_pixel_chunked(
+            phi.expand((Ke,) + phi.shape), dx.expand((Ke,) + dx.shape),
+            sc.expand((Ke,) + sc.shape), zc_k, xf[None])
+
     def _loss_single(self, x: Tensor, y, beta: Tensor, eps) -> Tensor:
         B, K = x.shape[0], self.discrete_dim
         xf = x.reshape(B, -1)
@@ -163,9 +180,15 @@ class jiVAE(baseVAE):
         w, onehots = alpha, None
         if self.enum_topk:
             w, onehots, _ = top_classes(alpha, self.enum_topk)
-        _, loc = self._enum_decode(z, self._fused, onehots)
-        recon_k = obs_site(self.sampler_d, xf[None],
-                           loc.reshape(loc.shape[0], B, -1))
+        if self.coord > 0 and self._pixel_mode():
+            if onehots is None:
+                eye = torch.eye(K, dtype=xf.dtype, device=xf.device)
+                onehots = eye[:, None, :].expand(K, B, K)
+            recon_k = self._enum_recon_pp(z, onehots, xf)
+        else:
+            _, loc = self._enum_decode(z, self._fused, onehots)
+            recon_k = obs_site(self.sampler_d, xf[None],
+                               loc.reshape(loc.shape[0], B, -1))
         recon = torch.sum(w.T * recon_k, dim=0)
         return -(recon + latent_term + disc_term)
 
@@ -254,25 +277,30 @@ class jiVAE(baseVAE):
                    **kwargs) -> Tensor:
         """Decode a d x d grid over the continuous latent plane for the
         class ``disc_idx``. ``which_dims``/``z_fixed`` pick the plane when
-        ``latent_dim > 2``; ``z_coord`` sets the bounds. Plotting waits for
-        a later slice."""
-        if plot:
-            raise later_slice("jiVAE.manifold2d(plot=True)", "viz")
+        ``latent_dim > 2``; ``z_coord`` sets the bounds; ``plot`` shows the
+        decoded grid (other keywords reach the plot)."""
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
-        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z, axes = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
         z = self._embed_latent_plane(z.to(self.device), self.latent_dim,
                                      which, zfix)
         z_disc = to_onehot([disc_idx], self.discrete_dim, self.device)
-        return self.decode(z, z_disc.expand(z.shape[0], -1), **kwargs)
+        loc = self.decode(z, z_disc.expand(z.shape[0], -1), **kwargs)
+        if plot:
+            plot_manifold(self.ndim, loc, d, axes, kwargs)
+        return loc
 
     def manifold_traversal(self, d: int, cont_idx: int,
                            cont_idx_fixed: int = 0, plot: bool = True,
                            **kwargs) -> Tensor:
         """Decode a joint traversal: continuous latent ``cont_idx`` swept
-        over d values for each of d class codes (``d*d`` images)."""
-        if plot:
-            raise later_slice("jiVAE.manifold_traversal(plot=True)", "viz")
+        over d values for each of d class codes (``d*d`` images); ``plot``
+        shows the class-by-value strip."""
         cont, disc = generate_latent_grid_traversal(
             d, self.latent_dim, self.discrete_dim, cont_idx, cont_idx_fixed,
             d ** 2)
-        return self.decode(cont, disc, **kwargs)
+        decoded = self.decode(cont, disc, **kwargs)
+        if plot:
+            from ..utils import viz
+            viz.plot_grid_traversal(decoded, d, self.data_dim,
+                                    self.discrete_dim, **kwargs)
+        return decoded

@@ -14,12 +14,12 @@ import torch
 import torch.nn as nn
 
 from ..infer.dists import get_sampler, normal_log_prob
-from ..infer.elbo import normal_latent_site, obs_site
+from ..infer.elbo import normal_latent_site
 from ..nets.fc import fcEncoderNet, fcRegressorNet, init_from
 from ..utils.coord import generate_latent_grid
-from ..utils.nn import later_slice, set_deterministic_mode
+from ..utils.nn import set_deterministic_mode
 from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   fit_semi_supervised)
+                   fit_semi_supervised, plot_manifold)
 
 Tensor = torch.Tensor
 
@@ -112,9 +112,7 @@ class ss_reg_iVAE(baseVAE):
         mu, sig = self.encoder_net(xf, y)
         z, lat = normal_latent_site(mu, sig, beta, self.kl_mode, eps=eps_z,
                                     generator=self.generator)
-        loc = self._decode_train(z, y)
-        recon = obs_site(self.sampler_d, xf, loc.reshape(B, -1))
-        return -(recon + lat + y_term)
+        return -(self._recon(z, y, xf) + lat + y_term)
 
     def loss_fn(self, x, y=None, beta=1.0, eps=None) -> Tensor:
         """Per-example negative ELBO ``[B]``: a labeled batch observes ``y``
@@ -204,14 +202,15 @@ class ss_reg_iVAE(baseVAE):
 
     def manifold2d(self, d: int, y, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the latent plane conditioned on the
-        label vector ``y``. ``which_dims``, ``z_fixed`` and ``z_coord`` as
-        iVAE's."""
-        if plot:
-            raise later_slice("ss_reg_iVAE.manifold2d(plot=True)", "viz")
+        label vector ``y``. ``which_dims``, ``z_fixed``, ``z_coord`` and
+        ``plot`` as iVAE's."""
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
-        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z, axes = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
         z = self._embed_latent_plane(z.to(self.device), self.latent_dim,
                                      which, zfix)
         y = self._as_f32(y)
         y = y[None] if y.ndim < 2 else y
-        return self.decode(z, y.expand((z.shape[0],) + y.shape[1:]), **kwargs)
+        loc = self.decode(z, y.expand((z.shape[0],) + y.shape[1:]), **kwargs)
+        if plot:
+            plot_manifold(self.ndim, loc, d, axes, kwargs)
+        return loc

@@ -17,12 +17,12 @@ import torch
 import torch.nn as nn
 
 from ..infer.dists import get_sampler
-from ..infer.elbo import normal_latent_site, obs_site
+from ..infer.elbo import normal_latent_site
 from ..nets.fc import fcClassifierNet, fcEncoderNet, init_from
 from ..utils.coord import generate_latent_grid, generate_latent_grid_traversal
-from ..utils.nn import later_slice, set_deterministic_mode, to_onehot
+from ..utils.nn import set_deterministic_mode, to_onehot
 from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   fit_semi_supervised)
+                   fit_semi_supervised, plot_manifold)
 from .jivae import log_alpha, top_classes
 
 Tensor = torch.Tensor
@@ -107,8 +107,7 @@ class ssiVAE(baseVAE):
         mu, sig = self.encoder_net(xf, ys)
         z, lat = normal_latent_site(mu, sig, beta, self.kl_mode, eps=eps,
                                     generator=self.generator)
-        loc = self._decode_train(z, ys)
-        return obs_site(self.sampler_d, xf, loc.reshape(xf.shape)) + lat
+        return self._recon(z, ys, xf) + lat
 
     def _enumerated(self, xf: Tensor):
         """(weights [B, Ke], one-hot codes [Ke, B, K], log q(y_k|x) [B, Ke])
@@ -261,27 +260,31 @@ class ssiVAE(baseVAE):
     def manifold2d(self, d: int, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the latent plane for the class
         ``label=`` (an index or a one-hot row; default 0). ``which_dims``,
-        ``z_fixed`` and ``z_coord`` as iVAE's."""
-        if plot:
-            raise later_slice("ssiVAE.manifold2d(plot=True)", "viz")
+        ``z_fixed``, ``z_coord`` and ``plot`` as iVAE's."""
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
-        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z, axes = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
         z = self._embed_latent_plane(z.to(self.device), self.latent_dim,
                                      which, zfix)
         cls = self._as_f32(kwargs.pop("label", 0))
         if cls.ndim < 2:
             cls = to_onehot(cls.reshape(1), self.num_classes, self.device)
-        return self.decode(z, cls.expand(z.shape[0], self.num_classes),
-                           **kwargs)
+        loc = self.decode(z, cls.expand(z.shape[0], self.num_classes),
+                          **kwargs)
+        if plot:
+            plot_manifold(self.ndim, loc, d, axes, kwargs)
+        return loc
 
     def manifold_traversal(self, d: int, cont_idx: int,
                            cont_idx_fixed: int = 0, plot: bool = True,
                            **kwargs) -> Tensor:
         """Decode a joint traversal over the classes and one continuous
-        latent (``d*d`` images)."""
-        if plot:
-            raise later_slice("ssiVAE.manifold_traversal(plot=True)", "viz")
+        latent (``d*d`` images); ``plot`` shows the class-by-value strip."""
         cont, disc = generate_latent_grid_traversal(
             d, self.latent_dim, self.num_classes, cont_idx, cont_idx_fixed,
             d ** 2)
-        return self.decode(cont, disc, **kwargs)
+        decoded = self.decode(cont, disc, **kwargs)
+        if plot:
+            from ..utils import viz
+            viz.plot_grid_traversal(decoded, d, self.data_dim,
+                                    self.num_classes, **kwargs)
+        return decoded

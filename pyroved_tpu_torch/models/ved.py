@@ -26,12 +26,12 @@ from ..nets.conv import convDecoderNet, convEncoderNet
 from ..nets.fc import init_from
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
-from .base import baseVAE, check_kwargs, chunked, later_slice
+from .base import baseVAE, check_kwargs, chunked, plot_manifold
 
 Tensor = torch.Tensor
 
 _KWARGS = ("decoder_sig", "kl", "num_particles", "compute_dtype", "pool",
-           "conv_first")
+           "conv_first", "pixel_chunks")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -73,7 +73,8 @@ class VED(baseVAE):
         # means no coordinate grid
         super().__init__(output_dim, None, device=device,
                          kl=kwargs.get("kl", "mc"),
-                         num_particles=kwargs.get("num_particles", 1))
+                         num_particles=kwargs.get("num_particles", 1),
+                         pixel_chunks=kwargs.get("pixel_chunks"))
         self.generator = set_deterministic_mode(seed)
         self.input_dim = tuple(int(d) for d in input_dim)
         self.output_dim = tuple(int(d) for d in output_dim)
@@ -205,12 +206,13 @@ class VED(baseVAE):
     def manifold2d(self, d: int, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the 2-D latent plane; ``which_dims`` /
         ``z_fixed`` pick the plane when ``latent_dim > 2``, ``z_coord`` sets
-        the bounds. Plotting, the default as in the JAX package, waits for a
-        later slice and raises; pass ``plot=False``."""
-        if plot:
-            raise later_slice("VED.manifold2d(plot=True)", "viz")
+        the bounds. ``plot`` (the default, as in the JAX package) shows the
+        decoded grid; other keywords reach the plot."""
         which, zfix = kwargs.pop("which_dims", None), kwargs.pop("z_fixed", None)
-        z, _ = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
+        z, axes = generate_latent_grid(d, z_coord=kwargs.pop("z_coord", None))
         z = self._embed_latent_plane(z.to(self.device), self.z_dim, which,
                                      zfix)
-        return self.decode(z, **kwargs)
+        loc = self.decode(z, **kwargs)
+        if plot:
+            plot_manifold(self.ndim, loc, d, axes, kwargs)
+        return loc

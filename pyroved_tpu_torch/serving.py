@@ -1,16 +1,22 @@
 """Model export and serving.
 
-Counterpart of ``pyroved_tpu/serving.py`` for float32 weights.
-:func:`export_model` writes a pickle-free ``np.savez`` archive: a JSON
-manifest that describes the networks, plus every weight as a named float32
-array. :class:`ServedModel` rebuilds the networks from the archive alone,
-with no model object, and serves ``encode`` and a posed ``decode``; spatial
-decodes go through the fused decoder kernel. As in the JAX package, a
-jiVAE's encode also returns the class probabilities; a semi-supervised
-model's encode labels the input with its own head first (argmax, then
-one-hot, for ssiVAE; the regressed values for ss_reg_iVAE), which it also
-serves as ``classify`` or ``regress``; the decode's latents are the content
-latents followed by the classes or labels.
+Counterpart of ``pyroved_tpu/serving.py``. :func:`export_model` writes a
+pickle-free ``np.savez`` archive: a JSON manifest that describes the
+networks, plus every weight as a named float32 array, or with
+``quantize="int8"`` every weight matrix as int8 with one float32 scale per
+output channel (:func:`quantize_params`; biases stay float32), about a
+quarter of the bytes. :class:`ServedModel` rebuilds the networks from the
+archive alone, with no model object, and serves ``encode`` and a posed
+``decode``; spatial decodes go through the fused decoder kernel. As in the
+JAX package, a jiVAE's encode also returns the class probabilities; a
+semi-supervised model's encode labels the input with its own head first
+(argmax, then one-hot, for ssiVAE; the regressed values for ss_reg_iVAE),
+which it also serves as ``classify`` or ``regress``; the decode's latents
+are the content latents followed by the classes or labels. An int8 archive
+is dequantized once when it is loaded, to the float32 values the JAX
+package's per-call dequantize gives, and then serves as a float32 one:
+compute stays float32 (or the ``BF16_MATMUL`` hidden products), so its
+error comes from the weight rounding alone.
 
 The JAX package pads symbolic-batch requests to power-of-two buckets to
 bound recompiles. Eager PyTorch compiles nothing per shape, so requests
@@ -18,12 +24,12 @@ here are only chunked (at ``max_bucket`` rows, or at the archive's fixed
 ``batch_size``, where chunks are also padded to that size).
 """
 import json
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from .models.base import chunked, later_slice, posed_decode
+from .models.base import chunked, posed_decode
 from .models.ved import VED
 from .nets.fc import (fcClassifierNet, fcDecoderNet, fcEncoderNet,
                       fcRegressorNet, jfcEncoderNet, sDecoderNet)
@@ -34,17 +40,56 @@ from .utils.nn import as_f32, resolve_device, to_onehot
 
 Tensor = torch.Tensor
 
-_W = "w_"  # archive key prefix of the weights
+# archive key prefixes: float32 weights, int8 weights and their scales
+_W, _Q, _S = "w_", "q_", "s_"
+
+
+def quantize_params(state) -> Dict[str, object]:
+    """Per-output-channel symmetric int8 of every >=2-D float weight of a
+    state dict (name -> tensor or array, torch's ``[out, in, ...]`` layout,
+    so the output channel is dim 0); 1-D leaves (biases) pass through as
+    float32 arrays. A quantized leaf becomes ``{"qint8": int8 [out, ...],
+    "qscale": float32 [out, 1, ...]}``: scale = absmax / 127 over every
+    dim but the first (1 where the channel is all zeros), values
+    ``rint(w / scale)`` clipped to +-127. The arithmetic is the JAX
+    package's ``quantize_params``, in numpy on the host, on the transposed
+    kernel, so values and scales are bitwise its own, transposed. A
+    non-float leaf raises ``ValueError``."""
+    out = {}
+    for name, leaf in state.items():
+        a = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+             else np.asarray(leaf))
+        if not np.issubdtype(a.dtype, np.floating):
+            raise ValueError(f"quantize='int8' requires float params; found "
+                             f"a {a.dtype} leaf {name!r} of shape {a.shape}")
+        if a.ndim < 2:
+            out[name] = a.astype(np.float32)
+            continue
+        absmax = np.max(np.abs(a), axis=tuple(range(1, a.ndim)),
+                        keepdims=True)
+        scale = (absmax / 127.0).astype(np.float32)
+        scale = np.where(scale == 0.0, 1.0, scale)
+        w = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+        out[name] = {"qint8": w, "qscale": scale.astype(np.float32)}
+    return out
+
+
+def dequantize_params(qstate) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`quantize_params`: float32 arrays, ``int8 ->
+    float32`` times the scale."""
+    return {name: (leaf["qint8"].astype(np.float32) * leaf["qscale"]
+                   if isinstance(leaf, dict) else leaf)
+            for name, leaf in qstate.items()}
 
 
 def export_model(model, path: str, batch_size: Union[int, None] = None,
                  quantize: Optional[str] = None) -> None:
     """Write ``model``'s networks to ``path`` (see the module docstring).
     ``batch_size`` fixes the served batch (chunks are padded to it); None
-    serves any batch."""
-    if quantize is not None:
-        raise later_slice(f"export_model(quantize={quantize!r})",
-                          "int8 serving")
+    serves any batch. ``quantize="int8"`` stores the weight matrices as
+    per-output-channel int8 (:func:`quantize_params`)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     if isinstance(model, VED):
         raise NotImplementedError(
             "export_model does not take a VED: the JAX package's export of "
@@ -77,15 +122,25 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
         "channels": int(model.channels),
         "latent_dim": int(model.latent_dim),
         "z_dim": int(model.z_dim),
+        "quantize": quantize,
     }
-    arrays = {_W + k: v.detach().cpu().numpy().astype(np.float32)
-              for k, v in model.state_dict().items()}
+    if quantize is None:
+        arrays = {_W + k: v.detach().cpu().numpy().astype(np.float32)
+                  for k, v in model.state_dict().items()}
+    else:
+        arrays = {}
+        for k, leaf in quantize_params(model.state_dict()).items():
+            if isinstance(leaf, dict):
+                arrays[_Q + k], arrays[_S + k] = leaf["qint8"], leaf["qscale"]
+            else:
+                arrays[_W + k] = leaf
     write_archive(path, arrays, manifest)
 
 
 class ServedModel:
     """Serves an :func:`export_model` archive on ``device`` (None means
-    "cuda"; without CUDA pass ``device="cpu"``)."""
+    "cuda"; without CUDA pass ``device="cpu"``). ``quantize`` is the
+    archive's (None or ``"int8"``)."""
 
     #: Largest number of rows one call handles for an archive without a
     #: fixed batch size; larger requests are chunked at this size.
@@ -95,8 +150,14 @@ class ServedModel:
         self.device = resolve_device(device)
         with np.load(path, allow_pickle=False) as archive:
             m = json.loads(archive["manifest"].tobytes().decode("utf-8"))
-            state = {k[len(_W):]: torch.from_numpy(archive[k])
-                     for k in archive.files if k.startswith(_W)}
+            qstate = {k[len(_W):]: archive[k]
+                      for k in archive.files if k.startswith(_W)}
+            qstate.update({k[len(_Q):]: {"qint8": archive[k],
+                                         "qscale": archive[_S + k[len(_Q):]]}
+                           for k in archive.files if k.startswith(_Q)})
+        state = {k: torch.from_numpy(v)
+                 for k, v in dequantize_params(qstate).items()}
+        self.quantize = m.get("quantize")
         self.batch_size = m["batch_size"]
         self.data_dim = tuple(m["data_dim"])
         self.c_dim = m["c_dim"]

@@ -1,4 +1,5 @@
-"""Coordinate math, NN helpers and the data loader."""
+"""Coordinate math, NN helpers, the data loader, checkpoints, plots and
+the GP surrogate."""
 from ..infer.dists import get_sampler
 from .checkpoint import (load_checkpoint, save_checkpoint,
                          wait_for_checkpoints)
@@ -8,8 +9,11 @@ from .coord import (generate_grid, generate_latent_grid,
                     transform_coordinates)
 from .data import (DataLoader, init_dataloader, init_ssvae_dataloaders,
                    prefetch, shuffle_indices)
+from .gp import GPRegression, gp_model
 from .nn import (as_numpy, average_weights, get_activation, resolve_device,
                  set_deterministic_mode, to_onehot)
+from .viz import (make_img_grid, plot_grid_traversal, plot_img_grid,
+                  plot_latent_predictions, plot_spect_grid)
 
 __all__ = [
     "generate_grid", "generate_latent_grid", "generate_latent_grid_traversal",
@@ -19,5 +23,7 @@ __all__ = [
     "shuffle_indices", "as_numpy", "average_weights", "get_activation",
     "resolve_device", "set_deterministic_mode", "to_onehot",
     "get_sampler", "save_checkpoint", "load_checkpoint",
-    "wait_for_checkpoints",
+    "wait_for_checkpoints", "GPRegression", "gp_model", "make_img_grid",
+    "plot_img_grid", "plot_spect_grid", "plot_grid_traversal",
+    "plot_latent_predictions",
 ]

@@ -185,9 +185,15 @@ def test_spatial_decodes_go_through_the_fused_wrapper(monkeypatch):
     assert calls == [3, 5, 9, 5]
 
 
-def test_device_rule_and_later_slices(tmp_path):
+def test_device_rule_and_later_slices(tmp_path, monkeypatch):
+    """The device rule; the features of the later slices run (int8
+    export, the default plot, ``pixel_chunks``; each held against the JAX
+    package in tests/test_torch_port_quant.py, _viz.py and
+    _pixel_chunks.py); ``mesh`` still raises, naming its item
+    ('parallel')."""
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
+    import matplotlib.pyplot as plt
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmodels.iVAE((12, 12), invariances=["r"])
     tm = tmodels.iVAE((12, 12), invariances=["r"], device="cpu")
@@ -195,18 +201,22 @@ def test_device_rule_and_later_slices(tmp_path):
     tserving.export_model(tm, path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserving.ServedModel(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserving.export_model(tm, path, quantize="int8")
+    tserving.export_model(tm, path, quantize="int8")
+    assert tserving.ServedModel(path, device="cpu").quantize == "int8"
     # patience is ported: it needs held-out data to watch
     with pytest.raises(ValueError, match="test_data"):
         tm.fit(np.zeros((4, 12, 12), np.float32), patience=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
         tm.fit(np.zeros((4, 12, 12), np.float32), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.manifold2d(3, plot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*pixel"):
-        tmodels.iVAE((12, 12), invariances=["r"], device="cpu",
-                     pixel_chunks=4)
+    monkeypatch.setattr(plt, "show", lambda: None)
+    assert tm.manifold2d(3, plot=True).shape == (9, 12, 12)
+    assert plt.get_fignums()
+    plt.close("all")
+    chunked = tmodels.iVAE((12, 12), invariances=["r"], device="cpu",
+                           pixel_chunks=4)
+    assert chunked._pixel_mode() == "chunk"
+    with pytest.raises(ValueError, match="spatial decoder"):
+        tmodels.iVAE((12, 12), device="cpu", pixel_chunks=4)
 
 
 # ---------------------------------------------------------------------------

@@ -314,10 +314,15 @@ def test_ved_fit_and_keywords():
 
 @pytest.mark.parametrize("family", ["iVAE", "jiVAE", "ssiVAE", "ss_reg_iVAE",
                                     "VED"])
-def test_plot_default_raises_naming_viz(family):
-    """``plot`` defaults to True, as in the JAX package; plotting is not
-    ported, so a default call raises naming 'viz' instead of skipping the
-    plot, and ``plot=False`` decodes."""
+def test_plot_default_raises_naming_viz(family, monkeypatch):
+    """``plot`` defaults to True, as in the JAX package: a default call
+    plots (it once raised naming 'viz', before the plots were ported; the
+    arguments of each plot are held against the JAX package's in
+    tests/test_torch_port_viz.py), and ``plot=False`` decodes without a
+    figure."""
+    import matplotlib.pyplot as plt
+    monkeypatch.setattr(plt, "show", lambda: None)
+    plt.close("all")
     args = {"iVAE": ((12, 12),), "jiVAE": ((12, 12), 2, 3),
             "ssiVAE": ((12, 12), 2, 3), "ss_reg_iVAE": ((12, 12), 2, 1),
             "VED": ((16, 16), (32,))}[family]
@@ -325,9 +330,11 @@ def test_plot_default_raises_naming_viz(family):
     m = getattr(tmodels, family)(*args, device="cpu", **kw)
     call = ((lambda **k: m.manifold2d(3, np.zeros(1, np.float32), **k))
             if family == "ss_reg_iVAE" else (lambda **k: m.manifold2d(3, **k)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*viz"):
-        call()
     assert call(plot=False).shape[0] == 9
+    assert not plt.get_fignums()
+    assert call().shape[0] == 9
+    assert len(plt.get_fignums()) == 1
     if hasattr(m, "manifold_traversal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*viz"):
-            m.manifold_traversal(3, 0)
+        assert m.manifold_traversal(3, 0).shape[0] == 9
+        assert len(plt.get_fignums()) == 2
+    plt.close("all")
