@@ -138,6 +138,38 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    2,048) and the flagship's padded last tile of 3 (262 rows), and K1 on
    the int8 archives' weights: rows of phase 6's table.
 
+11. The job runner and the single-device remainder. (a) The flagship as
+   a job file (iVAE 28x28, latent 2, rotation, default widths; batch 200,
+   3 epochs, seed 1; 2,000 blob rows saved as .npy and 400 held out; a
+   JSONL log, a checkpoint, .pvt weights and an export) run by ``python3
+   -m pyroved_tpu_torch.train job.json`` in a child process on the card:
+   exit 0, the summary's keys, 3 JSONL records (seconds per epoch
+   printed), the checkpoint resumed by a fresh ``SVItrainer``, the .pvt
+   loaded, the export served (one K1 a 200-row chunk, against the plain
+   version). Under each flag: (b) the same job through ``run_job`` in this
+   process, one K1 and one K2 a training step (30) and one K1 a held-out
+   batch (6), its losses against the child's (bitwise expected, else
+   within phase 5's f32 tolerance; which held is printed); (c) a jiVAE job
+   with ``enum_schedule=1`` (10 steps at 2,000 rows, then 10 at the
+   ``enum_topk=3`` rows, 600), an ssiVAE job at phase 7's width
+   (``unsup_data``, ``sup_data``, ``val_data``, ``patience``; 24 steps)
+   and the flagship with ``one_pass_train`` (one K3 a step, nothing
+   else); (d) a reference-shaped torch iVAE at the flagship's widths
+   loaded by ``load_torch_weights`` (from its state_dict and from a .pt
+   file), 1,024 latents decoded by one K1 against the torch module (f32,
+   TF32 off: phase 2's f32 tolerance; under the flag the JAX package's
+   bf16 bound, 2e-2, and phase 2's bf16 tolerance against the plain
+   version); (e) ``set_decoder`` with a user's module, one fit epoch with
+   no kernel launch, and ``set_encoder`` alone, one K1 and one K2 a step;
+   (f) ``profiling.trace`` around 3 steps, the trace naming K1's and K2's
+   ``__global__`` functions 3 times each. Once: a reference-shaped
+   batchnorm VED at im2spec widths (16x16 -> 2048) whose running
+   statistics drifted, imported and held in eval against the torch
+   module's ``eval()`` forward with phase 8's tolerance; and
+   ``enable_compilation_cache`` in two child processes, the first building
+   K1's f32 source into a fresh directory, the second loading it from
+   there with nvcc refused; both times printed.
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -2276,6 +2308,613 @@ def pixel_launches(res):
     return out
 
 
+# -- phase 11: the job runner, reference weights, custom nets, profiling ---
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_KEYS = {"model", "training_loss", "test_loss", "checkpoint", "weights",
+            "export", "epochs"}
+SEMI_KEYS = {"model", "training_loss", "val_metric", "stopped_early",
+             "best_epoch", "epochs"}
+# The __global__ function of K1 and K2 in each flag's source, as the
+# profiler's trace names it
+GLOBALS = {("K1", False): "sdec_fwd_kernel", ("K1", True): "sdec_fwd_tc_kernel",
+           ("K2", False): "sdec_bwd_kernel", ("K2", True): "sdec_bwd_tc_kernel"}
+# K1 decoding imported weights against the reference torch module (f32, TF32
+# off): with the flag clear phase 2's f32 tolerance; with it set the kernel
+# rounds its hidden operands to bf16 and the module does not, so the JAX
+# package's own bound for a bf16 decode against f32, atol 2e-2
+# (tests/test_ops_fused.py), and phase 2's bf16 tolerance against the plain
+# version in the same numerics.
+BF16_REF_ATOL = 2e-2
+# A fresh process builds K1's f32 source into a cache directory, a second
+# one loads it from there without nvcc (its Popen is replaced by a raise).
+CACHE_CHILD = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+from pyroved_tpu_torch.ops import _build
+from pyroved_tpu_torch.ops import spatial_decoder as sd
+from pyroved_tpu_torch.utils.profiling import enable_compilation_cache
+path = enable_compilation_cache(sys.argv[1])
+nvcc = []
+if sys.argv[2] == "hit":
+    def refuse(cmd, *a, **k):
+        nvcc.append(cmd[0])
+        raise AssertionError("nvcc started on a cache hit")
+    _build.subprocess.Popen = refuse
+sd.BF16_MATMUL = False
+from pyroved_tpu_torch.models import iVAE
+m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0, device=sys.argv[3])
+t1 = time.perf_counter()
+out = m.decode(torch.zeros(8, 2))
+if out.is_cuda:
+    torch.cuda.synchronize()
+t2 = time.perf_counter()
+print(json.dumps({"dir": path, "files": sorted(os.listdir(path)),
+                  "first_decode_s": t2 - t1, "process_s": t2 - t0,
+                  "launches": sd.fused_spatial_decoder_forward.launches,
+                  "finite": bool(torch.isfinite(out).all()), "nvcc": nvcc}))
+"""
+
+
+def child_env():
+    """The environment of a child process, the checkout on its path."""
+    path = [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+
+
+def start_cache_child(path, mode):
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", CACHE_CHILD, path, mode, "cuda"], cwd=ROOT,
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish_child(what, started):
+    """The JSON last line of a child started with its start time, and its
+    wall seconds; raises on a non-zero exit."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1]), secs
+
+
+def save_npy(tmp, name, arr):
+    path = os.path.join(tmp, name + ".npy")
+    np.save(path, arr)
+    return path
+
+
+def flagship_job(tmp, tag, data, test=None, **model_extra):
+    """The flagship as a job file's dict (bench.py:25-52: iVAE 28x28,
+    latent 2, rotation; the default widths 128x128, tanh, Bernoulli),
+    batch 200, 3 epochs, seed 1, writing its log, checkpoint, weights and
+    export into ``tmp/tag``."""
+    out = os.path.join(tmp, tag)
+    os.makedirs(out)
+    config = {"data_dim": [28, 28], "latent_dim": 2, "invariances": ["r"]}
+    if model_extra:
+        config["extra"] = model_extra
+    job = {"model": "iVAE", "model_config": config,
+           "train": {"epochs": 3, "batch_size": 200, "seed": 1},
+           "data": data, "log_file": f"{out}/train.jsonl",
+           "checkpoint_path": f"{out}/state.npz",
+           "save_weights": f"{out}/weights",
+           "export_path": f"{out}/export.npz"}
+    if test:
+        job["test_data"] = test
+    return job
+
+
+def run_cli(job):
+    """``python3 -m pyroved_tpu_torch.train job.json`` in a child process
+    on the card: (its summary, wall seconds)."""
+    path = os.path.join(os.path.dirname(job["log_file"]), "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pyroved_tpu_torch.train", path], cwd=ROOT,
+        env=child_env(), capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the job runner exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+def check_cli_files(job, summary, smi):
+    """Phase 11 (a), the child's files: 3 JSONL records ending at the
+    summary's loss, the checkpoint resumed by a fresh SVItrainer (epoch 3,
+    its history), the .pvt weights equal to the resumed ones, and the
+    export served through K1, one launch per 200-row chunk, against the
+    plain version on the resumed weights."""
+    if set(summary) != CLI_KEYS or summary["epochs"] != 3:
+        raise AssertionError(f"CLI summary {summary}")
+    if not all(np.isfinite([summary["training_loss"],
+                            summary["test_loss"]])):
+        raise AssertionError(f"CLI losses {summary}")
+    records = [json.loads(line) for line in open(job["log_file"])]
+    if ([r["epoch"] for r in records] != [1, 2, 3]
+            or records[-1]["training_loss"] != summary["training_loss"]
+            or records[-1]["test_loss"] != summary["test_loss"]):
+        raise AssertionError(f"CLI JSONL {records}")
+    epoch_s = [r["epoch_seconds"] for r in records]
+    model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=5)
+    trainer = SVItrainer(model, checkpoint_path=job["checkpoint_path"])
+    if (trainer.resume() != 3 or trainer.loss_history["training_loss"]
+            != [r["training_loss"] for r in records]):
+        raise AssertionError("the CLI checkpoint did not resume at epoch 3 "
+                             "with its history")
+    loaded = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=6)
+    loaded.load_weights(summary["weights"])
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, loaded.state_dict()[k]):
+            raise AssertionError(f"CLI .pvt weights differ at {k}")
+    served = ServedModel(summary["export"])
+    z = torch.as_tensor(np.random.default_rng(14).normal(size=(1024, 2)),
+                        dtype=torch.float32, device="cuda")
+    pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
+    out, _, launches = run_path(lambda: served.decode(z, **pose))
+    chunks = -(-1024 // 200)
+    if not only(launches, K1_bf16=chunks):
+        raise AssertionError(f"CLI export decode: {launches}, expected one "
+                             f"K1 a {served.batch_size}-row chunk")
+    err = check_decode("CLI export decode of 1,024", model, z, out, pose)
+    log(f"  (a) JSONL epochs {[r['epoch'] for r in records]}, seconds per "
+        f"epoch {epoch_s} ({smi}); checkpoint resumed at epoch 3; .pvt "
+        f"equal; export decode of 1,024: launches {launches}, max abs err "
+        f"{err:.3e} against plain")
+    return {"epoch_seconds": epoch_s, "served_launches": launches,
+            "served_err": err}
+
+
+def job_inprocess(tmp, data, test, sub):
+    """Phase 11 (b), under the current flag: the same job through run_job
+    in this process: one K1 and one K2 a training step (30), and one K1 a
+    held-out batch (2 an epoch); under the default flag its losses against
+    the child's (bitwise expected, else within phase 5's LOSS_RTOL)."""
+    from pyroved_tpu_torch.train import run_job
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    k1, k2 = ("K1_bf16", "K2_bf16") if on else ("K1", "K2")
+    job = flagship_job(tmp, f"inprocess_{tag}", data, test)
+    summary, secs, launches = run_path(lambda: run_job(job))
+    if not only(launches, **{k1: 30 + 6, k2: 30}):
+        raise AssertionError(f"(b) {tag} run_job launches {launches}: "
+                             f"expected 36 {k1} and 30 {k2}")
+    res = {"launches": launches, "seconds": secs, "summary": summary}
+    if sub is None:
+        log(f"  (b) {tag} run_job {secs:.2f} s, launches {launches}, loss "
+            f"{summary['training_loss']:.6f}")
+        return res
+    keys = ("training_loss", "test_loss")
+    same = all(summary[k] == sub[k] for k in keys)
+    rel = max(abs(summary[k] - sub[k]) / abs(sub[k]) for k in keys)
+    if not (same or rel <= LOSS_RTOL):
+        raise AssertionError(f"(b) run_job {summary} against the child's "
+                             f"{sub}: rel {rel:.3e}")
+    log(f"  (b) {tag} run_job {secs:.2f} s, launches {launches}; losses "
+        + ("bitwise equal to the child's" if same else
+           f"within {rel:.3e} of the child's (not bitwise)"))
+    res.update(bitwise=same, rel=rel)
+    return res
+
+
+def other_jobs(tmp, fam_paths, data):
+    """Phase 11 (c), under the current flag: a jiVAE job with
+    enum_schedule=1 (2 epochs: 10 steps at K*B = 2,000 rows, then 10 at the
+    enum_topk=3 rows, 600), an ssiVAE job (2,000 unlabeled, 400 labeled,
+    400 validation rows, patience 5; 24 steps) and the flagship with
+    one_pass_train (K3 alone, one a step)."""
+    from pyroved_tpu_torch.train import run_job
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    X, Xs, Ys, Xv, Yv = fam_paths
+    fam = {"data_dim": [28, 28], "latent_dim": 2, "invariances": ["r"],
+           "seed": 0}
+    out = {}
+    jjob = {"model": "jiVAE",
+            "model_config": dict(fam, discrete_dim=N_CLASSES, enum_topk=3),
+            "train": {"epochs": 2, "batch_size": 200, "enum_schedule": 1},
+            "data": X}
+    with kernel_rows() as calls:
+        summary, secs, launches = run_path(lambda: run_job(jjob))
+    rows = row_counts(calls)
+    if (rows != {"K1 B=2000": 10, "K2 B=2000": 10, "K1 B=600": 10,
+                 "K2 B=600": 10}
+            or calls[:20] != [("K1", 2000), ("K2", 2000)] * 10):
+        raise AssertionError(f"(c) jiVAE job rows {rows}")
+    expect_steps(f"(c) {tag} jiVAE job, enum_schedule=1, {secs:.2f} s, "
+                 f"rows {rows}, loss {summary['training_loss']:.4f}",
+                 launches, 20)
+    out["jivae_job"] = launches
+    sjob = {"model": "ssiVAE",
+            "model_config": dict(fam, num_classes=N_CLASSES),
+            "train": {"epochs": 2, "batch_size": 200, "patience": 5},
+            "unsup_data": X, "sup_data": [Xs, Ys], "val_data": [Xv, Yv]}
+    summary, secs, launches = run_path(lambda: run_job(sjob))
+    if (set(summary) != SEMI_KEYS or summary["stopped_early"]
+            or not 0.0 <= summary["val_metric"] <= 1.0
+            or not np.isfinite(summary["training_loss"])):
+        raise AssertionError(f"(c) ssiVAE job summary {summary}")
+    expect_steps(f"(c) {tag} ssiVAE job, {secs:.2f} s, accuracy "
+                 f"{summary['val_metric']:.4f}", launches, 24)
+    out["ssivae_job"] = launches
+    ojob = flagship_job(tmp, f"one_pass_{tag}", data, one_pass_train=True)
+    summary, secs, launches = run_path(lambda: run_job(ojob))
+    k3 = "K3_bf16" if on else "K3"
+    if not only(launches, **{k3: 30}):
+        raise AssertionError(f"(c) one-pass job launches {launches}")
+    log(f"  (c) {tag} one-pass flagship job, {secs:.2f} s, launches "
+        f"{launches}, loss {summary['training_loss']:.4f}")
+    out["one_pass_job"] = launches
+    return out
+
+
+class RefCoordLatent(torch.nn.Module):
+    """The reference pyroVED's coord_latent block (nets/fc.py names)."""
+
+    def __init__(self, latent_dim, h):
+        super().__init__()
+        self.fc_coord = torch.nn.Linear(2, h)
+        self.fc_latent = torch.nn.Linear(latent_dim, h, bias=False)
+
+    def forward(self, x_coord, z):
+        return torch.tanh(self.fc_coord(x_coord)
+                          + self.fc_latent(z).unsqueeze(1))
+
+
+def ref_fc_layers(dims):
+    layers = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        layers += [torch.nn.Linear(a, b), torch.nn.Tanh()]
+    return torch.nn.Sequential(*layers)
+
+
+class RefIVAE(torch.nn.Module):
+    """A reference-shaped iVAE: encoder_z.fc_layers / fc11 / fc12 and
+    decoder.coord_latent / fc_layers / out, as tests/test_interop.py."""
+
+    def __init__(self, in_dim, z_out, latent_dim, hidden=(128, 128)):
+        super().__init__()
+        self.encoder_z = torch.nn.Module()
+        self.encoder_z.fc_layers = ref_fc_layers([in_dim] + list(hidden))
+        self.encoder_z.fc11 = torch.nn.Linear(hidden[-1], z_out)
+        self.encoder_z.fc12 = torch.nn.Linear(hidden[-1], z_out)
+        self.decoder = torch.nn.Module()
+        self.decoder.coord_latent = RefCoordLatent(latent_dim, hidden[0])
+        self.decoder.fc_layers = ref_fc_layers([hidden[0]] + list(hidden))
+        self.decoder.out = torch.nn.Linear(hidden[-1], 1)
+
+    def encode(self, x):
+        h = self.encoder_z.fc_layers(x.reshape(x.shape[0], -1))
+        return (self.encoder_z.fc11(h),
+                torch.nn.functional.softplus(self.encoder_z.fc12(h)))
+
+    def decode(self, grid, z):
+        h = self.decoder.coord_latent(grid.expand(z.shape[0], -1, -1), z)
+        return torch.sigmoid(self.decoder.out(self.decoder.fc_layers(h)))[
+            ..., 0]
+
+
+class RefUpBlock1d(torch.nn.Module):
+    def __init__(self, ch):
+        super().__init__()
+        self.conv = torch.nn.Conv1d(ch, ch, 1, 1, 0)
+
+    def forward(self, x):
+        return self.conv(torch.nn.functional.interpolate(
+            x, scale_factor=2, mode="nearest"))
+
+
+class RefBNVED(torch.nn.Module):
+    """A reference-shaped im2spec VED with batchnorm at the port's default
+    filters: a 16x16 image -> ((32,), (64, 64), (128, 128)) convs, 2x2
+    pools between blocks -> features2latent; latent2features -> 1-D
+    ((128, 128), (64, 64), (32,)) convs, each block upsampled x2 -> 2048."""
+
+    def __init__(self, latent_dim=2, out_len=2048):
+        super().__init__()
+        nn_ = torch.nn
+
+        def conv(a, b, d):
+            return [(nn_.Conv2d if d == 2 else nn_.Conv1d)(a, b, 3, 1, 1),
+                    nn_.LeakyReLU(),
+                    (nn_.BatchNorm2d if d == 2 else nn_.BatchNorm1d)(b)]
+
+        self.encoder_z = nn_.Module()
+        self.encoder_z.feature_extractor = nn_.Module()
+        self.encoder_z.feature_extractor.layers = nn_.Sequential(
+            *conv(1, 32, 2), nn_.MaxPool2d(2, 2), *conv(32, 64, 2),
+            *conv(64, 64, 2), nn_.MaxPool2d(2, 2), *conv(64, 128, 2),
+            *conv(128, 128, 2))
+        self.encoder_z.features2latent = nn_.Module()
+        self.encoder_z.features2latent.fc_latent = nn_.Linear(128 * 4 * 4,
+                                                              2 * latent_dim)
+        self.decoder = nn_.Module()
+        self.decoder.latent2features = nn_.Module()
+        self.decoder.latent2features.fc = nn_.Linear(latent_dim,
+                                                     128 * (out_len // 8))
+        self.decoder.upsampler = nn_.Module()
+        self.decoder.upsampler.layers = nn_.Sequential(
+            *conv(128, 128, 1), *conv(128, 128, 1), RefUpBlock1d(128),
+            *conv(128, 64, 1), *conv(64, 64, 1), RefUpBlock1d(64),
+            *conv(64, 32, 1), RefUpBlock1d(32), nn_.Conv1d(32, 1, 1, 1, 0))
+        self.latent_dim, self.in_len = latent_dim, out_len // 8
+
+    def encode(self, x):
+        f = self.encoder_z.feature_extractor.layers(x[:, None])
+        enc = self.encoder_z.features2latent.fc_latent(f.flatten(1))
+        mu, sig = enc.split(self.latent_dim, 1)
+        return mu, torch.nn.functional.softplus(sig)
+
+    def decode(self, z):
+        h = self.decoder.latent2features.fc(z).reshape(z.shape[0], 128,
+                                                       self.in_len)
+        return torch.sigmoid(self.decoder.upsampler.layers(h))[:, 0]
+
+
+def reference_ivae(tmp):
+    """Phase 11 (d), under the current flag: a reference-shaped iVAE at the
+    flagship's widths, random from seed 12 on the card, loaded through
+    load_torch_weights (the state_dict, and a .pt file: the same weights);
+    its encode against the module's, 1,024 latents decoded through K1 (one
+    launch) against the module's forward (f32, TF32 off) and, under the
+    flag, against the plain version in bf16."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    torch.manual_seed(12)
+    ref = RefIVAE(784, 3, 2).cuda()
+    model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+    model.load_torch_weights(ref.state_dict())
+    path = os.path.join(tmp, f"reference_{tag}.pt")
+    torch.save(ref.state_dict(), path)
+    from_file = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=3)
+    from_file.load_torch_weights(path)
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, from_file.state_dict()[k]):
+            raise AssertionError(f"(d) .pt load differs at {k}")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    z = torch.randn(1024, 2, generator=gen, device="cuda")
+    x = torch.as_tensor(blobs(1000, (28, 28), seed=15), device="cuda")
+    with torch.no_grad():
+        want_dec = ref.decode(model.grid, z)
+        want_enc = ref.encode(x)
+    enc = model.encode(x)
+    enc_err = max(check_close(f"(d) {tag} imported encode", a, b)
+                  for a, b in zip(enc, want_enc))
+    out, _, launches = run_path(lambda: model.decode(z))
+    k1 = "K1_bf16" if on else "K1"
+    if not only(launches, **{k1: 1}):
+        raise AssertionError(f"(d) imported decode launches {launches}")
+    got = out.reshape(1024, -1)
+    if on:
+        err = check_close(f"(d) {tag} imported decode vs the torch module",
+                          got, want_dec, BF16_REF_ATOL)
+        plain_err = check_decode(f"(d) {tag} imported decode vs plain",
+                                 model, z, out, {})
+    else:
+        err = check_close(f"(d) {tag} imported decode vs the torch module",
+                          got, want_dec, ATOL)
+        plain_err = None
+    log(f"  (d) {tag} reference iVAE imported (state_dict and .pt equal): "
+        f"encode max abs err {enc_err:.3e}; decode of 1,024, launches "
+        f"{launches}, max abs err {err:.3e} against the torch module"
+        + ("" if plain_err is None else
+           f", {plain_err:.3e} against plain"))
+    return {"launches": launches, "decode_err": err, "plain_err": plain_err,
+            "encode_err": enc_err}
+
+
+def reference_ved():
+    """Phase 11 (d), the batchnorm VED at im2spec widths (VED((16, 16),
+    (2048,)), default filters): a reference-shaped torch VED, random from
+    seed 16, its running statistics moved by three train-mode forwards,
+    then eval(); loaded through load_torch_weights (use_running_stats
+    set), its encode and decode against the module's eval() forward with
+    phase 8's VED tolerance. No kernel: cuDNN convolutions."""
+    torch.manual_seed(16)
+    ref = RefBNVED().cuda().train()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.no_grad():
+        for _ in range(3):
+            ref.encode(torch.rand(64, 16, 16, generator=gen, device="cuda"))
+            ref.decode(torch.randn(64, 2, generator=gen, device="cuda"))
+    ref.eval()
+    ved = VED((16, 16), (2048,), batchnorm=True, seed=0)
+    ved.load_torch_weights(ref.state_dict())
+    if not ved.use_running_stats:
+        raise AssertionError("(d) VED import did not set use_running_stats")
+    x = torch.as_tensor(blobs(100, (16, 16), seed=18), device="cuda")
+    z = torch.randn(100, 2, generator=gen, device="cuda")
+    with torch.no_grad():
+        want_enc, want_dec = ref.encode(x), ref.decode(z)
+    enc_err = max(check_close("(d) imported VED encode", a, b, VED_ATOL)
+                  for a, b in zip(ved.encode(x), want_enc))
+    dec_err = check_close("(d) imported VED decode", ved.decode(z),
+                          want_dec, VED_ATOL)
+    log(f"  (d) reference batchnorm VED (16x16 -> 2048) imported with its "
+        f"running statistics: encode max abs err {enc_err:.3e}, decode "
+        f"{dec_err:.3e} against the module's eval()")
+    return {"encode_err": enc_err, "decode_err": dec_err}
+
+
+class UserEncoder(torch.nn.Module):
+    """A user's encoder of plain torch layers: (loc, scale) of 3 latents."""
+
+    def __init__(self):
+        super().__init__()
+        self.body = torch.nn.Sequential(
+            torch.nn.Linear(784, 128), torch.nn.Tanh(),
+            torch.nn.Linear(128, 128), torch.nn.Tanh())
+        self.head = torch.nn.Linear(128, 6)
+
+    def forward(self, x):
+        out = self.head(self.body(x))
+        return out[:, :3], torch.nn.functional.softplus(out[:, 3:])
+
+
+class UserDecoder(torch.nn.Module):
+    """A user's spatial decoder: softplus(coords Wc + z Wz) through two
+    128-wide layers, a sigmoid per pixel."""
+
+    def __init__(self):
+        super().__init__()
+        self.coord = torch.nn.Linear(2, 128)
+        self.latent = torch.nn.Linear(2, 128, bias=False)
+        self.body = torch.nn.Sequential(
+            torch.nn.Softplus(), torch.nn.Linear(128, 128), torch.nn.Softplus(),
+            torch.nn.Linear(128, 1))
+
+    def forward(self, coords, z):
+        h = self.coord(coords) + self.latent(z).unsqueeze(-2)
+        return torch.sigmoid(self.body(h))[..., 0]
+
+
+def custom_nets(X):
+    """Phase 11 (e), under the current flag: the flagship with a user's
+    decoder trains one fit epoch (10 steps) with no kernel launch; with a
+    user's encoder, one K1 and one K2 a step."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    dec = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+    dec.set_decoder(UserDecoder())
+    tr, secs, launches = run_path(lambda: dec.fit(X, epochs=1,
+                                                  batch_size=200))
+    loss = tr.loss_history["training_loss"][-1]
+    if not only(launches) or not np.isfinite(loss):
+        raise AssertionError(f"(e) set_decoder fit: launches {launches}, "
+                             f"loss {loss}")
+    log(f"  (e) {tag} set_decoder: fit epoch {secs:.2f} s, loss {loss:.4f}, "
+        f"launches {launches}")
+    enc = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+    enc.set_encoder(UserEncoder())
+    tr, secs, enc_launches = run_path(lambda: enc.fit(X, epochs=1,
+                                                      batch_size=200))
+    expect_steps(f"(e) {tag} set_encoder: fit epoch {secs:.2f} s, loss "
+                 f"{tr.loss_history['training_loss'][-1]:.4f}", enc_launches,
+                 10)
+    return {"custom_decoder_fit": launches, "custom_encoder_fit": enc_launches}
+
+
+def traced_steps(tmp, X):
+    """Phase 11 (f), under the current flag: profiling.trace around 3
+    flagship training steps; the trace file names K1's and K2's
+    ``__global__`` functions 3 times each, the launch counts agree."""
+    from pyroved_tpu_torch.utils import profiling
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    model = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+    trainer = SVItrainer(model)
+    xb = torch.as_tensor(X[:200], device="cuda")
+    w = torch.ones(200, device="cuda")
+    trainer.train_step((xb,), w)  # the first step's set-up stays out
+    torch.cuda.synchronize()
+    logdir = os.path.join(tmp, f"trace_{tag}")
+
+    def steps():
+        with profiling.trace(logdir):
+            for _ in range(3):
+                trainer.train_step((xb,), w)
+            torch.cuda.synchronize()
+
+    _, secs, launches = run_path(steps)
+    expect_steps(f"(f) {tag} 3 traced steps, {secs:.2f} s", launches, 3)
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"(f) trace files {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(GLOBALS[k, on] in n for n in names) for k in ("K1", "K2")}
+    if found != {"K1": 3, "K2": 3}:
+        raise AssertionError(f"(f) the trace names {found} of "
+                             f"{[GLOBALS[k, on] for k in ('K1', 'K2')]}")
+    log(f"  (f) {tag} trace {files[0]}: {len(names)} kernel events, "
+        f"{GLOBALS['K1', on]} x{found['K1']}, {GLOBALS['K2', on]} "
+        f"x{found['K2']}")
+    return {"launches": launches, "kernel_events": len(names),
+            "named": found}
+
+
+def check_cache(miss, miss_s, hit, hit_s, cache_dir, smi):
+    """Phase 11 (f): the first child built K1's f32 source into the cache
+    directory, the second loaded it from there without nvcc; both decoded
+    through it once."""
+    libs = [f for f in miss["files"]
+            if f.startswith("spatial_decoder_fwd-") and f.endswith(".so")]
+    for what, res in (("miss", miss), ("hit", hit)):
+        if (res["dir"] != os.path.abspath(cache_dir) or not res["finite"]
+                or res["launches"] != {"spatial_decoder_fwd": 1,
+                                       "spatial_decoder_fwd_tc": 0}):
+            raise AssertionError(f"(f) cache {what}: {res}")
+    if len(libs) != 1 or hit["files"] != miss["files"] or hit["nvcc"]:
+        raise AssertionError(f"(f) cache: built {miss['files']}, then "
+                             f"{hit['files']}, nvcc on the hit {hit['nvcc']}")
+    log(f"  (f) enable_compilation_cache: the first process built {libs[0]} "
+        f"(first decode {miss['first_decode_s']:.2f} s, process "
+        f"{miss_s:.2f} s); the second loaded it without nvcc (first decode "
+        f"{hit['first_decode_s']:.2f} s, process {hit_s:.2f} s) ({smi})")
+    return {"miss_first_decode_s": miss["first_decode_s"],
+            "miss_process_s": miss_s,
+            "hit_first_decode_s": hit["first_decode_s"],
+            "hit_process_s": hit_s}
+
+
+def phase_jobs(smi, fam_data):
+    """Phase 11: the job runner in a child process and in this one, the
+    other jobs, reference weights, custom nets, the trace and the kernel
+    cache (see the module docstring). Returns the results and each path's
+    launches."""
+    t0 = time.perf_counter()
+    X, y, _ = fam_data
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_dir = os.path.join(tmp, "kernel_cache")
+        miss_child = start_cache_child(cache_dir, "miss")
+        flag = blobs(2400, (28, 28), seed=11)
+        data = save_npy(tmp, "X", flag[:2000])
+        test = save_npy(tmp, "Xt", flag[2000:])
+        onehot = np.eye(N_CLASSES, dtype=np.float32)
+        fam_paths = (save_npy(tmp, "Xf", X), save_npy(tmp, "Xs", X[:400]),
+                     save_npy(tmp, "Ys", onehot[y[:400]]),
+                     save_npy(tmp, "Xv", X[400:800]),
+                     save_npy(tmp, "Yv", onehot[y[400:800]]))
+        # (a) the real entry point, in a child process (the default flag)
+        cli = flagship_job(tmp, "cli", data, test)
+        sub, cli_s = run_cli(cli)
+        log(f"  (a) python3 -m pyroved_tpu_torch.train job.json: exit 0 in "
+            f"{cli_s:.2f} s ({smi}), summary {json.dumps(sub)}")
+        res["cli"] = {"seconds": cli_s, "summary": sub}
+        for on in (False, True):
+            with bf16_matmul(on):
+                tag = "bf16" if on else "f32"
+                r = res[tag] = {}
+                r["inprocess"] = job_inprocess(tmp, data, test,
+                                               sub if on else None)
+                launches[f"cli_inprocess_{tag}"] = r["inprocess"]["launches"]
+                for path, n in other_jobs(tmp, fam_paths, data).items():
+                    launches[f"{path}_{tag}"] = n
+                r["reference_ivae"] = reference_ivae(tmp)
+                launches[f"imported_decode_{tag}"] = r["reference_ivae"][
+                    "launches"]
+                for path, n in custom_nets(flag[:2000]).items():
+                    launches[f"{path}_{tag}"] = n
+                r["trace"] = traced_steps(tmp, flag)
+                launches[f"traced_steps_{tag}"] = r["trace"]["launches"]
+        miss, miss_s = finish_child("cache miss child", miss_child)
+        hit_child = start_cache_child(cache_dir, "hit")
+        res["reference_ved"] = reference_ved()
+        res["cli"].update(check_cli_files(cli, sub, smi))
+        launches["cli_served_decode_bf16"] = res["cli"]["served_launches"]
+        hit, hit_s = finish_child("cache hit child", hit_child)
+        res["cache"] = check_cache(miss, miss_s, hit, hit_s, cache_dir, smi)
+    res["seconds"] = time.perf_counter() - t0
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2579,6 +3218,13 @@ def main() -> int:
     phase10_s = time.perf_counter() - t10
     log(f"phase 10 took {phase10_s:.1f} s")
 
+    # -- 11. the job runner, reference weights, custom nets, profiling -----
+    log("phase 11: python -m pyroved_tpu_torch.train and run_job, the "
+        "families' jobs, reference weights, custom nets, the trace and the "
+        "kernel cache")
+    jobs, job_launches = phase_jobs(smi, fam_data)
+    log(f"phase 11 took {jobs['seconds']:.1f} s ({smi})")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -2600,7 +3246,8 @@ def main() -> int:
                    for path, n in surface_launches(f).items()},
                 **{f"{path}_{tag}": n[key]
                    for tag, f in (("bf16", pix), ("f32", pix32))
-                   for path, n in pixel_launches(f).items()}}
+                   for path, n in pixel_launches(f).items()},
+                **{path: n[key] for path, n in job_launches.items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -2662,7 +3309,8 @@ def main() -> int:
         "trainer_surface": {"bf16": surface, "f32": surface32,
                             "seconds": phase9_s},
         "pixel_int8_viz": {"bf16": pix, "f32": pix32,
-                           "seconds": phase10_s}}
+                           "seconds": phase10_s},
+        "jobs": jobs}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,11 +6,12 @@ ported families use: invariance bookkeeping (1-D data allows only
 the priors, the latent split in the order rotation -> translation -> scale
 -> content, the decoder and the routing of its decodes, the transformed
 grids, the pixel-partitioned reconstruction term (``pixel_chunks``), P-fold
-particle tiling, chunked encode/decode, the
-semi-supervised ``fit`` loop and pickle-free ``save_weights`` /
-``load_weights``. A model without invariances has no grid: VED builds on
-this base with ``data_dim`` its output and its own conv decoder, and uses
-only the grid-free parts (``fit``, ``chunked``, the latent plane, weights).
+particle tiling, chunked encode/decode, the semi-supervised ``fit`` loop,
+custom networks (``set_encoder`` / ``set_decoder``), pickle-free
+``save_weights`` / ``load_weights`` and the reference pyroVED's weights
+(``load_torch_weights``). A model without invariances has no grid: VED
+builds on this base with ``data_dim`` its output and its own conv decoder,
+and uses only the grid-free parts (``fit``, ``chunked``, the latent plane, weights).
 
 Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
 package's top-level names (``encoder_z``, ``encoder_y``, ``decoder``) on
@@ -414,6 +415,75 @@ class baseVAE:
         return loc.reshape((z.shape[0],) + self.out_shape)
 
     # ------------------------------------------------------------------
+    # Custom networks
+    # ------------------------------------------------------------------
+    def _injected(self, net: nn.Module, *probes) -> nn.Module:
+        """``net`` on the model's device with every layer drawn from the
+        model's generator: one call on the first of ``probes`` (argument
+        tuples, tried in order until one is not a ``TypeError``) builds any
+        lazy layer, then layers with ``reset_from`` redraw from the
+        generator and other layers with ``reset_parameters`` (torch's own
+        Linear, conv, ...) reset under a CPU seed drawn from it, torch's
+        global generator left as it was."""
+        net = net.cpu()
+        with torch.no_grad():
+            for i, args in enumerate(probes):
+                try:
+                    net(*args)
+                    break
+                except TypeError:
+                    if i + 1 == len(probes):
+                        raise
+        for m in net.modules():
+            if hasattr(m, "reset_from"):
+                m.reset_from(self.generator)
+            elif hasattr(m, "reset_parameters"):
+                seed = int(torch.randint(2 ** 62, (1,),
+                                         generator=self.generator))
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(seed)
+                    m.reset_parameters()
+        return net.to(self.device)
+
+    def set_encoder(self, encoder_net: nn.Module) -> None:
+        """Put a user-defined ``nn.Module`` in place of the inference network
+        (``encoder_z``), its layers drawn afresh from the model's generator
+        and moved to the model's device. It takes the flattened batch
+        ``x [B, prod(data_dim)]`` (a VED's ``[B, *input_dim, C]``), and
+        the labels too, ``(x, y)``, when the model is conditional, and
+        returns ``(loc, scale)`` (jiVAE's also the class logits). The
+        decoder's kernels stay in place. Build trainers after this call:
+        they hold the parameters they optimize."""
+        if hasattr(self, "input_dim"):  # a VED: channels-last images
+            x0 = torch.zeros((2,) + self.input_dim + (self.input_channels,))
+        else:
+            x0 = torch.zeros(2, int(np.prod(self.out_shape)))
+        c = (getattr(self, "c_dim", 0) or getattr(self, "num_classes", 0)
+             or getattr(self, "reg_dim", 0))  # the labels' width
+        probe = (x0,) if c == 0 else (x0, torch.zeros(2, c))
+        self.nets["encoder_z"] = self._injected(encoder_net, probe)
+
+    def set_decoder(self, decoder_net: nn.Module) -> None:
+        """Put a user-defined ``nn.Module`` in place of the generator network
+        (``decoder``), its layers drawn afresh from the model's generator
+        and moved to the model's device. A spatial model calls it as
+        ``decoder(coords [B, N, D], zc)``, a model without invariances as
+        ``decoder(zc)``, where ``zc`` holds the content latents and then the
+        labels or classes. The decoder kernels are turned off for good: the
+        new decoder runs as a module, on every path. Build trainers after
+        this call."""
+        zc0 = torch.zeros(
+            2, self.z_dim - self.coord + getattr(self, "c_dim", 0)
+            + getattr(self, "num_classes", 0) + getattr(self, "reg_dim", 0)
+            + getattr(self, "discrete_dim", 0))
+        probes = [(zc0,)]
+        if self.grid is not None:  # spatial first, then plain
+            probes.insert(0, (self.grid.cpu().expand((2,) + self.grid.shape),
+                              zc0))
+        self.nets["decoder"] = self._injected(decoder_net, *probes)
+        self._fused = False
+
+    # ------------------------------------------------------------------
     # Weights
     # ------------------------------------------------------------------
     def state_dict(self):
@@ -455,6 +525,14 @@ class baseVAE:
         models; numpy leaves), with strict key and shape checks."""
         from ..weights import from_jax_params
         self.nets.load_state_dict(from_jax_params(params), strict=True)
+
+    def load_torch_weights(self, source, strict: bool = True):
+        """Load weights trained with the reference pyroVED (a ``.pt`` file
+        of its ``save_weights``, or a torch ``state_dict``), mapping its
+        module names onto the port's (see :mod:`pyroved_tpu_torch.interop`).
+        Returns the model."""
+        from ..interop import load_torch_weights
+        return load_torch_weights(self, source, strict=strict)
 
     def _as_f32(self, x) -> Tensor:
         return as_f32(x, self.device)

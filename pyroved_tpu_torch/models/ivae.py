@@ -102,7 +102,8 @@ class iVAE(baseVAE):
         B = x.shape[0]
         xf = x.reshape(B, -1)
         y = None if y is None else self._as_f32(y).reshape(B, -1)
-        mu, sig = self.encoder_net(xf, y)
+        mu, sig = (self.encoder_net(xf) if y is None
+                   else self.encoder_net(xf, y))
         if self.num_particles > 1:  # leading particle axis, one decode
             P = self.num_particles
             mu = mu.expand((P,) + mu.shape)

@@ -10,22 +10,24 @@ targets are ``[B, *dim]`` (a singleton channel is appended) or
 It trains on (x, y) pairs (:meth:`VED.weighted_loss_fn` under ``fit`` and
 ``SVItrainer``; the ELBO scores the target y) and serves through its own
 methods: ``encode``, ``decode``, ``predict`` (posterior samples decoded in
-one batched call, their mean and std) and ``manifold2d``. Batchnorm always
+one batched call, their mean and std) and ``manifold2d``. Batchnorm
 normalizes with the batch's own statistics, as the JAX package's
-stateless batchnorm does. No VED function runs a hand-written kernel: the
-convolutions are cuDNN's on the card.
+stateless batchnorm does; running statistics imported with a reference
+model's weights (``state``, set by :mod:`pyroved_tpu_torch.interop`) serve
+inference instead once ``use_running_stats`` is set. No VED function runs
+a hand-written kernel: the convolutions are cuDNN's on the card.
 """
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..infer.dists import get_sampler
 from ..infer.elbo import normal_latent_site, obs_site
-from ..nets.conv import convDecoderNet, convEncoderNet
+from ..nets.conv import BatchNorm, convDecoderNet, convEncoderNet
 from ..nets.fc import init_from
 from ..utils.coord import generate_latent_grid
-from ..utils.nn import set_deterministic_mode
+from ..utils.nn import as_f32, set_deterministic_mode
 from .base import baseVAE, check_kwargs, chunked, plot_manifold
 
 Tensor = torch.Tensor
@@ -105,6 +107,60 @@ class VED(baseVAE):
             "decoder": init_from(decoder, self.generator),
         }).to(self.device)
         self.sampler_d = get_sampler(sampler_d, **kwargs)
+        self._stats = {
+            name: (torch.zeros(m.weight.shape, device=self.device),
+                   torch.ones(m.weight.shape, device=self.device))
+            for name, m in self._bnorms()}
+        self._use_running_stats = False
+
+    # ------------------------------------------------------------------
+    # BatchNorm running statistics (flax's batch_stats)
+    # ------------------------------------------------------------------
+    def _bnorms(self):
+        return [(name, m) for name, m in self.nets.named_modules()
+                if isinstance(m, BatchNorm)]
+
+    @property
+    def use_running_stats(self) -> bool:
+        """False (the default): batchnorm normalizes with the batch's own
+        statistics, at train and eval time. True: inference (autograd off)
+        normalizes with :attr:`state`, as a torch model in ``eval()``
+        does; training still uses the batch's statistics."""
+        return self._use_running_stats
+
+    @use_running_stats.setter
+    def use_running_stats(self, on: bool) -> None:
+        self._use_running_stats = bool(on)
+        for name, m in self._bnorms():
+            m.running_stats = self._stats[name] if on else None
+
+    @property
+    def state(self) -> Dict[str, Tensor]:
+        """The running mean and variance of every BatchNorm (flax's init:
+        0 and 1), keyed ``<module>.mean`` and ``<module>.var``; empty
+        without batchnorm. They live outside the parameters'
+        ``state_dict``, as flax keeps ``batch_stats`` apart from
+        ``params``. Setting it takes a mapping with the same keys and
+        shapes."""
+        return {f"{name}.{part}": t for name, pair in self._stats.items()
+                for part, t in zip(("mean", "var"), pair)}
+
+    @state.setter
+    def state(self, stats) -> None:
+        own = self.state
+        if set(stats) != set(own):
+            raise KeyError(
+                f"state keys do not match the model's batchnorms: missing "
+                f"{sorted(set(own) - set(stats))}, extra "
+                f"{sorted(set(stats) - set(own))}")
+        new = {k: as_f32(stats[k], self.device).clone() for k in own}
+        for k, v in new.items():
+            if v.shape != own[k].shape:
+                raise ValueError(f"state[{k!r}]: shape {tuple(v.shape)} "
+                                 f"!= {tuple(own[k].shape)}")
+        self._stats = {name: (new[name + ".mean"], new[name + ".var"])
+                       for name in self._stats}
+        self.use_running_stats = self._use_running_stats
 
     def noise_shapes(self, batch_size: int, labeled: bool = False):
         """Shape of the standard-normal latent noise one batch needs:

@@ -24,9 +24,12 @@ Numerics follow the JAX package's:
   rest after. Where that is symmetric (every stride-1 conv) the
   convolution pads; a stride-2 3x3 conv on an even length pads 0 before
   and 1 after, so that case is padded explicitly (``F.pad``) first.
-- Batchnorm always normalizes with the batch's own statistics, at train
-  and at eval time, and keeps no running averages: the mean and the
-  variance E[x^2] - E[x]^2 (clipped at 0) in f32, epsilon 1e-5, as flax's.
+- Batchnorm normalizes with the batch's own statistics, at train and at
+  eval time, and updates no running averages: the mean and the variance
+  E[x^2] - E[x]^2 (clipped at 0) in f32, epsilon 1e-5, as flax's. Running
+  statistics installed by the model (a reference model's, through
+  :mod:`pyroved_tpu_torch.interop`) are used instead at inference only
+  (autograd off).
 - ``dtype=torch.bfloat16`` runs the towers in bf16 (inputs and kernels cast
   to bf16, bf16 out), while the latent heads and the final 1x1 output conv
   stay f32.
@@ -72,10 +75,10 @@ def _no_tf32(on_cuda: bool):
 
 
 class _F32Conv(torch.autograd.Function):
-    """An f32 convolution (symmetric ``padding``) whose forward and
-    backward both run with TF32 off (autograd runs the backward after the
-    forward's scope has closed, so a plain ``F.conv`` would compute its
-    grads in TF32 when the caller allows it)."""
+    """An f32 convolution (``stride`` and symmetric ``padding`` per axis)
+    whose forward and backward both run with TF32 off (autograd runs the
+    backward after the forward's scope has closed, so a plain ``F.conv``
+    would compute its grads in TF32 when the caller allows it)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, stride, padding):
@@ -97,7 +100,7 @@ class _F32Conv(torch.autograd.Function):
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 gy.contiguous(), x, weight,
                 [weight.shape[0]] if ctx.has_bias else None,
-                [ctx.stride] * nd, [ctx.padding] * nd, [1] * nd, False,
+                list(ctx.stride), list(ctx.padding), [1] * nd, False,
                 [0] * nd, 1, mask)
         return gx, gw, gb, None, None
 
@@ -110,22 +113,23 @@ def same_padding(size: int, kernel_size: int, stride: int) -> Tuple[int, int]:
 
 
 class _SameConv:
-    """Forward of a ``"SAME"``-padded convolution in ``compute dtype``:
-    the input and the kernel cast to the input's dtype."""
+    """Forward of a ``"SAME"``-padded convolution (any kernel size and
+    stride per axis) in ``compute dtype``: the input and the kernel cast to
+    the input's dtype."""
 
     def forward(self, x: Tensor) -> Tensor:
-        k, s = self.kernel_size[0], self.stride[0]
-        pads = [same_padding(n, k, s) for n in x.shape[2:]]
-        pad = pads[0][0]
-        if any(lo != pad or hi != pad for lo, hi in pads):
+        pads = [same_padding(n, k, s) for n, k, s in
+                zip(x.shape[2:], self.kernel_size, self.stride)]
+        pad = tuple(lo for lo, _ in pads)
+        if any(lo != hi for lo, hi in pads):
             # F.pad takes the last axis first
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
-            pad = 0
+            pad = (0,) * len(pads)
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         if x.dtype == torch.float32:
-            return _F32Conv.apply(x, w, b, s, pad)
-        return _CONV_FN[x.dim() - 2](x, w, b, s, pad)
+            return _F32Conv.apply(x, w, b, tuple(self.stride), pad)
+        return _CONV_FN[x.dim() - 2](x, w, b, self.stride, pad)
 
     def reset_from(self, generator: torch.Generator) -> None:
         """torch's default conv init (kaiming-uniform with a = sqrt(5),
@@ -155,6 +159,20 @@ class Conv3d(_SameConv, nn.Conv3d):
 _CONV = {1: Conv1d, 2: Conv2d, 3: Conv3d}
 
 
+# utils.nn.get_conv's "SAME" convolutions: the input channels inferred at
+# the first call, then the class above
+class LazyConv1d(_SameConv, nn.LazyConv1d):
+    cls_to_become = Conv1d
+
+
+class LazyConv2d(_SameConv, nn.LazyConv2d):
+    cls_to_become = Conv2d
+
+
+class LazyConv3d(_SameConv, nn.LazyConv3d):
+    cls_to_become = Conv3d
+
+
 def _conv(ndim: int, in_channels: int, features: int, kernel_size: int = 3,
           strides: int = 1) -> nn.Module:
     return _CONV[ndim](in_channels, features, kernel_size, stride=strides)
@@ -162,15 +180,23 @@ def _conv(ndim: int, in_channels: int, features: int, kernel_size: int = 3,
 
 class BatchNorm(nn.Module):
     """Batchnorm over every axis but the channels (axis 1), with the batch's
-    own statistics at train and at eval time and no running averages, as
-    the JAX package uses flax's ``BatchNorm``: mean and E[x^2] - E[x]^2 in
-    f32, then ``(x - mean) * rsqrt(var + eps) * weight + bias``, cast back
-    to the input's dtype. ``weight`` is flax's ``scale``."""
+    own statistics and no running averages of its own, as the JAX package
+    uses flax's ``BatchNorm``: mean and E[x^2] - E[x]^2 in f32, then
+    ``(x - mean) * rsqrt(var + eps) * weight + bias``, cast back to the
+    input's dtype. ``weight`` is flax's ``scale``.
+
+    ``running_stats`` is None, or a ``(mean, var)`` pair that the owning
+    model installs (imported running statistics, kept outside the
+    parameters as flax keeps ``batch_stats`` apart from ``params``): then a
+    forward with autograd off (inference) normalizes with them, as a torch
+    BatchNorm in ``eval()`` does, and a forward that records gradients
+    (training) still uses the batch's."""
 
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.running_stats: Optional[Tuple[Tensor, Tensor]] = None
 
     def reset_from(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -181,9 +207,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         axes = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mean = xf.mean(axes, keepdim=True)
-        var = torch.clamp((xf * xf).mean(axes, keepdim=True) - mean * mean,
-                          min=0.0)
+        if self.running_stats is not None and not torch.is_grad_enabled():
+            mean, var = (s.reshape(shape) for s in self.running_stats)
+        else:
+            mean = xf.mean(axes, keepdim=True)
+            var = torch.clamp((xf * xf).mean(axes, keepdim=True)
+                              - mean * mean, min=0.0)
         mul = torch.rsqrt(var + BN_EPS) * self.weight.reshape(shape)
         return ((xf - mean) * mul + self.bias.reshape(shape)).to(x.dtype)
 
@@ -389,6 +418,9 @@ class convEncoderNet(nn.Module):
             if downsample:  # a 2x2 pool floors; a stride-2 SAME conv ceils
                 spatial = tuple(d // 2 if pool != "stride" else -(-d // 2)
                                 for d in spatial)
+        # (channels, spatial dims) of the tower's output, which the head
+        # reads flattened channels-last
+        self.feature_shape = (self.FeatureExtractor_0.out_channels, spatial)
         flat = int(np.prod(spatial)) * self.FeatureExtractor_0.out_channels
         self.features2latent = Dense(flat, 2 * latent_dim)
         self.latent_dim = latent_dim

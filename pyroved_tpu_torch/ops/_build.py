@@ -2,10 +2,12 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``. Nothing includes PyTorch's
-headers, so a build takes seconds. Libraries go into
-``pyroved_tpu_torch/_build/``, named by a hash of the source and the
+headers, so a build takes seconds. Libraries go into :data:`BUILD_DIR`,
+``pyroved_tpu_torch/_build/`` unless
+``utils.profiling.enable_compilation_cache`` points it elsewhere (it is
+read at each build and load), named by a hash of the source and the
 command, and are built on first use in a process; a later process with the
-same source reuses the file. The hash covers every ``csrc/*.cuh`` header the
+same source and the same directory reuses the file. The hash covers every ``csrc/*.cuh`` header the
 source includes (``#include "..."``, followed into headers), so an edit to
 a shared header never loads a stale library. A source may also be built
 with preprocessor macros defined (``defines``), into a library of its own.
