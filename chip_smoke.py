@@ -170,6 +170,40 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    K1's f32 source into a fresh directory, the second loading it from
    there with nvcc refused; both times printed.
 
+12. The parallel layer (``pyroved_tpu_torch.parallel``), under each flag.
+   (a) One NCCL rank in this process (``initialize_multihost()`` alone,
+   its own in-memory store): the flagship's ``fit(mesh=
+   data_parallel_mesh())``, 3 epochs of 2,000 blob rows, bitwise the same
+   fit without a mesh, one K1 and one K2 a step; the group destroyed.
+   Then two gloo ranks in child processes sharing the card (``chip_smoke.py
+   --rank``; NCCL takes one rank per card, gloo reduces CUDA tensors),
+   each with a hard timeout, loading the kernels from this process's build
+   directory (``enable_compilation_cache``), on data this process saved:
+   (b) data parallel, the flagship: the first step's grads summed over the
+   ranks (100 rows each) against one process's batch-200 step on the same
+   weights and noise (phase 5's bounds), 2 epochs through ``fit`` (one K1
+   and one K2 a step a rank at B = 100) against one process's per-epoch
+   losses, the ranks' parameters bitwise equal (a checksum), a resume
+   (1 epoch, a checkpoint rank 0 writes, a fresh model and trainer on each
+   rank, 1 more) bitwise the uninterrupted run, and ``one_pass_train`` (5
+   K3 a rank, nothing else); (c) ``shard_pixels`` on the 512x512 iVAE at
+   full width (phase 10's configuration; 400 rows, batch 200, 2 epochs):
+   one K1 and one K2 a step a rank at B = 200, N = 131,072, the first
+   step's loss and grads against one process's full-grid step (phase 10's
+   bounds), each rank's peak memory and a step's wall time; (d)
+   ``{"model": 2}`` tensor parallelism: the gate's warning, no launch, the
+   first step's loss and each rank's grads (its shards) against the f32
+   module path; (e) 5 steps of ``make_spmd_train_step``: one K1 and one K2
+   a step a rank at B = 100, a falling loss, the ranks bitwise equal; (f)
+   ``pixel_sharded_decode`` of 64 latents on the 128x128 grid: one K1 a
+   rank at N = 8,192, gathered, against one process's decode (phase 2's
+   tolerance). Kernel calls are recorded by (kernel, B, N). (g) K1, K2
+   (and K3 at B = 100) against their plain versions and a second launch,
+   timed, at B = 100, N = 784 and B = 200, N = 131,072 (there the plain
+   versions and cuBLAS's products run over 8 row chunks), rows of phase
+   6's table. Two ranks on one card measure correctness and memory, not
+   scaling.
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -869,24 +903,45 @@ def step_breakdown(model, xb, y=None, warmup=5, steps=10):
             "top_kernels_ms_per_step": sorted(top, reverse=True)[:12]}
 
 
-def time_k1(name, a, peaks):
+def row_chunks(a, chunks):
+    """Kernel inputs ``a`` cut into ``chunks`` equal row chunks of the
+    batch (the per-sample inputs split, the grid and weights shared)."""
+    B = a["z"].shape[0]
+    step = B // chunks
+    return [{k: (v[i:i + step] if k in ("phi", "dx", "sc", "z") else v)
+             for k, v in a.items()} for i in range(0, B, step)]
+
+
+def plain_fwd(a, chunks=1):
+    """K1's plain version, over ``chunks`` row chunks of the batch."""
+    return torch.cat([sd.spatial_decoder_plain(**c)
+                      for c in row_chunks(a, chunks)])
+
+
+def time_k1(name, a, peaks, chunks=1):
     """K1 under each flag at one shape of the paths: held against its plain
     version and a second launch, then timed beside the least time the card
     could take, its plain version and cuBLAS's bare products of the same
-    hidden layers. Returns one row per flag, keyed by the flag."""
+    hidden layers. With ``chunks`` the plain version and the products run
+    over that many row chunks of the batch, one after the other (their
+    [B*N, H] activations whole would not fit beside the kernel's), and
+    every timing takes 5 calls after warm-up: a call then lasts 9 ms or
+    more. Returns one row per flag, keyed by the flag."""
+    few = chunks > 1
     B, N = a["z"].shape[0], a["grid"].shape[0]
     H, nl = a["Wc"].shape[1], a["hw"].shape[0]
     label = f"{name} B={B} N={N}"
     flops, nbytes = work(a)
     b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
-    h32 = torch.randn(B * N, H, device="cuda")
+    h32 = torch.randn(B * N // chunks, H, device="cuda")
     w32 = a["hw"]
     lib = {}
     for dtype in (torch.float32, torch.bfloat16):
         hh, ww = h32.to(dtype), w32.to(dtype)
         # h_l W_l of every layer as bare products, in and out dtype
-        lib[dtype] = cuda_ms(lambda: [torch.matmul(hh, ww[i])
-                                      for i in range(nl)], reps=20)
+        lib[dtype] = chunks * cuda_ms(lambda: [torch.matmul(hh, ww[i])
+                                               for i in range(nl)],
+                                      reps=5 if few else 20)
         del hh, ww
     del h32
     rows = {}
@@ -894,7 +949,7 @@ def time_k1(name, a, peaks):
         tag = "bf16" if on else "f32"
         with bf16_matmul(on):
             out, again = K1(**a), K1(**a)
-            ref = sd.spatial_decoder_plain(**a)
+            ref = plain_fwd(a, chunks)
             torch.cuda.synchronize()
             what = f"K1 {tag} {label}"
             if not torch.equal(out, again):
@@ -903,13 +958,15 @@ def time_k1(name, a, peaks):
                               *((BF16_ATOL, BF16_OUT_REL) if on
                                 else (ATOL, 0.0)))
             del out, again, ref
-            k_ms = cuda_ms(lambda: K1(**a))
-            q_ms = cuda_ms_queued(lambda: K1(**a))
-            p_ms = cuda_ms(lambda: sd.spatial_decoder_plain(**a), reps=20)
+            k_ms = cuda_ms(lambda: K1(**a), reps=5 if few else 25)
+            q_ms = cuda_ms_queued(lambda: K1(**a),
+                                  **(dict(n=5, reps=1) if few else {}))
+            p_ms = cuda_ms(lambda: plain_fwd(a, chunks),
+                           reps=5 if few else 20)
         lib_ms = lib[torch.bfloat16 if on else torch.float32]
         rows[on] = {
             "shape": label, "flag": tag, "ms": k_ms, "queued_ms": q_ms,
-            "plain_ms": p_ms, "max_abs_err": err,
+            "plain_ms": p_ms, "plain_row_chunks": chunks, "max_abs_err": err,
             "bound_ms": b16 if on else b32, "bound_by": by16 if on else by32,
             "bound_ms_f32": b32, "bound_ms_bf16": b16, "library_ms": lib_ms,
             "flops": flops, "bytes": nbytes, "tflops": flops / k_ms / 1e9}
@@ -923,13 +980,26 @@ def time_k1(name, a, peaks):
     return rows
 
 
-def time_bwd(name, a, xf, gen, peaks, with_k3=True):
+def plain_bwd(a, g, chunks=1):
+    """K2's plain version over ``chunks`` row chunks of the batch: the
+    per-sample grads joined, the weight grads summed."""
+    step = a["z"].shape[0] // chunks
+    parts = [sd.spatial_decoder_bwd_plain(**c, g=g[i * step:(i + 1) * step])
+             for i, c in enumerate(row_chunks(a, chunks))]
+    return tuple(torch.cat(p) if j < PER_SAMPLE else sum(p)
+                 for j, p in enumerate(zip(*parts)))
+
+
+def time_bwd(name, a, xf, gen, peaks, with_k3=True, chunks=1):
     """K2 (and K3 when ``with_k3``; ``xf`` its observations), f32 and
     tensor-core, at one training shape: held against their plain versions
     and a second launch, then timed beside the least time the card could
     take and cuBLAS's time for their hidden products (bf16, and f32 with
-    TF32 off). Every grad is held to its tensor's largest entry. Returns
-    one row per (kernel, flag)."""
+    TF32 off). Every grad is held to its tensor's largest entry. With
+    ``chunks`` (K2 alone) the plain version and the products run over that
+    many row chunks of the batch, and every timing takes 5 calls (3 of the
+    plain version) after warm-up. Returns one row per (kernel, flag)."""
+    few = chunks > 1
     B, N = a["z"].shape[0], a["grid"].shape[0]
     L, H, nl = a["z"].shape[1], a["Wc"].shape[1], a["hw"].shape[0]
     label = f"{name} B={B} N={N} H={H}"
@@ -940,8 +1010,9 @@ def time_bwd(name, a, xf, gen, peaks, with_k3=True):
     req = {k: v.clone().requires_grad_(k != "grid") for k, v in a.items()}
     lib = {}
     for on, dtype in ((False, torch.float32), (True, torch.bfloat16)):
-        hm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
-        dm = torch.randn(B * N, H, generator=gen, device="cuda").to(dtype)
+        rows_c = B * N // chunks
+        hm = torch.randn(rows_c, H, generator=gen, device="cuda").to(dtype)
+        dm = torch.randn(rows_c, H, generator=gen, device="cuda").to(dtype)
         wm = a["hw"].to(dtype)
 
         def cublas():  # h W, h^T d and d W^T of every layer, in and out
@@ -950,15 +1021,15 @@ def time_bwd(name, a, xf, gen, peaks, with_k3=True):
                 torch.matmul(hm.T, dm)
                 torch.matmul(dm, wm[i].T)
 
-        lib[on] = cuda_ms(cublas, reps=20)
+        lib[on] = chunks * cuda_ms(cublas, reps=5 if few else 20)
         del hm, dm
 
     def autograd_plain():
         out = sd.spatial_decoder_plain(**req)
         return torch.autograd.grad(out, [req[k] for k in GRAD_NAMES], g)
 
-    kernels = [("K2", lambda: K2(**a, g=g),
-                lambda: sd.spatial_decoder_bwd_plain(**a, g=g), False)]
+    kernels = [("K2", lambda: K2(**a, g=g), lambda: plain_bwd(a, g, chunks),
+                False)]
     if with_k3:
         kernels.append(("K3", lambda: K3(*args3),
                         lambda: sd.recon_loss_plain(*args3), True))
@@ -991,18 +1062,19 @@ def time_bwd(name, a, xf, gen, peaks, with_k3=True):
                 ws_bytes, blocks = sd.bwd_workspace(B, N, 2, L, H, nl, 1,
                                                     "tanh", loss_mode)
                 flops, nbytes = work_bwd(a, loss_mode)
-                k_ms = cuda_ms(fn, reps=20)
-                p_ms = cuda_ms(plain_fn, reps=10)
+                k_ms = cuda_ms(fn, reps=5 if few else 20)
+                p_ms = cuda_ms(plain_fn, reps=3 if few else 10)
                 b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
                 row = {"shape": label, "flag": tag, "ms": k_ms,
-                       "plain_ms": p_ms, "max_abs_err": err,
+                       "plain_ms": p_ms, "plain_row_chunks": chunks,
+                       "max_abs_err": err,
                        "bound_ms": b16 if on else b32,
                        "bound_by": by16 if on else by32,
                        "bound_ms_f32": b32, "bound_ms_bf16": b16,
                        "library_ms": lib[on], "flops": flops,
                        "bytes": nbytes, "tflops": flops / k_ms / 1e9,
                        "workspace_bytes": ws_bytes, "blocks": blocks}
-                if not on and not loss_mode:
+                if not on and not loss_mode and chunks == 1:
                     row["autograd_plain_ms"] = cuda_ms(autograd_plain,
                                                        reps=10)
                 rows[kname, on] = row
@@ -2915,6 +2987,544 @@ def phase_jobs(smi, fam_data):
     return res, launches
 
 
+# -- phase 12: the parallel layer ------------------------------------------
+
+# The flagship's data parallelism (b), the one-rank mesh (a): blob rows
+PAR_ROWS = 2000
+PAR_KW = dict(latent_dim=2, invariances=["r"], seed=0)
+# A rank's hard limit: it starts, loads the cached kernels and runs every
+# case of (b)-(f) under each flag
+RANK_TIMEOUT = 420
+# the 512x512 model's half grid, (c) and (g)
+HALF = PIXEL_DIM[0] * PIXEL_DIM[1] // 2
+# (g): the plain versions at B = 200, N = 131,072 run over row chunks of
+# 25 (their [B*N, H] activations whole take 13.4 GB each)
+HALF_CHUNKS = 8
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """(kernel, B, N) of every K1, K2 and K3 call inside the block, in
+    order: the wrappers wrapped, their counts untouched."""
+    calls = []
+    names = {"K1": "fused_spatial_decoder_forward",
+             "K2": "fused_spatial_decoder_backward",
+             "K3": "fused_bernoulli_recon_loss_kernel"}
+    old = {k: getattr(sd, n) for k, n in names.items()}
+
+    def wrap(k, fn):
+        def shaped(grid, phi, dx, sc, z, *a, **kw):
+            calls.append((k, z.shape[0], grid.shape[0]))
+            return fn(grid, phi, dx, sc, z, *a, **kw)
+        shaped.launches = fn.launches
+        return shaped
+
+    for k, n in names.items():
+        setattr(sd, n, wrap(k, old[k]))
+    try:
+        yield calls
+    finally:
+        for k, n in names.items():
+            setattr(sd, n, old[k])
+
+
+def shape_counts(calls):
+    """{"K1 B=100 N=784": n, ...} of :func:`kernel_shapes`' calls."""
+    out = {}
+    for k, b, n in calls:
+        key = f"{k} B={b} N={n}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def checksum(model):
+    """A digest of every parameter's bytes: equal digests, equal bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.nets.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def named_grads(model):
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in model.nets.named_parameters()}
+
+
+def par_batch(X, rows=200, seed=3):
+    """The first ``rows`` images on the card and a batch's noise from a
+    generator of ``seed``: what the single-process references use too."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.as_tensor(X[:rows], device="cuda"),
+            torch.randn(rows, 3, generator=gen, device="cuda"))
+
+
+def rank_dp(mesh, X, tmp):
+    """(b) on this rank: the flagship's first step (its 100 rows, the
+    grads summed over the ranks), 2 epochs through fit, a resume, and
+    one-pass steps."""
+    from pyroved_tpu_torch.parallel import replicate_params
+    out = {}
+    m = replicate_params(iVAE((28, 28), **PAR_KW), mesh)
+    t = SVItrainer(m, mesh=mesh)
+    xb, eps = par_batch(X)
+    (x,), w, e = t.data_axis.local((xb,), torch.ones(200, device="cuda"), eps)
+    m.nets.zero_grad(set_to_none=True)
+    loss = m.weighted_loss_fn(x, None, w, 1.0, eps=e)
+    loss.backward()
+    out["first_loss"] = t.data_axis.reduce_grads(t.optimizer, loss).item()
+    out["first_grads"] = named_grads(m)
+    m.nets.zero_grad(set_to_none=True)
+    with kernel_shapes() as calls:
+        tr, out["fit_s"], out["launches"] = run_path(
+            lambda: m.fit(X, epochs=2, batch_size=200, mesh=mesh))
+    out["shapes"] = shape_counts(calls)
+    out["history"] = tr.loss_history["training_loss"]
+    out["checksum"] = checksum(m)
+    # resumed: 1 epoch, a checkpoint (rank 0 writes, both wait), a fresh
+    # model and trainer on each rank, 1 more epoch
+    ckpt = os.path.join(tmp, "dp_state.npz")
+    m1 = iVAE((28, 28), **PAR_KW)
+    m1.fit(X, epochs=1, batch_size=200, mesh=mesh, checkpoint_path=ckpt,
+           checkpoint_every=1)
+    m2 = iVAE((28, 28), **dict(PAR_KW, seed=5))
+    t2 = SVItrainer(m2, mesh=mesh)
+    if t2.resume(ckpt) != 1:
+        raise AssertionError("resume did not restore epoch 1")
+    loader = init_dataloader(X, batch_size=200)
+    loader.set_epoch(1)
+    t2.run(loader, 1)
+    out["resumed_history"] = t2.loss_history["training_loss"]
+    out["resumed_checksum"] = checksum(m2)
+    one = iVAE((28, 28), one_pass_train=True, **PAR_KW)
+    with kernel_shapes() as calls:
+        loss1, _, out["one_pass_launches"] = run_path(
+            lambda: SVItrainer(one, mesh=mesh).train(
+                init_dataloader(X[:1000], batch_size=200)))
+    out["one_pass_shapes"] = shape_counts(calls)
+    out["one_pass_loss"] = loss1
+    return out
+
+
+def rank_pixels(mesh, X):
+    """(c) on this rank: the 512x512 iVAE with its grid split over
+    'pixels': the first step on the full batch, 2 epochs through fit, the
+    peak memory above what was allocated before, a step's wall time."""
+    from pyroved_tpu_torch.parallel import shard_pixels
+    out = {}
+    m = shard_pixels(iVAE(PIXEL_DIM, **PIXEL), mesh)
+    xb, eps = par_batch(X, seed=13)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = first_step_grads(m, xb, eps)
+    out["first"] = (loss, [g.cpu() for g in grads])
+    with kernel_shapes() as calls:
+        tr, out["fit_s"], out["launches"] = run_path(
+            lambda: m.fit(X, epochs=2, batch_size=200))
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out["shapes"] = shape_counts(calls)
+    out["history"] = tr.loss_history["training_loss"]
+    w = torch.ones(200, device="cuda")
+    out["step_ms"] = host_ms(lambda: tr.train_step((xb,), w), reps=3,
+                             warmup=1)
+    out["checksum"] = checksum(m)
+    return out
+
+
+def rank_tp(mesh, X):
+    """(d) on this rank: the flagship with its layers split over 'model'
+    (the gate turns the kernels off, with its warning): the first step's
+    loss and this rank's grads, then an epoch of 5 steps."""
+    import warnings
+    from pyroved_tpu_torch.parallel import tensor_parallel_params
+    m = tensor_parallel_params(iVAE((28, 28), **PAR_KW), mesh)
+    xb, eps = par_batch(X)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fused = m.sync_fusion_gate()
+    out = {"fused": fused, "warnings": [str(c.message) for c in caught]}
+    out["first_loss"], grads = first_step_grads(m, xb, eps)
+    out["first_grads"] = {n: g.cpu() for (n, _), g in
+                          zip(m.nets.named_parameters(), grads)}
+    out["split"] = sorted(n for n, mod in m.nets.named_modules()
+                          if type(mod).__name__ == "ColumnParallelLinear")
+    loss, _, out["launches"] = run_path(lambda: SVItrainer(m, mesh=mesh).train(
+        init_dataloader(X[:1000], batch_size=200)))
+    out["loss"] = loss
+    return out
+
+
+def rank_spmd(mesh, X):
+    """(e) on this rank: 5 explicit SPMD steps, each rank on its 100 rows
+    with noise of its own."""
+    from pyroved_tpu_torch.parallel import make_spmd_train_step
+    m = iVAE((28, 28), **PAR_KW)
+    opt = torch.optim.Adam(m.nets.parameters(), lr=1e-3)
+    step = make_spmd_train_step(m, opt, mesh)
+    xb, _ = par_batch(X)
+    w = torch.ones(200, device="cuda")
+    with kernel_shapes() as calls:
+        losses, _, launches = run_path(
+            lambda: [step((xb,), w).item() for _ in range(5)])
+    return {"losses": losses, "launches": launches,
+            "shapes": shape_counts(calls), "checksum": checksum(m)}
+
+
+def rank_decode(mesh, big, z):
+    """(f) on this rank: the large grid's 64 latents decoded with the grid
+    split over the ranks."""
+    from pyroved_tpu_torch.parallel import pixel_sharded_decode
+    with kernel_shapes() as calls:
+        out, _, launches = run_path(
+            lambda: pixel_sharded_decode(big, z, mesh))
+    return {"out": out.cpu(), "launches": launches,
+            "shapes": shape_counts(calls)}
+
+
+def rank_main(argv) -> int:
+    """A rank of phase 12: ``chip_smoke.py --rank RANK WORLD RENDEZVOUS
+    DIR KERNELS``. It loads the kernels from the parent's build directory
+    KERNELS (``enable_compilation_cache``: no nvcc), joins the gloo
+    group (gloo reduces CUDA tensors; NCCL takes one rank per card), runs
+    (b)-(f) under each flag on the data the parent saved in DIR, writes
+    its results there and destroys the group."""
+    import torch.distributed as dist
+    from pyroved_tpu_torch.parallel import create_mesh, initialize_multihost
+    from pyroved_tpu_torch.utils.profiling import enable_compilation_cache
+    rank, world, rdv, tmp = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enable_compilation_cache(argv[4])
+    _build.load_all(list(SOURCES))
+    initialize_multihost(f"file://{rdv}", world, rank, backend="gloo")
+    try:
+        meshes = {a: create_mesh({a: world}) for a in ("data", "pixels",
+                                                       "model")}
+        X = np.load(os.path.join(tmp, "flagship.npy"))
+        X512 = np.load(os.path.join(tmp, "pixel512.npy"), mmap_mode="r")
+        big = iVAE((128, 128), **PAR_KW)
+        z = torch.load(os.path.join(tmp, "z_big.pt")).cuda()
+        res = {}
+        for on in (False, True):
+            with bf16_matmul(on):
+                res[on] = {"dp": rank_dp(meshes["data"], X, tmp),
+                           "pixels": rank_pixels(meshes["pixels"], X512),
+                           "tp": rank_tp(meshes["model"], X),
+                           "spmd": rank_spmd(meshes["data"], X),
+                           "decode": rank_decode(meshes["data"], big, z)}
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_one_rank(X):
+    """(a) under each flag: one NCCL rank in this process (its own
+    in-memory store); the flagship's fit on data_parallel_mesh() bitwise
+    equal to the same fit without a mesh, one K1 and one K2 a step."""
+    import torch.distributed as dist
+    from pyroved_tpu_torch.parallel import (data_parallel_mesh,
+                                            initialize_multihost)
+    if initialize_multihost() != 1 or dist.get_backend() != "nccl":
+        raise AssertionError("initialize_multihost() is not one NCCL rank")
+    out = {}
+    try:
+        mesh = data_parallel_mesh()
+        for on in (False, True):
+            with bf16_matmul(on):
+                tag = "bf16" if on else "f32"
+                ref_model = iVAE((28, 28), **PAR_KW)
+                ref = ref_model.fit(X, epochs=3, batch_size=200)
+                m = iVAE((28, 28), **PAR_KW)
+                tr, secs, launches = run_path(
+                    lambda: m.fit(X, epochs=3, batch_size=200, mesh=mesh))
+                expect_steps(f"(a) {tag} one NCCL rank, fit(mesh="
+                             f"data_parallel_mesh()), {secs:.2f} s",
+                             launches, 30)
+                if (tr.loss_history != ref.loss_history
+                        or checksum(m) != checksum(ref_model)):
+                    raise AssertionError(f"(a) {tag}: the one-rank mesh's fit "
+                                         "is not bitwise the fit without one")
+                out[tag] = {"history": tr.loss_history["training_loss"],
+                            "fit_s": secs, "launches": launches}
+                log(f"  (a) {tag}: losses {out[tag]['history']} bitwise the "
+                    f"fit without a mesh, parameters bitwise equal")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def start_ranks(tmp, world=2):
+    """The ranks of phase 12, each ``chip_smoke.py --rank`` in a child
+    process with its output in ``tmp``."""
+    rdv = os.path.join(tmp, "rendezvous")
+    procs = []
+    for r in range(world):
+        f = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             str(world), rdv, tmp, _build.BUILD_DIR], cwd=ROOT,
+            env=child_env(), stdout=f,
+            stderr=subprocess.STDOUT), f))
+    return procs
+
+
+def finish_ranks(tmp, procs):
+    """Wait for the ranks (each killed at RANK_TIMEOUT seconds from now);
+    raises on a non-zero exit or a kill, with the ranks' output; returns
+    each rank's results."""
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    failed = []
+    for r, (p, f) in enumerate(procs):
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            failed.append(f"rank {r} outlasted {RANK_TIMEOUT} s")
+        f.close()
+    for r, (p, _) in enumerate(procs):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        elif p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}")
+    if failed:
+        logs = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-4000:]
+                       for r in range(len(procs)))
+        raise AssertionError(f"phase 12: {', '.join(failed)}\n{logs}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def check_ranks(what, outs, key="checksum"):
+    if len({o[key] for o in outs}) != 1:
+        raise AssertionError(f"{what}: the ranks' parameters differ")
+
+
+def expect_shapes(what, shapes, **expected):
+    """The kernel calls by (kernel, B, N) of one rank's path, exactly."""
+    if shapes != expected:
+        raise AssertionError(f"{what}: kernel calls {shapes}, expected "
+                             f"{expected}")
+
+
+def check_parallel(on, outs, ref, res, launches, module_first,
+                   module_names, smi):
+    """Phase 12 (b)-(f) under one flag: the ranks' results ``outs``
+    against the single-process references ``ref`` (and the module path's
+    first step); adds the flag's entry to ``res`` and its paths to
+    ``launches``."""
+    tag = "bf16" if on else "f32"
+    k1, k2, k3 = (("K1_bf16", "K2_bf16", "K3_bf16") if on
+                  else ("K1", "K2", "K3"))
+    r = res[tag] = {}
+    grad_rel = BF16_MODULE_GRAD_REL if on else GRAD_RTOL
+    # (b) data parallel, flagship at full width
+    dp = [o[on]["dp"] for o in outs]
+    for i, d in enumerate(dp):
+        expect_steps(f"(b) {tag} rank {i} fit 2 epochs, "
+                     f"{d['fit_s']:.2f} s", d["launches"], 20)
+        expect_shapes(f"(b) {tag} rank {i}", d["shapes"],
+                      **{"K1 B=100 N=784": 20, "K2 B=100 N=784": 20})
+        if not only(d["one_pass_launches"], **{k3: 5}):
+            raise AssertionError(f"(b) {tag} one_pass: "
+                                 f"{d['one_pass_launches']}")
+        expect_shapes(f"(b) {tag} rank {i} one_pass", d["one_pass_shapes"],
+                      **{"K3 B=100 N=784": 5})
+    check_ranks(f"(b) {tag}", dp)
+    got = [dp[0]["first_grads"][n] for n in module_names]
+    want = [g.cpu() for g in ref["first"][1]]
+    err = check_grads(f"(b) {tag} first step, 2 ranks' summed grads vs "
+                      f"one process", got, want, module_names,
+                      per_sample=0, rel=grad_rel)
+    err_rel = rel_to_max(got, want)
+    loss_rel = abs(dp[0]["first_loss"] - ref["first"][0]) / abs(
+        ref["first"][0])
+    epoch_rel = check_epochs(f"(b) {tag} 2 ranks", dp[0]["history"],
+                             ref["history"], "one process")
+    if (dp[0]["resumed_history"] != dp[0]["history"]
+            or any(d["resumed_checksum"] != d["checksum"] for d in dp)):
+        raise AssertionError(f"(b) {tag}: the resumed run is not "
+                             "bitwise the uninterrupted one")
+    log(f"  (b) {tag}: 2 ranks x 100 rows, first step loss rel "
+        f"{loss_rel:.2e}, grads max abs err {err:.3e} ({err_rel:.1e} of "
+        f"the largest entry); losses "
+        f"{dp[0]['history']} vs one process {ref['history']} (max rel "
+        f"{epoch_rel:.2e}); ranks' parameters bitwise equal; resumed "
+        f"run bitwise; one_pass 5 {k3} a rank, loss "
+        f"{dp[0]['one_pass_loss']:.4f}")
+    r["dp"] = {"history": dp[0]["history"], "fit_s": dp[0]["fit_s"],
+               "first_step_err": err, "first_step_rel": err_rel,
+               "first_loss_rel": loss_rel, "epoch_rel": epoch_rel}
+    # (c) pixels: the 512x512 grid split over the two ranks
+    px = [o[on]["pixels"] for o in outs]
+    for i, p in enumerate(px):
+        expect_steps(f"(c) {tag} rank {i} 512x512 fit 2 epochs, "
+                     f"{p['fit_s']:.2f} s", p["launches"], 4)
+        expect_shapes(f"(c) {tag} rank {i}", p["shapes"],
+                      **{f"K1 B=200 N={HALF}": 4,
+                         f"K2 B=200 N={HALF}": 4})
+    check_ranks(f"(c) {tag}", px)
+    loss_rtol = LOSS_RTOL if on else 1e-5
+    ref_first = (ref["first512"][0], [g.cpu() for g in ref["first512"][1]])
+    c_err = max(first_step_vs(f"(c) {tag} rank {i} 512x512 sharded vs "
+                              "full grid", p["first"], ref_first,
+                              loss_rtol, BF16_GRAD_REL if on
+                              else GRAD_RTOL)
+                for i, p in enumerate(px))
+    log(f"  (c) {tag}: per rank peak {[round(p['peak_mib'], 1) for p in px]}"
+        f" MiB above the model (the full grid on one rank: 2290.6 MiB, "
+        f"PERF.md section 5), step {[round(p['step_ms'], 2) for p in px]} "
+        f"ms wall, losses {px[0]['history']} ({smi}; two ranks share "
+        "one card: no speed-up is claimed)")
+    r["pixels"] = {k: [p[k] for p in px] for k in ("peak_mib", "step_ms",
+                                                   "fit_s", "history")}
+    r["pixels"]["first_step_err"] = c_err
+    # (d) tensor parallel: no kernel, the module path's numbers
+    tp = [o[on]["tp"] for o in outs]
+    for i, d in enumerate(tp):
+        if d["fused"] or not any("disabling the fused" in w
+                                 for w in d["warnings"]):
+            raise AssertionError(f"(d) {tag} rank {i}: the gate did not "
+                                 f"turn the kernels off: {d['warnings']}")
+        if not only(d["launches"]):
+            raise AssertionError(f"(d) {tag} rank {i} launched "
+                                 f"{d['launches']}")
+        got, refg = [], []
+        for n, g in zip(module_names, module_first[1]):
+            g = g.cpu()
+            if any(n.startswith(s + ".") for s in d["split"]):
+                o = g.shape[0] // 2
+                g = g[i * o:(i + 1) * o]
+            got.append(d["first_grads"][n])
+            refg.append(g)
+        d_err = check_grads(f"(d) {tag} rank {i} first step vs module "
+                            "path", got, refg, module_names,
+                            per_sample=0, rel=GRAD_RTOL)
+        d_rel = rel_to_max(got, refg)
+        if abs(d["first_loss"] - module_first[0]) > LOSS_RTOL * abs(
+                module_first[0]):
+            raise AssertionError(f"(d) {tag}: first step loss "
+                                 f"{d['first_loss']} vs {module_first[0]}")
+    log(f"  (d) {tag}: {{'model': 2}} split {len(tp[0]['split'])} layers, "
+        f"the gate warned and turned the kernels off, 0 launches; first "
+        f"step loss {tp[0]['first_loss']:.4f} vs the module path "
+        f"{module_first[0]:.4f}, grads max abs err {d_err:.3e} ({d_rel:.1e} "
+        f"of the largest entry)")
+    r["tp"] = {"first_loss": tp[0]["first_loss"], "grad_err": d_err,
+               "grad_rel": d_rel}
+    # (e) the explicit SPMD step
+    sp = [o[on]["spmd"] for o in outs]
+    for i, d in enumerate(sp):
+        if not only(d["launches"], **{k1: 5, k2: 5}):
+            raise AssertionError(f"(e) {tag} rank {i}: {d['launches']}")
+        expect_shapes(f"(e) {tag} rank {i}", d["shapes"],
+                      **{"K1 B=100 N=784": 5, "K2 B=100 N=784": 5})
+    if not (all(np.isfinite(sp[0]["losses"]))
+            and sp[0]["losses"][-1] < sp[0]["losses"][0]):
+        raise AssertionError(f"(e) {tag}: loss not falling "
+                             f"{sp[0]['losses']}")
+    check_ranks(f"(e) {tag}", sp)
+    log(f"  (e) {tag}: 5 SPMD steps, losses {sp[0]['losses']}, one {k1} "
+        f"and one {k2} a step a rank, ranks' parameters bitwise equal")
+    r["spmd"] = {"losses": sp[0]["losses"]}
+    # (f) pixel_sharded_decode
+    dec = [o[on]["decode"] for o in outs]
+    for i, d in enumerate(dec):
+        if not only(d["launches"], **{k1: 1}):
+            raise AssertionError(f"(f) {tag} rank {i}: {d['launches']}")
+        expect_shapes(f"(f) {tag} rank {i}", d["shapes"],
+                      **{"K1 B=64 N=8192": 1})
+        f_err = check_close(f"(f) {tag} rank {i} sharded decode vs one "
+                            "process", d["out"], ref["decode"],
+                            *((BF16_ATOL, BF16_OUT_REL) if on
+                              else (ATOL, 0.0)))
+    log(f"  (f) {tag}: 64 latents on the 128x128 grid, one {k1} a rank "
+        f"at N = 8192, gathered: max abs err vs one process {f_err:.3e}")
+    r["decode_err"] = f_err
+    for i, o in enumerate(outs):
+        for path in ("dp", "pixels", "tp", "spmd", "decode"):
+            launches[f"parallel_{path}_rank{i}_{tag}"] = \
+                o[on][path]["launches"]
+        launches[f"parallel_dp_one_pass_rank{i}_{tag}"] = \
+            o[on]["dp"]["one_pass_launches"]
+
+
+def phase_parallel(smi, peaks):
+    """Phase 12: (a) in this process, (b)-(f) on two gloo ranks in child
+    processes sharing the card, each against single-process references
+    computed here first; then (g) K1 and K2 at the new shapes. Two ranks on
+    one card measure correctness and each rank's memory, not scaling.
+    Returns (results, launches by path, K1 rows, K2/K3 rows)."""
+    t0 = time.perf_counter()
+    X = blobs(PAR_ROWS, (28, 28), seed=21)
+    X512 = blobs(400, PIXEL_DIM, seed=9)
+    res = {"one_rank": phase_one_rank(X)}
+    launches = {f"parallel_one_rank_{t}": r["launches"]
+                for t, r in res["one_rank"].items()}
+    big = iVAE((128, 128), **PAR_KW)
+    z_big = torch.as_tensor(np.random.default_rng(12).normal(size=(64, 2)),
+                            dtype=torch.float32)
+    refs = {}
+    for on in (False, True):  # the single-process references
+        with bf16_matmul(on):
+            m = iVAE((28, 28), **PAR_KW)
+            xb, eps = par_batch(X)
+            r = refs[on] = {"first": first_step_grads(m, xb, eps)}
+            r["history"] = m.fit(X, epochs=2, batch_size=200).loss_history[
+                "training_loss"]
+            m512 = iVAE(PIXEL_DIM, **PIXEL)
+            xb5, eps5 = par_batch(X512, seed=13)
+            r["first512"] = first_step_grads(m512, xb5, eps5)
+            with torch.no_grad():
+                r["decode"] = big.decode(z_big).reshape(64, -1).cpu()
+    module = iVAE((28, 28), fused=False, **PAR_KW)
+    xb, eps = par_batch(X)
+    module_first = first_step_grads(module, xb, eps)
+    module_names = [n for n, _ in module.nets.named_parameters()]
+    del m, m512, module
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "flagship.npy"), X)
+        np.save(os.path.join(tmp, "pixel512.npy"), X512)
+        torch.save(z_big, os.path.join(tmp, "z_big.pt"))
+        t_ranks = time.perf_counter()
+        outs = finish_ranks(tmp, start_ranks(tmp))
+        ranks_s = time.perf_counter() - t_ranks
+    log(f"  two gloo ranks on the card ran (b)-(f) under each flag in "
+        f"{ranks_s:.1f} s ({smi})")
+    for on in (False, True):
+        with bf16_matmul(on):
+            check_parallel(on, outs, refs[on], res, launches, module_first,
+                           module_names, smi)
+    # (g) K1 and K2 at the new shapes
+    k1_rows = {False: [], True: []}
+    rows = {(k, on): [] for k in ("K2", "K3") for on in (False, True)}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    m = iVAE((28, 28), **PAR_KW)
+    xb, eps = par_batch(X)
+    a100, xf100 = train_args(m, xb[:100], eps[:100])
+    m512 = iVAE(PIXEL_DIM, **PIXEL)
+    xb5, eps5 = par_batch(X512, seed=13)
+    a_half = tile_args(train_args(m512, xb5, eps5)[0], slice(0, HALF))
+    for name, a, xf, chunks in (("data-parallel rank", a100, xf100, 1),
+                                ("512x512 pixel rank", a_half, None,
+                                 HALF_CHUNKS)):
+        with torch.no_grad():
+            for on, row in time_k1(name, a, peaks, chunks).items():
+                k1_rows[on].append(row)
+        for key, row in time_bwd(name, a, xf, gen, peaks,
+                                 with_k3=xf is not None,
+                                 chunks=chunks).items():
+            rows[key].append(row)
+    del a_half, m512
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["ranks_seconds"] = ranks_s
+    return res, launches, k1_rows, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3225,6 +3835,17 @@ def main() -> int:
     jobs, job_launches = phase_jobs(smi, fam_data)
     log(f"phase 11 took {jobs['seconds']:.1f} s ({smi})")
 
+    # -- 12. the parallel layer ------------------------------------------
+    log("phase 12: one NCCL rank in process; two gloo ranks on the card: "
+        "data, pixel and tensor parallelism, the SPMD step, the sharded "
+        "decode; K1/K2 at the ranks' shapes")
+    parallel, par_launches, par_k1, par_rows = phase_parallel(smi, peaks)
+    for on in (False, True):
+        k1_rows[on] += par_k1[on]
+    for key, more in par_rows.items():
+        rows[key] += more
+    log(f"phase 12 took {parallel['seconds']:.1f} s ({smi})")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -3247,7 +3868,8 @@ def main() -> int:
                 **{f"{path}_{tag}": n[key]
                    for tag, f in (("bf16", pix), ("f32", pix32))
                    for path, n in pixel_launches(f).items()},
-                **{path: n[key] for path, n in job_launches.items()}}
+                **{path: n[key] for path, n in job_launches.items()},
+                **{path: n[key] for path, n in par_launches.items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -3310,7 +3932,7 @@ def main() -> int:
                             "seconds": phase9_s},
         "pixel_int8_viz": {"bf16": pix, "f32": pix32,
                            "seconds": phase10_s},
-        "jobs": jobs}
+        "jobs": jobs, "parallel": parallel}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3319,4 +3941,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else main())

@@ -14,8 +14,10 @@ int8 serving archives; typed configs (``config``) and the job runner
 ``python -m pyroved_tpu_torch.train job.json``, custom encoder and decoder
 networks (``set_encoder`` / ``set_decoder``), the reference pyroVED's
 weights (``load_torch_weights``, ``interop``) and profiling
-(``utils.profiling``). Every spatial decode, the enumerated ones on
-K*B rows included, goes through hand-written CUDA kernels
+(``utils.profiling``); across devices, one rank each, data, tensor and
+pixel parallelism and an explicit SPMD step (``parallel``). Every spatial
+decode, the enumerated ones on K*B rows included, goes through
+hand-written CUDA kernels
 (``ops.spatial_decoder``): the fused forward, its backward, and the
 one-pass Bernoulli train kernel. The JAX package ``pyroved_tpu`` stays the
 reference; this package imports nothing of it and nothing of JAX.
@@ -23,9 +25,9 @@ reference; this package imports nothing of it and nothing of JAX.
 Device rule: entry points take ``device=None``, which means ``"cuda"``.
 Without CUDA they raise unless the caller passes ``device="cpu"``.
 """
-from . import (config, infer, interop, models, nets, ops, serving, trainers,
-               utils, weights)
+from . import (config, infer, interop, models, nets, ops, parallel, serving,
+               trainers, utils, weights)
 from .__version__ import __version__
 
-__all__ = ["config", "infer", "interop", "models", "nets", "ops", "serving",
-           "trainers", "utils", "weights", "__version__"]
+__all__ = ["config", "infer", "interop", "models", "nets", "ops", "parallel",
+           "serving", "trainers", "utils", "weights", "__version__"]

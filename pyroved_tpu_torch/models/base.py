@@ -4,10 +4,12 @@ Counterpart of the parts of ``pyroved_tpu/models/base.py`` that the
 ported families use: invariance bookkeeping (1-D data allows only
 ``['t']``; in 2-D ``'t'`` takes two latent slots), the coordinate grid and
 the priors, the latent split in the order rotation -> translation -> scale
--> content, the decoder and the routing of its decodes, the transformed
-grids, the pixel-partitioned reconstruction term (``pixel_chunks``), P-fold
-particle tiling, chunked encode/decode, the semi-supervised ``fit`` loop,
-custom networks (``set_encoder`` / ``set_decoder``), pickle-free
+-> content, the decoder and the routing of its decodes (and its gate under
+tensor parallelism, ``sync_fusion_gate``), the transformed grids, the
+pixel-partitioned reconstruction term (``pixel_chunks``, or a mesh axis
+under ``parallel.shard_pixels``), P-fold particle tiling, chunked
+encode/decode, the semi-supervised ``fit`` loop, custom networks
+(``set_encoder`` / ``set_decoder``), pickle-free
 ``save_weights`` / ``load_weights`` and the reference pyroVED's weights
 (``load_torch_weights``). A model without invariances has no grid: VED
 builds on this base with ``data_dim`` its output and its own conv decoder,
@@ -17,6 +19,7 @@ Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
 package's top-level names (``encoder_z``, ``encoder_y``, ``decoder``) on
 ``self.device``.
 """
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +30,9 @@ from torch.utils.checkpoint import checkpoint
 from ..infer.elbo import obs_site
 from ..nets.fc import fcDecoderNet, sDecoderNet
 from ..ops.spatial_decoder import (apply_fused_sdecoder,
+                                   padded_sdecoder_weights,
                                    sdecoder_supports_fusion)
+from ..parallel.collectives import Axis, replicated, sum_over
 from ..utils.coord import generate_grid, transform_coordinates
 from ..utils.nn import as_f32, resolve_device
 
@@ -173,6 +178,10 @@ class baseVAE:
                 "pixel_chunks requires a spatial decoder (invariances=...); "
                 "models without a coordinate grid have no pixel axis to "
                 "partition")
+        # parallel.shard_pixels(model, mesh, axis) sets these: the pixel
+        # grid is then split over the mesh axis (see _recon_pixel_sharded)
+        self._pixel_mesh = None
+        self._pixel_axis = None
 
         self.nets: Optional[nn.ModuleDict] = None  # set by subclasses
         self.z_dim = None
@@ -204,6 +213,27 @@ class baseVAE:
                          and activation == "tanh" and self._fused
                          else activation)
         return decoder
+
+    def sync_fusion_gate(self) -> bool:
+        """Re-check the kernels' gate against the decoder as it now stands:
+        a decoder whose layers are split over a mesh axis
+        (``parallel.tensor_parallel_params``) cannot feed the kernels,
+        which need its weights whole, so they are turned off with a
+        ``UserWarning`` and its decodes go to the ``sDecoderNet`` module.
+        The trainers call this at every ``train`` and ``evaluate``, and
+        ``make_spmd_train_step`` when it builds its step. Returns the
+        gate."""
+        if not getattr(self, "_fused", False):
+            return False
+        from ..parallel.mesh import tensor_parallel
+        if tensor_parallel(self.decoder_net):
+            warnings.warn(
+                "decoder parameters are sharded across the mesh; disabling "
+                "the fused spatial-decoder kernels (they need replicated "
+                "decoder weights). Training continues on the sDecoderNet "
+                "module path.", UserWarning, stacklevel=2)
+            self._fused = False
+        return self._fused
 
     @property
     def encoder_net(self) -> nn.Module:
@@ -301,15 +331,16 @@ class baseVAE:
         the pixels, ``[...]``, of latents ``z [..., z_dim]`` whose content
         is joined by labels ``y`` (``[..., *]``, or None), for flat
         observations ``xf`` broadcastable to ``[..., N*C]``: over the whole
-        grid (:meth:`_decode_grid`), tile by tile under ``pixel_chunks``,
-        or through the plain decoder without invariances."""
+        grid (:meth:`_decode_grid`), partitioned under ``pixel_chunks`` or
+        ``shard_pixels`` (:meth:`_recon_pixel_parallel`), or through the
+        plain decoder without invariances."""
         if self.coord == 0:
             loc = self.decoder_net(with_labels(z, y))
         else:
             phi, dx, sc, zc = self.split_latent_full(z)
             zc = with_labels(zc, y)
             if self._pixel_mode():
-                return self._recon_pixel_chunked(phi, dx, sc, zc, xf)
+                return self._recon_pixel_parallel(phi, dx, sc, zc, xf)
             loc = self._decode_grid(self.grid, phi, dx, sc, zc)
         return obs_site(self.sampler_d, xf, loc.reshape(z.shape[:-1] + (-1,)))
 
@@ -317,9 +348,12 @@ class baseVAE:
     # Pixel-partitioned reconstruction (training path)
     # ------------------------------------------------------------------
     def _pixel_mode(self) -> Optional[str]:
-        """``"chunk"`` when ``pixel_chunks`` > 1, else None (the full-grid
-        paths). Read at every loss, so setting ``model.pixel_chunks`` takes
-        effect at the next step."""
+        """``"shard"`` under ``parallel.shard_pixels``, else ``"chunk"``
+        when ``pixel_chunks`` > 1, else None (the full-grid paths). Read at
+        every loss, so setting ``model.pixel_chunks`` or calling
+        ``shard_pixels`` takes effect at the next step."""
+        if self._pixel_mesh is not None:
+            return "shard"
         return "chunk" if int(self.pixel_chunks or 0) > 1 else None
 
     def _padded_pixel_arrays(self, xp: Tensor, multiple: int):
@@ -337,30 +371,84 @@ class baseVAE:
             xp = torch.nn.functional.pad(xp, widths)
         return grid, mask, xp
 
-    def _decode_grid(self, grid: Tensor, phi, dx, sc, zc: Tensor) -> Tensor:
+    def _decode_grid(self, grid: Tensor, phi, dx, sc, zc: Tensor,
+                     params=None) -> Tensor:
         """The decoded loc ``[batch..., n(, C)]`` over the grid rows
         ``grid [n, D]`` (the whole grid or a tile of it) under the
         per-sample transforms, for decoder inputs ``zc [batch..., L]``:
         through the kernels when routed there, else the decoder module on
-        the transformed coordinates."""
+        the transformed coordinates. ``params`` (:meth:`_decoder_params`)
+        take the place of the decoder's own weights."""
         if self._fused:
             return apply_fused_sdecoder(self.decoder_net, grid, phi, dx, sc,
-                                        zc, self._dec_act, self._dec_sig)
+                                        zc, self._dec_act, self._dec_sig,
+                                        weights=params)
         coords = transform_coordinates(
             grid.expand(zc.shape[:-1] + grid.shape), phi, dx[..., None, :],
             sc)
-        return self.decoder_net(coords, zc)
+        if params is None:
+            return self.decoder_net(coords, zc)
+        names = [n for n, _ in self.decoder_net.named_parameters()]
+        return torch.func.functional_call(
+            self.decoder_net, dict(zip(names, params)), (coords, zc))
 
-    def _tile_recon(self, grid_t, x_t, m_t, phi, dx, sc, zc) -> Tensor:
+    def _decoder_params(self) -> tuple:
+        """The decoder's weights as :meth:`_decode_grid` takes them: the
+        kernels' padded tensors on the kernels' path, else the module's
+        parameters."""
+        if self._fused:
+            return padded_sdecoder_weights(self.decoder_net)
+        return tuple(self.decoder_net.parameters())
+
+    def _tile_recon(self, grid_t, x_t, m_t, phi, dx, sc, zc,
+                    params=None) -> Tensor:
         """One tile's masked reconstruction term, ``[batch...]``."""
-        lp = self.sampler_d.log_prob(x_t, self._decode_grid(grid_t, phi, dx,
-                                                            sc, zc))
+        lp = self.sampler_d.log_prob(x_t, self._decode_grid(
+            grid_t, phi, dx, sc, zc, params))
         if self.channels > 1:
             lp = torch.sum(lp, dim=-1)
         return torch.sum(lp * m_t, dim=-1)
 
+    def _recon_pixel_parallel(self, phi, dx, sc, zc: Tensor,
+                              xf: Tensor) -> Tensor:
+        """The reconstruction term with the pixel axis partitioned: over
+        ``pixel_chunks`` tiles in order, or over this rank's shard of
+        ``shard_pixels``' mesh axis. ``xf`` broadcasts to ``[batch...,
+        N*C]``; returns ``[batch...]``."""
+        C = self.channels
+        N = self.grid.shape[0]
+        batch = zc.shape[:-1]
+        xf = xf.expand(batch + xf.shape[-1:])
+        xp = xf.reshape(batch + ((N, C) if C > 1 else (N,)))
+        if self._pixel_mode() == "shard":
+            return self._recon_pixel_sharded(phi, dx, sc, zc, xp)
+        return self._recon_pixel_chunked(phi, dx, sc, zc, xp)
+
+    def _recon_pixel_sharded(self, phi, dx, sc, zc: Tensor,
+                             xp: Tensor) -> Tensor:
+        """The reconstruction term with the grid split over the mesh axis
+        of ``shard_pixels``: this rank decodes its slice of the padded,
+        masked grid (N/n pixels) through the routing of every training
+        decode (K1, and K2 in the backward, on the kernels' path), and the
+        per-example partial terms are summed over the axis. The latents
+        and the decoder's weights enter the slice through ``replicated``,
+        so the backward sums their partial cotangents over the axis once;
+        the sum's backward passes the whole cotangent through. Every rank
+        thus holds the loss and every grad whole, as the JAX package's
+        ``shard_map`` and ``psum`` give them."""
+        axis = Axis(self._pixel_mesh, self._pixel_axis)
+        grid, mask, xp = self._padded_pixel_arrays(xp, axis.size)
+        tile = grid.shape[0] // axis.size
+        rows = slice(axis.rank * tile, (axis.rank + 1) * tile)
+        phi, dx, sc, zc, *params = replicated(axis, phi, dx, sc, zc,
+                                              *self._decoder_params())
+        part = self._tile_recon(
+            grid[rows], xp[..., rows] if self.channels == 1
+            else xp[..., rows, :], mask[rows], phi, dx, sc, zc, params)
+        return sum_over(axis, part)
+
     def _recon_pixel_chunked(self, phi, dx, sc, zc: Tensor,
-                             xf: Tensor) -> Tensor:
+                             xp: Tensor) -> Tensor:
         """The reconstruction term over ``pixel_chunks`` grid tiles, in
         order, summed into a zero accumulator (exact: the observation
         log-density factorizes over pixels; a pixel count that k does not
@@ -368,17 +456,15 @@ class baseVAE:
         each tile runs under a checkpoint, so the backward holds one tile's
         ``[batch..., N/k, H]`` activations at a time; the kernels save
         only their inputs, so their tiles run plain: k K1 and k K2 a
-        step. The tiles draw no random numbers."""
+        step. The tiles draw no random numbers. ``xp`` is ``[batch..., N]``
+        or ``[batch..., N, C]``."""
         k = int(self.pixel_chunks)
         C = self.channels
-        N = self.grid.shape[0]
         batch = zc.shape[:-1]
-        xf = xf.expand(batch + xf.shape[-1:])
-        xp = xf.reshape(batch + ((N, C) if C > 1 else (N,)))
         grid, mask, xp = self._padded_pixel_arrays(xp, k)
         tile = grid.shape[0] // k
         remat = torch.is_grad_enabled() and not self._fused
-        acc = xf.new_zeros(batch)
+        acc = xp.new_zeros(batch)
         for t in range(k):
             rows = slice(t * tile, (t + 1) * tile)
             args = (grid[rows], xp[..., rows] if C == 1 else xp[..., rows, :],

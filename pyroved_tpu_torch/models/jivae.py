@@ -158,14 +158,15 @@ class jiVAE(baseVAE):
     def _enum_recon_pp(self, z: Tensor, onehots: Tensor,
                        xf: Tensor) -> Tensor:
         """Per-branch reconstruction term ``[Ke, B]`` over the grid tiles of
-        ``pixel_chunks``: the branches ``onehots [Ke, B, K]`` ride as a
+        ``pixel_chunks`` (or this rank's shard under ``shard_pixels``): the
+        branches ``onehots [Ke, B, K]`` ride as a
         leading batch dim (Ke*B kernel rows a tile), so neither the
         ``[Ke, B, N, H]`` activations nor the ``[Ke, B, N]`` locs exist in
         full."""
         Ke = onehots.shape[0]
         phi, dx, sc, zc = self.split_latent_full(z)
         zc_k = torch.cat([zc.expand((Ke,) + zc.shape), onehots], -1)
-        return self._recon_pixel_chunked(
+        return self._recon_pixel_parallel(
             phi.expand((Ke,) + phi.shape), dx.expand((Ke,) + dx.shape),
             sc.expand((Ke,) + sc.shape), zc_k, xf[None])
 

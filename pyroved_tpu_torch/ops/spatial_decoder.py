@@ -722,14 +722,17 @@ def _flat_latents(grid, phi, dx, sc, z):
 
 
 def apply_fused_sdecoder(decoder, grid, phi, dx, sc, z, act: str = "tanh",
-                         sigmoid_out: bool = True) -> Tensor:
+                         sigmoid_out: bool = True, weights=None) -> Tensor:
     """Run the fused decode from an ``sDecoderNet``. Leading batch dims of
     phi/dx/sc/z may be multi-dimensional; they are flattened for the kernel
     and restored on the output. With autograd on it goes through
     :class:`FusedSpatialDecoder`, so the backward is K2 and the grads reach
     the module's parameters; otherwise the padded weights are built once
-    and reused until a weight changes."""
-    weights = _kernel_weights(decoder)
+    and reused until a weight changes. ``weights`` (as
+    :func:`padded_sdecoder_weights` gives them) take the place of the
+    module's own."""
+    if weights is None:
+        weights = _kernel_weights(decoder)
     args = _flat_latents(grid, phi, dx, sc, z) + tuple(weights)
     if torch.is_grad_enabled():
         out = FusedSpatialDecoder.apply(*args, act, sigmoid_out)

@@ -18,7 +18,9 @@ two runners:
 
 The host reads a segment's losses only when it must: at once where a stop
 decision or a checkpoint needs them, else one segment late, after the next
-segment's steps are queued.
+segment's steps are queued. Across ranks the JSONL records and checkpoints
+are written by global rank 0 alone (every rank waits after a checkpoint);
+the losses, stop decisions and callbacks are every rank's, and equal.
 
 A trainer provides ``_seg_metric_key``, ``_seg_history``,
 ``_seg_has_metric(kwargs)``, ``_seg_monitor_kwarg``,
@@ -31,6 +33,8 @@ import json
 import time
 
 import numpy as np
+
+from ..parallel.collectives import is_writer
 
 # epochs per segment of the JAX package's pipelined runner
 PIPELINE_SEGMENT = 5
@@ -100,6 +104,8 @@ class SegmentedRunsMixin:
                 for j in range(n)]
 
     def _seg_write_jsonl(self, records, dt: float) -> None:
+        if not is_writer():
+            return
         with open(self.log_file, "a") as f:
             for record in records:
                 record = dict(record, epoch_seconds=dt / len(records))
@@ -111,7 +117,7 @@ class SegmentedRunsMixin:
         if not self._deferred_records:
             return
         records, self._deferred_records = self._deferred_records, []
-        if not self.log_file:
+        if not self.log_file or not is_writer():
             return
         history, key = self._seg_history(), self._seg_metric_key()
         with open(self.log_file, "a") as f:
@@ -220,9 +226,8 @@ class SegmentedRunsMixin:
             due = (self.checkpoint_path
                    and self.current_epoch % self.checkpoint_every == 0)
             if due:
-                from ..utils.checkpoint import save_checkpoint
-                save_checkpoint(self.checkpoint_path, self.model, self,
-                                async_write=True)
+                from .svi import save_state
+                save_state(self, async_write=True)
             if patience is not None or due:
                 waiting.append((n, lo, self.current_epoch))
                 finish()

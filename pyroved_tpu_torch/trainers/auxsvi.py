@@ -29,6 +29,11 @@ update; the auxiliary Adam keeps its cadence. The noise comes from a
 (``noise_shapes``); :meth:`auxSVItrainer.draw_noise` is where a test
 injects the JAX package's. ``run`` takes ``patience`` (on the validation
 metric), ``on_segment`` and ``enum_schedule`` (:mod:`._segmented`).
+
+``mesh`` trains data parallel over its ``'data'`` axis as ``SVItrainer``
+does: each basic and auxiliary step keeps the rank's rows of the whole
+batch and its noise, and sums its grads and loss over the ranks before its
+update. The validation metric is every rank's own, on the whole loader.
 """
 import time
 from typing import Dict, Optional
@@ -36,12 +41,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.collectives import DataAxis, is_writer
 from ..utils.data import DataLoader
 from ..utils.nn import average_weights
 from ._segmented import SegmentedRunsMixin
-from .svi import (GradAccumulator, _PendingLoss, apply_update, draw_noise,
-                  pad_batch, reject_mesh, save_if_due, streamed_batches,
-                  to_device)
+from .svi import (GradAccumulator, _PendingLoss, apply_update, check_parallel,
+                  draw_noise, pad_batch, save_if_due, streamed_batches,
+                  sync_gate, to_device)
 
 Tensor = torch.Tensor
 
@@ -64,8 +70,8 @@ class auxSVItrainer(SegmentedRunsMixin):
         checkpoint_path: where to save the training state (both optimizers
             included), after every ``checkpoint_every``-th epoch (default
             10); :meth:`resume` restores it.
-
-    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
+        mesh: a ``DeviceMesh``; its ``'data'`` axis splits each batch's
+            rows over the ranks (module docstring).
     """
 
     def __init__(self, model, task: Optional[str] = None,
@@ -75,7 +81,8 @@ class auxSVItrainer(SegmentedRunsMixin):
         if task not in ("classification", "regression"):
             raise ValueError(
                 "Choose between 'classification' and 'regression' tasks")
-        reject_mesh("auxSVItrainer", kwargs)
+        self.mesh = kwargs.pop("mesh", None)
+        self.data_axis = DataAxis(self.mesh)
         lr = float(kwargs.pop("lr", 5e-4))
         self.grad_accum = int(kwargs.pop("grad_accum", 1) or 1)
         self.log_file = kwargs.pop("log_file", None)
@@ -84,6 +91,7 @@ class auxSVItrainer(SegmentedRunsMixin):
         if kwargs:
             raise TypeError(
                 f"auxSVItrainer got unexpected keywords {sorted(kwargs)}")
+        check_parallel(model, self.data_axis, self.checkpoint_path)
         self.task = task
         self.model = model
         self.device = model.device
@@ -119,14 +127,17 @@ class auxSVItrainer(SegmentedRunsMixin):
                    eps=None) -> Tensor:
         """One basic step on an unlabeled batch (an Adam update, or a
         micro-step of one under ``grad_accum``); returns its weighted loss
-        (0-d, on the device, without waiting)."""
+        (0-d, on the device, without waiting). Under a mesh the arguments
+        are the whole batch's and the rank trains on its rows."""
         if eps is None:
             eps = self.draw_noise(x.shape[0], False)
+        (x,), weights, eps = self.data_axis.local((x,), weights, eps)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.weighted_loss_fn(x, None, weights, beta, eps=eps)
         loss.backward()
+        loss = self.data_axis.reduce_grads(self.optimizer, loss)
         apply_update(self.optimizer, self.grad_accumulator)
-        return loss.detach()
+        return loss
 
     def sup_step(self, x: Tensor, y: Tensor, weights: Tensor, beta=1.0,
                  aux_loss_multiplier=20.0, eps=None) -> Tensor:
@@ -135,16 +146,19 @@ class auxSVItrainer(SegmentedRunsMixin):
         weighted losses."""
         if eps is None:
             eps = self.draw_noise(x.shape[0], True)
+        (x, y), weights, eps = self.data_axis.local((x, y), weights, eps)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.weighted_loss_fn(x, y, weights, beta, eps=eps)
         loss.backward()
+        loss = self.data_axis.reduce_grads(self.optimizer, loss)
         apply_update(self.optimizer, self.grad_accumulator)
         self.aux_optimizer.zero_grad(set_to_none=True)
         aux = torch.sum(self.model.aux_loss_fn(x, y, aux_loss_multiplier)
                         * weights)
         aux.backward()
+        aux = self.data_axis.reduce_grads(self.aux_optimizer, aux)
         apply_update(self.aux_optimizer, None)
-        return loss.detach() + aux.detach()
+        return loss + aux
 
     @staticmethod
     def _period(loader_unsup, loader_sup, sup_period=None) -> int:
@@ -240,6 +254,7 @@ class auxSVItrainer(SegmentedRunsMixin):
             sup_period: the labeled-step cadence p.
             sync: ``False`` returns a pending loss without waiting.
         """
+        sync_gate(self.model)
         beta = kwargs.get("scale_factor", 1.0)
         aux_mult = float(kwargs.get("aux_loss_multiplier", 20))
         sup_period = kwargs.get("sup_period")
@@ -404,8 +419,11 @@ class auxSVItrainer(SegmentedRunsMixin):
             average_weights(self.running_weights))
 
     def print_statistics(self) -> None:
-        """Prints the current epoch's loss and metric."""
+        """Prints the current epoch's loss and metric (global rank 0
+        alone)."""
         self.sync_history()
+        if not is_writer():
+            return
         e = self.current_epoch
         if len(self.history["test"]) > 0:
             metric = "accuracy" if self.task == "classification" else "MSE"

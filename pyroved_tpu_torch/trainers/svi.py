@@ -28,6 +28,19 @@ JSONL record per epoch; ``checkpoint_path`` saves the full training state
 ``checkpoint_every``-th epoch (default 10) of ``step`` and ``run``, and
 :meth:`SVItrainer.resume` restores it. ``run`` takes ``patience``,
 ``on_segment`` and ``enum_schedule`` (:mod:`._segmented`).
+
+``mesh`` (a ``DeviceMesh``, :mod:`pyroved_tpu_torch.parallel`) trains data
+parallel over its ``'data'`` axis, one rank per device, each rank running
+this trainer on the same loader, seed and model: every rank gathers the
+whole batch and draws the whole batch's noise, keeps its contiguous rows,
+and after the backward one ``all_reduce`` sums every grad and the loss, so
+that the same optimizer step on every rank gives the single-device
+trajectory. Under ``grad_accum`` each micro-step's grads are summed before
+they enter the window. The kernels' gate is checked again at every
+``train`` and ``evaluate`` (``sync_fusion_gate``: a tensor-parallel decoder
+turns them off). Checkpoints, JSONL records and ``print_statistics`` are
+written by global rank 0 alone, every rank waiting after each checkpoint;
+``resume`` loads on every rank.
 """
 import time
 from typing import Optional
@@ -36,8 +49,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as _remat
 
+from ..parallel.collectives import DataAxis, barrier, distributed, is_writer
+from ..parallel.mesh import tensor_parallel
 from ..utils.data import DataLoader
-from ..utils.nn import later_slice
 from ._segmented import SegmentedRunsMixin
 
 Tensor = torch.Tensor
@@ -65,9 +79,19 @@ def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def reject_mesh(what: str, kwargs) -> None:
-    if kwargs.pop("mesh", None) is not None:
-        raise later_slice(f"{what}(mesh=...)", "parallel")
+def check_parallel(model, data_axis: DataAxis, checkpoint_path) -> None:
+    """Refuse what the parallel layer cannot keep exact: batch statistics
+    (a VED's batchnorm) over rows split across ranks, and checkpoints of
+    a tensor-parallel model, whose rank 0 holds only its shards."""
+    from ..nets.conv import BatchNorm
+    if data_axis.size > 1 and any(isinstance(m, BatchNorm)
+                                  for m in model.nets.modules()):
+        raise ValueError(
+            "batchnorm statistics would be taken over each rank's rows; "
+            "train a batchnorm model without a 'data' axis")
+    if checkpoint_path and tensor_parallel(model.nets):
+        raise ValueError("checkpoints of a tensor-parallel model are not "
+                         "supported: rank 0 holds only its shards")
 
 
 class GradAccumulator:
@@ -115,13 +139,31 @@ def apply_update(optimizer: torch.optim.Optimizer,
         accumulator.step()
 
 
+def save_state(trainer, async_write: bool = False) -> None:
+    """Save ``trainer``'s checkpoint at its ``checkpoint_path``: on global
+    rank 0 alone, and then, across ranks, every rank waits for the file
+    (written at once there; ``async_write`` holds only in one process)."""
+    from ..utils.checkpoint import save_checkpoint
+    many = distributed()
+    if is_writer():
+        save_checkpoint(trainer.checkpoint_path, trainer.model, trainer,
+                        async_write=async_write and not many)
+    barrier()
+
+
 def save_if_due(trainer) -> None:
     """Save ``trainer``'s checkpoint when it has a ``checkpoint_path`` and
     its ``current_epoch`` is a multiple of ``checkpoint_every``."""
     if (trainer.checkpoint_path
             and trainer.current_epoch % trainer.checkpoint_every == 0):
-        from ..utils.checkpoint import save_checkpoint
-        save_checkpoint(trainer.checkpoint_path, trainer.model, trainer)
+        save_state(trainer)
+
+
+def sync_gate(model) -> None:
+    """The model's kernels' gate, checked again (``sync_fusion_gate``)."""
+    gate = getattr(model, "sync_fusion_gate", None)
+    if gate is not None:
+        gate()
 
 
 def streamed_batches(loader, device):
@@ -198,15 +240,16 @@ class SVItrainer(SegmentedRunsMixin):
         log_file: append one JSONL record per epoch.
         checkpoint_path: where to save the training state, after every
             ``checkpoint_every``-th epoch (default 10).
-
-    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
+        mesh: a ``DeviceMesh``; its ``'data'`` axis splits each batch's
+            rows over the ranks (module docstring).
     """
 
     def __init__(self, model, optimizer: Optional[torch.optim.Optimizer] = None,
                  loss=None, enumerate_parallel: bool = False, seed: int = 1,
                  **kwargs):
         del enumerate_parallel  # enumeration lives in the models' loss_fn
-        reject_mesh("SVItrainer", kwargs)
+        self.mesh = kwargs.pop("mesh", None)
+        self.data_axis = DataAxis(self.mesh)
         lr = float(kwargs.pop("lr", 1e-3))
         self.grad_accum = int(kwargs.pop("grad_accum", 1) or 1)
         self.remat = bool(kwargs.pop("remat", False))
@@ -215,6 +258,7 @@ class SVItrainer(SegmentedRunsMixin):
         self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
             raise TypeError(f"SVItrainer got unexpected keywords {sorted(kwargs)}")
+        check_parallel(model, self.data_axis, self.checkpoint_path)
         if loss is not None:
             loss.configure(model)
         self.model = model
@@ -259,25 +303,32 @@ class SVItrainer(SegmentedRunsMixin):
         (``(x,)`` or ``(x, y)``, tensors on the model's device): an Adam
         update, or under ``grad_accum`` a micro-step of one. ``eps`` is the
         latent noise; it is drawn from the trainer's generator when not
-        given. Returns the loss as a 0-d device tensor, without waiting."""
+        given. Under a mesh, ``batch``, ``weights`` and ``eps`` are the
+        whole batch's; the rank trains on its rows and returns the whole
+        batch's loss. Returns the loss as a 0-d device tensor, without
+        waiting."""
+        if eps is None:
+            eps = self._noise(batch[0].shape[0])
+        batch, weights, eps = self.data_axis.local(batch, weights, eps)
         x = batch[0]
         y = batch[1] if len(batch) > 1 else None
-        if eps is None:
-            eps = self._noise(x.shape[0])
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(x, y, weights, beta, eps)
         loss.backward()
+        loss = self.data_axis.reduce_grads(self.optimizer, loss)
         apply_update(self.optimizer, self.grad_accumulator)
-        return loss.detach()
+        return loss
 
     def _batch_loss(self, batch, w: Tensor, beta, train: bool) -> Tensor:
+        """One batch's loss: a training step, or under a mesh this rank's
+        rows' share of an evaluation (summed over the ranks per epoch)."""
         if train:
             return self.train_step(batch, w, beta)
-        x = batch[0]
+        eps = self._noise(batch[0].shape[0])
+        batch, w, eps = self.data_axis.local(batch, w, eps)
         y = batch[1] if len(batch) > 1 else None
         with torch.no_grad():
-            return self.model.weighted_loss_fn(x, y, w, beta,
-                                               eps=self._noise(x.shape[0]))
+            return self.model.weighted_loss_fn(batch[0], y, w, beta, eps=eps)
 
     def _epoch(self, loader, scale_factor, train: bool):
         """(sum of the epoch's batch losses as a 0-d device tensor, the
@@ -298,7 +349,10 @@ class SVItrainer(SegmentedRunsMixin):
                 norm += n
         if not losses:
             return torch.zeros((), device=self.device), 1
-        return torch.stack(losses).sum(), max(norm, 1)
+        total = torch.stack(losses).sum()
+        if not train:  # the ranks' rows' shares
+            total = self.data_axis.all_reduce(total)
+        return total, max(norm, 1)
 
     def train(self, train_loader, **kwargs):
         """One training epoch; returns loss / dataset_size.
@@ -306,6 +360,7 @@ class SVItrainer(SegmentedRunsMixin):
         ``scale_factor`` is the KL scale beta (default 1). ``sync=False``
         returns a pending loss handle without waiting for the device; call
         :meth:`sync_history` or ``float()`` on it."""
+        sync_gate(self.model)
         total, norm = self._epoch(train_loader,
                                   kwargs.get("scale_factor", 1.0), True)
         if not kwargs.get("sync", True):
@@ -315,6 +370,7 @@ class SVItrainer(SegmentedRunsMixin):
     def evaluate(self, test_loader, **kwargs):
         """Loss over a held-out set, with no parameter update; keywords as
         :meth:`train`."""
+        sync_gate(self.model)
         total, norm = self._epoch(test_loader,
                                   kwargs.get("scale_factor", 1.0), False)
         if not kwargs.get("sync", True):
@@ -420,8 +476,10 @@ class SVItrainer(SegmentedRunsMixin):
         return self.current_epoch
 
     def print_statistics(self) -> None:
-        """Prints the current epoch's losses."""
+        """Prints the current epoch's losses (global rank 0 alone)."""
         self.sync_history()
+        if not is_writer():
+            return
         e = self.current_epoch
         if len(self.loss_history["test_loss"]) > 0:
             print("Epoch: {} Training loss: {:.4f}, Test loss: {:.4f}".format(

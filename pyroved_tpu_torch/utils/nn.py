@@ -52,12 +52,6 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def later_slice(what: str, item: str) -> NotImplementedError:
-    """The error for a feature that a later slice of the port brings."""
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md, '{item}'")
-
-
 def as_f32(x, device) -> Tensor:
     """A float32 tensor on ``device`` from a tensor or an array-like."""
     if isinstance(x, Tensor):

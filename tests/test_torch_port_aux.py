@@ -23,6 +23,8 @@ from pyroved_tpu_torch.utils.data import (init_dataloader,
 from pyroved_tpu_torch.utils.nn import as_numpy
 from pyroved_tpu_torch.weights import from_jax_params
 
+from torch_port_ranks import one_rank_mesh
+
 # Parameters after four Adam steps at lr 5e-4, f32 on both sides with sums
 # in other orders; the acceptance bound of the port's trainers.
 PARAM_ATOL, PARAM_RTOL = 1e-4, 1e-3
@@ -274,11 +276,15 @@ def test_later_slice_trainer_features_raise_naming_roadmap(tmp_path):
     """The trainer surface is ported: ``grad_accum``, ``log_file``,
     ``patience``, ``on_segment``, ``enum_schedule`` and iterables of
     batches run (each held against the JAX package in
-    tests/test_torch_port_segmented.py and its siblings); ``mesh`` still
-    raises, naming its item ('parallel')."""
+    tests/test_torch_port_segmented.py and its siblings); ``mesh`` takes a
+    DeviceMesh (held against the JAX mesh in
+    tests/test_torch_port_parallel.py): anything else is a TypeError
+    naming it, and a one-rank mesh reaches the trainer."""
     m, xu, xl, yl = _ss_setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         auxSVItrainer(m, mesh=object())
+    with one_rank_mesh() as mesh:
+        assert auxSVItrainer(m, mesh=mesh).mesh is mesh
     loaders = init_ssvae_dataloaders(xu, (xl, m._labels(yl)),
                                      (xl, m._labels(yl)), batch_size=8,
                                      device="cpu")

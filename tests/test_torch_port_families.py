@@ -28,6 +28,7 @@ from test_torch_port_bf16 import GRAD_ATOL as BF16_GRAD_ATOL
 from test_torch_port_bf16 import GRAD_REL as BF16_GRAD_REL
 from test_torch_port_bf16 import LOSS_RTOL as BF16_LOSS_RTOL
 from test_torch_port_bf16 import MEAN_REL as BF16_MEAN_REL
+from torch_port_ranks import one_rank_mesh
 
 # The port's f32 tolerances: outputs f32 with sums in another order; losses
 # sum hundreds of pixel terms (relative); grads sum over the batch and the
@@ -334,8 +335,10 @@ def test_served_families_match_jax(family, tmp_path):
 
 def test_later_slice_features_raise_naming_roadmap(tmp_path, monkeypatch):
     """The later slices' features run in the families (``pixel_chunks``,
-    the trainer surface, checkpoints, the default plot); ``mesh`` still
-    raises, naming its item ('parallel')."""
+    the trainer surface, checkpoints, the default plot); ``fit(mesh=...)``
+    takes a DeviceMesh (held against the JAX mesh in
+    tests/test_torch_port_parallel.py): anything else is a TypeError
+    naming it, and a one-rank mesh reaches the trainer."""
     import matplotlib.pyplot as plt
     j = tmodels.jiVAE(DATA, 2, K, device="cpu", pixel_chunks=2, **CFG)
     assert j._pixel_mode() == "chunk"
@@ -352,9 +355,13 @@ def test_later_slice_features_raise_naming_roadmap(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="enum_schedule"):
         m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
               enum_schedule=1, verbose=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
               mesh=object())
+    with one_rank_mesh() as mesh:
+        tr = m.fit(x, (x, np.arange(8) % K), epochs=1, batch_size=4,
+                   mesh=mesh)
+        assert tr.mesh is mesh and tr.current_epoch == 1
     # checkpoints are ported: the keywords reach the trainer and work
     ckpt = str(tmp_path / "ckpt.npz")
     tr = m.fit(x, (x, np.arange(8) % K), epochs=2, batch_size=4,

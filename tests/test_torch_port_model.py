@@ -16,6 +16,8 @@ import pyroved_tpu_torch.serving as tserving
 from pyroved_tpu_torch.ops import spatial_decoder as tsd
 from pyroved_tpu_torch.utils.nn import as_numpy
 
+from torch_port_ranks import one_rank_mesh
+
 # outputs: f32 on the CPU, sums in another order; per-example losses sum
 # hundreds of pixel terms, so they are compared relatively
 ATOL = 1e-5
@@ -189,8 +191,9 @@ def test_device_rule_and_later_slices(tmp_path, monkeypatch):
     """The device rule; the features of the later slices run (int8
     export, the default plot, ``pixel_chunks``; each held against the JAX
     package in tests/test_torch_port_quant.py, _viz.py and
-    _pixel_chunks.py); ``mesh`` still raises, naming its item
-    ('parallel')."""
+    _pixel_chunks.py); ``fit(mesh=...)`` takes a DeviceMesh (held against
+    the JAX mesh in tests/test_torch_port_parallel.py): anything else is a
+    TypeError naming it, and a one-rank mesh reaches the trainer."""
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
     import matplotlib.pyplot as plt
@@ -206,8 +209,12 @@ def test_device_rule_and_later_slices(tmp_path, monkeypatch):
     # patience is ported: it needs held-out data to watch
     with pytest.raises(ValueError, match="test_data"):
         tm.fit(np.zeros((4, 12, 12), np.float32), patience=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.fit(np.zeros((4, 12, 12), np.float32), mesh=object())
+    with one_rank_mesh() as mesh:
+        tr = tm.fit(np.zeros((4, 12, 12), np.float32), epochs=1,
+                    batch_size=4, mesh=mesh)
+        assert tr.mesh is mesh and tr.current_epoch == 1
     monkeypatch.setattr(plt, "show", lambda: None)
     assert tm.manifold2d(3, plot=True).shape == (9, 12, 12)
     assert plt.get_fignums()

@@ -30,6 +30,7 @@ from pyroved_tpu_torch.utils.nn import as_numpy
 from pyroved_tpu_torch.weights import from_jax_params
 
 from test_torch_port_segmented import JaxNoiseSVI
+from torch_port_ranks import one_rank_mesh
 
 # f32 on both sides, sums over pixels, tiles and the batch in another
 # order: losses relative, grads and trained parameters as the JAX
@@ -361,7 +362,8 @@ def test_pixel_chunks_with_grad_accum_streaming_and_resume(tmp_path):
 def test_pixel_chunks_in_the_aux_trainer():
     """ssiVAE through ``auxSVItrainer`` (unlabeled batches enumerated,
     labeled ones observed) for two epochs: chunked against full grid on
-    the same noise; ``mesh=`` still raises naming 'parallel'."""
+    the same noise; ``mesh=`` takes a DeviceMesh: anything else is a
+    TypeError naming it, and a one-rank mesh reaches the trainer."""
     X, Xl = _x((20,) + DATA, seed=14), _x((10,) + DATA, seed=15)
     yl = np.eye(3, dtype=np.float32)[np.arange(10) % 3]
     hist = {}
@@ -373,5 +375,8 @@ def test_pixel_chunks_in_the_aux_trainer():
         hist[k] = t.history
     np.testing.assert_allclose(hist[K]["training_loss"],
                                hist[0]["training_loss"], rtol=LOSS_RTOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit(X, (Xl, yl), epochs=1, batch_size=10, mesh=object())
+    with one_rank_mesh() as mesh:
+        tr = m.fit(X, (Xl, yl), epochs=1, batch_size=10, mesh=mesh)
+        assert tr.mesh is mesh

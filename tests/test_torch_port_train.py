@@ -25,6 +25,8 @@ from pyroved_tpu_torch.utils.data import (DataLoader, init_dataloader,
 from pyroved_tpu_torch.utils.nn import as_numpy
 from pyroved_tpu_torch.weights import from_jax_params
 
+from torch_port_ranks import one_rank_mesh
+
 # Losses: weighted sums of hundreds of f32 pixel terms, in another order.
 LOSS_RTOL = 1e-5
 # Grads: f32 on both sides, summed over the batch in another order; the
@@ -347,13 +349,20 @@ def test_print_statistics_prints_the_jax_text(capsys):
 def test_unported_options_raise_naming_the_roadmap_item(tmp_path):
     """The trainer surface is ported: every keyword runs (each keyword is
     held against the JAX package in tests/test_torch_port_segmented.py,
-    _enum_schedule.py, _streaming.py and _accum.py); ``mesh`` still raises,
-    naming its item ('parallel')."""
+    _enum_schedule.py, _streaming.py and _accum.py); ``mesh`` takes a
+    DeviceMesh (held against the JAX mesh in
+    tests/test_torch_port_parallel.py): anything else is a TypeError
+    naming it, and a one-rank mesh reaches the trainer."""
     _, tm = _pair(CONFIGS["rot"])
     x, _ = _data(CONFIGS["rot"], 8)
     loader = init_dataloader(x, batch_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SVItrainer(tm, mesh=object())
+    with one_rank_mesh() as mesh:
+        t = SVItrainer(tm, mesh=mesh)
+        assert t.mesh is mesh and t.data_axis.size == 1
+        t.run(loader, 1)
+        assert t.current_epoch == 1
     log = str(tmp_path / "log.jsonl")
     for kw in (dict(grad_accum=2), dict(remat=True), dict(log_file=log)):
         t = SVItrainer(tm, **kw)
