@@ -197,7 +197,18 @@ clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
    a step a rank at B = 100, a falling loss, the ranks bitwise equal; (f)
    ``pixel_sharded_decode`` of 64 latents on the 128x128 grid: one K1 a
    rank at N = 8,192, gathered, against one process's decode (phase 2's
-   tolerance). Kernel calls are recorded by (kernel, B, N). (g) K1, K2
+   tolerance). After both flags, on the same ranks: (h) the flagship
+   split over ``{"model": 2}`` trains 4 epochs in one go and 2 with a
+   checkpoint (every rank gathers, rank 0 writes the whole model); a
+   whole model loads it with ``load_checkpoint(mesh=)`` (its shards
+   bitwise the saved ones) and resumes 2 epochs, bitwise the
+   uninterrupted run; this process loads the file into a whole model and
+   trains on; (i) the batchnorm im2spec VED over ``{"data": 2}``: the
+   first step's loss and grads against one process's (grads within
+   phase 8's bound or twice the one-process noise floor, the step on the
+   batch's reversed rows), 2 epochs' losses (phase 5's bound), the
+   ranks' parameters bitwise equal. Kernel calls are recorded by
+   (kernel, B, N). (g) K1, K2
    (and K3 at B = 100) against their plain versions and a second launch,
    timed, at B = 100, N = 784 and B = 200, N = 131,072 (there the plain
    versions and cuBLAS's products run over 8 row chunks), rows of phase
@@ -3000,6 +3011,10 @@ HALF = PIXEL_DIM[0] * PIXEL_DIM[1] // 2
 # (g): the plain versions at B = 200, N = 131,072 run over row chunks of
 # 25 (their [B*N, H] activations whole take 13.4 GB each)
 HALF_CHUNKS = 8
+# (h): the tensor-parallel flagship's rows (2 steps an epoch); (i): the
+# batchnorm im2spec VED's rows (the last of 4 batches padded)
+TP_ROWS = 400
+BN_ROWS, BN_BATCH = 350, 100
 
 
 @contextlib.contextmanager
@@ -3183,6 +3198,73 @@ def rank_decode(mesh, big, z):
             "shapes": shape_counts(calls)}
 
 
+def rank_tp_checkpoint(mesh, X, tmp):
+    """(h) on this rank: the flagship split over 'model' trains 4 epochs in
+    one go, and 2 epochs with a checkpoint (every rank gathers, rank 0
+    writes the whole model); a whole model loads it with ``mesh=`` (its
+    shards bitwise the saved ones) and resumes 2 epochs."""
+    from pyroved_tpu_torch.parallel import tensor_parallel_params
+    from pyroved_tpu_torch.parallel.mesh import whole_tensors
+    from pyroved_tpu_torch.utils.checkpoint import load_checkpoint
+
+    def split():
+        return tensor_parallel_params(iVAE((28, 28), **PAR_KW), mesh)
+
+    def loader(epoch=0):
+        ld = init_dataloader(X[:TP_ROWS], batch_size=200, seed=3)
+        ld.set_epoch(epoch)
+        return ld
+
+    def whole_sum(m):
+        return float(sum(v.double().sum().item() * (i + 1) for i, v in
+                         enumerate(whole_tensors(m.nets,
+                                                 m.nets.state_dict())
+                                   .values())))
+
+    ckpt = os.path.join(tmp, "tp_state.npz")
+    u = split()
+    tu = SVItrainer(u, mesh=mesh, seed=4)
+    tu.run(loader(), 4)
+    i = split()
+    SVItrainer(i, mesh=mesh, seed=4, checkpoint_path=ckpt,
+               checkpoint_every=2).run(loader(), 2)
+    saved = {k: v.detach().clone() for k, v in i.nets.state_dict().items()}
+    r = iVAE((28, 28), **dict(PAR_KW, seed=5))
+    load_checkpoint(ckpt, r, mesh=mesh)
+    loaded = r.nets.state_dict()
+    shards_equal = all(torch.equal(loaded[k], v) for k, v in saved.items())
+    t = SVItrainer(r, mesh=mesh, seed=4)
+    t.run(loader(t.resume(ckpt)), 2)
+    return {"shards_equal": shards_equal, "saved_sum": whole_sum(i),
+            "uninterrupted": whole_sum(u), "resumed": whole_sum(r),
+            "history": tu.loss_history["training_loss"],
+            "resumed_history": t.loss_history["training_loss"],
+            "ckpt": ckpt}
+
+
+def rank_bn_ved(mesh, tmp):
+    """(i) on this rank: the batchnorm im2spec VED over 'data': the first
+    step's loss and grads (its rows, the statistics and grads summed over
+    the ranks), then 2 epochs (the last batch padded)."""
+    from pyroved_tpu_torch.nets.conv import batch_stats_over
+    x, y = (np.load(os.path.join(tmp, f"bn_{k}.npy")) for k in "xy")
+    first = torch.load(os.path.join(tmp, "bn_first.pt"))
+    m = VED((16, 16), (2048,), batchnorm=True, seed=0)
+    t = SVItrainer(m, mesh=mesh, seed=6)
+    (xb, yb), w, e = t.data_axis.local(first["batch"], first["w"],
+                                       first["eps"])
+    with batch_stats_over(m.nets, t.data_axis):
+        loss = m.weighted_loss_fn(xb, yb, w, 1.0, eps=e)
+        loss.backward()
+    out = {"first_loss": t.data_axis.reduce_grads(t.optimizer, loss).item(),
+           "first_grads": named_grads(m)}
+    m.nets.zero_grad(set_to_none=True)
+    ld = init_dataloader(x, y, batch_size=BN_BATCH, seed=2)
+    out["history"] = [float(t.train(ld)) for _ in range(2)]
+    out["checksum"] = checksum(m)
+    return out
+
+
 def rank_main(argv) -> int:
     """A rank of phase 12: ``chip_smoke.py --rank RANK WORLD RENDEZVOUS
     DIR KERNELS``. It loads the kernels from the parent's build directory
@@ -3214,6 +3296,8 @@ def rank_main(argv) -> int:
                            "tp": rank_tp(meshes["model"], X),
                            "spmd": rank_spmd(meshes["data"], X),
                            "decode": rank_decode(meshes["data"], big, z)}
+        res["h"] = rank_tp_checkpoint(meshes["model"], X, tmp)
+        res["i"] = rank_bn_ved(meshes["data"], tmp)
         torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3451,6 +3535,105 @@ def check_parallel(on, outs, ref, res, launches, module_first,
             o[on]["dp"]["one_pass_launches"]
 
 
+def bn_first_step():
+    """(i)'s first batch (100 pairs, the last 20 padded with weight 0) and
+    its loss and grads in this process: the batchnorm VED whole; then the
+    same with the batch's rows reversed (the same function, every sum in
+    another order), whose distance from the first is the noise floor of
+    the grads."""
+    x, y = im2spec_pairs(BN_BATCH, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.ones(BN_BATCH, device="cuda")
+    w[-20:] = 0.0
+    inputs = {"batch": (torch.as_tensor(x, device="cuda"),
+                        torch.as_tensor(y, device="cuda")),
+              "w": w, "eps": torch.randn(BN_BATCH, 2, generator=g,
+                                         device="cuda")}
+    out = {"inputs": inputs}
+    reverse = torch.arange(BN_BATCH - 1, -1, -1, device="cuda")
+    for key, rows in (("", torch.arange(BN_BATCH, device="cuda")),
+                      ("reversed_", reverse)):
+        m = VED((16, 16), (2048,), batchnorm=True, seed=0)
+        loss = m.weighted_loss_fn(*(b[rows] for b in inputs["batch"]),
+                                  w[rows], 1.0, eps=inputs["eps"][rows])
+        loss.backward()
+        out[key + "loss"], out[key + "grads"] = loss.item(), named_grads(m)
+    return out
+
+
+def check_tp_checkpoint(outs, X):
+    """(h): the ranks' shards loaded bitwise, the resumed run bitwise the
+    uninterrupted one; the file (the whole model) loads into a whole model
+    here, which trains on."""
+    from pyroved_tpu_torch.utils.checkpoint import load_checkpoint
+    for i, o in enumerate(outs):
+        if not o["shards_equal"]:
+            raise AssertionError(f"(h) rank {i}: load_checkpoint(mesh=) did "
+                                 "not restore its shards bitwise")
+        if (o["resumed"] != o["uninterrupted"]
+                or o["resumed_history"] != o["history"]):
+            raise AssertionError(f"(h) rank {i}: the resumed run is not "
+                                 "bitwise the uninterrupted one")
+    m = iVAE((28, 28), **dict(PAR_KW, seed=5))
+    t = SVItrainer(m, seed=4)
+    epoch = t.resume(outs[0]["ckpt"])
+    whole = float(sum(v.double().sum().item() * (i + 1) for i, v in
+                      enumerate(dict(sorted(m.nets.state_dict().items()))
+                                .values())))
+    if whole != outs[0]["saved_sum"]:
+        raise AssertionError(f"(h) the whole model's parameters from the "
+                             f"file ({whole}) are not the gathered ones "
+                             f"({outs[0]['saved_sum']})")
+    ld = init_dataloader(X[:TP_ROWS], batch_size=200, seed=3)
+    ld.set_epoch(epoch)
+    more = t.train(ld)
+    if not np.isfinite(more):
+        raise AssertionError(f"(h) training on from the file: loss {more}")
+    log(f"  (h) {{'model': 2}}: 4 epochs {outs[0]['history']}; resumed at "
+        f"epoch 2 from the whole-model file bitwise equal on both ranks; "
+        f"the file loads into a whole model (parameters equal to the "
+        f"gathered ones) and trains on: loss {more:.4f}")
+    return {"history": outs[0]["history"], "whole_epoch3_loss": more}
+
+
+def check_bn_ved(outs, first, x, y):
+    """(i): the batchnorm VED over 'data' on two ranks against one process:
+    the first step's loss at phase 8's bound and its grads at phase 8's
+    or within twice the one-process noise floor (the step on the batch's
+    reversed rows; the conv before a batchnorm sums terms that cancel, so
+    its weight grads move with the order of the sums), whichever is
+    larger; 2 epochs' losses at phase 5's; the ranks' parameters bitwise
+    equal."""
+    check_ranks("(i)", outs)
+    names = list(first["grads"])
+    got = [outs[0]["first_grads"][n] for n in names]
+    want = [first["grads"][n].cpu() for n in names]
+    floor = rel_to_max([first["reversed_grads"][n].cpu() for n in names],
+                       want)
+    err = check_grads("(i) batchnorm VED, 2 ranks' first step vs one "
+                      "process", got, want, names, per_sample=0,
+                      rel=max(GRAD_RTOL, 2 * floor))
+    loss_rel = abs(outs[0]["first_loss"] - first["loss"]) / abs(first["loss"])
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"(i) first step loss rel err {loss_rel:.3e}")
+    m = VED((16, 16), (2048,), batchnorm=True, seed=0)
+    t = SVItrainer(m, seed=6)
+    ld = init_dataloader(x, y, batch_size=BN_BATCH, seed=2)
+    ref = [float(t.train(ld)) for _ in range(2)]
+    with bf16_matmul(False):
+        epoch_rel = check_epochs("(i) batchnorm VED, 2 ranks",
+                                 outs[0]["history"], ref, "one process")
+    log(f"  (i) batchnorm VED on {{'data': 2}}: first step loss rel "
+        f"{loss_rel:.2e}, grads max abs err {err:.3e} "
+        f"({rel_to_max(got, want):.1e} of the largest entry; the one "
+        f"process's on the reversed rows {floor:.1e}); losses "
+        f"{outs[0]['history']} vs one process {ref} (max rel "
+        f"{epoch_rel:.2e}); ranks' parameters bitwise equal")
+    return {"first_loss_rel": loss_rel, "grad_err": err,
+            "grad_rel": rel_to_max(got, want), "grad_floor": floor,
+            "epoch_rel": epoch_rel, "history": outs[0]["history"]}
+
+
 def phase_parallel(smi, peaks):
     """Phase 12: (a) in this process, (b)-(f) on two gloo ranks in child
     processes sharing the card, each against single-process references
@@ -3485,15 +3668,22 @@ def phase_parallel(smi, peaks):
     module_names = [n for n, _ in module.nets.named_parameters()]
     del m, m512, module
     torch.cuda.empty_cache()
+    bn_x, bn_y = im2spec_pairs(BN_ROWS, seed=4)
+    bn_first = bn_first_step()
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "flagship.npy"), X)
         np.save(os.path.join(tmp, "pixel512.npy"), X512)
         torch.save(z_big, os.path.join(tmp, "z_big.pt"))
+        np.save(os.path.join(tmp, "bn_x.npy"), bn_x)
+        np.save(os.path.join(tmp, "bn_y.npy"), bn_y)
+        torch.save(bn_first["inputs"], os.path.join(tmp, "bn_first.pt"))
         t_ranks = time.perf_counter()
         outs = finish_ranks(tmp, start_ranks(tmp))
         ranks_s = time.perf_counter() - t_ranks
-    log(f"  two gloo ranks on the card ran (b)-(f) under each flag in "
-        f"{ranks_s:.1f} s ({smi})")
+        res["h"] = check_tp_checkpoint([o["h"] for o in outs], X)
+    res["i"] = check_bn_ved([o["i"] for o in outs], bn_first, bn_x, bn_y)
+    log(f"  two gloo ranks on the card ran (b)-(f) under each flag, (h) and "
+        f"(i) in {ranks_s:.1f} s ({smi})")
     for on in (False, True):
         with bf16_matmul(on):
             check_parallel(on, outs, refs[on], res, launches, module_first,

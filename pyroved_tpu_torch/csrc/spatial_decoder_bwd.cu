@@ -27,8 +27,9 @@
 //
 // What bounds it: about 6 * n_layers * H^2 flops per pixel (the forward
 // recompute, dW and dh) against a few bytes per pixel, so arithmetic. This
-// version computes in f32 on the CUDA cores (BF16_MATMUL = False); the bf16
-// tensor-core version is spatial_decoder_bwd_tc.cu.
+// version computes in exact f32 FFMA and tanhf on the CUDA cores
+// (BF16_MATMUL = False); the bf16 tensor-core version is
+// spatial_decoder_bwd_tc.cu.
 //
 // Design:
 //  * Blocks run at once, in no order, so the TPU's serial accumulation in
@@ -53,16 +54,26 @@
 //    R/8 rows x H/32 columns; weights stream through shared memory in
 //    chunks of 16 rows (transposed on the way in for dh = d_pre W^T).
 //    dW = h^T d_pre is an outer-product sum over the tile's rows, 8 x 8 per
-//    thread in 128 x 128 passes.
+//    thread in 128 x 128 passes, added to the block's slot in global
+//    memory. At H = 128 and two layers two blocks share an SM (2 x 107 KB
+//    of shared memory, 128 registers a thread); a block's dW partials
+//    (128 KB) fit neither beside its activation buffers (96 KB) nor in its
+//    share of the register file.
 //  * Ragged tiles are masked in the kernel: rows past N get dl = 0, so they
 //    add nothing to any sum. g ([B, N, C]) and x ([B, N]) are read in place.
 //  * Nothing is allocated here and nothing synchronises with the host; the
 //    wrapper allocates the workspace through PyTorch's caching allocator.
+//
+// PVT_PROFILE_PHASES compiles in f32_core.cuh's PhaseClock marks (thread 0
+// of block 0): 0 the loop, 1 weight staging, 2 the transform and h0, 3
+// forward products, 4 forward activations, 5 the head, its grads and the
+// last d_pre, 6 dW and db, 7 dh products, d_pre and the tile sums.
 
-#include <cuda_runtime.h>
 #include <atomic>
 #include <climits>
 #include <cstdint>
+
+#include "f32_core.cuh"
 
 namespace {
 
@@ -70,62 +81,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileElems = 8192;  // rows x H of one activation buffer
 constexpr int kChunk = 16;        // weight rows staged per step
-constexpr int kMaxC = 4;
+constexpr int kMaxC = kF32MaxC;
 constexpr int kMaxDevices = 64;
-
-enum Act { ACT_TANH = 0, ACT_RELU = 1, ACT_LRELU = 2, ACT_SOFTPLUS = 3,
-           ACT_GELU = 4, ACT_TANH_APPROX = 5 };
-
-__device__ __forceinline__ float pade_tanh(float x) {
-  x = fminf(fmaxf(x, -4.97f), 4.97f);
-  const float x2 = x * x;
-  const float num = x * (135135.0f + x2 * (17325.0f + x2 * (378.0f + x2)));
-  const float den = 135135.0f + x2 * (62370.0f + x2 * (3150.0f + 28.0f * x2));
-  return num / den;
-}
-
-template <int ACT>
-__device__ __forceinline__ float h0_act(float x) {
-  return ACT == ACT_TANH_APPROX ? pade_tanh(x) : tanhf(x);
-}
-
-template <int ACT>
-__device__ __forceinline__ float act_fn(float x) {
-  if (ACT == ACT_TANH) return tanhf(x);
-  if (ACT == ACT_RELU) return x > 0.0f ? x : 0.0f;
-  if (ACT == ACT_LRELU) return x >= 0.0f ? x : 0.01f * x;
-  if (ACT == ACT_SOFTPLUS) return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-  if (ACT == ACT_GELU) return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-  return pade_tanh(x);
-}
-
-// d act / d pre from the post-activation h, as _act_grad_from_post: the
-// subgradient at 0 is 1 for lrelu (h >= 0) and 0 for relu (h > 0); the Pade
-// tanh takes tanh's 1 - h^2.
-template <int ACT>
-__device__ __forceinline__ float act_grad_post(float h) {
-  if (ACT == ACT_LRELU) return h >= 0.0f ? 1.0f : 0.01f;
-  if (ACT == ACT_SOFTPLUS) return 1.0f - expf(-h);
-  if (ACT == ACT_RELU) return h > 0.0f ? 1.0f : 0.0f;
-  return 1.0f - h * h;
-}
-
-// exact gelu and its derivative Phi(x) + x phi(x), sharing erff
-__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& g) {
-  const float e = erff(x * 0.70710678118654752f);
-  h = 0.5f * x * (1.0f + e);
-  g = 0.5f * (1.0f + e) + x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  if (x >= 0.0f) return 1.0f / (1.0f + expf(-x));
-  const float e = expf(x);
-  return e / (1.0f + e);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
 
 __host__ __device__ constexpr int tile_rows(int H) { return kTileElems / H; }
 
@@ -152,7 +109,7 @@ inline size_t slot_floats(int H, int n_layers, int C) {
 template <int H, bool TRANS>
 __device__ __forceinline__ void tile_matmul(
     const float* __restrict__ a, const float* __restrict__ w, float* ws,
-    float (&acc)[tile_rows(H) / kWarps][H / 32]) {
+    float (&acc)[tile_rows(H) / kWarps][H / 32], PhaseClock& pc, int mark) {
   constexpr int RPT = tile_rows(H) / kWarps;
   constexpr int TN = H / 32;
   const int tid = threadIdx.x;
@@ -181,6 +138,7 @@ __device__ __forceinline__ void tile_matmul(
       }
     }
     __syncthreads();
+    pc.mark(1);
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 4) {
       float4 av[RPT];
@@ -202,6 +160,7 @@ __device__ __forceinline__ void tile_matmul(
       }
     }
     __syncthreads();
+    pc.mark(mark);
   }
 }
 
@@ -258,8 +217,10 @@ __device__ __forceinline__ float deriv(const float* buf, int slot,
     const float h = buf[i];
     return 1.0f - h * h;  // coordinate layer: tanh
   }
-  if (ACT == ACT_GELU) return buf[(size_t)(n_layers + slot) * kTileElems + i];
-  return act_grad_post<ACT>(buf[(size_t)slot * kTileElems + i]);
+  if constexpr (ACT == ACT_GELU)
+    return buf[(size_t)(n_layers + slot) * kTileElems + i];
+  else
+    return act_grad_post<ACT>(buf[(size_t)slot * kTileElems + i]);
 }
 
 template <int H, int ACT, bool LOSS>
@@ -299,36 +260,17 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
   float* s_dbout = s_dwout + H * C;
   float* s_loss = s_dbout + C;
 
+  PhaseClock pc;
   const int total = B * n_tiles;
   bool first = true;
   for (int t = blockIdx.x; t < total; t += gridDim.x, first = false) {
+    pc.mark(0);
     const int b = t / n_tiles;
     const int n0 = (t - b * n_tiles) * R;
     const int rows = min(R, N - n0);
 
     // -- per-sample folded transform, tile coordinates (as K1)
-    float cph = 1.0f, sph = 0.0f, scale = 1.0f;
-    if (D == 2) {
-      sincosf(phi[b], &sph, &cph);
-      scale = sc[b];
-    }
-    for (int h = tid; h < H; h += kThreads) {
-      float w = 0.0f;
-      for (int d = 0; d < D; ++d) w += dx[b * D + d] * wc[d * H + h];
-      w += bc[h];
-      float wzl = 0.0f;
-      for (int l = 0; l < L; ++l) wzl += z[(size_t)b * L + l] * wz[l * H + h];
-      wv[h] = w + wzl;
-      const float a0 = wc[h];
-      if (D == 2) {
-        const float a1 = wc[H + h];
-        us[h] = scale * (cph * a0 + sph * a1);
-        vs[h] = scale * (-sph * a0 + cph * a1);
-      } else {
-        us[h] = a0;
-        vs[h] = 0.0f;
-      }
-    }
+    sample_vectors<H>(b, D, L, phi, dx, sc, z, wc, bc, wz, us, vs, wv);
     for (int r = tid; r < R; r += kThreads) {
       float gx = 0.0f, gy = 0.0f;
       if (r < rows) {
@@ -346,10 +288,11 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
       buf[i] = h0_act<ACT>(gs[2 * r] * us[h] + gs[2 * r + 1] * vs[h] + wv[h]);
     }
     __syncthreads();
+    pc.mark(2);
     for (int l = 0; l < n_layers; ++l) {
       float acc[RPT][TN];
       tile_matmul<H, false>(buf + (size_t)l * kTileElems,
-                            hw + (size_t)l * H * H, ws, acc);
+                            hw + (size_t)l * H * H, ws, acc, pc, 3);
       const float* bias = hb + (size_t)l * H;
       float* out = buf + (size_t)(l + 1) * kTileElems;
 #pragma unroll
@@ -360,7 +303,7 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
         for (int r = 0; r < RPT; ++r) {
           const int i = (row0 + r) * H + col;
           const float pre = acc[r][j] + bj;
-          if (kGelu) {
+          if constexpr (kGelu) {
             float hv, gv;
             gelu_and_grad(pre, hv, gv);
             out[i] = hv;
@@ -371,6 +314,7 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
         }
       }
       __syncthreads();
+      pc.mark(4);
     }
 
     // -- head: one warp-reduced dot per (row, channel), then its cotangent
@@ -435,6 +379,7 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
       buf[(size_t)n_layers * kTileElems + i] = dv;
     }
     __syncthreads();
+    pc.mark(5);
 
     // -- hidden layers, last to first: slot l + 1 holds d_pre_l
     for (int l = n_layers - 1; l >= 0; --l) {
@@ -448,7 +393,8 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
         *o = first ? s : *o + s;
       }
       float acc[RPT][TN];
-      tile_matmul<H, true>(dp, hw + (size_t)l * H * H, ws, acc);
+      pc.mark(6);
+      tile_matmul<H, true>(dp, hw + (size_t)l * H * H, ws, acc, pc, 7);
       // every read of h_l is done (the matmul's barriers): replace it with
       // d_pre_{l-1} (or d0 for l = 0)
 #pragma unroll
@@ -478,6 +424,7 @@ sdec_bwd_kernel(const float* __restrict__ grid, const float* __restrict__ phi,
       tw[2 * H + h] = sw;
     }
     __syncthreads();
+    pc.mark(7);
   }
 }
 
@@ -730,6 +677,8 @@ bool bad_dims(int B, int N, int D, int L, int H, int n_layers, int C,
 }
 
 }  // namespace
+
+PVT_PHASE_READER(pvt_sdec_bwd_phase_cycles)
 
 // Workspace and grid of one backward call: *n_blocks blocks of the main
 // kernel and *ws_floats floats of workspace (block slots, tile partials,

@@ -126,6 +126,12 @@ def chunked(fn, *arrays: Tensor, batch_size: Optional[int] = None):
     return torch.cat(outs)
 
 
+_SPLIT_DECODER_WARNING = (
+    "decoder parameters are sharded across the mesh; disabling the fused "
+    "spatial-decoder kernels (they need replicated decoder weights). "
+    "Training continues on the sDecoderNet module path.")
+
+
 class baseVAE:
     """Common machinery for (invariant) variational encoder-decoders."""
 
@@ -214,24 +220,29 @@ class baseVAE:
                          else activation)
         return decoder
 
-    def sync_fusion_gate(self) -> bool:
+    def sync_fusion_gate(self, defer_warning: bool = False) -> bool:
         """Re-check the kernels' gate against the decoder as it now stands:
         a decoder whose layers are split over a mesh axis
         (``parallel.tensor_parallel_params``) cannot feed the kernels,
         which need its weights whole, so they are turned off with a
         ``UserWarning`` and its decodes go to the ``sDecoderNet`` module.
-        The trainers call this at every ``train`` and ``evaluate``, and
-        ``make_spmd_train_step`` when it builds its step. Returns the
+        ``tensor_parallel_params`` calls this as it splits, with
+        ``defer_warning``: the warning then waits for the next call, which
+        the trainers make at every ``train`` and ``evaluate`` (and
+        ``make_spmd_train_step`` when it builds its step). Returns the
         gate."""
+        if getattr(self, "_gate_warning", False) and not defer_warning:
+            self._gate_warning = False
+            warnings.warn(_SPLIT_DECODER_WARNING, UserWarning, stacklevel=2)
         if not getattr(self, "_fused", False):
             return False
         from ..parallel.mesh import tensor_parallel
         if tensor_parallel(self.decoder_net):
-            warnings.warn(
-                "decoder parameters are sharded across the mesh; disabling "
-                "the fused spatial-decoder kernels (they need replicated "
-                "decoder weights). Training continues on the sDecoderNet "
-                "module path.", UserWarning, stacklevel=2)
+            if defer_warning:
+                self._gate_warning = True
+            else:
+                warnings.warn(_SPLIT_DECODER_WARNING, UserWarning,
+                              stacklevel=2)
             self._fused = False
         return self._fused
 
@@ -579,10 +590,16 @@ class baseVAE:
         """Write the parameters (and the model's generator state) to
         ``filepath + '.pvt'``: a pickle-free ``np.savez`` archive of named
         f32 arrays and a JSON manifest, so loading an untrusted file cannot
-        run code."""
+        run code. A tensor-parallel model's split layers are written whole:
+        every rank calls it and global rank 0 writes."""
+        from ..parallel.collectives import is_writer
+        from ..parallel.mesh import whole_tensors
         from ..utils.checkpoint import WEIGHTS_FORMAT, write_archive
+        whole = whole_tensors(self.nets, self.nets.state_dict())
+        if not is_writer():
+            return
         arrays = {f"w_{k}": v.detach().cpu().numpy().astype(np.float32)
-                  for k, v in self.nets.state_dict().items()}
+                  for k, v in whole.items()}
         gen = getattr(self, "generator", None)
         if gen is not None:
             arrays["generator"] = gen.get_state().numpy()
@@ -592,12 +609,15 @@ class baseVAE:
         """Load the parameters :meth:`save_weights` wrote (the ``.pvt``
         suffix is added when missing), with strict key and shape checks. A
         ``.pvt`` of the JAX package (flax msgpack bytes) raises; its
-        parameter tree crosses over through :meth:`load_jax_params`."""
+        parameter tree crosses over through :meth:`load_jax_params`. A
+        tensor-parallel model takes its rank's rows of each split layer."""
+        from ..parallel.mesh import local_tensors
         from ..utils.checkpoint import WEIGHTS_FORMAT, check_state, read_archive
         if not filepath.endswith(".pvt"):
             filepath = filepath + ".pvt"
         _, arrays = read_archive(filepath, WEIGHTS_FORMAT)
-        state = {k[2:]: v for k, v in arrays.items() if k.startswith("w_")}
+        state = local_tensors(self.nets, {k[2:]: v for k, v in arrays.items()
+                                          if k.startswith("w_")})
         check_state(self.nets.state_dict(), state, filepath)
         self.nets.load_state_dict({k: torch.from_numpy(v)
                                    for k, v in state.items()}, strict=True)

@@ -190,13 +190,22 @@ class BatchNorm(nn.Module):
     parameters as flax keeps ``batch_stats`` apart from ``params``): then a
     forward with autograd off (inference) normalizes with them, as a torch
     BatchNorm in ``eval()`` does, and a forward that records gradients
-    (training) still uses the batch's."""
+    (training) still uses the batch's.
+
+    ``stats_axis`` is None, or the mesh axis (a ``parallel.collectives
+    .Axis``) that a trainer splits the batch's rows over while it runs its
+    steps (:func:`batch_stats_over`): then the batch's statistics are the
+    whole batch's, as the JAX package's GSPMD step takes them. Each
+    channel's sum and sum of squares and the row count are summed over the
+    axis in one ``all_reduce`` of one flat buffer, whose backward sums the
+    cotangents too (``SyncBatchNorm``'s reduction)."""
 
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.running_stats: Optional[Tuple[Tensor, Tensor]] = None
+        self.stats_axis = None
 
     def reset_from(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -209,12 +218,41 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.running_stats is not None and not torch.is_grad_enabled():
             mean, var = (s.reshape(shape) for s in self.running_stats)
+        elif self.stats_axis is not None and self.stats_axis.group is not None:
+            from ..parallel.collectives import all_reduce_sum
+            C = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // C)
+            flat = all_reduce_sum(self.stats_axis, torch.cat(
+                [xf.sum(axes), (xf * xf).sum(axes), count]))
+            mean = (flat[:C] / flat[-1]).reshape(shape)
+            var = torch.clamp((flat[C:2 * C] / flat[-1]).reshape(shape)
+                              - mean * mean, min=0.0)
         else:
             mean = xf.mean(axes, keepdim=True)
             var = torch.clamp((xf * xf).mean(axes, keepdim=True)
                               - mean * mean, min=0.0)
         mul = torch.rsqrt(var + BN_EPS) * self.weight.reshape(shape)
         return ((xf - mean) * mul + self.bias.reshape(shape)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_over(module: nn.Module, axis):
+    """Every ``BatchNorm`` of ``module`` takes its statistics over ``axis``
+    (a trainer's ``'data'``, whose ranks each hold some of the batch's
+    rows) inside the block, forward and backward; nothing changes when the
+    axis has one rank."""
+    norms = [m for m in module.modules() if hasattr(m, "stats_axis")]
+    if axis is None or axis.group is None or not norms:
+        yield
+        return
+    old = [m.stats_axis for m in norms]
+    for m in norms:
+        m.stats_axis = axis
+    try:
+        yield
+    finally:
+        for m, a in zip(norms, old):
+            m.stats_axis = a
 
 
 def _resize_method(ndim: int, mode: str) -> str:

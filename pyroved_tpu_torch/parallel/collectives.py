@@ -16,8 +16,12 @@ axis holds whole (the models' losses are replicated over 'model' and
   where the ranks' partial results join. It must not all-reduce in the
   backward, as ``torch.distributed.nn``'s does: every rank already holds
   the whole cotangent, and a second sum would scale it by the axis size;
-- :func:`gather_last` (concatenation of the ranks' slices along the last
-  dim; the backward keeps the rank's slice, with no communication).
+- :func:`gather_dim` (concatenation of the ranks' slices along one dim;
+  the backward keeps the rank's slice, with no communication).
+
+:func:`all_reduce_sum` is the plain sum for values each rank holds only a
+part of (a batch's statistics over rows split across 'data'): its backward
+sums the cotangents as well, as ``SyncBatchNorm``'s does.
 
 :class:`Axis` is a named mesh axis as this rank sees it; an absent axis (or
 no mesh) has size 1, and its collectives are the identity. :class:`DataAxis`
@@ -191,17 +195,32 @@ class _SumOver(torch.autograd.Function):
         return None, g
 
 
-class _GatherLast(torch.autograd.Function):
+class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, rank, size, x):
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        ctx.cols = slice(rank * x.shape[-1], (rank + 1) * x.shape[-1])
-        return torch.cat(parts, dim=-1)
+    def forward(ctx, group, x):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        return None, None, None, g[..., ctx.cols]
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, rank, size, dim, x):
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.dim, ctx.lo, ctx.n = dim, rank * x.shape[dim], x.shape[dim]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, None, g.narrow(ctx.dim, ctx.lo, ctx.n)
 
 
 def replicated(axis: Axis, *xs: Tensor):
@@ -220,12 +239,20 @@ def sum_over(axis: Axis, x: Tensor) -> Tensor:
     return _SumOver.apply(axis.group, x)
 
 
-def gather_last(axis: Axis, x: Tensor) -> Tensor:
-    """The ranks' ``x`` concatenated along the last dim in axis order; the
-    backward keeps this rank's columns."""
+def all_reduce_sum(axis: Axis, x: Tensor) -> Tensor:
+    """``x`` summed over ``axis``; the backward sums the cotangents over it
+    too (each rank's loss holds only its rows' part)."""
     if axis.group is None:
         return x
-    return _GatherLast.apply(axis.group, axis.rank, axis.size, x)
+    return _AllReduceSum.apply(axis.group, x)
+
+
+def gather_dim(axis: Axis, x: Tensor, dim: int) -> Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in axis order (equal
+    shapes); the backward keeps this rank's slice."""
+    if axis.group is None:
+        return x
+    return _Gather.apply(axis.group, axis.rank, axis.size, dim % x.dim(), x)
 
 
 def broadcast_tensors(tensors: Sequence[Tensor], src: int,

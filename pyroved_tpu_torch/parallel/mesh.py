@@ -7,7 +7,9 @@ the JAX package's axes:
 - ``'data'``: the trainers split each batch's rows over it and sum the
   grads (``SVItrainer(mesh=...)``);
 - ``'model'``: :func:`tensor_parallel_params` splits the output features of
-  the linear layers over it (column parallelism);
+  the linear and convolution layers and the batchnorms' channels over it
+  (column parallelism); :func:`whole_tensors` gathers them whole for the
+  files a model writes, :func:`local_tensors` cuts them again;
 - ``'pixels'``: :func:`~pyroved_tpu_torch.parallel.spatial.shard_pixels`
   splits the decoder's pixel grid over it.
 """
@@ -20,8 +22,11 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+Tensor = torch.Tensor
+
 from ..utils.nn import resolve_device
-from .collectives import (Axis, broadcast_tensors, check_mesh, gather_last,
+from ..nets.conv import BatchNorm, _SameConv
+from .collectives import (Axis, broadcast_tensors, check_mesh, gather_dim,
                           replicated)
 
 
@@ -117,63 +122,182 @@ def data_parallel_mesh(num_devices: Optional[int] = None):
 
 
 def replicate_params(model, mesh):
-    """Give every rank the parameters (and buffers) of the mesh's first
-    rank: one ``broadcast`` of one flat buffer. Takes and returns the
-    model. Call it before :func:`tensor_parallel_params`."""
+    """Give every rank the parameters of the mesh's first rank: one
+    ``broadcast`` of one flat buffer. Takes and returns the model. The
+    layers split over ``'model'`` (:func:`tensor_parallel_params`) are
+    gathered whole for it, and every rank keeps its rows of the first
+    rank's whole layers."""
     check_mesh(mesh)
-    if tensor_parallel(model.nets):
-        raise ValueError("replicate_params would broadcast one rank's shards "
-                         "of a tensor-parallel model; replicate first")
-    tensors = list(model.nets.parameters()) + [
-        b for b in model.nets.buffers() if b.is_floating_point()]
-    broadcast_tensors(tensors, src=int(mesh.mesh.reshape(-1)[0]))
+    params = dict(model.nets.named_parameters())
+    whole = whole_tensors(model.nets, params)
+    names = sorted(whole)
+    broadcast_tensors([whole[n] for n in names],
+                      src=int(mesh.mesh.reshape(-1)[0]))
+    local = local_tensors(model.nets, whole)
+    with torch.no_grad():
+        for n in names:
+            params[n].copy_(local[n])
     return model
 
 
-class ColumnParallelLinear(nn.Module):
-    """A linear layer whose output features are split over a mesh axis:
-    this rank holds rows ``[r*o/n, (r+1)*o/n)`` of the weight (the JAX
-    kernel's last axis is the torch weight's first) and of the bias, and
-    the output is gathered whole. The input enters through
-    :func:`~.collectives.replicated` and the output leaves through
-    :func:`~.collectives.gather_last`, so that every rank holds the whole
-    output and its input's whole gradient, as GSPMD's re-gather gives."""
+class ColumnParallel(nn.Module):
+    """A layer whose output features are split over a mesh axis: this rank
+    holds rows ``[r*o/n, (r+1)*o/n)`` of the first dim of each parameter
+    (the JAX leaf's last axis: a kernel's output features, a bias, a
+    batchnorm's scale) and the output is gathered whole along ``dim``. The
+    input enters through :func:`~.collectives.replicated` and the output
+    leaves through :func:`~.collectives.gather_dim`, so that every rank
+    holds the whole output and its input's whole gradient, as GSPMD's
+    re-gather gives. ``features`` is the layer's whole output width."""
 
-    def __init__(self, layer: nn.Linear, axis: Axis):
-        super().__init__()
-        o = layer.out_features // axis.size
-        rows = slice(axis.rank * o, (axis.rank + 1) * o)
+    dim = -1
+
+    def _split_from(self, layer: nn.Module, features: int, axis: Axis):
+        o = features // axis.size
         self.axis = axis
-        self.in_features, self.out_features = (layer.in_features,
-                                               layer.out_features)
-        self.weight = nn.Parameter(layer.weight.detach()[rows].clone())
-        self.bias = (None if layer.bias is None else
-                     nn.Parameter(layer.bias.detach()[rows].clone()))
+        self.features = features
+        self.rows = slice(axis.rank * o, (axis.rank + 1) * o)
+        for name in ("weight", "bias"):
+            p = getattr(layer, name, None)
+            setattr(self, name, None if p is None else
+                    nn.Parameter(p.detach()[self.rows].clone()))
 
     def forward(self, x):
         (x,) = replicated(self.axis, x)
-        return gather_last(self.axis, F.linear(x, self.weight, self.bias))
+        return gather_dim(self.axis, self.local(x), self.dim)
+
+
+class ColumnParallelLinear(ColumnParallel):
+    """An ``nn.Linear`` split over its output features (the torch weight's
+    first dim)."""
+
+    def __init__(self, layer: nn.Linear, axis: Axis):
+        super().__init__()
+        self.in_features, self.out_features = (layer.in_features,
+                                               layer.out_features)
+        self._split_from(layer, layer.out_features, axis)
+
+    def local(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class ColumnParallelConv(ColumnParallel):
+    """A ``"SAME"`` convolution of ``nets.conv`` split over its output
+    channels, gathered along the channel dim."""
+
+    dim = 1
+
+    def __init__(self, layer, axis: Axis):
+        super().__init__()
+        self.kernel_size, self.stride = layer.kernel_size, layer.stride
+        self._split_from(layer, layer.out_channels, axis)
+
+    def local(self, x):
+        return _SameConv.forward(self, x)
+
+
+class ColumnParallelBatchNorm(ColumnParallel):
+    """A ``nets.conv.BatchNorm`` split over its channels: each rank
+    normalizes its channels of the whole input (their statistics need no
+    other channel) and the output is gathered along the channel dim."""
+
+    dim = 1
+
+    def __init__(self, layer: BatchNorm, axis: Axis):
+        super().__init__()
+        self._split_from(layer, layer.weight.shape[0], axis)
+        self.stats_axis = layer.stats_axis
+        stats = layer.running_stats
+        self.running_stats = (None if stats is None else
+                              tuple(t[self.rows] for t in stats))
+
+    def local(self, x):
+        return BatchNorm.forward(self, x[:, self.rows])
+
+
+def _splittable(child, size: int):
+    """The split class of ``child`` when the axis size ``size`` divides its
+    output features (the JAX leaf's last axis), else None."""
+    if isinstance(child, nn.Linear):
+        cls, n = ColumnParallelLinear, child.out_features
+    elif isinstance(child, _SameConv) and not isinstance(
+            child, nn.modules.lazy.LazyModuleMixin):
+        cls, n = ColumnParallelConv, child.out_channels
+    elif isinstance(child, BatchNorm):
+        cls, n = ColumnParallelBatchNorm, child.weight.shape[0]
+    else:
+        return None
+    return cls if n % size == 0 and n >= size else None
 
 
 def tensor_parallel_params(model, mesh, axis: str = "model"):
-    """Split every ``nn.Linear`` of the model whose output features the
-    ``axis`` size divides into a :class:`ColumnParallelLinear`; the other
-    layers stay whole on every rank. Takes and returns the model; build the
-    trainer afterwards (its optimizer holds the shards). The decoder's
-    kernels need its weights whole, so a split decoder turns them off at
-    the next training call (``sync_fusion_gate``)."""
+    """Split every parameter leaf whose output features the ``axis`` size
+    divides, as the JAX package's ``tensor_parallel_params`` shards every
+    leaf whose last axis it divides: the ``nn.Linear`` layers
+    (:class:`ColumnParallelLinear`), the convolutions
+    (:class:`ColumnParallelConv`) and the batchnorms' scale and bias
+    (:class:`ColumnParallelBatchNorm`); the other layers stay whole on
+    every rank. Takes and returns the model; build the trainer afterwards
+    (its optimizer holds the shards). The decoder's kernels need its
+    weights whole, so a split decoder turns them off here; the warning
+    comes at the next training call (``sync_fusion_gate``)."""
     ax = Axis(check_mesh(mesh), axis)
     if ax.size == 1 and axis not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
     for parent in list(model.nets.modules()):
         for name, child in list(parent.named_children()):
-            if (isinstance(child, nn.Linear)
-                    and child.out_features % ax.size == 0
-                    and child.out_features >= ax.size):
-                setattr(parent, name, ColumnParallelLinear(child, ax))
+            cls = _splittable(child, ax.size)
+            if cls is not None:
+                setattr(parent, name, cls(child, ax))
+    gate = getattr(model, "sync_fusion_gate", None)
+    if gate is not None:  # a split decoder's kernels would read its shards
+        gate(defer_warning=True)
     return model
 
 
 def tensor_parallel(module: nn.Module) -> bool:
-    """True when ``module`` holds a :class:`ColumnParallelLinear`."""
-    return any(isinstance(m, ColumnParallelLinear) for m in module.modules())
+    """True when ``module`` holds a layer split by
+    :func:`tensor_parallel_params`."""
+    return any(isinstance(m, ColumnParallel) for m in module.modules())
+
+
+def split_parameters(module: nn.Module) -> Dict[str, ColumnParallel]:
+    """``{parameter name: its split layer}`` of every parameter that
+    :func:`tensor_parallel_params` split in ``module``."""
+    out = {}
+    for prefix, m in module.named_modules():
+        if isinstance(m, ColumnParallel):
+            for name, _ in m.named_parameters(recurse=False):
+                out[f"{prefix}.{name}" if prefix else name] = m
+    return out
+
+
+def whole_tensors(module: nn.Module, named: Dict[str, Tensor]
+                  ) -> Dict[str, Tensor]:
+    """``named`` (tensors keyed by parameter name and shaped like the
+    parameter: the parameters, their Adam moments, a gradient window) with
+    each split parameter's rows gathered whole over its axis, in name
+    order. Every rank of the axis calls it; the others pass through."""
+    split = split_parameters(module)
+    out = {}
+    for name in sorted(named):
+        t = named[name]
+        layer = split.get(name)
+        if layer is not None and t.dim() >= 1 and layer.axis.size > 1:
+            t = torch.cat(layer.axis.all_gather(t.detach().contiguous()))
+        out[name] = t
+    return out
+
+
+def local_tensors(module: nn.Module, named: Dict[str, Tensor]
+                  ) -> Dict[str, Tensor]:
+    """Inverse of :func:`whole_tensors`: each split parameter's whole
+    tensor cut to this rank's rows; the others pass through."""
+    split = split_parameters(module)
+    out = {}
+    for name, t in named.items():
+        layer = split.get(name)
+        if layer is not None and t.ndim >= 1 and t.shape[0] == layer.features:
+            t = t[layer.rows]
+        out[name] = t
+    return out

@@ -34,6 +34,8 @@ from .models.ved import VED
 from .nets.fc import (fcClassifierNet, fcDecoderNet, fcEncoderNet,
                       fcRegressorNet, jfcEncoderNet, sDecoderNet)
 from .ops.spatial_decoder import sdecoder_supports_fusion
+from .parallel.collectives import is_writer
+from .parallel.mesh import whole_tensors
 from .utils.checkpoint import write_archive
 from .utils.coord import generate_grid
 from .utils.nn import as_f32, resolve_device, to_onehot
@@ -87,7 +89,9 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
     """Write ``model``'s networks to ``path`` (see the module docstring).
     ``batch_size`` fixes the served batch (chunks are padded to it); None
     serves any batch. ``quantize="int8"`` stores the weight matrices as
-    per-output-channel int8 (:func:`quantize_params`)."""
+    per-output-channel int8 (:func:`quantize_params`). A tensor-parallel
+    model's split layers are written whole: every rank calls it and global
+    rank 0 writes."""
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     if isinstance(model, VED):
@@ -124,12 +128,15 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
         "z_dim": int(model.z_dim),
         "quantize": quantize,
     }
+    state = whole_tensors(model.nets, model.state_dict())
+    if not is_writer():
+        return
     if quantize is None:
         arrays = {_W + k: v.detach().cpu().numpy().astype(np.float32)
-                  for k, v in model.state_dict().items()}
+                  for k, v in state.items()}
     else:
         arrays = {}
-        for k, leaf in quantize_params(model.state_dict()).items():
+        for k, leaf in quantize_params(state).items():
             if isinstance(leaf, dict):
                 arrays[_Q + k], arrays[_S + k] = leaf["qint8"], leaf["qscale"]
             else:

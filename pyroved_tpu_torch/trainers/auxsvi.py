@@ -45,7 +45,7 @@ from ..parallel.collectives import DataAxis, is_writer
 from ..utils.data import DataLoader
 from ..utils.nn import average_weights
 from ._segmented import SegmentedRunsMixin
-from .svi import (GradAccumulator, _PendingLoss, apply_update, check_parallel,
+from .svi import (GradAccumulator, _PendingLoss, apply_update,
                   draw_noise, pad_batch, save_if_due, streamed_batches,
                   sync_gate, to_device)
 
@@ -91,7 +91,6 @@ class auxSVItrainer(SegmentedRunsMixin):
         if kwargs:
             raise TypeError(
                 f"auxSVItrainer got unexpected keywords {sorted(kwargs)}")
-        check_parallel(model, self.data_axis, self.checkpoint_path)
         self.task = task
         self.model = model
         self.device = model.device

@@ -50,7 +50,7 @@ import torch
 from torch.utils.checkpoint import checkpoint as _remat
 
 from ..parallel.collectives import DataAxis, barrier, distributed, is_writer
-from ..parallel.mesh import tensor_parallel
+from ..nets.conv import batch_stats_over
 from ..utils.data import DataLoader
 from ._segmented import SegmentedRunsMixin
 
@@ -77,21 +77,6 @@ def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-
-
-def check_parallel(model, data_axis: DataAxis, checkpoint_path) -> None:
-    """Refuse what the parallel layer cannot keep exact: batch statistics
-    (a VED's batchnorm) over rows split across ranks, and checkpoints of
-    a tensor-parallel model, whose rank 0 holds only its shards."""
-    from ..nets.conv import BatchNorm
-    if data_axis.size > 1 and any(isinstance(m, BatchNorm)
-                                  for m in model.nets.modules()):
-        raise ValueError(
-            "batchnorm statistics would be taken over each rank's rows; "
-            "train a batchnorm model without a 'data' axis")
-    if checkpoint_path and tensor_parallel(model.nets):
-        raise ValueError("checkpoints of a tensor-parallel model are not "
-                         "supported: rank 0 holds only its shards")
 
 
 class GradAccumulator:
@@ -140,14 +125,14 @@ def apply_update(optimizer: torch.optim.Optimizer,
 
 
 def save_state(trainer, async_write: bool = False) -> None:
-    """Save ``trainer``'s checkpoint at its ``checkpoint_path``: on global
-    rank 0 alone, and then, across ranks, every rank waits for the file
-    (written at once there; ``async_write`` holds only in one process)."""
+    """Save ``trainer``'s checkpoint at its ``checkpoint_path``: every rank
+    takes the snapshot (a tensor-parallel model's layers are gathered
+    whole), global rank 0 writes it, and then, across ranks, every rank
+    waits for the file (written at once there; ``async_write`` holds only
+    in one process)."""
     from ..utils.checkpoint import save_checkpoint
-    many = distributed()
-    if is_writer():
-        save_checkpoint(trainer.checkpoint_path, trainer.model, trainer,
-                        async_write=async_write and not many)
+    save_checkpoint(trainer.checkpoint_path, trainer.model, trainer,
+                    async_write=async_write and not distributed())
     barrier()
 
 
@@ -258,7 +243,6 @@ class SVItrainer(SegmentedRunsMixin):
         self.checkpoint_every = int(kwargs.pop("checkpoint_every", 10))
         if kwargs:
             raise TypeError(f"SVItrainer got unexpected keywords {sorted(kwargs)}")
-        check_parallel(model, self.data_axis, self.checkpoint_path)
         if loss is not None:
             loss.configure(model)
         self.model = model
@@ -313,8 +297,9 @@ class SVItrainer(SegmentedRunsMixin):
         x = batch[0]
         y = batch[1] if len(batch) > 1 else None
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(x, y, weights, beta, eps)
-        loss.backward()
+        with batch_stats_over(self.model.nets, self.data_axis):
+            loss = self._loss(x, y, weights, beta, eps)
+            loss.backward()
         loss = self.data_axis.reduce_grads(self.optimizer, loss)
         apply_update(self.optimizer, self.grad_accumulator)
         return loss
@@ -327,7 +312,8 @@ class SVItrainer(SegmentedRunsMixin):
         eps = self._noise(batch[0].shape[0])
         batch, w, eps = self.data_axis.local(batch, w, eps)
         y = batch[1] if len(batch) > 1 else None
-        with torch.no_grad():
+        with torch.no_grad(), batch_stats_over(self.model.nets,
+                                               self.data_axis):
             return self.model.weighted_loss_fn(batch[0], y, w, beta, eps=eps)
 
     def _epoch(self, loader, scale_factor, train: bool):

@@ -27,6 +27,13 @@ loading an untrusted file cannot run code. The archive holds:
 - ``manifest``: the format tag, ``current_epoch``, the loss history (the
   trainer's ``loss_history``, or ``history`` for ``auxSVItrainer``).
 
+A tensor-parallel model's files hold the whole model: every rank joins
+the gather of its split layers' rows (parameters, Adam moments, the
+``grad_accum`` window) and global rank 0 writes. Loading cuts the whole
+arrays to the rows of a split model's rank; ``load_checkpoint(...,
+mesh=)`` first splits a whole model over the mesh's ``'model'`` axis, as
+the JAX package's restores the saved shardings onto a live mesh.
+
 The JAX package's archives (a flax msgpack ``payload``, or an orbax
 directory) are refused whole, before anything is read into the model.
 """
@@ -132,8 +139,22 @@ def _param_names(model, optimizer) -> list:
     return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
 
 
+def _whole(model, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``named`` (keyed by parameter name) with a tensor-parallel model's
+    split rows gathered whole (every rank of the model axis joins)."""
+    from ..parallel.mesh import whole_tensors
+    return whole_tensors(model.nets, named)
+
+
+def _local(model, named: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``named`` whole arrays cut to this rank's rows of a tensor-parallel
+    model's split layers."""
+    from ..parallel.mesh import local_tensors
+    return local_tensors(model.nets, named)
+
+
 def _optimizer_payload(model, optimizer, prefix: str):
-    """(arrays, JSON description) of ``optimizer``'s state."""
+    """(arrays, JSON description) of ``optimizer``'s state, whole."""
     sd = optimizer.state_dict()
     names = _param_names(model, optimizer)
     arrays = {}
@@ -141,6 +162,8 @@ def _optimizer_payload(model, optimizer, prefix: str):
         for key, val in state.items():
             if val is None:
                 continue
+            if torch.is_tensor(val) and val.dim() >= 1:
+                val = _whole(model, {names[i]: val})[names[i]]
             arrays[f"{prefix}.{names[i]}.{key}"] = (
                 _to_numpy(val) if torch.is_tensor(val)
                 else np.asarray(val))
@@ -164,7 +187,8 @@ def _optimizer_state(model, optimizer, desc, arrays, prefix: str) -> dict:
     state = {}
     for i, name in enumerate(names):
         head = f"{prefix}.{name}."
-        entry = {k[len(head):]: torch.from_numpy(np.array(v))
+        entry = {k[len(head):]: torch.from_numpy(np.array(
+                     _local(model, {name: v})[name] if v.ndim >= 1 else v))
                  for k, v in arrays.items() if k.startswith(head)}
         if entry:
             state[i] = entry
@@ -189,9 +213,10 @@ def _history(trainer):
 
 
 def _snapshot(model, trainer):
-    """(arrays, manifest) of the whole state, copied to host memory."""
+    """(arrays, manifest) of the whole state, copied to host memory (a
+    tensor-parallel model's layers gathered whole: every rank joins)."""
     arrays = {f"model.{k}": _to_numpy(v)
-              for k, v in model.nets.state_dict().items()}
+              for k, v in _whole(model, model.nets.state_dict()).items()}
     gen = getattr(model, "generator", None)
     if gen is not None:
         arrays["model_generator"] = _to_numpy(gen.get_state())
@@ -212,11 +237,37 @@ def _snapshot(model, trainer):
         accum = getattr(trainer, "grad_accumulator", None)
         if accum is not None:
             names = _param_names(model, accum.optimizer)
-            arrays.update({f"accum.{n}": _to_numpy(a)
-                           for n, a in zip(names, accum.acc)})
+            arrays.update({f"accum.{n}": _to_numpy(a) for n, a in _whole(
+                model, dict(zip(names, accum.acc))).items()})
             manifest["accum"] = {"k": accum.k, "mini_step": accum.mini_step}
         arrays["generator"] = _to_numpy(trainer.generator.get_state())
     return arrays, manifest
+
+
+def _split_onto(model, trainer, mesh) -> bool:
+    """Split a whole ``model`` over ``mesh``'s ``'model'`` axis (nothing
+    when it is split already or the axis has one rank) and point
+    ``trainer``'s optimizers and ``grad_accum`` window at the split
+    parameters (their state is restored from the file next). Returns
+    whether it split."""
+    from ..parallel.collectives import Axis
+    from ..parallel.mesh import tensor_parallel, tensor_parallel_params
+    if tensor_parallel(model.nets) or Axis(mesh, "model").size == 1:
+        return False
+    names = {id(p): n for n, p in model.nets.named_parameters()}
+    tensor_parallel_params(model, mesh)
+    params = dict(model.nets.named_parameters())
+    for name in _OPTIMIZERS:
+        opt = getattr(trainer, name, None)
+        if opt is None:
+            continue
+        for group in opt.param_groups:
+            group["params"] = [params[names[id(p)]] for p in group["params"]]
+        opt.state.clear()
+    accum = getattr(trainer, "grad_accumulator", None)
+    if accum is not None:
+        accum.acc = [torch.zeros_like(p) for p in accum.params()]
+    return True
 
 
 # One registry of async writes per process, as in the JAX package: saves to
@@ -278,11 +329,18 @@ def save_checkpoint(path: str, model, trainer=None, backend: str = "msgpack",
     (each waits for that path's previous write), and
     :func:`load_checkpoint` waits for the path's pending write before it
     reads. The thread is not a daemon, so a normal exit finishes the write.
+
+    Across ranks every rank calls it: each takes the snapshot (a
+    tensor-parallel model's layers are gathered whole) and only global
+    rank 0 writes the file.
     """
+    from ..parallel.collectives import is_writer
     _check_backend(backend)
     key = os.path.abspath(path)
     wait_for_checkpoints(path)  # same-path writes in order; surface errors
     arrays, manifest = _snapshot(model, trainer)
+    if not is_writer():
+        return
     if not async_write:
         write_archive(path, arrays, manifest)
         return
@@ -321,6 +379,8 @@ def _accum_state(model, trainer, manifest, arrays, path):
     acc = []
     for name, a in zip(names, accum.acc):
         v = arrays.get(f"accum.{name}")
+        if v is not None:
+            v = _local(model, {name: v})[name]
         if v is None or tuple(v.shape) != tuple(a.shape):
             raise ValueError(f"{path}: the grad_accum window of {name} is "
                              "missing or of another shape")
@@ -328,18 +388,16 @@ def _accum_state(model, trainer, manifest, arrays, path):
     return acc, int(saved["mini_step"])
 
 
-def load_checkpoint(path: str, model, trainer=None,
-                    backend: str = "msgpack") -> None:
-    """Restore the state :func:`save_checkpoint` wrote into ``model`` (and
-    ``trainer``) in place. Everything is read and checked before anything
-    is restored, so a file that does not fit raises and changes nothing."""
-    _check_backend(backend)
-    wait_for_checkpoints(path)  # not mid-write by an async save
-    manifest, arrays = read_archive(path, CHECKPOINT_FORMAT)
+def _checked(path, manifest, arrays, model, trainer):
+    """(model arrays, optimizer states, grad_accum window, history
+    attribute) of the file for ``model`` and ``trainer`` as they are now
+    (a split model's rows), every shape and name checked; raises
+    ``ValueError`` on the first that does not fit."""
     model_arrays = {k[len("model."):]: v for k, v in arrays.items()
                     if k.startswith("model.")}
+    model_arrays = _local(model, model_arrays)
     check_state(model.nets.state_dict(), model_arrays, "checkpoint")
-    opt_states = {}
+    opt_states, accum, hist_attr = {}, None, None
     if trainer is not None:
         if not manifest.get("trainer"):
             raise ValueError(f"{path} holds no trainer state")
@@ -354,6 +412,30 @@ def load_checkpoint(path: str, model, trainer=None,
         hist_attr = ("loss_history" if manifest["history_kind"]
                      == "loss_history" and hasattr(trainer, "loss_history")
                      else "history")
+    return model_arrays, opt_states, accum, hist_attr
+
+
+def load_checkpoint(path: str, model, trainer=None,
+                    backend: str = "msgpack", mesh=None) -> None:
+    """Restore the state :func:`save_checkpoint` wrote into ``model`` (and
+    ``trainer``) in place. Everything is read and checked before anything
+    is restored, so a file that does not fit raises and changes nothing.
+
+    The file holds the whole model. A tensor-parallel model takes its
+    rank's rows of each split layer (and of their optimizer state). With
+    ``mesh`` (a ``DeviceMesh`` with a ``'model'`` axis), a whole model is
+    first split over it (``tensor_parallel_params``), and ``trainer``'s
+    optimizers and ``grad_accum`` window move onto the split parameters,
+    as the JAX package's ``load_checkpoint(..., mesh=)`` restores the saved
+    shardings onto a live mesh."""
+    _check_backend(backend)
+    wait_for_checkpoints(path)  # not mid-write by an async save
+    manifest, arrays = read_archive(path, CHECKPOINT_FORMAT)
+    # the whole file against the model as it is, before a split changes it
+    state = _checked(path, manifest, arrays, model, trainer)
+    if mesh is not None and _split_onto(model, trainer, mesh):
+        state = _checked(path, manifest, arrays, model, trainer)
+    model_arrays, opt_states, accum, hist_attr = state
     # restore
     model.nets.load_state_dict(
         {k: torch.from_numpy(np.array(v)) for k, v in model_arrays.items()},

@@ -33,8 +33,16 @@ from pyroved_tpu_torch.parallel import (create_mesh, data_parallel_mesh,
                                         pixel_sharded_decode,
                                         replicate_params, shard_pixels,
                                         tensor_parallel_params)
-from pyroved_tpu_torch.parallel.mesh import ColumnParallelLinear
+from pyroved_tpu_torch.nets.conv import batch_stats_over
+from pyroved_tpu_torch.parallel.mesh import (ColumnParallel,
+                                             ColumnParallelLinear,
+                                             split_parameters, tensor_parallel,
+                                             whole_tensors)
+from pyroved_tpu_torch.serving import export_model
 from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
+from pyroved_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                save_checkpoint,
+                                                wait_for_checkpoints)
 from pyroved_tpu_torch.utils.data import init_dataloader
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -463,6 +471,147 @@ def body_shard_flip(rank, world, state, x, noise, batch_size, seed):
     modes = [m._pixel_mode()]
     losses.append(t.train(ld))
     return {"losses": losses, "params": params(m), "modes": modes}
+
+
+def whole(model) -> dict:
+    """The parameters with every split layer gathered whole (every rank of
+    its axis joins)."""
+    return {k: v.detach().numpy().copy() for k, v in
+            whole_tensors(model.nets, model.nets.state_dict()).items()}
+
+
+def body_tp_split(rank, world, cases):
+    """Each case's model whole and split over 'model': the per-example
+    losses of one weighted loss, every grad gathered whole, and what was
+    split."""
+    flag(False)
+    mesh = create_mesh({"model": world})
+    out = {}
+    for name, c in cases.items():
+        res = {}
+        for split in (False, True):
+            m = build(c["cls"], c["args"], c["kw"], c["state"])
+            if split:  # no trainer: the loss right after the split
+                tensor_parallel_params(m, mesh)
+            batch = tensors(c["batch"])
+            per = m.loss_fn(batch[0], batch[1] if len(batch) > 1 else None,
+                            c["beta"], eps=torch.from_numpy(c["eps"]))
+            (per * torch.from_numpy(c["w"])).sum().backward()
+            g = {n: p.grad for n, p in m.nets.named_parameters()}
+            res["split" if split else "whole"] = {
+                "loss": per.detach().numpy(),
+                "grads": {k: v.numpy() for k, v in
+                          whole_tensors(m.nets, g).items()}}
+        res["layers"] = sorted(
+            (n, type(mod).__name__) for n, mod in m.nets.named_modules()
+            if isinstance(mod, ColumnParallel))
+        res["split_params"] = sorted(split_parameters(m.nets))
+        out[name] = res
+    return out
+
+
+def body_tp_checkpoint(rank, world, state, x, batch_size, tmp):
+    """A model split over 'model': 4 epochs in one go; 2 epochs with a
+    checkpoint, the weights and an export written at epoch 2; the
+    checkpoint loaded into a whole model with ``mesh=`` and resumed, and
+    loaded with the trainer built on the whole model; replicate_params."""
+    flag(False)
+    mesh = create_mesh({"model": world})
+    args, kw = ((8, 8), 2, ["r"]), dict(hidden_dim_e=(32,),
+                                        hidden_dim_d=(32,))
+
+    def loader():
+        return init_dataloader(*tensors((x,)), batch_size=batch_size, seed=4,
+                               device="cpu")
+
+    def split_model():
+        return tensor_parallel_params(build("iVAE", args, kw, state), mesh)
+
+    u = split_model()
+    tu = SVItrainer(u, mesh=mesh, seed=5)
+    tu.run(loader(), 4)
+    ck = os.path.join(tmp, "tp.npz")
+    i = split_model()
+    ti = SVItrainer(i, mesh=mesh, seed=5, checkpoint_path=ck,
+                    checkpoint_every=2)
+    ti.run(loader(), 2)
+    i.save_weights(os.path.join(tmp, "tp_weights"))
+    export_model(i, os.path.join(tmp, "tp_export.npz"))
+    for mode in (False, True):  # every rank gathers, rank 0 alone writes
+        save_checkpoint(os.path.join(tmp, f"writer{rank}_{int(mode)}.npz"),
+                        i, ti, async_write=mode)
+    wait_for_checkpoints()
+    out = {"split": sorted(split_parameters(i.nets)), "saved": params(i),
+           "saved_whole": whole(i), "history": tu.loss_history,
+           "uninterrupted": whole(u)}
+    r = build("iVAE", args, kw, state)
+    load_checkpoint(ck, r, mesh=mesh)
+    out["loaded"] = params(r)
+    tr = SVItrainer(r, mesh=mesh, seed=5)
+    ld = loader()
+    ld.set_epoch(tr.resume(ck))
+    tr.run(ld, 2)
+    out.update(resumed=whole(r), resumed_history=tr.loss_history)
+    r2 = build("iVAE", args, kw, state)
+    tr2 = SVItrainer(r2, mesh=mesh, seed=5)
+    load_checkpoint(ck, r2, tr2, mesh=mesh)
+    ld = loader()
+    ld.set_epoch(tr2.current_epoch)
+    tr2.run(ld, 2)
+    out["resumed_whole_trainer"] = whole(r2)
+    refused = {}
+    for what in ("grad_accum", "width"):  # a file that does not fit
+        kw3 = kw if what == "grad_accum" else dict(hidden_dim_e=(16,),
+                                                   hidden_dim_d=(16,))
+        r3 = tmodels.iVAE(*args, device="cpu", seed=0, **kw3)
+        t3 = SVItrainer(r3, mesh=mesh, seed=5,
+                        grad_accum=2 if what == "grad_accum" else 1)
+        before = params(r3)
+        try:
+            load_checkpoint(ck, r3, t3, mesh=mesh)
+            raised = False
+        except ValueError:
+            raised = True
+        live = {id(p) for p in r3.nets.parameters()}
+        refused[what] = dict(
+            raised=raised, split=tensor_parallel(r3.nets),
+            unchanged=all(np.array_equal(v, before[k])
+                          for k, v in params(r3).items()),
+            optimizer_on_model=all(id(p) in live
+                                   for g in t3.optimizer.param_groups
+                                   for p in g["params"]))
+    out["refused"] = refused
+    rep = split_model()
+    with torch.no_grad():
+        for p in rep.nets.parameters():
+            p.add_(float(rank))
+    replicate_params(rep, mesh)
+    out["replicated"] = whole(rep)
+    return out
+
+
+def body_bn_dp(rank, world, cls, args, kw, state, first, x, noise,
+               batch_size, epochs):
+    """A batchnorm model over 'data': the first step's loss and grads
+    (no update), then ``epochs`` epochs of the trainer."""
+    flag(False)
+    mesh = create_mesh({"data": world})
+    m = build(cls, args, kw, state)
+    t = FedNoiseSVI(m, noise, mesh=mesh)
+    xb, yb, w, eps = first
+    batch, wl, e = t.data_axis.local(tensors((xb, yb)), torch.from_numpy(w),
+                                     torch.from_numpy(eps))
+    with batch_stats_over(m.nets, t.data_axis):
+        loss = m.weighted_loss_fn(batch[0], batch[1], wl, 1.0, eps=e)
+        loss.backward()
+    loss = t.data_axis.reduce_grads(t.optimizer, loss)
+    out = {"first_loss": float(loss), "first_grads": grads(m)}
+    m.nets.zero_grad(set_to_none=True)
+    ld = init_dataloader(*tensors(x), batch_size=batch_size, seed=3,
+                         device="cpu")
+    out["losses"] = [float(t.train(ld)) for _ in range(epochs)]
+    out["params"] = params(m)
+    return out
 
 
 BODIES = {k[len("body_"):]: v for k, v in dict(globals()).items()
