@@ -10,8 +10,10 @@ Each phase that runs a decoder kernel runs under the port's
 ``BF16_MATMUL`` flag: set (the default, as the JAX package's), hidden
 products take bf16 operands and every kernel runs on the tensor cores (K1
 ``spatial_decoder_fwd_tc.cu``, K2/K3 ``spatial_decoder_bwd_tc.cu``);
-clear, everything is f32 on the CUDA cores (``spatial_decoder_fwd.cu``,
-``spatial_decoder_bwd.cu``). Launches are counted by source.
+clear, everything is f32: K1 on the CUDA cores
+(``spatial_decoder_fwd.cu``), K2/K3 on the tensor cores with three-limb
+bf16 splits (``spatial_decoder_bwd_x3.cu``). Launches are counted by
+source.
 
 1. Device and build: prints the card's name and power limit
    (``nvidia-smi``), then builds the four decoder sources from
@@ -252,7 +254,7 @@ K2 = sd.fused_spatial_decoder_backward
 K3 = sd.fused_bernoulli_recon_loss_kernel
 KERNELS = (K1, K2, K3)
 SOURCES = ("spatial_decoder_fwd", "spatial_decoder_fwd_tc",
-           "spatial_decoder_bwd", "spatial_decoder_bwd_tc")
+           "spatial_decoder_bwd_x3", "spatial_decoder_bwd_tc")
 GRAD_NAMES = ("phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb", "wout",
               "bout")
 PER_SAMPLE = 4  # the first four grads are per sample, the rest summed
@@ -266,6 +268,24 @@ ATOL = 1e-4
 GRAD_RTOL = 1e-3
 # Per-example negative ELBO sums ~800 pixel terms of size ~1: relative.
 LOSS_RTOL = 1e-4
+# The f32 K2/K3 (three-limb bf16 products on the tensor cores) against
+# the plain version in f64: each grad's error, over its tensor's largest
+# entry, at most F64_FACTOR times the f32 plain version's own or
+# F64_FLOOR, whichever is larger: the kernel computes f32's function to
+# about f32's rounding, or this fails. The f32 plain version's error is
+# the larger of its two evaluations, on the card (cuBLAS, TF32 off) and on
+# the host (the CPU's BLAS, the CPU tests' numerics): where a grad is one
+# cancelling sum (one pixel of one sample), one evaluation's error is
+# luck. Against the card's alone the first f32 kernel was over this bound
+# on 10 of 64 draws of phase 2's one-pixel case, and the limb products
+# done exactly on 4 (tools/x3_accuracy.py; PERF.md section 6).
+F64_FACTOR = 4.0
+F64_FLOOR = 1e-6
+# The f32 case at a 512x512 tile (phase 10's shape, B = 200, N = 16,384,
+# H = 128, two tanh layers), where a block's weight grads sum the most
+# tiles; its plain versions run over this many row chunks.
+TILE_512 = (2, 1, "tanh", 128, 200, 16384, 2, 2)
+TILE_512_CHUNKS = 8
 # VED on the card against the same model on the CPU, both f32 (cuDNN's
 # TF32 kept off by the port's convolutions): the port's f32 tolerances,
 # outputs atol 1e-5, per-example losses rtol 1e-5; grads as above, each
@@ -405,6 +425,46 @@ def rel_to_max(got, ref):
     return max(((g.float() - r.float()).abs().max()
                 / r.float().abs().max().clamp_min(1e-30)).item()
                for g, r in zip(got, ref))
+
+
+def rel_errs(got, ref):
+    """Each grad's largest error over its tensor's largest entry."""
+    return [((g.double() - r.double()).abs().max()
+             / r.double().abs().max().clamp_min(1e-300)).item()
+            for g, r in zip(got, ref)]
+
+
+def check_f64(what, got, refs32, ref64, names=GRAD_NAMES):
+    """The kernel's grads ``got`` against the f64 plain version
+    ``ref64``: each grad's error over its largest entry within F64_FACTOR
+    times the f32 plain version's (the larger over its evaluations
+    ``refs32``, on the card and on the host) or F64_FLOOR. Returns the
+    worst (kernel, plain) pair of relative errors."""
+    kern = rel_errs(got, ref64)
+    plain = [max(e) for e in zip(*(rel_errs(r, ref64) for r in refs32))]
+    bad = [f"d{n} {k:.2e} > max({F64_FACTOR} x {p:.2e}, {F64_FLOOR})"
+           for n, k, p in zip(names, kern, plain)
+           if not k <= max(F64_FACTOR * p, F64_FLOOR)]
+    if bad:
+        raise AssertionError(f"{what} against f64: {'; '.join(bad)}")
+    return max(kern), max(plain)
+
+
+def on_host(fn, *args, **kw):
+    """``fn`` run on CPU copies of its tensor arguments (dicts of them
+    too), its tensors brought back to the card: the plain version's f32
+    evaluation on the host."""
+    def cpu(v):
+        if isinstance(v, dict):
+            return {k: cpu(x) for k, x in v.items()}
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    def back(v):
+        if isinstance(v, (tuple, list)):
+            return type(v)(back(x) for x in v)
+        return v.cuda() if isinstance(v, torch.Tensor) else v
+
+    return back(fn(*(cpu(v) for v in args), **{k: cpu(v) for k, v in kw.items()}))
 
 
 def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE,
@@ -641,9 +701,20 @@ def phase_k2_k3_vs_plain(dev):
                                                    sigmoid_out=sig)
                 errs2.append(check_grads(f"K2 {tag} {what}", got, ref,
                                          per_sample=per_sample, rel=grad_rel))
+                f64 = ""
+                if not sd.BF16_MATMUL:
+                    ref64 = sd.spatial_decoder_bwd_plain(
+                        **f64_args(a), g=g.double(), act=act,
+                        sigmoid_out=sig)
+                    host = on_host(sd.spatial_decoder_bwd_plain, **a, g=g,
+                                   act=act, sigmoid_out=sig)
+                    ek, ep = check_f64(f"K2 {tag} {what}", got, (ref, host),
+                                       ref64)
+                    f64 = (f", against f64 {ek:.1e} (plain f32, card or "
+                           f"host, {ep:.1e}) of the largest entry")
                 log(f"  K2 {tag} vs plain {what}: max abs err "
                     f"{errs2[-1]:.3e} ({rel_to_max(got, ref):.1e} of the "
-                    f"largest entry), bitwise equal across launches")
+                    f"largest entry){f64}, bitwise equal across launches")
             if C != 1 and (D, C, H) != (2, 3, 256):
                 continue
             # K3 on the same inputs with one channel
@@ -670,11 +741,80 @@ def phase_k2_k3_vs_plain(dev):
                     raise AssertionError(f"K3 {what}: loss rel err {rel:.3e}")
                 errs3.append(check_grads(f"K3 {tag} {what}", grads, ref,
                                          per_sample=per_sample, rel=grad_rel))
+                f64 = ""
+                if not sd.BF16_MATMUL:
+                    _, ref64 = sd.recon_loss_plain(
+                        *(t.double() for t in args), act=act)
+                    _, host = on_host(sd.recon_loss_plain, *args, act=act)
+                    ek, ep = check_f64(f"K3 {tag} {what}", grads,
+                                       (ref, host), ref64)
+                    f64 = (f", against f64 {ek:.1e} (plain f32, card or "
+                           f"host, {ep:.1e}) of the largest entry")
                 log(f"  K3 {tag} vs plain D={D} C=1 H={H} act={act:<11} B={B} "
                     f"N={N} L={L} layers={nl}: loss rel err {rel:.3e}, grads "
                     f"max abs err {errs3[-1]:.3e} ({rel_to_max(grads, ref):.1e}"
-                    f" of the largest entry), bitwise equal")
+                    f" of the largest entry){f64}, bitwise equal")
+        if not sd.BF16_MATMUL:
+            with case():
+                e2, e3 = tile_512_case(rng, dev)
+                errs2.append(e2)
+                errs3.append(e3)
     return max(errs2), max(errs3)
+
+
+def f64_args(a):
+    return {k: v.double() for k, v in a.items()}
+
+
+def tile_512_case(rng, dev):
+    """Phase 2, f32: K2 and K3 at a 512x512 tile (TILE_512) against their
+    plain versions in f32 and f64, each over TILE_512_CHUNKS row chunks,
+    and a second launch. Returns (K2's, K3's) largest absolute error."""
+    D, C, act, H, B, N, L, nl = TILE_512
+    a = random_case(rng, dev, D, C, H, B, N, L, nl)
+    g = torch.as_tensor(rng.normal(size=(B, N)), dtype=torch.float32,
+                        device=dev)
+    what = f"D={D} C={C} H={H} act={act} B={B} N={N} L={L} layers={nl}"
+    got, again = K2(**a, g=g), K2(**a, g=g)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"K2 f32 {what}: two launches differ")
+    del again
+    ref = plain_bwd(a, g, TILE_512_CHUNKS)
+    e2 = check_grads(f"K2 f32 {what}", got, ref, per_sample=0)
+    ref64 = plain_bwd(f64_args(a), g.double(), TILE_512_CHUNKS)
+    host = on_host(plain_bwd, a, g, TILE_512_CHUNKS)
+    ek, ep = check_f64(f"K2 f32 {what}", got, (ref, host), ref64)
+    log(f"  K2 f32 vs plain {what}: max abs err {e2:.3e} "
+        f"({rel_to_max(got, ref):.1e} of the largest entry), against f64 "
+        f"{ek:.1e} (plain f32, card or host, {ep:.1e}) of the largest entry, "
+        f"bitwise equal "
+        f"across launches")
+    del got, ref, ref64
+    x = torch.as_tensor(rng.uniform(0, 1, (B, N)), dtype=torch.float32,
+                        device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1, B), dtype=torch.float32, device=dev)
+    (loss, got), (loss2, again) = K3(**a, x=x, wgt=w), K3(**a, x=x, wgt=w)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, loss2) and all(
+            torch.equal(p, q) for p, q in zip(got, again))):
+        raise AssertionError(f"K3 f32 {what}: two launches differ")
+    del again
+    ref_loss, ref = plain_loss(a, x, w, TILE_512_CHUNKS)
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"K3 f32 {what}: loss rel err {rel:.3e}")
+    e3 = check_grads(f"K3 f32 {what}", got, ref, per_sample=0)
+    _, ref64 = plain_loss(f64_args(a), x.double(), w.double(),
+                          TILE_512_CHUNKS)
+    _, host = on_host(plain_loss, a, x, w, TILE_512_CHUNKS)
+    ek, ep = check_f64(f"K3 f32 {what}", got, (ref, host), ref64)
+    log(f"  K3 f32 vs plain {what}: loss rel err {rel:.3e}, grads max abs "
+        f"err {e3:.3e} ({rel_to_max(got, ref):.1e} of the largest entry), "
+        f"against f64 {ek:.1e} (plain f32, card or host, {ep:.1e}) of the "
+        f"largest entry, "
+        f"bitwise equal")
+    return e2, e3
 
 
 def reset_counts():
@@ -901,7 +1041,8 @@ def step_breakdown(model, xb, y=None, warmup=5, steps=10):
         top.append((t / 1e3 / steps, ev.count / steps, ev.key[:80]))
         name = ev.key.lower()
         key = ("K1" if "sdec_fwd" in name else
-               "K2" if "sdec_bwd" in name or "sdec_tc" in name else
+               "K2" if ("sdec_bwd" in name or "sdec_tc" in name
+                        or "sdec_x3" in name) else
                "Adam" if "adam" in name or "multi_tensor" in name else
                "gemm" if "gemm" in name or "sm90" in name or "cutlass" in name
                else "other")
@@ -1001,6 +1142,20 @@ def plain_bwd(a, g, chunks=1):
                  for j, p in enumerate(zip(*parts)))
 
 
+def plain_loss(a, x, w, chunks=1):
+    """K3's plain version over ``chunks`` row chunks of the batch: the
+    losses and the weight grads summed, the per-sample grads joined."""
+    step = a["z"].shape[0] // chunks
+    parts = [sd.recon_loss_plain(
+        c["grid"], c["phi"], c["dx"], c["sc"], c["z"],
+        x[i * step:(i + 1) * step], w[i * step:(i + 1) * step], c["Wc"],
+        c["bc"], c["Wz"], c["hw"], c["hb"], c["wout"], c["bout"])
+        for i, c in enumerate(row_chunks(a, chunks))]
+    grads = tuple(torch.cat(p) if j < PER_SAMPLE else sum(p)
+                  for j, p in enumerate(zip(*(g for _, g in parts))))
+    return sum(loss for loss, _ in parts), grads
+
+
 def time_bwd(name, a, xf, gen, peaks, with_k3=True, chunks=1):
     """K2 (and K3 when ``with_k3``; ``xf`` its observations), f32 and
     tensor-core, at one training shape: held against their plain versions
@@ -1076,12 +1231,15 @@ def time_bwd(name, a, xf, gen, peaks, with_k3=True, chunks=1):
                 k_ms = cuda_ms(fn, reps=5 if few else 20)
                 p_ms = cuda_ms(plain_fn, reps=3 if few else 10)
                 b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
+                # the f32 kernel makes each product as six bf16 products
+                bx3, byx3 = bounds(6 * flops, nbytes, peaks)[1::2]
                 row = {"shape": label, "flag": tag, "ms": k_ms,
                        "plain_ms": p_ms, "plain_row_chunks": chunks,
                        "max_abs_err": err,
-                       "bound_ms": b16 if on else b32,
-                       "bound_by": by16 if on else by32,
+                       "bound_ms": b16 if on else bx3,
+                       "bound_by": by16 if on else byx3,
                        "bound_ms_f32": b32, "bound_ms_bf16": b16,
+                       "bound_ms_x3": bx3,
                        "library_ms": lib[on], "flops": flops,
                        "bytes": nbytes, "tflops": flops / k_ms / 1e9,
                        "workspace_bytes": ws_bytes, "blocks": blocks}
@@ -1094,7 +1252,8 @@ def time_bwd(name, a, xf, gen, peaks, with_k3=True, chunks=1):
                     + ("" if "autograd_plain_ms" not in row else
                        f", autograd of the plain forward "
                        f"{row['autograd_plain_ms']:.4f} ms")
-                    + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms"
+                    + f", bound f32 {b32:.4f} ms, bound bf16 {b16:.4f} ms, "
+                    f"six bf16 products {bx3:.4f} ms"
                     f", cuBLAS {tag} hidden products {lib[on]:.4f} ms, "
                     f"{row['tflops']:.2f} TFLOP/s, {blocks} blocks, "
                     f"workspace {ws_bytes / 2 ** 20:.1f} MiB")
@@ -2401,7 +2560,8 @@ SEMI_KEYS = {"model", "training_loss", "val_metric", "stopped_early",
 # The __global__ function of K1 and K2 in each flag's source, as the
 # profiler's trace names it
 GLOBALS = {("K1", False): "sdec_fwd_kernel", ("K1", True): "sdec_fwd_tc_kernel",
-           ("K2", False): "sdec_bwd_kernel", ("K2", True): "sdec_bwd_tc_kernel"}
+           ("K2", False): "sdec_bwd_x3_kernel",
+           ("K2", True): "sdec_bwd_tc_kernel"}
 # K1 decoding imported weights against the reference torch module (f32, TF32
 # off): with the flag clear phase 2's f32 tolerance; with it set the kernel
 # rounds its hidden operands to bf16 and the module does not, so the JAX
@@ -4080,7 +4240,8 @@ def main() -> int:
         return [row["max_abs_err"] for row in rows[kname, bool(on)]]
 
     csrc = "pyroved_tpu_torch/csrc/"
-    bwd, tc = csrc + "spatial_decoder_bwd.cu", csrc + "spatial_decoder_bwd_tc.cu"
+    bwd, tc = (csrc + "spatial_decoder_bwd_x3.cu",
+               csrc + "spatial_decoder_bwd_tc.cu")
     k1_at, k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:422",
                            "pyroved_tpu/ops/spatial_decoder.py:531",
                            "pyroved_tpu/ops/spatial_decoder.py:1209")
@@ -4095,7 +4256,7 @@ def main() -> int:
                   *shape_errs("K1", 1)),
               rows["K1", True], launches_per_request=launches,
               request_ms=request_ms, weights_ms=weights_ms),
-        entry("spatial_decoder_bwd", bwd, k2_at, "K2",
+        entry("spatial_decoder_bwd_x3", bwd, k2_at, "K2",
               max(errs[False]["K2"], train32["max_err"],
                   *shape_errs("K2", 0)),
               rows["K2", False]),

@@ -1,7 +1,7 @@
-// The f32 core of the CUDA-core kernels (sm_90a), which run with the
-// port's BF16_MATMUL clear: K1's products (spatial_decoder_fwd.cu), and
-// the phase clock, activations and per-sample transform that K2/K3
-// (spatial_decoder_bwd.cu) use too. Every product is exact f32 FFMA.
+// The f32 core of K1 on the CUDA cores (sm_90a), which runs with the
+// port's BF16_MATMUL clear (spatial_decoder_fwd.cu): its products, phase
+// clock, activations and per-sample transform. Every product is exact f32
+// FFMA.
 //
 // Work goes to groups of 256 threads (8 warps), each walking its own run of
 // (sample, pixel tile) pairs and synchronising on its own named barrier;
@@ -89,10 +89,6 @@ struct PhaseClock {
 };
 #endif
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // mbarriers (shared memory, one 64-bit word each) and the bulk copy that
 // completes on one
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -167,24 +163,6 @@ template <int A>
 __device__ __forceinline__ float h0_act(float x) {
   if constexpr (A == ACT_TANH_APPROX) return pade_tanh(x);
   else return tanhf(x);
-}
-
-// d act / d pre from the post-activation h, as _act_grad_from_post: the
-// subgradient at 0 is 1 for lrelu (h >= 0) and 0 for relu (h > 0); the Pade
-// tanh takes tanh's 1 - h^2.
-template <int A>
-__device__ __forceinline__ float act_grad_post(float h) {
-  if constexpr (A == ACT_LRELU) return h >= 0.0f ? 1.0f : 0.01f;
-  else if constexpr (A == ACT_SOFTPLUS) return 1.0f - expf(-h);
-  else if constexpr (A == ACT_RELU) return h > 0.0f ? 1.0f : 0.0f;
-  else return 1.0f - h * h;
-}
-
-// exact gelu and its derivative Phi(x) + x phi(x), sharing erff
-__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& g) {
-  const float e = erff(x * 0.70710678118654752f);
-  h = 0.5f * x * (1.0f + e);
-  g = 0.5f * (1.0f + e) + x * 0.39894228040143268f * expf(-0.5f * x * x);
 }
 
 // A thread's place in a [R x H] layer product: row slot q (rows 4q .. 4q+3)

@@ -7,8 +7,8 @@
 // of dwout = h_L^T dl (:647), of dW_l = h_l^T d_pre (:651) and of
 // dh = d_pre W_l^T (:653) are rounded to bf16 and the products summed in f32.
 // Heads, biases, activations, their derivatives and the coordinate layer
-// stay in f32. spatial_decoder_bwd.cu is the BF16_MATMUL = False version;
-// the math is the same (see its note), one body serves K2 and K3.
+// stay in f32. spatial_decoder_bwd_x3.cu is the BF16_MATMUL = False
+// version on this structure; one body serves K2 and K3.
 //
 // What bounds it: 6 n_layers H^2 flops per pixel on the tensor cores. At
 // the flagship training step (B = 200, N = 784, H = 128, two layers) that
@@ -73,51 +73,12 @@
 //    here and nothing synchronises with the host.
 
 #include <atomic>
-#include <climits>
 
-// sm90_common.cuh also holds the phase marks of the tile loop
-// (PVT_PROFILE_PHASES, pyroved_tpu_torch/tools/profile_bwd_tc.py).
-#include "sm90_common.cuh"
+// sm90_common.cuh (through sm90_bwd.cuh) also holds the phase marks of the
+// tile loop (PVT_PROFILE_PHASES, pyroved_tpu_torch/tools/profile_bwd_tc.py).
+#include "sm90_bwd.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // two warpgroups
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnits = 2;                   // dW units a warpgroup keeps
-constexpr int kPassUnits = 2 * kUnits;      // dW units a block keeps
-constexpr int kUnitFloats = 64 * 128;       // one m64 x n128 accumulator
-constexpr int kMaxC = 4;
-constexpr int kMaxDevices = 64;
-
-// d act / d pre from the f32 post-activation h, as spatial_decoder_bwd.cu
-// takes it: relu's subgradient at 0 is 0, lrelu's 1, the Pade tanh takes
-// 1 - h^2. Not for gelu, whose derivative needs the pre-activation.
-template <int A>
-__device__ __forceinline__ float grad_from_post(float h) {
-  if constexpr (A == ACT_RELU) return h > 0.0f ? 1.0f : 0.0f;
-  else if constexpr (A == ACT_LRELU) return h >= 0.0f ? 1.0f : 0.01f;
-  else if constexpr (A == ACT_SOFTPLUS) return 1.0f - expf(-h);
-  else return 1.0f - h * h;
-}
-
-// gelu's derivative Phi(x) + x phi(x)
-__device__ __forceinline__ float gelu_grad(float x) {
-  return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
-         x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
-
-// h = act(pre) and g = d act / d pre (gelu sharing its erff)
-template <int A>
-__device__ __forceinline__ void act_and_grad(float pre, float& h, float& g) {
-  if constexpr (A == ACT_GELU) {
-    const float e = erff(pre * 0.70710678118654752f);
-    h = 0.5f * pre * (1.0f + e);
-    g = 0.5f * (1.0f + e) + pre * 0.39894228040143268f * expf(-0.5f * pre * pre);
-  } else {
-    h = act_fn<A>(pre);
-    g = grad_from_post<A>(h);
-  }
-}
 
 // hw [nl, H, H] f32 -> two bf16 copies, tiled: wb[l] the whole matrix
 // (rows = inputs, 16 H bytes per row of cores; its 64-row panels are
@@ -145,12 +106,6 @@ struct KArgs {
   int B, N, D, L, nl, C, act, sigmoid_out, loss, resident, n_tiles, per_pass,
       slot;
 };
-
-// floats of the small per-tile buffers and block sums in shared memory
-inline int small_floats(int H, int R, int nl, int C) {
-  return 3 * H + 2 * R + kMaxC * R + R + kWarps * R * C + nl * H + H * C + C +
-         1;
-}
 
 __host__ __device__ inline size_t weight_bytes(int H, int nl, bool resident) {
   return resident ? (size_t)nl * 2 * H * H : (size_t)2 * 128 * H;
@@ -644,133 +599,6 @@ sdec_bwd_tc_kernel(const KArgs a) {
   for (int i = tid; i < n_sums; i += kThreads) sums[i] = db_s[i];
 }
 
-// Sum over the block in a fixed order; every thread gets the result.
-template <int H>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();  // earlier reads of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < H / 32; ++w) s += red[w];
-  return s;
-}
-
-// Per-sample epilogue: one block per sample, one thread per hidden unit.
-// Sums the sample's tile partials in tile order into duvw [B][3][H], then
-// dphi, dsc, ddx and dz by the folded-transform formulas.
-template <int H>
-__global__ void __launch_bounds__(H)
-sdec_tc_samples(const float* __restrict__ tile_ws, float* __restrict__ duvw,
-                const float* __restrict__ phi, const float* __restrict__ sc,
-                const float* __restrict__ wc, const float* __restrict__ wz,
-                float* __restrict__ dphi, float* __restrict__ ddx,
-                float* __restrict__ dsc, float* __restrict__ dz, int n_tiles,
-                int D, int L) {
-  __shared__ float red[H / 32];
-  const int b = blockIdx.x, h = threadIdx.x;
-  const float* tw = tile_ws + (size_t)b * n_tiles * 3 * H;
-  float su = 0.0f, sv = 0.0f, sw = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    su += tw[(size_t)t * 3 * H + h];
-    sv += tw[(size_t)t * 3 * H + H + h];
-    sw += tw[(size_t)t * 3 * H + 2 * H + h];
-  }
-  float* o = duvw + (size_t)b * 3 * H;
-  o[h] = su;
-  o[H + h] = sv;
-  o[2 * H + h] = sw;
-  if (D == 2) {
-    float sn, cs;
-    sincosf(phi[b], &sn, &cs);
-    const float scale = sc[b];
-    const float a0 = cs * wc[h] + sn * wc[H + h];
-    const float a1 = -sn * wc[h] + cs * wc[H + h];
-    const float v_sc = block_sum<H>(su * a0 + sv * a1, red);
-    const float v_phi = block_sum<H>(su * (scale * a1) - sv * (scale * a0), red);
-    if (h == 0) {
-      dsc[b] = v_sc;
-      dphi[b] = v_phi;
-    }
-  } else if (h == 0) {
-    dsc[b] = 0.0f;
-    dphi[b] = 0.0f;
-  }
-  for (int d = 0; d < D; ++d) {
-    const float v = block_sum<H>(sw * wc[d * H + h], red);
-    if (h == 0) ddx[b * D + d] = v;
-  }
-  for (int l = 0; l < L; ++l) {
-    const float v = block_sum<H>(sw * wz[l * H + h], red);
-    if (h == 0) dz[(size_t)b * L + l] = v;
-  }
-}
-
-// Weight epilogue from dWc on: dWc, dbc and dWz sum the per-sample
-// vectors over the samples; dhw sums its unit in the slots of its pass,
-// dhb, dwout, dbout and the loss the slots of pass 0. Each block takes 32
-// outputs (one a lane); its 8 warps sum every 8th sample or slot, then
-// warp 0 adds the 8 partials in warp order: a fixed order, and 8 loads in
-// flight for each output.
-__global__ void __launch_bounds__(kThreads)
-sdec_tc_weights(const float* __restrict__ blk_ws, int per_pass, int slot,
-                const float* __restrict__ duvw, const float* __restrict__ phi,
-                const float* __restrict__ dx, const float* __restrict__ sc,
-                const float* __restrict__ z, float* __restrict__ out, int B,
-                int D, int L, int H, int nl, int C, int loss) {
-  __shared__ float part[kWarps][32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int i = blockIdx.x * 32 + lane;
-  const int n_samp = (D + 1 + L) * H, n_dw = nl * H * H;
-  const int n_sums = nl * H + H * C + C + loss;
-  float s = 0.0f;
-  if (i < n_samp) {
-    const int row = i / H, h = i - row * H;
-    for (int b = w; b < B; b += kWarps) {
-      const float* v = duvw + (size_t)b * 3 * H;
-      const float du = v[h], dv = v[H + h], dw = v[2 * H + h];
-      if (row < D) {
-        if (D == 2) {
-          float sn, cs;
-          sincosf(phi[b], &sn, &cs);
-          const float scale = sc[b];
-          s += row == 0
-                   ? (scale * cs) * du - (scale * sn) * dv + dx[b * 2] * dw
-                   : (scale * sn) * du + (scale * cs) * dv + dx[b * 2 + 1] * dw;
-        } else {
-          s += du + dx[b] * dw;
-        }
-      } else if (row == D) {
-        s += dw;
-      } else {
-        s += z[(size_t)b * L + (row - D - 1)] * dw;
-      }
-    }
-  } else if (i < n_samp + n_dw + n_sums) {
-    const int j = i - n_samp;
-    const float* src;
-    if (j < n_dw) {
-      const int l = j / (H * H), r = (j / H) % H, c = j % H;
-      const int q = (l * (H / 64) + (r >> 6)) * (H / 128) + (c >> 7);
-      src = blk_ws + (size_t)(q / kPassUnits) * per_pass * slot +
-            (q % kPassUnits) * kUnitFloats + (r & 63) * 128 + (c & 127);
-    } else {
-      src = blk_ws + kPassUnits * kUnitFloats + (j - n_dw);
-    }
-    for (int k = w; k < per_pass; k += kWarps) s += src[(size_t)k * slot];
-  }
-  part[w][lane] = s;
-  __syncthreads();
-  if (w == 0 && i < n_samp + n_dw + n_sums) {
-    float t = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) t += part[k][lane];
-    out[i] = t;
-  }
-}
-
 // What a call runs: tile rows R, whether the weights stay resident, the
 // shared memory, passes over the tiles and blocks per pass.
 struct Plan {
@@ -839,12 +667,6 @@ cudaError_t make_plan(int B, int N, int H, int nl, int C, Plan* p) {
   return cudaSuccess;
 }
 
-inline size_t slot_floats(int H, int nl, int C) {
-  const size_t q = (size_t)kPassUnits * kUnitFloats + (size_t)nl * H +
-                   (size_t)H * C + C + 1;
-  return (q + 3) / 4 * 4;
-}
-
 // workspace: wb | wf (bf16 weights) | block slots | tile sums | sample sums
 inline size_t workspace_floats(const Plan& p, int B, int H, int nl, int C) {
   return (size_t)nl * H * H + (size_t)p.passes * p.per_pass * slot_floats(H, nl, C) +
@@ -871,14 +693,6 @@ cudaError_t launch(const Args& a) {
   float* blk_ws = a.ws + (size_t)nl * H * H;
   float* tile_ws = blk_ws + (size_t)a.n_blocks * slot;
   float* duvw = tile_ws + (size_t)a.B * p.n_tiles * 3 * H;
-  // out: dphi [B] | ddx [B, D] | dsc [B] | dz [B, L] | dWc [D, H] | dbc [H]
-  //      | dWz [L, H] | dhw [nl, H, H] | dhb [nl, H] | dwout [H, C]
-  //      | dbout [C] | loss (K3)
-  float* dphi = a.out;
-  float* ddx = dphi + a.B;
-  float* dsc = ddx + (size_t)a.B * a.D;
-  float* dz = dsc + a.B;
-  float* out_w = dz + (size_t)a.B * a.L;
 
   const int n_w = nl * H * H;
   sdec_tc_prep<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
@@ -902,30 +716,9 @@ cudaError_t launch(const Args& a) {
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (H == 128)
-    sdec_tc_samples<128><<<a.B, 128, 0, a.stream>>>(
-        tile_ws, duvw, a.phi, a.sc, a.wc, a.wz, dphi, ddx, dsc, dz, p.n_tiles,
-        a.D, a.L);
-  else
-    sdec_tc_samples<256><<<a.B, 256, 0, a.stream>>>(
-        tile_ws, duvw, a.phi, a.sc, a.wc, a.wz, dphi, ddx, dsc, dz, p.n_tiles,
-        a.D, a.L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n_vals = (a.D + 1 + a.L) * H + n_w + nl * H + H * a.C + a.C + a.loss;
-  sdec_tc_weights<<<(n_vals + 31) / 32, kThreads, 0, a.stream>>>(
-      blk_ws, p.per_pass, (int)slot, duvw, a.phi, a.dx, a.sc, a.z, out_w,
-      a.B, a.D, a.L, H, nl, a.C, a.loss);
-  return cudaGetLastError();
-}
-
-bool bad_dims(int B, int N, int D, int L, int H, int n_layers, int C, int act,
-              int loss_mode) {
-  if (B <= 0 || N <= 0 || D < 1 || D > 2 || L < 0 || n_layers < 1) return true;
-  if (C < 1 || C > kMaxC || (loss_mode && C != 1)) return true;
-  if ((H != 128 && H != 256) || act < ACT_TANH || act > ACT_TANH_APPROX)
-    return true;
-  return (long long)B * N > INT_MAX;
+  return launch_sums<false>(blk_ws, tile_ws, duvw, p.per_pass, (int)slot, p.n_tiles,
+                     a.phi, a.dx, a.sc, a.z, a.wc, a.wz, a.out, a.B, a.D, a.L,
+                     H, nl, a.C, a.loss, a.stream);
 }
 
 }  // namespace
@@ -947,8 +740,7 @@ extern "C" int pvt_sdec_bwd_tc_plan(int B, int N, int D, int L, int H,
   return (int)cudaSuccess;
 }
 
-// Plain C entry point (bound with ctypes), arguments as pvt_sdec_bwd in
-// spatial_decoder_bwd.cu: the forward's inputs, g [B, N, C] (K2) or x
+// Plain C entry point (bound with ctypes): the forward's inputs, g [B, N, C] (K2) or x
 // [B, N] and wgt [B] (K3, C = 1, loss_mode = 1), the flat output `out`, and
 // a workspace of the size and block count that pvt_sdec_bwd_tc_plan gives.
 // All float32, contiguous, on the device of `stream`. Returns a cudaError_t.

@@ -98,6 +98,27 @@ def _continuous_bernoulli_sample(loc: Tensor, generator=None) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# OneHotCategorical
+# ---------------------------------------------------------------------------
+
+def one_hot_categorical_log_prob(x_onehot: Tensor, probs: Tensor) -> Tensor:
+    """log p(one-hot x) under class probabilities; reduces the event dim."""
+    return torch.xlogy(x_onehot, probs).sum(-1)
+
+
+def one_hot_categorical_sample(probs: Tensor,
+                               generator: Optional[torch.Generator] = None
+                               ) -> Tensor:
+    """A one-hot draw over the last dim of ``probs`` (normalized here), in
+    ``probs``' dtype: class k where the cumulative probability first
+    exceeds a uniform draw, so a class of probability 0 is never drawn."""
+    cdf = torch.cumsum(probs / probs.sum(-1, keepdim=True), -1)
+    u = _rand_like(probs[..., :1], generator)
+    idx = (cdf <= u).sum(-1).clamp(max=probs.shape[-1] - 1)
+    return torch.nn.functional.one_hot(idx, probs.shape[-1]).to(probs.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Decoder observation samplers
 # ---------------------------------------------------------------------------
 

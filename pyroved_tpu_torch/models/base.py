@@ -328,6 +328,16 @@ class baseVAE:
         grid = self.grid.expand(z.shape[:-1] + self.grid.shape)
         return transform_coordinates(grid, phi, dx[..., None, :], sc), z
 
+    def fixed_transform_grid(self, **kwargs) -> Optional[Tensor]:
+        """The grid ``[N, D]`` under one user-fixed pose (``angle``,
+        ``shift``, ``scale``; defaults 0, 0 and 1), the generation path's;
+        None for a model without a coordinate transform."""
+        if self.coord == 0:
+            return None
+        return fixed_transform_grid(self.grid, kwargs.get("angle", 0.0),
+                                    kwargs.get("shift", 0.0),
+                                    kwargs.get("scale", 1.0))
+
     def _module_decode(self, z: Tensor, y: Optional[Tensor] = None):
         """(decoded loc, warped grid or None) of latents ``z`` (and labels
         ``y``) through the decoder module."""

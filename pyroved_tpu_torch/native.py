@@ -1,12 +1,14 @@
-"""Host-side batch assembly: row gathers, uint8 normalization and a
-background batch producer.
+"""Host-side batch assembly: seeded permutations, row gathers, uint8
+normalization and a background batch producer.
 
 Counterpart of ``pyroved_tpu/native.py`` with the same interface
-(``gather_rows``, ``u8_to_f32``, :class:`BatchPipeline`), in numpy and one
-Python thread. The permutation of every epoch is
-:func:`~pyroved_tpu_torch.utils.data.shuffle_indices`, the JAX package's
-splitmix64 Fisher-Yates, so a pipeline yields the batches of a shuffled
-:class:`~pyroved_tpu_torch.utils.data.DataLoader` in the same order.
+(``shuffle_indices``, ``gather_rows``, ``u8_to_f32``, :class:`BatchPipeline`),
+in numpy and one Python thread. :func:`shuffle_indices` is the JAX
+package's splitmix64 Fisher-Yates (``native/pvt_native.cpp``), so a
+pipeline, and :class:`~pyroved_tpu_torch.utils.data.DataLoader`, visit the
+rows of every epoch in the JAX package's order. The JAX package's
+``num_threads`` arguments size its C++ worker pool; here they are accepted
+and change nothing, results included.
 """
 import queue
 import threading
@@ -17,14 +19,42 @@ import numpy as np
 # how long a blocked producer or consumer sleeps before it looks at the
 # pipeline's closed flag again (seconds)
 _POLL = 0.05
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
 
 
-def gather_rows(src: np.ndarray, idx: np.ndarray,
+def shuffle_indices(n: int, seed: int, epoch: int) -> np.ndarray:
+    """Permutation of [0, n) keyed by (seed, epoch): the Fisher-Yates
+    shuffle driven by splitmix64 of ``native/pvt_native.cpp``
+    (``pvt_shuffle_indices``), as int32. The random draws are computed
+    vectorized (splitmix64's state advances by a constant); the swaps run
+    in a Python loop, about 0.5 us per row."""
+    out = np.arange(n, dtype=np.int32)
+    if n < 2:
+        return out
+    state0 = (int(seed) * _GOLDEN + int(epoch) + 1) & _MASK64
+    steps = np.arange(1, n, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        zz = np.uint64(state0) + steps * np.uint64(_GOLDEN)
+        zz = (zz ^ (zz >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        zz = (zz ^ (zz >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        zz = zz ^ (zz >> np.uint64(31))
+    bound = np.arange(n, 1, -1, dtype=np.uint64)  # i + 1 for i = n-1 .. 1
+    swaps = (zz % bound).tolist()
+    perm = out.tolist()
+    for i, r in zip(range(n - 1, 0, -1), swaps):
+        perm[i], perm[r] = perm[r], perm[i]
+    return np.asarray(perm, np.int32)
+
+
+def gather_rows(src: np.ndarray, idx: np.ndarray, num_threads: int = 0, *,
                 out: Optional[np.ndarray] = None) -> np.ndarray:
     """``dst[i] = src[idx[i]]`` over leading rows, in ``src``'s dtype. A
-    memmap is read row by row, never whole. ``out`` (``[len(idx), *row]``,
-    of ``src``'s dtype) receives the rows in place, e.g. a pinned staging
-    buffer."""
+    memmap is read row by row, never whole. ``num_threads`` is the JAX
+    package's worker count and has no effect. ``out`` (``[len(idx),
+    *row]``, of ``src``'s dtype) receives the rows in place, e.g. a pinned
+    staging buffer."""
+    del num_threads  # one numpy gather
     idx = np.ascontiguousarray(idx, np.int32)
     if out is None:
         return src[idx]
@@ -34,16 +64,19 @@ def gather_rows(src: np.ndarray, idx: np.ndarray,
     return out
 
 
-def u8_to_f32(src: np.ndarray, scale: float = 1.0 / 255.0) -> np.ndarray:
+def u8_to_f32(src: np.ndarray, scale: float = 1.0 / 255.0,
+              num_threads: int = 0) -> np.ndarray:
     """uint8 to float32, times ``scale`` (rounded to float32 first), each
-    element one float32 product as in the JAX package's C++ loop."""
+    element one float32 product as in the JAX package's C++ loop.
+    ``num_threads`` is the JAX package's worker count and has no effect."""
+    del num_threads  # one numpy pass
     src = np.ascontiguousarray(src, np.uint8)
     return src.astype(np.float32) * np.float32(scale)
 
 
 class BatchPipeline:
     """A producer thread that shuffles each epoch (the permutation of
-    :func:`~pyroved_tpu_torch.utils.data.shuffle_indices` keyed by
+    :func:`shuffle_indices` keyed by
     ``(seed, epoch)``) and gathers the coming batches of ``src`` into a
     ring of ``depth`` host buffers ahead of the consumer.
 
@@ -77,7 +110,6 @@ class BatchPipeline:
         self._thread.start()
 
     def _produce(self) -> None:
-        from .utils.data import shuffle_indices
         epoch = 0
         try:
             while not self._closed.is_set():

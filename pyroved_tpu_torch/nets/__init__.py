@@ -1,10 +1,10 @@
 """Neural-net modules (torch.nn)."""
 from .conv import (FeatureExtractor, UpsampleBlock, Upsampler,
                    convDecoderNet, convEncoderNet)
-from .fc import (MLP, Dense, fcClassifierNet, fcDecoderNet, fcEncoderNet,
-                 fcRegressorNet, jfcEncoderNet, sDecoderNet)
+from .fc import (MLP, Dense, coord_latent, fcClassifierNet, fcDecoderNet,
+                 fcEncoderNet, fcRegressorNet, jfcEncoderNet, sDecoderNet)
 
 __all__ = ["Dense", "MLP", "fcEncoderNet", "jfcEncoderNet", "fcClassifierNet",
-           "fcRegressorNet", "fcDecoderNet", "sDecoderNet",
+           "fcRegressorNet", "fcDecoderNet", "sDecoderNet", "coord_latent",
            "UpsampleBlock", "FeatureExtractor", "Upsampler", "convEncoderNet",
            "convDecoderNet"]

@@ -183,6 +183,28 @@ class fcDecoderNet(nn.Module):
         return torch.sigmoid(x) if self.sigmoid_out else x
 
 
+class coord_latent(nn.Module):
+    """The coordinate/latent fusion block on its own, for custom spatial
+    decoders: ``h = tanh(x_coord @ Wc + bc + z @ Wz)`` with a bias-free
+    latent head (``fc_coord``, ``fc_latent``, the names ``sDecoderNet``
+    uses for the same computation). ``x_coord`` is ``[..., N, coord_dim]``
+    and ``z`` ``[..., latent_dim]``; the output ``[..., N, out_dim]``, the
+    tanh left out with ``activation_out=False``. The JAX package's module
+    learns ``coord_dim`` from its first input; here it is given (2, an
+    image's coordinates, by default)."""
+
+    def __init__(self, latent_dim: int, out_dim: int,
+                 activation_out: bool = True, coord_dim: int = 2):
+        super().__init__()
+        self.fc_coord = Dense(int(coord_dim), int(out_dim))
+        self.fc_latent = Dense(int(latent_dim), int(out_dim), bias=False)
+        self.activation_out = activation_out
+
+    def forward(self, x_coord: Tensor, z: Tensor) -> Tensor:
+        h = self.fc_coord(x_coord) + self.fc_latent(z)[..., None, :]
+        return torch.tanh(h) if self.activation_out else h
+
+
 class sDecoderNet(nn.Module):
     """Spatial decoder: a per-pixel MLP over a (transformed) grid.
 

@@ -91,12 +91,20 @@ def load_all(names: List[str],
     """Build every ``csrc/<name>.cu`` that needs it (with the macros of
     ``defines``), one ``nvcc`` each, all started together, and return the
     loaded libraries in order."""
-    defines = tuple(defines)
+    return load_targets([(name, defines) for name in names])
+
+
+def load_targets(targets: Sequence[Tuple[str, Sequence[str]]]
+                 ) -> List[ctypes.CDLL]:
+    """:func:`load_all` for ``(name, defines)`` pairs: each source with its
+    own macros, e.g. one source in several builds."""
+    targets = [(name, tuple(defines)) for name, defines in targets]
     with _lock:
         builds = []
-        for name in names:
+        for name, defines in targets:
             source, lib = _target(name, defines)
-            if (name, defines) in _loaded or os.path.exists(lib):
+            if ((name, defines) in _loaded or os.path.exists(lib)
+                    or any(lib == b[1] for b in builds)):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
@@ -116,10 +124,10 @@ def load_all(names: List[str],
             os.replace(tmp, lib)
         if failures:
             raise RuntimeError("\n".join(failures))
-        for name in names:
-            if (name, defines) not in _loaded:
-                _loaded[name, defines] = ctypes.CDLL(_target(name, defines)[1])
-        return [_loaded[name, defines] for name in names]
+        for target in targets:
+            if target not in _loaded:
+                _loaded[target] = ctypes.CDLL(_target(*target)[1])
+        return [_loaded[target] for target in targets]
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:

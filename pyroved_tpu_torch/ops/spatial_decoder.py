@@ -35,9 +35,11 @@ meaning: set (the default, as there), the operands of every hidden-layer
 product round to bf16 and the products sum in f32, in the kernels and in
 the plain versions as in ``_mxu_dot``, and the kernels run on the tensor
 cores (``csrc/spatial_decoder_fwd_tc.cu`` for K1,
-``csrc/spatial_decoder_bwd_tc.cu`` for K2/K3). Clear, everything is f32 and
-the kernels run on the CUDA cores (``csrc/spatial_decoder_fwd.cu``,
-``csrc/spatial_decoder_bwd.cu``). The flag is read at each call.
+``csrc/spatial_decoder_bwd_tc.cu`` for K2/K3). Clear, everything is f32:
+K1 runs on the CUDA cores (``csrc/spatial_decoder_fwd.cu``), K2/K3 on the
+tensor cores with each f32 operand split into three bf16 limbs
+(``csrc/spatial_decoder_bwd_x3.cu``; :func:`limb_matmul` is its product in
+plain PyTorch). The flag is read at each call.
 
 :class:`FusedSpatialDecoder` (K1 forward, K2 backward) and
 :class:`FusedBernoulliReconLoss` (K3) take the place of the JAX package's
@@ -76,18 +78,18 @@ KERNEL_WIDTHS = (128, 256)
 #: Heads, biases, activations and the coordinate layer stay in f32.
 BF16_MATMUL = True
 
-#: Activation buffers of one pixel tile that fit in a block's shared memory
-#: beside the backward's weight chunk: h_0 .. h_L, plus act'(pre) of each
-#: hidden layer for gelu (``csrc/spatial_decoder_bwd.cu``).
+#: Activation buffers of one pixel tile that the backward kernels keep:
+#: h_0 .. h_L, plus one of each hidden layer for gelu, whose derivative
+#: needs the pre-activation (the JAX package's limit).
 BWD_MAX_BUFFERS = 6
 
 
 def bwd_max_layers(act: str) -> int:
     """Most hidden layers the backward kernels (K2/K3) take: 5, or 2 with
-    gelu, whose derivative needs a buffer of its own for each layer. The
-    f32 kernel sets the limit; the tensor-core kernel takes every such
-    configuration too (its tile and its weight staging follow the
-    decoder's size), so the limit is the same under both flags."""
+    gelu, whose derivative needs a buffer of its own for each layer. Both
+    kernels take every such configuration (their tile and their weight
+    staging follow the decoder's size), so the limit is the same under
+    both flags."""
     return (BWD_MAX_BUFFERS - 1) // (2 if act == "gelu" else 1)
 
 
@@ -95,14 +97,45 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _mm(a: Tensor, b: Tensor) -> Tensor:
+def _mm(a: Tensor, b: Tensor, bf16=None) -> Tensor:
     """A hidden-layer product, ``_mxu_dot``'s: under :data:`BF16_MATMUL`
-    both operands round to bf16; their products are exact in f32, which
-    sums them."""
-    if BF16_MATMUL:
+    (or ``bf16`` where given) both operands round to bf16; their products
+    are exact in f32, which sums them."""
+    if BF16_MATMUL if bf16 is None else bf16:
         a = a.to(torch.bfloat16).to(a.dtype)
         b = b.to(torch.bfloat16).to(b.dtype)
     return a @ b
+
+
+#: The limb products of the f32 K2/K3 kernel's hidden products, (limb of
+#: the left operand, limb of the right), 0 hi, 1 mid, 2 lo, in the order
+#: the kernel issues them (smallest first); mid lo, lo mid and lo lo, of
+#: order 2^-24 relative, are dropped.
+LIMB_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def bf16_limbs(x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The three bf16 limbs of an f32 tensor, as f32: hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest.
+    hi + mid + lo is x again, to its last bit."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).to(x.dtype)
+    return hi, mid, (rest - mid).to(torch.bfloat16).to(x.dtype)
+
+
+def limb_matmul(a: Tensor, b: Tensor, pairs=LIMB_PAIRS) -> Tensor:
+    """``a @ b`` as the f32 K2/K3 kernel forms its hidden products: both
+    operands split into :func:`bf16_limbs` and the products of the limb
+    ``pairs`` summed (each product of bf16 values is exact in f32, which
+    sums it). For the tests and ``chip_smoke.py``: the port's plain
+    versions keep their f32 ``@``."""
+    la, lb = bf16_limbs(a), bf16_limbs(b)
+    out = None
+    for i, j in pairs:
+        p = la[i] @ lb[j]
+        out = p if out is None else out + p
+    return out
 
 
 def _pade_tanh(x: Tensor) -> Tensor:
@@ -153,11 +186,12 @@ def _softplus(x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
-                          bout, act: str = "tanh",
-                          sigmoid_out: bool = True) -> Tensor:
+                          bout, act: str = "tanh", sigmoid_out: bool = True,
+                          *, bf16=None) -> Tensor:
     """Plain PyTorch forward: grid [N, D], phi/sc [B], dx [B, D], z [B, L],
     Wc [D, H], bc [H], Wz [L, H], hw [nl, H, H], hb [nl, H], wout [H, C],
-    bout [C]. Returns [B, N] for C == 1, else [B, N, C]."""
+    bout [C]. Returns [B, N] for C == 1, else [B, N, C]. The hidden
+    products follow :data:`BF16_MATMUL`, or ``bf16`` where given."""
     D = grid.shape[-1]
     if D == 2:
         c = torch.cos(phi)[:, None]
@@ -170,11 +204,23 @@ def spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
         coords = grid[None] + dx[:, None, :]
     h = _h0_act(act, coords @ Wc + bc + (z @ Wz)[:, None, :])
     for i in range(hw.shape[0]):
-        h = _act(act, _mm(h, hw[i]) + hb[i])
+        h = _act(act, _mm(h, hw[i], bf16) + hb[i])
     out = h @ wout + bout
     if wout.shape[1] == 1:
         out = out[..., 0]
     return torch.sigmoid(out) if sigmoid_out else out
+
+
+def spatial_decoder_reference(grid, phi, dx, sc, z, Wc, bc, Wz, hidden,
+                              wout, bout) -> Tensor:
+    """The JAX package's reference decode: :func:`spatial_decoder_plain`
+    with tanh layers, a sigmoid head and f32 products whatever
+    :data:`BF16_MATMUL` says, ``hidden`` a sequence of (W [H, H], b [H])
+    pairs. Returns [B, N] for one channel."""
+    hw = torch.stack([W for W, _ in hidden])
+    hb = torch.stack([b for _, b in hidden])
+    return spatial_decoder_plain(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                                 wout, bout, "tanh", True, bf16=False)
 
 
 def _folded_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, act):
@@ -293,8 +339,11 @@ _bwd_fns = {}
 
 #: K1's sources: the tensor-core kernel under BF16_MATMUL, else f32.
 FWD_SOURCES = {True: "spatial_decoder_fwd_tc", False: "spatial_decoder_fwd"}
-#: K2/K3's sources: the tensor-core kernel under BF16_MATMUL, else f32.
-BWD_SOURCES = {True: "spatial_decoder_bwd_tc", False: "spatial_decoder_bwd"}
+#: K2/K3's sources: bf16 products under BF16_MATMUL, else f32 products as
+#: three-limb splits; both on the tensor cores.
+BWD_SOURCES = {True: "spatial_decoder_bwd_tc", False: "spatial_decoder_bwd_x3"}
+#: The C entry points of each source (``<prefix>`` and ``<prefix>_plan``).
+BWD_ENTRIES = {True: "pvt_sdec_bwd_tc", False: "pvt_sdec_bwd_x3"}
 
 
 def _bind_fwd(lib, bf16: bool):
@@ -337,10 +386,9 @@ def _fwd_tc_max_layers(H, C, index):
     return n
 
 
-def _bind_bwd(lib, bf16: bool):
-    """(plan, launch) of a library built from K2/K3's source for the flag
-    value ``bf16``; both sources take the same arguments."""
-    prefix = "pvt_sdec_bwd_tc" if bf16 else "pvt_sdec_bwd"
+def _bind_bwd(lib, prefix: str):
+    """(plan, launch) of a K2/K3 library whose entry points are ``prefix``
+    and ``prefix + "_plan"``; every source takes the same arguments."""
     plan = getattr(lib, prefix + "_plan")
     plan.argtypes = [ctypes.c_int] * 9 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
@@ -355,7 +403,8 @@ def _bwd_kernel(bf16: bool):
     """(plan, launch) of K2/K3's source for the flag value ``bf16``
     (:data:`BWD_SOURCES`)."""
     if bf16 not in _bwd_fns:
-        _bwd_fns[bf16] = _bind_bwd(_build.load(BWD_SOURCES[bf16]), bf16)
+        _bwd_fns[bf16] = _bind_bwd(_build.load(BWD_SOURCES[bf16]),
+                                   BWD_ENTRIES[bf16])
     return _bwd_fns[bf16]
 
 
@@ -462,7 +511,8 @@ def bwd_workspace(B: int, N: int, D: int, L: int, H: int, nl: int, C: int,
     """(workspace bytes, blocks) of one K2/K3 call on ``device`` with the
     kernel of ``bf16`` (default: :data:`BF16_MATMUL`): one slot of
     weight-grad partials per block, the du/dv/dw sums of every pixel tile
-    and of every sample (and the bf16 weights for the tensor-core kernel).
+    and of every sample, and the weights in bf16 (bf16 kernel) or as three
+    bf16 limbs (f32 kernel).
     Kept per shape and card: the plan depends on nothing else."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
@@ -529,8 +579,9 @@ def fused_spatial_decoder_backward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
     On CPU tensors this is the plain version. On CUDA tensors it launches
     the kernel on the current stream, or raises (inputs as
     :func:`fused_spatial_decoder_forward`, at most
-    :func:`bwd_max_layers` hidden layers): the tensor-core kernel under
-    :data:`BF16_MATMUL`, else the f32 one. The grads are deterministic:
+    :func:`bwd_max_layers` hidden layers): the bf16 kernel under
+    :data:`BF16_MATMUL`, else the f32 one (three-limb products). The grads
+    are deterministic:
     the same inputs on the same card give bitwise-equal grads.
     ``fused_spatial_decoder_backward.launches`` counts kernel launches by
     source (:data:`BWD_SOURCES`)."""
@@ -631,6 +682,18 @@ class FusedBernoulliReconLoss(torch.autograd.Function):
     def backward(ctx, ct):
         dphi, ddx, dsc, dz, *weights = (ct * g for g in ctx.saved_tensors)
         return (None, dphi, ddx, dsc, dz, None, None, *weights, None)
+
+
+def fused_spatial_decoder(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout,
+                          bout, act: str = "tanh",
+                          sigmoid_out: bool = True) -> Tensor:
+    """The fused transform + decode with its gradient, in the JAX package's
+    argument order: :class:`FusedSpatialDecoder` (K1 forward, K2 backward
+    on CUDA tensors, the plain versions on CPU ones). ``bout`` may be [C]
+    or, for one channel, a scalar. Returns [B, N] for one channel, else
+    [B, N, C]."""
+    return FusedSpatialDecoder.apply(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
+                                     wout, bout.reshape(-1), act, sigmoid_out)
 
 
 # ---------------------------------------------------------------------------

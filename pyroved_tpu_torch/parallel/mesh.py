@@ -79,19 +79,54 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     return dist.get_world_size()
 
 
-def create_mesh(axes: Optional[Dict[str, int]] = None, ranks=None):
-    """A ``DeviceMesh`` over ``ranks`` (default the whole world, which must
-    be initialized: :func:`initialize_multihost`) named by ``axes``
-    (``{'axis': size}``, default ``{'data': world size}``), laid out in
-    rank order. One size may be ``-1`` to take what the others leave; the
-    sizes must multiply to the rank count (``ValueError``). Every rank
-    calls it, as it builds each axis's process group. The mesh's device
-    type follows the backend: "cuda" under NCCL, "cpu" under gloo (whose
-    groups reduce CUDA tensors as well)."""
+def _device_ranks(devices) -> list:
+    """The ranks of ``devices`` in order: an int is a rank, a
+    ``torch.device`` (or its name) the one rank whose device it is (each
+    rank's device: its card under NCCL, else the CPU). A device that no
+    rank, or more than one rank, holds raises ``ValueError``."""
+    held = None
+    out = []
+    for d in devices:
+        if isinstance(d, (int, np.integer)):
+            out.append(int(d))
+            continue
+        d = torch.device(d)
+        if held is None:  # every rank's device, once
+            own = (f"cuda:{torch.cuda.current_device()}"
+                   if dist.get_backend() == "nccl" else "cpu")
+            held = [None] * dist.get_world_size()
+            dist.all_gather_object(held, own)
+        name = (f"cuda:{torch.cuda.current_device() if d.index is None else d.index}"
+                if d.type == "cuda" else d.type)
+        owners = [r for r, h in enumerate(held) if h == name]
+        if len(owners) != 1:
+            raise ValueError(f"device {d} is held by ranks {owners}: pass "
+                             f"ranks instead")
+        out.append(owners[0])
+    return out
+
+
+def create_mesh(axes: Optional[Dict[str, int]] = None, devices=None,
+                ranks=None):
+    """A ``DeviceMesh`` named by ``axes`` (``{'axis': size}``, default
+    ``{'data': participants}``) over its participants in mesh order:
+    ``devices`` as the JAX package's argument, here ranks or
+    ``torch.device``s (each the one rank whose device it is), or the same
+    as ``ranks``; default the whole world, which must be initialized
+    (:func:`initialize_multihost`). Passing both raises ``ValueError``.
+    One size may be ``-1`` to take what the others leave; the sizes must
+    multiply to the participant count (``ValueError``). Every rank calls
+    it, as it builds each axis's process group. The mesh's device type
+    follows the backend: "cuda" under NCCL, "cpu" under gloo (whose groups
+    reduce CUDA tensors as well)."""
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: call "
                            "parallel.initialize_multihost() first")
+    if devices is not None and ranks is not None:
+        raise ValueError("create_mesh takes devices or ranks, not both")
+    if devices is not None:
+        ranks = _device_ranks(devices)
     ranks = (list(range(dist.get_world_size())) if ranks is None
              else [int(r) for r in ranks])
     n = len(ranks)
@@ -118,7 +153,7 @@ def data_parallel_mesh(num_devices: Optional[int] = None):
     n = world if num_devices is None else int(num_devices)
     if not 0 < n <= world:
         raise ValueError(f"num_devices={num_devices} for {world} ranks")
-    return create_mesh({"data": n}, range(n))
+    return create_mesh({"data": n}, ranks=range(n))
 
 
 def replicate_params(model, mesh):

@@ -56,7 +56,7 @@ def phase_cycles(a, g):
     read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     read.restype = ctypes.c_int
     saved = dict(sd._bwd_fns)
-    sd._bwd_fns[True] = sd._bind_bwd(lib, True)
+    sd._bwd_fns[True] = sd._bind_bwd(lib, sd.BWD_ENTRIES[True])
     sd._bwd_plan.cache_clear()
     cycles = (ctypes.c_longlong * len(PHASES))()
     try:

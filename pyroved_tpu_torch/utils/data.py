@@ -30,39 +30,13 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..native import gather_rows
+from ..native import gather_rows, shuffle_indices
 from .nn import as_numpy, resolve_device
 
 Tensor = torch.Tensor
 
-_MASK64 = (1 << 64) - 1
-_GOLDEN = 0x9E3779B97F4A7C15
 # rows narrowed per host pass under store_dtype (bounds the float32 copy)
 _NARROW_ROWS = 1 << 16
-
-
-def shuffle_indices(n: int, seed: int, epoch: int) -> np.ndarray:
-    """Permutation of [0, n) keyed by (seed, epoch): the Fisher-Yates
-    shuffle driven by splitmix64 of ``native/pvt_native.cpp``
-    (``pvt_shuffle_indices``), as int32. The random draws are computed
-    vectorized (splitmix64's state advances by a constant); the swaps run
-    in a Python loop, about 0.5 us per row."""
-    out = np.arange(n, dtype=np.int32)
-    if n < 2:
-        return out
-    state0 = (int(seed) * _GOLDEN + int(epoch) + 1) & _MASK64
-    steps = np.arange(1, n, dtype=np.uint64)
-    with np.errstate(over="ignore"):
-        zz = np.uint64(state0) + steps * np.uint64(_GOLDEN)
-        zz = (zz ^ (zz >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        zz = (zz ^ (zz >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        zz = zz ^ (zz >> np.uint64(31))
-    bound = np.arange(n, 1, -1, dtype=np.uint64)  # i + 1 for i = n-1 .. 1
-    swaps = (zz % bound).tolist()
-    perm = out.tolist()
-    for i, r in zip(range(n - 1, 0, -1), swaps):
-        perm[i], perm[r] = perm[r], perm[i]
-    return np.asarray(perm, np.int32)
 
 
 def apply_batch_scale(batch, scales):

@@ -8,7 +8,7 @@ recomputed at every step. Solves go through a Cholesky factor. It runs on
 the device of the inputs it is given.
 """
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,14 @@ def _rbf(x1: Tensor, x2: Tensor, variance: Tensor,
          lengthscale: Tensor) -> Tensor:
     d2 = torch.sum((x1[:, None, :] - x2[None, :, :]) ** 2, dim=-1)
     return variance * torch.exp(-0.5 * d2 / (lengthscale ** 2))
+
+
+class GPParams(NamedTuple):
+    """The GP's parameters, the logs of the RBF kernel's variance and
+    lengthscale and of the noise, as f32 scalar tensors."""
+    log_variance: Tensor
+    log_lengthscale: Tensor
+    log_noise: Tensor
 
 
 def _noisy_gram(X: Tensor, log_variance: Tensor, log_lengthscale: Tensor,
@@ -47,17 +55,21 @@ def _neg_mll(params, X: Tensor, y: Tensor) -> Tensor:
 
 class GPRegression:
     """Exact GP regression with an RBF kernel: unit variance, lengthscale
-    and noise to start with (``params``: their logs, f32 scalars)."""
+    and noise to start with (``params``, a :class:`GPParams`; any sequence
+    of the three logs may be assigned to it)."""
 
     def __init__(self, X, y):
         self.X = _as_f32(X)
         self.y = _as_f32(y, self.X.device).reshape(-1)
-        self.params = [self.X.new_zeros(()) for _ in range(3)]
+        self.params = GPParams(*(self.X.new_zeros(()) for _ in range(3)))
+
+    def _params(self) -> GPParams:
+        return GPParams(*(_as_f32(p, self.X.device) for p in self.params))
 
     def fit(self, iterations: int = 1, lr: float = 5e-3) -> float:
         """``iterations`` Adam steps (a fresh optimizer state, as the JAX
         package's); returns the loss before the last step."""
-        params = [p.clone().requires_grad_(True) for p in self.params]
+        params = [p.clone().requires_grad_(True) for p in self._params()]
         opt = torch.optim.Adam(params, lr=lr)
         loss = float("nan")
         for _ in range(iterations):
@@ -66,15 +78,17 @@ class GPRegression:
             value.backward()
             opt.step()
             loss = value.detach()
-        self.params = [p.detach() for p in params]
+        self.params = GPParams(*(p.detach() for p in params))
         return float(loss)
 
     @torch.no_grad()
     def predict(self, Xnew) -> Tuple[Tensor, Tensor]:
         """Posterior predictive mean and variance at new points."""
         Xnew = _as_f32(Xnew, self.X.device)
-        var, ls = torch.exp(self.params[0]), torch.exp(self.params[1])
-        L = torch.linalg.cholesky(_noisy_gram(self.X, *self.params))
+        params = self._params()
+        var = torch.exp(params.log_variance)
+        ls = torch.exp(params.log_lengthscale)
+        L = torch.linalg.cholesky(_noisy_gram(self.X, *params))
         Ks = _rbf(Xnew, self.X, var, ls)
         alpha = torch.cholesky_solve(self.y[:, None], L)[:, 0]
         mean = Ks @ alpha

@@ -273,12 +273,12 @@ def test_wrappers_pick_the_kernel_by_the_flag(monkeypatch):
     assert loaded == ["spatial_decoder_fwd_tc", "pvt_sdec_fwd_tc",
                       "spatial_decoder_bwd_tc", "pvt_sdec_bwd_tc_plan",
                       "pvt_sdec_bwd_tc", "spatial_decoder_fwd",
-                      "pvt_sdec_fwd", "spatial_decoder_bwd",
-                      "pvt_sdec_bwd_plan", "pvt_sdec_bwd"]
+                      "pvt_sdec_fwd", "spatial_decoder_bwd_x3",
+                      "pvt_sdec_bwd_x3_plan", "pvt_sdec_bwd_x3"]
     assert tsd.FWD_SOURCES == {True: "spatial_decoder_fwd_tc",
                                False: "spatial_decoder_fwd"}
     assert tsd.BWD_SOURCES == {True: "spatial_decoder_bwd_tc",
-                               False: "spatial_decoder_bwd"}
+                               False: "spatial_decoder_bwd_x3"}
 
 
 @pytest.mark.parametrize("limit", [6, -1])

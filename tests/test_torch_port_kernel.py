@@ -255,13 +255,16 @@ def test_build_name_follows_the_included_headers(monkeypatch, tmp_path):
     assert names[0] == names[1]
     assert len(set(names[1:])) == 3
     assert all(os.path.basename(n).startswith("k-") for n in names)
-    # the port's own sources: both tensor-core kernels include the header
-    for name in ("spatial_decoder_fwd_tc", "spatial_decoder_bwd_tc"):
+    # the port's own sources: every tensor-core kernel includes the common
+    # header, the two K2/K3 sources through the header they share
+    for name, headers in (
+            ("spatial_decoder_fwd_tc", ["sm90_common.cuh"]),
+            ("spatial_decoder_bwd_tc", ["sm90_bwd.cuh", "sm90_common.cuh"]),
+            ("spatial_decoder_bwd_x3", ["sm90_bwd.cuh", "sm90_common.cuh"])):
         monkeypatch.setattr(_build, "CSRC", _build.__dict__["_PKG"] + "/csrc")
         seen = []
         _build._texts(_build._target(name)[0], seen)
-        assert [os.path.basename(p) for p in seen] == [name + ".cu",
-                                                       "sm90_common.cuh"]
+        assert [os.path.basename(p) for p in seen] == [name + ".cu"] + headers
 
 
 def test_port_imports_no_jax():
