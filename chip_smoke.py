@@ -18,7 +18,9 @@ source.
 1. Device and build: prints the card's name and power limit
    (``nvidia-smi``), then builds the four decoder sources from
    ``pyroved_tpu_torch/csrc`` (one nvcc per source, started together) and
-   prints the build time and the ptxas report.
+   prints the build time and the ptxas report; then starts a child process
+   that builds phase 13's sixteen libraries (at low priority, while phases
+   2-12 run).
 2. Kernels against plain, under each flag: the fused forward K1 against
    ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
    activations, hidden width 128 and 256, ragged B and N, 0 to 5 hidden
@@ -217,6 +219,22 @@ source.
    6's table. Two ranks on one card measure correctness and memory, not
    scaling.
 
+13. K4, the backward in ablation modes (``ops/bwd_ablation.py``, the
+   counterpart of ``benchmarks/bwd_ablation.py``): the eight modes built
+   from each K2 source with ``-DPVT_ABLATE=<mode>`` (16 libraries), under
+   each flag at three shapes with JAX's logical tiles (the flagship, B =
+   200, N = 784 -> 896, tiles (40, 128); 2,000 enumerated rows, (40, 128);
+   the large grid, B = 64, N = 16,384, (8, 640); H = 128, two layers, L =
+   4, ``tools/bwd_ablation.py``'s inputs): each held against its plain
+   version with phase 2's tolerances (every output to its tensor's largest
+   entry) and a second launch (bitwise), ``full`` against the production
+   K2 on the same arrays (dwout under the flag to the bound of bf16
+   rounding, which K2 applies and ``full`` does not); then each mode's
+   chain of launches (200 at the flagship, 50 at the others; ``z <- z +
+   1e-9 dz``; CUDA events), the counted path, beside its bound, the plain
+   version and cuBLAS's bare products of the mode, and the attribution of
+   K2's time.
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -237,9 +255,12 @@ import torch
 
 from pyroved_tpu_torch.models import VED, iVAE, jiVAE, ss_reg_iVAE, ssiVAE
 from pyroved_tpu_torch.ops import _build
+from pyroved_tpu_torch.ops import bwd_ablation as ab
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
-from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, cuda_ms,
+from pyroved_tpu_torch.tools import bwd_ablation as abt
+from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, card_info,
+                                             card_peaks, cuda_ms,
                                              cuda_ms_queued, plain_versions,
                                              random_case)
 from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
@@ -339,21 +360,8 @@ BF16_MODULE_GRAD_REL = 2e-2
 BF16_MODULE_LOSS_RTOL = 1e-3
 BF16_EPOCH_RTOL = 5e-2
 
-# Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
-# "NVIDIA H100 80GB HBM3": f32 on the CUDA cores, bf16 on the tensor cores,
-# HBM bandwidth. Other cards have no row: their bounds would be wrong.
-H100_SXM = "H100 80GB HBM3"
-PEAKS = (67e12, 989e12, 3.35e12)  # (f32 flop/s, bf16 flop/s, bytes/s)
-
-
 def log(*a):
     print(*a, flush=True)
-
-
-def card_peaks(name):
-    if H100_SXM not in name:
-        raise RuntimeError(f"no data-sheet peaks for card {name!r}")
-    return PEAKS
 
 
 def kernel_args(decoder, grid, z, angle=0.0, shift=(0.0, 0.0), scale=1.0):
@@ -3875,6 +3883,177 @@ def phase_parallel(smi, peaks):
     return res, launches, k1_rows, rows
 
 
+# Phase 13: K4, the backward in ablation modes (ops/bwd_ablation.py), at
+# the three shapes whose logical tiles JAX's _select_tiles picks: the
+# flagship (B = 200, N = 784 -> 896, tiles (40, 128)), the enumerated rows
+# (B = 2,000, (40, 128)) and the large grid (B = 64, N = 16,384, (8, 640));
+# H = 128, two layers, L = 4 (tools/bwd_ablation.py's inputs). Its chains
+# of launches (CHAIN_LEN at the flagship, 50 at the others) are the path
+# whose launches are counted.
+ABL_SHAPES = (("flagship", 200, 784, 40, 128, abt.CHAIN_LEN),
+              ("enumerated rows", 2000, 784, 40, 128, 50),
+              ("large grid", 64, 16384, 8, 640, 50))
+ABL_H, ABL_L, ABL_LAYERS = 128, 4, 2
+K2_ARGS = ("grid", "phi", "dx", "sc", "z", "Wc", "bc", "Wz", "hw", "hb",
+           "wout", "bout")
+
+
+def start_ablation_build():
+    """The sixteen ablation libraries (8 modes x 2 sources) built by a
+    child process at low priority while phases 2-12 run, one nvcc each,
+    all started together; phase 13 waits for it. Returns (process, start
+    time)."""
+    import atexit
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "from pyroved_tpu_torch.ops import "
+         "bwd_ablation as ab; ab.load_all()"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(10))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def check_full_vs_k2(what, got, ref, on):
+    """``full`` against the production K2 on the same arrays, phase 2's
+    tolerance (every grad to its tensor's largest entry). Under the flag K2
+    rounds h_L and dl to bf16 for dwout where ``full`` keeps f32 (JAX's
+    ablation kernel does), so dwout is left to :func:`dwout_rounding_bound`
+    there. Returns the largest absolute error."""
+    ref = [r.reshape(g.shape) for g, r in zip(got, ref)]
+    keep = [i for i in range(11) if not (on and i == 9)]
+    err = check_grads(what, [got[i] for i in keep], [ref[i] for i in keep],
+                      names=[ab.OUTPUT_NAMES[i] for i in keep], per_sample=0,
+                      rel=BF16_GRAD_REL if on else GRAD_RTOL)
+    return err
+
+
+def dwout_rounding_bound(a):
+    """2^-8 of sum |h_L| |dl| per unit: how far rounding h_L and dl to
+    bf16 can move dwout (f32 plain forward on the card)."""
+    hs, _, _ = sd._folded_forward(*(a[k] for k in K2_ARGS[:10]), act="tanh")
+    s = torch.sigmoid(hs[-1] @ a["wout"] + a["bout"])[..., 0]
+    dl = a["g"] * s * (1 - s)
+    bound = 2.0 ** -8 * (hs[-1].abs() * dl.abs()[..., None]).sum((0, 1))
+    del hs
+    return bound
+
+
+def phase_ablation(smi, peaks, build):
+    """Phase 13: every mode of both sources against its plain version at
+    the three shapes (phase 2's tolerances, two launches bitwise equal),
+    ``full`` against the production K2, then the timed chains (the counted
+    path) and the attribution."""
+    t13 = time.perf_counter()
+    proc, t_build = build
+    out = proc.communicate(timeout=900)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"the ablation builds failed:\n{out}")
+    ab.load_all()
+    log(f"  the 16 ablation libraries built in a child process started after "
+        f"phase 1 ({time.perf_counter() - t_build:.1f} s since its start); "
+        f"ptxas, registers and spills of each:")
+    usage = {}
+    for on in (True, False):
+        for mode in ab.MODES:
+            usage[f"{sd.BWD_SOURCES[on]} {mode}"] = abt.kernel_usage(
+                _build.build_log(sd.BWD_SOURCES[on], ab.defines(mode)))
+            log(f"    {sd.BWD_SOURCES[on]} {mode}: "
+                f"{json.dumps(usage[f'{sd.BWD_SOURCES[on]} {mode}'])}")
+    res = {"bf16" if on else "f32": {} for on in (True, False)}
+    errs = {True: 0.0, False: 0.0}
+    for on in (False, True):
+        tag = "bf16" if on else "f32"
+        with bf16_matmul(on):
+            for name, B, N, b_t, n_t, _ in ABL_SHAPES:
+                a = abt.inputs(B, N, ABL_H, ABL_L, ABL_LAYERS, b_t, n_t)
+                kw = dict(n_layers=ABL_LAYERS, b_t=b_t, n_t=n_t)
+                label = (f"K4 {tag} {name} B={a['g'].shape[0]} "
+                         f"N={a['g'].shape[1]} tiles ({b_t}, {n_t})")
+                rows = res[tag][name] = {}
+                for mode in ab.MODES:
+                    what = f"{label} {mode}"
+                    got = ab.variant(mode, **a, **kw)
+                    again = ab.variant(mode, **a, **kw)
+                    ref = ab.variant_plain(mode, **a, **kw)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                        raise AssertionError(f"{what}: two launches differ")
+                    err = check_grads(what, got, ref, names=ab.OUTPUT_NAMES,
+                                      per_sample=0,
+                                      rel=BF16_GRAD_REL if on else GRAD_RTOL)
+                    rows[mode] = {"max_abs_err": err,
+                                  "rel_to_max": rel_to_max(got, ref)}
+                    if mode == "full":
+                        k2 = K2(**{k: a[k] for k in K2_ARGS}, g=a["g"])
+                        rows[mode]["k2_err"] = check_full_vs_k2(
+                            f"{what} vs K2", got, k2, on)
+                        if on:
+                            gap = (got[9][0] - k2[9].reshape(-1)).abs()
+                            bound = dwout_rounding_bound(a)
+                            if not bool((gap <= bound + 1e-6).all()):
+                                raise AssertionError(
+                                    f"{what} vs K2: dwout beyond bf16 "
+                                    f"rounding ({gap.max().item():.3e})")
+                            rows[mode]["k2_dwout_gap_over_bound"] = (
+                                gap / (bound + 1e-6)).max().item()
+                        del k2
+                    errs[on] = max(errs[on], err)
+                    del got, again, ref
+                    rows[mode]["plain_ms"] = cuda_ms(
+                        lambda: ab.variant_plain(mode, **a, **kw), reps=3,
+                        warmup=1)
+                    rows[mode]["bound_ms"], rows[mode]["bound_by"] = (
+                        abt.bound_ms(mode, a, on, peaks))
+                    rows[mode]["library_ms"] = abt.library_ms(mode, a, on)
+                log(f"  {label}: every mode against its plain version, "
+                    f"max abs err {max(r['max_abs_err'] for r in rows.values()):.3e}"
+                    f" (worst {max(r['rel_to_max'] for r in rows.values()):.1e} "
+                    f"of the largest entry), bitwise equal across launches; "
+                    f"full against K2: {rows['full']['k2_err']:.3e}")
+                del a
+    # the counted path: the timed chains (tools/bwd_ablation.py), counts
+    # set to 0 just before and read just after
+    for k in ab.variant.launches:
+        ab.variant.launches[k] = 0
+    attribution = {}
+    for on in (False, True):
+        tag = "bf16" if on else "f32"
+        with bf16_matmul(on):
+            for name, B, N, b_t, n_t, chain in ABL_SHAPES:
+                a = abt.inputs(B, N, ABL_H, ABL_L, ABL_LAYERS, b_t, n_t)
+                us = {}
+                for mode in ab.MODES:
+                    ms, host = abt.chain_ms(mode, a, ABL_LAYERS, b_t, n_t,
+                                            chain)
+                    res[tag][name][mode].update(ms=ms, host_ms=host,
+                                                chain=chain)
+                    if name == "flagship":  # where the host may set the pace
+                        res[tag][name][mode]["busy_ms"] = abt.busy_ms(
+                            mode, a, ABL_LAYERS, b_t, n_t)
+                    us[mode] = 1e3 * ms
+                lines = abt.attribution(us)
+                attribution[f"{tag} {name}"] = lines
+                rows = res[tag][name]
+                log(f"  K4 {tag} {name}, chains of {chain} (us a call; host "
+                    f"time to enqueue one"
+                    + (", device busy" if "busy_ms" in rows["full"] else "")
+                    + "): " + ", ".join(
+                        f"{m} {u:.1f} ({1e3 * rows[m]['host_ms']:.1f}"
+                        + (f", {1e3 * rows[m]['busy_ms']:.1f}"
+                           if "busy_ms" in rows[m] else "") + ")"
+                        for m, u in us.items()) + f" ({smi})")
+                for line in lines:
+                    log("  " + line)
+                del a
+    launches = dict(ab.variant.launches)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"phase 13's chains did not launch {missing}")
+    log(f"  launches on the chains: {json.dumps(launches)}")
+    return {"modes": res, "attribution": attribution, "launches": launches,
+            "errs": errs, "ptxas": usage, "seconds": time.perf_counter() - t13}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3885,10 +4064,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. device and build ------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_info()
     log(smi)
     peaks = card_peaks(smi)
     t0 = time.perf_counter()
@@ -3897,6 +4073,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
         log(_build.build_log(name).strip())
+    ablation_build = start_ablation_build()  # waited for by phase 13
 
     # -- 2. kernels vs plain, under each flag ------------------------------
     log("phase 2: kernels vs plain")
@@ -4196,6 +4373,12 @@ def main() -> int:
         rows[key] += more
     log(f"phase 12 took {parallel['seconds']:.1f} s ({smi})")
 
+    # -- 13. K4: the backward in ablation modes --------------------------
+    log("phase 13: K4's eight modes of both K2 sources against their plain "
+        "versions and K2, timed chains and the attribution of K2's time")
+    abl = phase_ablation(smi, peaks, ablation_build)
+    log(f"phase 13 took {abl['seconds']:.1f} s ({smi})")
+
     def by_path(key):
         """Launches of one kernel on each path, each counted alone."""
         return {"serving_bf16": serve_counts[key],
@@ -4240,6 +4423,25 @@ def main() -> int:
         return [row["max_abs_err"] for row in rows[kname, bool(on)]]
 
     csrc = "pyroved_tpu_torch/csrc/"
+
+    def abl_entry(name, source, on):
+        """K4's entry for one source: ``full`` at the flagship in the
+        contract's keys, every mode at every shape under ``modes``."""
+        tag = "bf16" if on else "f32"
+        head = abl["modes"][tag]["flagship"]["full"]
+        launches = {k: n for k, n in abl["launches"].items()
+                    if k.startswith(sd.BWD_SOURCES[on] + ":")}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "benchmarks/bwd_ablation.py:55",
+                "launches": sum(launches.values()),
+                "launches_by_path": {"phase 13 chains, by mode": launches},
+                "max_abs_err": abl["errs"][on], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "modes": abl["modes"][tag],
+                "attribution": {k: v for k, v in abl["attribution"].items()
+                                if k.startswith(tag)}}
     bwd, tc = (csrc + "spatial_decoder_bwd_x3.cu",
                csrc + "spatial_decoder_bwd_tc.cu")
     k1_at, k2_at, k3_at = ("pyroved_tpu/ops/spatial_decoder.py:422",
@@ -4268,6 +4470,8 @@ def main() -> int:
               max(errs[False]["K3"], *shape_errs("K3", 0)), rows["K3", False]),
         entry("bernoulli_recon_loss_tc", tc, k3_at, "K3_bf16",
               max(errs[True]["K3"], *shape_errs("K3", 1)), rows["K3", True]),
+        abl_entry("bwd_ablation_x3", bwd, False),
+        abl_entry("bwd_ablation_tc", tc, True),
     ], "training": {tag: {k: t[k] for k in (
         "fit_s", "loss_history", "module_loss_history", "times")}
         for tag, t in (("bf16", train), ("f32", train32))},

@@ -105,6 +105,11 @@ struct KArgs {
   float *blk_ws, *tile_ws;
   int B, N, D, L, nl, C, act, sigmoid_out, loss, resident, n_tiles, per_pass,
       slot;
+#ifdef PVT_ABLATE
+  const float* hw;  // f32, for dma_floor's sum
+  float* tile_s;    // a scalar a tile
+  int b_t, n_t;     // the logical tiles
+#endif
 };
 
 __host__ __device__ inline size_t weight_bytes(int H, int nl, bool resident) {
@@ -126,7 +131,8 @@ sdec_bwd_tc_kernel(const KArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* wsm = smem;
   uint8_t* lv = wsm + weight_bytes(H, nl, a.resident);  // levels 0 .. nl
-  float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LVL);  // derivatives
+  // derivatives (after the mxu modes' operands in an ablation build)
+  float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LVL + abl_bytes(R));
   float* us = gv + (nl + 1) * H * R;
   float* vs = us + H;
   float* wv = vs + H;
@@ -169,13 +175,28 @@ sdec_bwd_tc_kernel(const KArgs a) {
     for (int i = 0; i < 64; ++i) dw[u][i] = 0.0f;
   }
   for (int i = tid; i < n_sums; i += kThreads) db_s[i] = 0.0f;
-  if (a.resident) {
+  if (kAblate != ABL_DMA_FLOOR && a.resident) {
     const int bytes = nl * WL;
     for (int i = tid * 16; i < bytes; i += kThreads * 16)
       cp_async16(wsm + i, a.wb + i);
     cp_async_wait_all();
     fence_async_smem();
   }
+#ifdef PVT_ABLATE
+  // the mxu modes' second operand: dl (written a tile) or ones
+  uint8_t* abl = lv + (nl + 1) * LVL;
+  const uint32_t abl_addr = smem_addr(abl);
+  if constexpr (kAblate == ABL_MXU_DHB || kAblate == ABL_MXU_DWOUT) {
+    // ones; or zeros, whose first row (column 0 of the product) takes dl
+    const float fill = kAblate == ABL_MXU_DHB ? 1.0f : 0.0f;
+    for (int i = tid; i < abl_bytes(R) / 4; i += kThreads)
+      *reinterpret_cast<__nv_bfloat162*>(abl + 4 * i) =
+          __floats2bfloat162_rn(fill, fill);
+    fence_async_smem();
+  }
+  float wsum = 0.0f;
+  if constexpr (kAblate == ABL_DMA_FLOOR) wsum = weights_sum(a, H, us);
+#endif
   __syncthreads();
 
   PHASE_CLOCK;
@@ -186,6 +207,12 @@ sdec_bwd_tc_kernel(const KArgs a) {
     const int rows = min(R, a.N - n0);
 
     PHASE_MARK(0);
+#ifdef PVT_ABLATE
+    if constexpr (kAblate == ABL_DMA_FLOOR) {
+      dma_floor_tile<R>(a, t, b, n0, rows, pass, wsum);
+      continue;
+    }
+#endif
     // -- per-sample folded transform, tile coordinates
     if (tid < H) {
       const int h = tid;
@@ -246,7 +273,8 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float pre = gx[e] * u2[hh] + gy[e] * v2[hh] + w2[hh];
-              if constexpr (decltype(pade)::value) h[e] = pade_tanh(pre);
+              if constexpr (kAblate == ABL_FWD_NOACT) h[e] = pre;
+              else if constexpr (decltype(pade)::value) h[e] = pade_tanh(pre);
               else h[e] = tanhf(pre);
               dv(0, s, 4 * j + 2 * hh + e) = 1.0f - h[e] * h[e];
             }
@@ -315,13 +343,34 @@ sdec_bwd_tc_kernel(const KArgs a) {
                          h[0], h[1]);
             }
       };
-      with_act(act, [&](auto tag) {
+      with_act_k(act, [&](auto tag) {
         if (l == nl - 1) epilogue(tag, std::true_type{});
         else epilogue(tag, std::false_type{});
       });
       fence_async_smem();
       __syncthreads();
     }
+#ifdef PVT_ABLATE
+    if constexpr (kFwdOnly) {  // h_L's sums: dwout's terms, the tile's scalar
+      float tot = 0.0f;
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v = 0.0f;
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) v += dv(nl, s, 4 * j + 2 * hh + e);
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (tq == 0) dwout_s[row_of(s, hh)] += v;
+          tot += v;
+        }
+      warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
+      continue;
+    }
+#endif
 
     PHASE_MARK(3);
     // -- head dots sum_m h_L[m][n] wout[m][c]: each thread over its rows,
@@ -388,7 +437,14 @@ sdec_bwd_tc_kernel(const KArgs a) {
       }
       dl[i] = d;
       if (c == 0) lossp[n] = lp;
+#ifdef PVT_ABLATE
+      if constexpr (kAblate == ABL_MXU_DWOUT)  // column 0 of h_L^T dl's B
+        if (c == 0)
+          *reinterpret_cast<__nv_bfloat16*>(abl + tiled(0, n, 16 * R)) =
+              __float2bfloat16_rn(d);
+#endif
     }
+    if constexpr (kAblate == ABL_MXU_DWOUT) fence_async_smem();
     __syncthreads();
     if (tid < 32) {
       for (int c = 0; c <= C; ++c) {  // c == C: the loss
@@ -406,6 +462,31 @@ sdec_bwd_tc_kernel(const KArgs a) {
     }
 
     PHASE_MARK(5);
+#ifdef PVT_ABLATE
+    if constexpr (kAblate == ABL_MXU_DWOUT) {
+      // h_L^T dl on wgmma, dl in column 0 of an [8][R] operand (written
+      // with dl); the tile's scalar is the sum over the units, its warps'
+      // partials (dwout stays zero)
+      float hd[SPW][4];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int k = 0; k < R / 16; ++k)
+          wgmma_n8<0, 0>(hd[s],
+                         desc(lv_addr + nl * LVL + (wg * SPW + s) * 8 * RSH +
+                                  k * 256, 128, RSH),
+                         block8_desc<R>(abl_addr, k), k);
+      wgmma_commit_wait();
+      float tot = 0.0f;
+#pragma unroll
+      for (int s = 0; s < SPW; ++s) {
+        fence_regs(hd[s]);
+        tot += hd[s][0] + hd[s][2];  // column 0 of rows gq and gq + 8
+      }
+      warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
+    }
+#endif
     // -- last layer: dh = dl wout^T (f32), dwout += bf16(h_L)^T bf16(dl),
     //    d_pre = dh act'(pre) in place of h_L, db
     with_act(act, [&](auto tag) {
@@ -436,12 +517,16 @@ sdec_bwd_tc_kernel(const KArgs a) {
               for (int c = 0; c < kMaxC; ++c) {
                 const float dlv = dl[(n + e) * kMaxC + c];
                 dh += dlv * wo[s][hh][c];
-                dwp[s][hh][c] += hf[e] * bf16_round(dlv);
+                if constexpr (kAblate < 0)
+                  dwp[s][hh][c] += hf[e] * bf16_round(dlv);
+                else if constexpr (kAblate != ABL_MXU_DWOUT)
+                  // f32 h_L and dl, as JAX's ablation kernel
+                  dwp[s][hh][c] += dv(nl, s, 4 * j + 2 * hh + e) * dlv;
               }
               const float kept = dv(nl, s, 4 * j + 2 * hh + e);
               d[e] = dh * (A == ACT_GELU ? gelu_grad(kept)
                                          : grad_from_post<A>(kept));
-              dbp[s][hh] += d[e];
+              if constexpr (kAblate != ABL_MXU_DHB) dbp[s][hh] += d[e];
             }
             store_pair(top + tiled(m, n, RSH), d[0], d[1]);
           }
@@ -450,10 +535,13 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int m = row_of(s, hh);
-          float v = dbp[s][hh];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (tq == 0) db_s[(nl - 1) * H + m] += v;
+          if constexpr (kAblate != ABL_MXU_DHB) {
+            float v = dbp[s][hh];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (tq == 0) db_s[(nl - 1) * H + m] += v;
+          }
+          if constexpr (kAblate == ABL_MXU_DWOUT) continue;
 #pragma unroll
           for (int c = 0; c < kMaxC; ++c) {
             float w = dwp[s][hh][c];
@@ -482,6 +570,18 @@ sdec_bwd_tc_kernel(const KArgs a) {
                              desc(dp + u_c[u] * 16 * RSH + k * 256, 128, RSH),
                              1);
         }
+#ifdef PVT_ABLATE
+      float hb_acc[SPW][4];  // mxu_dhb: db_l = d_pre_l^T ones on wgmma
+      if constexpr (kAblate == ABL_MXU_DHB)
+#pragma unroll
+        for (int s = 0; s < SPW; ++s)
+#pragma unroll
+          for (int k = 0; k < R / 16; ++k)
+            wgmma_n8<0, 0>(hb_acc[s],
+                           desc(dp + (wg * SPW + s) * 8 * RSH + k * 256, 128,
+                                RSH),
+                           block8_desc<R>(abl_addr, k), k);
+#endif
 #pragma unroll
       for (int s = 0; s < SPW; ++s) {  // dh^T = W_l d_pre^T
         const int slab = wg * SPW + s;
@@ -503,6 +603,17 @@ sdec_bwd_tc_kernel(const KArgs a) {
       for (int s = 0; s < SPW; ++s) fence_regs(acc[s]);
 #pragma unroll
       for (int u = 0; u < kUnits; ++u) fence_regs(dw[u]);
+#ifdef PVT_ABLATE
+      if constexpr (kAblate == ABL_MXU_DHB)
+#pragma unroll
+        for (int s = 0; s < SPW; ++s) {
+          fence_regs(hb_acc[s]);
+          if (tq == 0) {
+            db_s[l * H + row_of(s, 0)] += hb_acc[s][0];
+            db_s[l * H + row_of(s, 1)] += hb_acc[s][2];
+          }
+        }
+#endif
       __syncthreads();  // both warpgroups are done reading level l
 
       // d = dh act'(pre_l): d_pre_{l-1} into level l (and db), or for l = 0
@@ -520,7 +631,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
               for (int e = 0; e < 2; ++e) {
                 const int v = 4 * j + 2 * hh + e;
                 d[e] = acc[s][v] * dv(l, s, v);
-                sp[s][hh] += d[e];
+                if constexpr (kAblate != ABL_MXU_DHB) sp[s][hh] += d[e];
               }
               store_pair(lv + l * LVL + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH),
                          d[0], d[1]);
@@ -529,11 +640,56 @@ sdec_bwd_tc_kernel(const KArgs a) {
         for (int s = 0; s < SPW; ++s)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
+            if constexpr (kAblate == ABL_MXU_DHB) continue;
             float v = sp[s][hh];
             v += __shfl_xor_sync(0xffffffffu, v, 1);
             v += __shfl_xor_sync(0xffffffffu, v, 2);
             if (tq == 0) db_s[(l - 1) * H + row_of(s, hh)] += v;
           }
+#ifdef PVT_ABLATE
+      } else if constexpr (kAblate == ABL_NO_BREDUCE) {
+        // the tile's dw sum; du and dv only on the tiles of a batch tile's
+        // first sample (one branch a tile, outside the unrolled loops)
+        auto l0 = [&](auto uv) {
+          constexpr bool UV = decltype(uv)::value;
+          float sp[SPW][2][3] = {};
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+            const float4 c2 =
+                *reinterpret_cast<const float4*>(gs + 16 * j + 4 * tq);
+            const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
+#pragma unroll
+            for (int s = 0; s < SPW; ++s)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int v = 4 * j + 2 * hh + e;
+                  const float d = acc[s][v] * dv(0, s, v);
+                  if constexpr (UV) {
+                    sp[s][hh][0] += gx[e] * d;
+                    sp[s][hh][1] += gy[e] * d;
+                  }
+                  sp[s][hh][2] += d;
+                }
+          }
+          float* tw = a.tile_ws + (size_t)t * 3 * H;
+#pragma unroll
+          for (int s = 0; s < SPW; ++s)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+              for (int q = UV ? 0 : 2; q < 3; ++q) {
+                float v = sp[s][hh][q];
+                v += __shfl_xor_sync(0xffffffffu, v, 1);
+                v += __shfl_xor_sync(0xffffffffu, v, 2);
+                if (tq == 0 && pass == 0) tw[q * H + row_of(s, hh)] = v;
+              }
+            }
+        };
+        if (b % a.b_t == 0) l0(std::true_type{});
+        else l0(std::false_type{});
+#endif
       } else {
         float sp[SPW][2][3] = {};
 #pragma unroll
@@ -607,7 +763,7 @@ struct Plan {
 
 inline size_t smem_bytes(int H, int R, int nl, int C, bool resident) {
   return weight_bytes(H, nl, resident) + (size_t)(nl + 1) * 6 * H * R +
-         4 * (size_t)small_floats(H, R, nl, C);
+         abl_bytes(R) + 4 * (size_t)small_floats(H, R, nl, C);
 }
 
 template <int H, int R>
@@ -681,6 +837,23 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the main kernel of the plan's tile
+cudaError_t launch_main(const KArgs& k, const Plan& p, int H, int n_blocks,
+                        cudaStream_t stream) {
+  if (H == 128) {
+    if (p.R == 64)
+      sdec_bwd_tc_kernel<128, 64><<<n_blocks, kThreads, p.smem, stream>>>(k);
+    else
+      sdec_bwd_tc_kernel<128, 32><<<n_blocks, kThreads, p.smem, stream>>>(k);
+  } else {
+    if (p.R == 32)
+      sdec_bwd_tc_kernel<256, 32><<<n_blocks, kThreads, p.smem, stream>>>(k);
+    else
+      sdec_bwd_tc_kernel<256, 16><<<n_blocks, kThreads, p.smem, stream>>>(k);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t launch(const Args& a) {
   Plan p;
   cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, a.C, &p);
@@ -703,23 +876,51 @@ cudaError_t launch(const Args& a) {
                 a.wout, a.bout, a.g, a.x, a.wgt, wb, wf, blk_ws, tile_ws,
                 a.B, a.N, a.D, a.L, nl, a.C, a.act, a.sigmoid_out, a.loss,
                 p.resident, p.n_tiles, p.per_pass, (int)slot};
-  if (H == 128) {
-    if (p.R == 64)
-      sdec_bwd_tc_kernel<128, 64><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-    else
-      sdec_bwd_tc_kernel<128, 32><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-  } else {
-    if (p.R == 32)
-      sdec_bwd_tc_kernel<256, 32><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-    else
-      sdec_bwd_tc_kernel<256, 16><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-  }
-  err = cudaGetLastError();
+  err = launch_main(k, p, H, a.n_blocks, a.stream);
   if (err != cudaSuccess) return err;
   return launch_sums<false>(blk_ws, tile_ws, duvw, p.per_pass, (int)slot, p.n_tiles,
                      a.phi, a.dx, a.sc, a.z, a.wc, a.wz, a.out, a.B, a.D, a.L,
                      H, nl, a.C, a.loss, a.stream);
 }
+
+#ifdef PVT_ABLATE
+// An ablation call: K2's plan and workspace, a scalar a tile after it;
+// the prep kernel (not for dma_floor, which reads hw in f32), the mode's
+// main kernel and its reductions (sm90_bwd.cuh).
+cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
+  Plan p;
+  cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, 1, &p);
+  if (err != cudaSuccess) return err;
+  if (a.n_blocks != p.passes * p.per_pass || bad_tiles(a.B, a.N, b_t, n_t, p.R))
+    return cudaErrorInvalidValue;
+  const int H = a.H, nl = a.n_layers;
+  const size_t slot = slot_floats(H, nl, 1);
+  uint8_t* wb = reinterpret_cast<uint8_t*>(a.ws);
+  uint8_t* wf = wb + (size_t)nl * H * H * 2;
+  float* blk_ws = a.ws + (size_t)nl * H * H;
+  float* tile_ws = blk_ws + (size_t)a.n_blocks * slot;
+  float* duvw = tile_ws + (size_t)a.B * p.n_tiles * 3 * H;
+  float* tile_s = duvw + (size_t)a.B * 3 * H;
+  float* raw = tile_s + (size_t)a.B * p.n_tiles * kWarps;
+  if constexpr (kAblate != ABL_DMA_FLOOR) {
+    const int n_w = nl * H * H;
+    sdec_tc_prep<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+        a.hw, wb, wf, H, n_w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const KArgs k{a.grid, a.phi, a.dx, a.sc, a.z, a.wc, a.bc, a.wz, a.hb,
+                a.wout, a.bout, a.g, nullptr, nullptr, wb, wf, blk_ws,
+                tile_ws, a.B, a.N, 2, a.L, nl, 1, ACT_TANH, 1, 0, p.resident,
+                p.n_tiles, p.per_pass, (int)slot, a.hw, tile_s, b_t, n_t};
+  err = launch_main(k, p, H, a.n_blocks, a.stream);
+  if (err != cudaSuccess) return err;
+  return launch_abl_sums<false>(blk_ws, tile_ws, tile_s, raw, duvw, p.per_pass,
+                                (int)slot, p.n_tiles, a.phi, a.dx, a.sc, a.z,
+                                a.wc, a.wz, a.out, a.B, a.L, H, nl, b_t,
+                                a.stream);
+}
+#endif
 
 }  // namespace
 
@@ -762,5 +963,46 @@ extern "C" int pvt_sdec_bwd_tc(const float* grid, const float* phi,
                loss_mode, n_blocks, reinterpret_cast<cudaStream_t>(stream)};
   return (int)launch(a);
 }
+
+#ifdef PVT_ABLATE
+// The ablation build's plan (K4): as pvt_sdec_bwd_tc_plan at one channel,
+// 2-D, tanh, and the kernel tile's pixels *rows, which must divide n_t.
+extern "C" int pvt_sdec_abl_tc_plan(int B, int N, int L, int H, int n_layers,
+                                    int b_t, int n_t, long long* ws_floats,
+                                    int* n_blocks, int* rows) {
+  if (bad_dims(B, N, 2, L, H, n_layers, 1, ACT_TANH, 0) ||
+      bad_tiles(B, N, b_t, n_t, 0))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t err = make_plan(B, N, H, n_layers, 1, &p);
+  if (err != cudaSuccess) return (int)err;
+  *n_blocks = p.passes * p.per_pass;
+  *ws_floats = (long long)(workspace_floats(p, B, H, n_layers, 1) +
+                           abl_workspace_floats(B, p.n_tiles, H));
+  *rows = p.R;
+  return (int)cudaSuccess;
+}
+
+// The ablation build's launch (K4 in the mode PVT_ABLATE names): K2's
+// inputs at one channel (wout [H], bout [1], g [B, N]), the eleven outputs
+// flat in `out` (as pvt_sdec_bwd_tc's), a workspace of the plan's size,
+// b_t and n_t the logical tiles. Returns a cudaError_t.
+extern "C" int pvt_sdec_abl_tc(const float* grid, const float* phi,
+                               const float* dx, const float* sc,
+                               const float* z, const float* wc,
+                               const float* bc, const float* wz,
+                               const float* hw, const float* hb,
+                               const float* wout, const float* bout,
+                               const float* g, float* out, float* ws, int B,
+                               int N, int L, int H, int n_layers, int b_t,
+                               int n_t, int n_blocks, void* stream) {
+  if (bad_dims(B, N, 2, L, H, n_layers, 1, ACT_TANH, 0))
+    return (int)cudaErrorInvalidValue;
+  const Args a{grid, phi, dx, sc, z, wc, bc, wz, hw, hb, wout, bout, g,
+               nullptr, nullptr, out, ws, B, N, 2, L, H, n_layers, 1,
+               ACT_TANH, 1, 0, n_blocks, reinterpret_cast<cudaStream_t>(stream)};
+  return (int)launch_ablate(a, b_t, n_t);
+}
+#endif
 
 PVT_PHASE_READER(pvt_sdec_bwd_tc_phase_cycles)

@@ -197,6 +197,11 @@ struct KArgs {
   float *blk_ws, *tile_ws;
   int B, N, D, L, nl, C, act, sigmoid_out, loss, nbuf, n_tiles, per_pass,
       slot;
+#ifdef PVT_ABLATE
+  const float* hw;  // f32, for dma_floor's sum
+  float* tile_s;    // a scalar a tile
+  int b_t, n_t;     // the logical tiles
+#endif
 };
 
 template <int H, int R>
@@ -215,7 +220,8 @@ sdec_bwd_x3_kernel(const KArgs a) {
   const bool gelu = act == ACT_GELU;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* lv = smem + 2 * nbuf * PANEL;  // levels 0 .. nl
-  float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LV3);  // gelu
+  // gelu (after the mxu modes' operands in an ablation build)
+  float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LV3 + abl_bytes(R));
   float* us = gv + (gelu ? nl * H * R : 0);
   float* vs = us + H;
   float* wv = vs + H;
@@ -251,7 +257,7 @@ sdec_bwd_x3_kernel(const KArgs a) {
   // and limb (lo, mid, hi) a panel of wf, then the same for each dh layer,
   // last to first, from wb. acquire() returns the next one in shared
   // memory, having started the copy of the one after it (two buffers).
-  const int per_tile = 6 * nl * SPW;
+  const int per_tile = (kFwdOnly ? 3 : 6) * nl * SPW;  // the forward's alone
   auto panel_src = [&](int q) {
     const int third = 3 * nl * SPW;
     const bool fwd = q < third;
@@ -333,7 +339,22 @@ sdec_bwd_x3_kernel(const KArgs a) {
     }
   };
   for (int i = tid; i < 2 * n_sums; i += kThreads) db_s[i] = 0.0f;
-  if (nbuf == 2) issue(0, 0);
+  if (kAblate != ABL_DMA_FLOOR && nbuf == 2) issue(0, 0);
+#ifdef PVT_ABLATE
+  // the mxu modes' second operand: dl's limbs (written a tile) or ones
+  uint8_t* abl = lv + (nl + 1) * LV3;
+  const uint32_t abl_addr = smem_addr(abl);
+  if constexpr (kAblate == ABL_MXU_DHB || kAblate == ABL_MXU_DWOUT) {
+    // ones; or zeros, whose first row (column 0 of the product) takes dl
+    const float fill = kAblate == ABL_MXU_DHB ? 1.0f : 0.0f;
+    for (int i = tid; i < abl_bytes(R) / 4; i += kThreads)
+      *reinterpret_cast<__nv_bfloat162*>(abl + 4 * i) =
+          __floats2bfloat162_rn(fill, fill);
+    fence_async_smem();
+  }
+  float wsum = 0.0f;
+  if constexpr (kAblate == ABL_DMA_FLOOR) wsum = weights_sum(a, H, us);
+#endif
   __syncthreads();
 
   PHASE_CLOCK;
@@ -347,6 +368,12 @@ sdec_bwd_x3_kernel(const KArgs a) {
     const bool flush_now = since + 1 == kFlushTiles;
 
     PHASE_MARK(0);
+#ifdef PVT_ABLATE
+    if constexpr (kAblate == ABL_DMA_FLOOR) {
+      dma_floor_tile<R>(a, t, b, n0, rows, pass, wsum);
+      continue;
+    }
+#endif
     // -- per-sample folded transform, tile coordinates
     if (tid < H) {
       const int h = tid;
@@ -407,7 +434,8 @@ sdec_bwd_x3_kernel(const KArgs a) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float pre = gx[e] * u2[hh] + gy[e] * v2[hh] + w2[hh];
-              if constexpr (decltype(pade)::value) h[e] = pade_tanh(pre);
+              if constexpr (kAblate == ABL_FWD_NOACT) h[e] = pre;
+              else if constexpr (decltype(pade)::value) h[e] = pade_tanh(pre);
               else h[e] = tanhf(pre);
             }
             store_limbs(lv + tiled(row_of(s, hh), n, RSH), LVL, h[0], h[1]);
@@ -461,20 +489,44 @@ sdec_bwd_x3_kernel(const KArgs a) {
                   act_and_grad<A>(pre, h[e], g);
                   dv(l + 1, s, v) = decltype(last)::value ? pre : g;
                 } else {
-                  h[e] = act_fn<A>(pre);
+                  h[e] = act_fn_k<A>(pre);
                 }
               }
               store_limbs(out + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH), LVL,
                           h[0], h[1]);
             }
       };
-      with_act(act, [&](auto tag) {
+      with_act_k(act, [&](auto tag) {
         if (l == nl - 1) epilogue(tag, std::true_type{});
         else epilogue(tag, std::false_type{});
       });
       fence_async_smem();
       __syncthreads();
     }
+#ifdef PVT_ABLATE
+    if constexpr (kFwdOnly) {  // h_L's sums: dwout's terms, the tile's scalar
+      const uint8_t* top = lv + nl * LV3;
+      float tot = 0.0f;
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v = 0.0f;
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+            const float2 h =
+                load_limbs(top + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH), LVL);
+            v += h.x + h.y;
+          }
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (tq == 0) add_sum(nl * H + row_of(s, hh), v);
+          tot += v;
+        }
+      warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
+      continue;
+    }
+#endif
 
     PHASE_MARK(3);
     // -- head dots sum_m h_L[m][n] wout[m][c]: each thread over its rows,
@@ -540,7 +592,22 @@ sdec_bwd_x3_kernel(const KArgs a) {
       }
       dl[i] = d;
       if (c == 0) lossp[n] = lp;
+#ifdef PVT_ABLATE
+      if constexpr (kAblate == ABL_MXU_DWOUT)  // column 0 of h_L^T dl's B
+        if (c == 0) {
+          const __nv_bfloat16 hi = __float2bfloat16_rn(d);
+          const float rest = d - __bfloat162float(hi);
+          const __nv_bfloat16 mid = __float2bfloat16_rn(rest);
+          const __nv_bfloat16 limbs[3] = {
+              hi, mid, __float2bfloat16_rn(rest - __bfloat162float(mid))};
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            *reinterpret_cast<__nv_bfloat16*>(
+                abl + q * 16 * R + tiled(0, n, 16 * R)) = limbs[q];
+        }
+#endif
     }
+    if constexpr (kAblate == ABL_MXU_DWOUT) fence_async_smem();
     __syncthreads();
     if (tid < 32) {
       for (int c = 0; c <= C; ++c) {  // c == C: the loss
@@ -555,6 +622,37 @@ sdec_bwd_x3_kernel(const KArgs a) {
     }
 
     PHASE_MARK(5);
+#ifdef PVT_ABLATE
+    if constexpr (kAblate == ABL_MXU_DWOUT) {
+      // h_L^T dl on wgmma as six limb products, dl's limbs in column 0 of
+      // three [8][R] planes (written with dl); the tile's scalar is the sum
+      // over the units, its warps' partials (dwout stays zero)
+      // (h_L limb, dl limb): lo hi, hi lo, mid mid, mid hi, hi mid, hi hi
+      constexpr int kPairs[6][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
+      float hd[SPW][4];
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int pr = 0; pr < 6; ++pr)
+#pragma unroll
+          for (int k = 0; k < R / 16; ++k)
+            wgmma_n8<0, 0>(hd[s],
+                           desc(lv_addr + nl * LV3 + kPairs[pr][0] * LVL +
+                                    (wg * SPW + s) * 8 * RSH + k * 256,
+                                128, RSH),
+                           block8_desc<R>(abl_addr + kPairs[pr][1] * 16 * R, k),
+                           pr + k);
+      wgmma_commit_wait();
+      float tot = 0.0f;
+#pragma unroll
+      for (int s = 0; s < SPW; ++s) {
+        fence_regs(hd[s]);
+        tot += hd[s][0] + hd[s][2];  // column 0 of rows gq and gq + 8
+      }
+      warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
+    }
+#endif
     // -- last layer: dh = dl wout^T, dwout += h_L^T dl, d_pre = dh act'(pre)
     //    in place of h_L, db; all f32
     with_act(act, [&](auto tag) {
@@ -586,7 +684,8 @@ sdec_bwd_x3_kernel(const KArgs a) {
               for (int c = 0; c < kMaxC; ++c) {
                 const float dlv = dl[(n + e) * kMaxC + c];
                 dh += dlv * wo[s][hh][c];
-                dwp[s][hh][c] += hf[e] * dlv;
+                if constexpr (kAblate != ABL_MXU_DWOUT)
+                  dwp[s][hh][c] += hf[e] * dlv;
               }
               float g;
               if constexpr (A == ACT_GELU)
@@ -594,7 +693,7 @@ sdec_bwd_x3_kernel(const KArgs a) {
               else
                 g = grad_from_post<A>(hf[e]);
               d[e] = dh * g;
-              dbp[s][hh] += d[e];
+              if constexpr (kAblate != ABL_MXU_DHB) dbp[s][hh] += d[e];
             }
             store_limbs(p, LVL, d[0], d[1]);
           }
@@ -603,10 +702,13 @@ sdec_bwd_x3_kernel(const KArgs a) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int m = row_of(s, hh);
-          float v = dbp[s][hh];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (tq == 0) add_sum((nl - 1) * H + m, v);
+          if constexpr (kAblate != ABL_MXU_DHB) {
+            float v = dbp[s][hh];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (tq == 0) add_sum((nl - 1) * H + m, v);
+          }
+          if constexpr (kAblate == ABL_MXU_DWOUT) continue;
 #pragma unroll
           for (int c = 0; c < kMaxC; ++c) {
             float w = dwp[s][hh][c];
@@ -643,6 +745,22 @@ sdec_bwd_x3_kernel(const KArgs a) {
                        128, RSH),
                   1);
         }
+#ifdef PVT_ABLATE
+      // mxu_dhb: db_l = d_pre_l^T ones on wgmma, over d_pre_l's three limb
+      // planes (together f32's d_pre_l, exactly)
+      float hb_acc[SPW][4];
+      if constexpr (kAblate == ABL_MXU_DHB)
+#pragma unroll
+        for (int s = 0; s < SPW; ++s)
+#pragma unroll
+          for (int q = 2; q >= 0; --q)
+#pragma unroll
+            for (int k = 0; k < R / 16; ++k)
+              wgmma_n8<0, 0>(hb_acc[s],
+                             desc(dp + q * LVL + (wg * SPW + s) * 8 * RSH +
+                                      k * 256, 128, RSH),
+                             block8_desc<R>(abl_addr, k), q < 2 || k > 0);
+#endif
       if (flush_now) {  // before the dh products, which need the registers
         wgmma_commit_wait();
 #pragma unroll
@@ -661,6 +779,17 @@ sdec_bwd_x3_kernel(const KArgs a) {
       for (int s = 0; s < SPW; ++s) fence_regs(acc[s]);
 #pragma unroll
       for (int u = 0; u < kUnits; ++u) fence_regs(dw[u]);
+#ifdef PVT_ABLATE
+      if constexpr (kAblate == ABL_MXU_DHB)
+#pragma unroll
+        for (int s = 0; s < SPW; ++s) {
+          fence_regs(hb_acc[s]);
+          if (tq == 0) {
+            add_sum(l * H + row_of(s, 0), hb_acc[s][0]);
+            add_sum(l * H + row_of(s, 1), hb_acc[s][2]);
+          }
+        }
+#endif
       __syncthreads();  // both warpgroups are done reading levels l, l + 1
 
       // d = dh act'(pre_l): d_pre_{l-1} into level l (and db), or for l = 0
@@ -690,7 +819,7 @@ sdec_bwd_x3_kernel(const KArgs a) {
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
                   d[e] = acc[s][4 * j + 2 * hh + e] * g[e];
-                  sp[s][hh] += d[e];
+                  if constexpr (kAblate != ABL_MXU_DHB) sp[s][hh] += d[e];
                 }
                 store_limbs(p, LVL, d[0], d[1]);
               }
@@ -698,12 +827,60 @@ sdec_bwd_x3_kernel(const KArgs a) {
           for (int s = 0; s < SPW; ++s)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
+              if constexpr (kAblate == ABL_MXU_DHB) continue;
               float v = sp[s][hh];
               v += __shfl_xor_sync(0xffffffffu, v, 1);
               v += __shfl_xor_sync(0xffffffffu, v, 2);
               if (tq == 0) add_sum((l - 1) * H + row_of(s, hh), v);
             }
         });
+#ifdef PVT_ABLATE
+      } else if constexpr (kAblate == ABL_NO_BREDUCE) {
+        // the tile's dw sum; du and dv only on the tiles of a batch tile's
+        // first sample (one branch a tile, outside the unrolled loops)
+        auto l0 = [&](auto uv) {
+          constexpr bool UV = decltype(uv)::value;
+          float sp[SPW][2][3] = {};
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+            const float4 c2 =
+                *reinterpret_cast<const float4*>(gs + 16 * j + 4 * tq);
+            const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
+#pragma unroll
+            for (int s = 0; s < SPW; ++s)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const float2 h = load_limbs(
+                    lv + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH), LVL);
+                const float g[2] = {1.0f - h.x * h.x, 1.0f - h.y * h.y};
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float d = acc[s][4 * j + 2 * hh + e] * g[e];
+                  if constexpr (UV) {
+                    sp[s][hh][0] += gx[e] * d;
+                    sp[s][hh][1] += gy[e] * d;
+                  }
+                  sp[s][hh][2] += d;
+                }
+              }
+          }
+          float* tw = a.tile_ws + (size_t)t * 3 * H;
+#pragma unroll
+          for (int s = 0; s < SPW; ++s)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+              for (int q = UV ? 0 : 2; q < 3; ++q) {
+                float v = sp[s][hh][q];
+                v += __shfl_xor_sync(0xffffffffu, v, 1);
+                v += __shfl_xor_sync(0xffffffffu, v, 2);
+                if (tq == 0 && pass == 0) tw[q * H + row_of(s, hh)] = v;
+              }
+            }
+        };
+        if (b % a.b_t == 0) l0(std::true_type{});
+        else l0(std::false_type{});
+#endif
       } else {
         float sp[SPW][2][3] = {};
 #pragma unroll
@@ -773,7 +950,7 @@ struct Plan {
 
 inline size_t smem_bytes(int H, int R, int nl, int C, bool gelu, int nbuf) {
   return (size_t)2 * nbuf * 128 * H + (size_t)(nl + 1) * 6 * H * R +
-         (gelu ? (size_t)nl * 4 * H * R : 0) +
+         abl_bytes(R) + (gelu ? (size_t)nl * 4 * H * R : 0) +
          4 * ((size_t)small_floats(H, R, nl, C) + nl * H + H * C + C + 1);
 }
 
@@ -851,6 +1028,23 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the main kernel of the plan's tile
+cudaError_t launch_main(const KArgs& k, const Plan& p, int H, int n_blocks,
+                        cudaStream_t stream) {
+  if (H == 128) {
+    if (p.R == 64)
+      sdec_bwd_x3_kernel<128, 64><<<n_blocks, kThreads, p.smem, stream>>>(k);
+    else
+      sdec_bwd_x3_kernel<128, 32><<<n_blocks, kThreads, p.smem, stream>>>(k);
+  } else {
+    if (p.R == 32)
+      sdec_bwd_x3_kernel<256, 32><<<n_blocks, kThreads, p.smem, stream>>>(k);
+    else
+      sdec_bwd_x3_kernel<256, 16><<<n_blocks, kThreads, p.smem, stream>>>(k);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t launch(const Args& a) {
   Plan p;
   cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, a.C, a.act, &p);
@@ -873,23 +1067,51 @@ cudaError_t launch(const Args& a) {
                 a.wout, a.bout, a.g, a.x, a.wgt, wb, wf, blk_ws, tile_ws,
                 a.B, a.N, a.D, a.L, nl, a.C, a.act, a.sigmoid_out, a.loss,
                 p.nbuf, p.n_tiles, p.per_pass, (int)slot};
-  if (H == 128) {
-    if (p.R == 64)
-      sdec_bwd_x3_kernel<128, 64><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-    else
-      sdec_bwd_x3_kernel<128, 32><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-  } else {
-    if (p.R == 32)
-      sdec_bwd_x3_kernel<256, 32><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-    else
-      sdec_bwd_x3_kernel<256, 16><<<a.n_blocks, kThreads, p.smem, a.stream>>>(k);
-  }
-  err = cudaGetLastError();
+  err = launch_main(k, p, H, a.n_blocks, a.stream);
   if (err != cudaSuccess) return err;
   return launch_sums<true>(blk_ws, tile_ws, duvw, p.per_pass, (int)slot, p.n_tiles,
                      a.phi, a.dx, a.sc, a.z, a.wc, a.wz, a.out, a.B, a.D, a.L,
                      H, nl, a.C, a.loss, a.stream);
 }
+
+#ifdef PVT_ABLATE
+// An ablation call: K2's plan and workspace, a scalar a tile after it;
+// the prep kernel (not for dma_floor, which reads hw in f32), the mode's
+// main kernel and its reductions (sm90_bwd.cuh).
+cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
+  Plan p;
+  cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, 1, ACT_TANH, &p);
+  if (err != cudaSuccess) return err;
+  if (a.n_blocks != p.passes * p.per_pass || bad_tiles(a.B, a.N, b_t, n_t, p.R))
+    return cudaErrorInvalidValue;
+  const int H = a.H, nl = a.n_layers;
+  const size_t slot = slot_floats(H, nl, 1);
+  uint8_t* wb = reinterpret_cast<uint8_t*>(a.ws);
+  uint8_t* wf = wb + (size_t)3 * nl * H * H * 2;
+  float* blk_ws = a.ws + (size_t)3 * nl * H * H;
+  float* tile_ws = blk_ws + (size_t)a.n_blocks * slot;
+  float* duvw = tile_ws + (size_t)a.B * p.n_tiles * 3 * H;
+  float* tile_s = duvw + (size_t)a.B * 3 * H;
+  float* raw = tile_s + (size_t)a.B * p.n_tiles * kWarps;
+  if constexpr (kAblate != ABL_DMA_FLOOR) {
+    const int n_w = nl * H * H;
+    sdec_x3_prep<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+        a.hw, wb, wf, H, nl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const KArgs k{a.grid, a.phi, a.dx, a.sc, a.z, a.wc, a.bc, a.wz, a.hb,
+                a.wout, a.bout, a.g, nullptr, nullptr, wb, wf, blk_ws,
+                tile_ws, a.B, a.N, 2, a.L, nl, 1, ACT_TANH, 1, 0, p.nbuf,
+                p.n_tiles, p.per_pass, (int)slot, a.hw, tile_s, b_t, n_t};
+  err = launch_main(k, p, H, a.n_blocks, a.stream);
+  if (err != cudaSuccess) return err;
+  return launch_abl_sums<true>(blk_ws, tile_ws, tile_s, raw, duvw, p.per_pass,
+                               (int)slot, p.n_tiles, a.phi, a.dx, a.sc, a.z,
+                               a.wc, a.wz, a.out, a.B, a.L, H, nl, b_t,
+                               a.stream);
+}
+#endif
 
 }  // namespace
 
@@ -933,5 +1155,42 @@ extern "C" int pvt_sdec_bwd_x3(const float* grid, const float* phi,
                loss_mode, n_blocks, reinterpret_cast<cudaStream_t>(stream)};
   return (int)launch(a);
 }
+
+#ifdef PVT_ABLATE
+// The ablation build's plan and launch (K4), as pvt_sdec_abl_tc_plan and
+// pvt_sdec_abl_tc in spatial_decoder_bwd_tc.cu.
+extern "C" int pvt_sdec_abl_x3_plan(int B, int N, int L, int H, int n_layers,
+                                    int b_t, int n_t, long long* ws_floats,
+                                    int* n_blocks, int* rows) {
+  if (bad_dims(B, N, 2, L, H, n_layers, 1, ACT_TANH, 0) ||
+      bad_tiles(B, N, b_t, n_t, 0))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t err = make_plan(B, N, H, n_layers, 1, ACT_TANH, &p);
+  if (err != cudaSuccess) return (int)err;
+  *n_blocks = p.passes * p.per_pass;
+  *ws_floats = (long long)(workspace_floats(p, B, H, n_layers, 1) +
+                           abl_workspace_floats(B, p.n_tiles, H));
+  *rows = p.R;
+  return (int)cudaSuccess;
+}
+
+extern "C" int pvt_sdec_abl_x3(const float* grid, const float* phi,
+                               const float* dx, const float* sc,
+                               const float* z, const float* wc,
+                               const float* bc, const float* wz,
+                               const float* hw, const float* hb,
+                               const float* wout, const float* bout,
+                               const float* g, float* out, float* ws, int B,
+                               int N, int L, int H, int n_layers, int b_t,
+                               int n_t, int n_blocks, void* stream) {
+  if (bad_dims(B, N, 2, L, H, n_layers, 1, ACT_TANH, 0))
+    return (int)cudaErrorInvalidValue;
+  const Args a{grid, phi, dx, sc, z, wc, bc, wz, hw, hb, wout, bout, g,
+               nullptr, nullptr, out, ws, B, N, 2, L, H, n_layers, 1,
+               ACT_TANH, 1, 0, n_blocks, reinterpret_cast<cudaStream_t>(stream)};
+  return (int)launch_ablate(a, b_t, n_t);
+}
+#endif
 
 PVT_PHASE_READER(pvt_sdec_bwd_x3_phase_cycles)

@@ -1,15 +1,37 @@
-"""What the port's measurement scripts share (``chip_smoke.py``,
-:mod:`pyroved_tpu_torch.tools.profile_bwd_tc` and
-:mod:`pyroved_tpu_torch.tools.profile_fwd_tc`): the flag and the plain
-versions swapped in for a block, the training data, random kernel inputs
-and CUDA-event timing."""
+"""What the port's measurement scripts share (``chip_smoke.py`` and the
+tools of :mod:`pyroved_tpu_torch.tools`): the flag and the plain versions
+swapped in for a block, the training data, random kernel inputs, CUDA-event
+timing, the card's name and its data-sheet peaks."""
 import contextlib
 import statistics
+import subprocess
 
 import numpy as np
 import torch
 
 from ..ops import spatial_decoder as sd
+
+# Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
+# "NVIDIA H100 80GB HBM3": f32 on the CUDA cores, bf16 on the tensor cores,
+# HBM bandwidth. Other cards have no row: their bounds would be wrong.
+H100_SXM = "H100 80GB HBM3"
+PEAKS = (67e12, 989e12, 3.35e12)  # (f32 flop/s, bf16 flop/s, bytes/s)
+
+
+def card_peaks(name):
+    """:data:`PEAKS` for a card ``nvidia-smi`` names ``name``, or raise."""
+    if H100_SXM not in name:
+        raise RuntimeError(f"no data-sheet peaks for card {name!r}")
+    return PEAKS
+
+
+def card_info():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 @contextlib.contextmanager
