@@ -259,10 +259,12 @@ from pyroved_tpu_torch.ops import bwd_ablation as ab
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
 from pyroved_tpu_torch.tools import bwd_ablation as abt
-from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, card_info,
-                                             card_peaks, cuda_ms,
+from pyroved_tpu_torch.tools.profile_bwd_tc import plan_info
+from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, bounds,
+                                             card_info, card_peaks, cuda_ms,
                                              cuda_ms_queued, plain_versions,
-                                             random_case)
+                                             random_case, work_bwd)
+from pyroved_tpu_torch.tools.measure import usage as ptxas_usage
 from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
 from pyroved_tpu_torch.utils.data import (init_dataloader,
@@ -514,33 +516,6 @@ def work(a):
     return flops, nbytes
 
 
-def work_bwd(a, loss_mode=False):
-    """(flops, bytes) one K2 (or K3) call needs: per pixel the forward
-    recompute (h0, nl H x H layers, head) and the backward (head, dW and dh
-    of each layer, the du/dv/dw sums); every input read once (with the
-    cotangent, or x and the weights), every grad written once."""
-    N, D = a["grid"].shape
-    B = a["z"].shape[0]
-    H = a["Wc"].shape[1]
-    nl = a["hw"].shape[0]
-    C = a["wout"].shape[1]
-    flops = B * N * (6 * nl * H * H + 2 * (D + 1) * H + 6 * C * H + 6 * H)
-    inputs = sum(t.numel() for t in a.values())
-    grads = inputs - a["grid"].numel()
-    extra = B * N + B if loss_mode else B * N * C
-    return flops, 4 * (inputs + grads + extra)
-
-
-def bounds(flops, nbytes, peaks):
-    """(f32 bound, bf16 bound, what bounds f32, what bounds bf16), ms."""
-    peak_f32, peak_bf16, peak_bw = peaks
-    by = lambda peak: ("operations" if flops / peak >= nbytes / peak_bw  # noqa: E731
-                       else "bytes")
-    return (1e3 * max(flops / peak_f32, nbytes / peak_bw),
-            1e3 * max(flops / peak_bf16, nbytes / peak_bw),
-            by(peak_f32), by(peak_bf16))
-
-
 def host_ms(fn, reps=10, warmup=2):
     """Median wall time of a whole request, ending in a synchronize."""
     for _ in range(warmup):
@@ -653,8 +628,35 @@ def bwd_cases():
               (1, 1, "softplus", 256, 5, 129, 4, 1),
               (2, 1, "relu", 128, 4, 200, 2, 5),     # the layer limit
               (2, 1, "tanh", 128, 600, 784, 12, 2),  # enum_topk=3, phase 9
-              (2, 1, "tanh", 128, 50, 784, 2, 2)]    # grad_accum, phase 9
+              (2, 1, "tanh", 128, 50, 784, 2, 2),    # grad_accum, phase 9
+              # every plan of the bf16 make_plan (BWD_TC_PLANS): resident
+              # weights at three layers, streamed at four, the tightest
+              # shared memory (four channels, twelve latents)
+              (2, 1, "tanh", 128, 37, 1000, 3, 3),
+              (2, 3, "lrelu", 128, 37, 1000, 3, 4),
+              (1, 2, "softplus", 128, 37, 1000, 3, 1),
+              (2, 4, "tanh", 128, 37, 1000, 12, 2),
+              (2, 1, "tanh", 128, 200, 784, 2, 2),   # K3 at the flagship
+              (2, 1, "tanh", 128, 64, 16384, 2, 2)]  # and the large grid
     return cases
+
+
+# The plans the bf16 K2/K3 can choose (H, R, weights resident): H = 128
+# at R = 64 (up to two layers) and R = 32 (three) with every weight
+# resident, R = 32 streamed (four and five layers); H = 256 streamed at
+# R = 32 (up to two layers) and 16. Phase 2 runs each of them (and a
+# block's tiles are odd in number at B = 37, N = 1000: 592 tiles over 132
+# blocks).
+BWD_TC_PLANS = {(128, 64, 1), (128, 32, 1), (128, 32, 0), (256, 32, 0),
+                (256, 16, 0)}
+
+
+def bwd_tc_plan(B, N, D, L, H, nl, C, act):
+    """(H, R, weights resident) of the bf16 K2/K3's plan for one call (as
+    its pvt_sdec_bwd_tc_plan reports it)."""
+    info = plan_info(_build.load(sd.BWD_SOURCES[True]), B, N, L, H, nl, C,
+                     D=D, act=sd._ACT_CODE[act])
+    return H, info["R"], info["resident"]
 
 
 def near_kink(a, act):
@@ -681,6 +683,7 @@ def phase_k2_k3_vs_plain(dev):
     tag = "bf16" if sd.BF16_MATMUL else "f32"
     rng = np.random.default_rng(2)
     errs2, errs3 = [0.0], [0.0]
+    plans = set()
     per_sample = 0 if sd.BF16_MATMUL else PER_SAMPLE
     with all_cases(f"K2/K3 {tag} vs plain") as case:
         for i, (D, C, act, H, B, N, L, nl) in enumerate(bwd_cases()):
@@ -699,6 +702,10 @@ def phase_k2_k3_vs_plain(dev):
                     f"B={B} N={N} L={L} layers={nl}"
                     + ("" if near is None else f" ({int(near.sum())} pixels "
                        f"near the kink left out)"))
+            if sd.BF16_MATMUL:
+                plan = bwd_tc_plan(B, N, D, L, H, nl, C, act)
+                plans.add(plan)
+                what += f" [plan R={plan[1]} resident={plan[2]}]"
             with case():
                 got = K2(**a, g=g, act=act, sigmoid_out=sig)
                 again = K2(**a, g=g, act=act, sigmoid_out=sig)
@@ -767,6 +774,11 @@ def phase_k2_k3_vs_plain(dev):
                 e2, e3 = tile_512_case(rng, dev)
                 errs2.append(e2)
                 errs3.append(e3)
+        elif plans != BWD_TC_PLANS:
+            with case():
+                raise AssertionError(f"K2/K3 bf16: the cases ran the plans "
+                                     f"{sorted(plans)}, not every plan of "
+                                     f"{sorted(BWD_TC_PLANS)}")
     return max(errs2), max(errs3)
 
 
@@ -3955,7 +3967,7 @@ def phase_ablation(smi, peaks, build):
     usage = {}
     for on in (True, False):
         for mode in ab.MODES:
-            usage[f"{sd.BWD_SOURCES[on]} {mode}"] = abt.kernel_usage(
+            usage[f"{sd.BWD_SOURCES[on]} {mode}"] = ptxas_usage(
                 _build.build_log(sd.BWD_SOURCES[on], ab.defines(mode)))
             log(f"    {sd.BWD_SOURCES[on]} {mode}: "
                 f"{json.dumps(usage[f'{sd.BWD_SOURCES[on]} {mode}'])}")
@@ -4029,7 +4041,7 @@ def phase_ablation(smi, peaks, build):
                                                 chain=chain)
                     if name == "flagship":  # where the host may set the pace
                         res[tag][name][mode]["busy_ms"] = abt.busy_ms(
-                            mode, a, ABL_LAYERS, b_t, n_t)
+                            mode, a, ABL_LAYERS, b_t, n_t)[0]
                     us[mode] = 1e3 * ms
                 lines = abt.attribution(us)
                 attribution[f"{tag} {name}"] = lines

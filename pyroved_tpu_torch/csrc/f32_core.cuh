@@ -33,7 +33,8 @@
 //
 // PVT_PROFILE_PHASES compiles in PhaseClock marks: thread 0 of block 0 adds
 // the cycles since its previous mark to the phase the mark closes
-// (sm90_common.cuh's g_phase_cycles, read by PVT_PHASE_READER).
+// (sm90_common.cuh's g_phase_cycles, the first warpgroup's row, read by
+// PVT_PHASE_READER).
 
 #pragma once
 
@@ -73,13 +74,13 @@ struct PhaseClock {
   __device__ __forceinline__ void mark(int k) {
     if (threadIdx.x == 0 && blockIdx.x == 0) {
       const long long now = clock64();
-      if (last >= 0) g_phase_cycles[k] += now - last;
+      if (last >= 0) g_phase_cycles[0][k] += now - last;
       last = now;
     }
   }
   // adds one to counter k (a tile count) instead of cycles
   __device__ __forceinline__ void count(int k) {
-    if (threadIdx.x == 0 && blockIdx.x == 0) g_phase_cycles[k] += 1;
+    if (threadIdx.x == 0 && blockIdx.x == 0) g_phase_cycles[0][k] += 1;
   }
 };
 #else

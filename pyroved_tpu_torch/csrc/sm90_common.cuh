@@ -13,36 +13,65 @@
 #include <type_traits>
 
 // Per-phase cycles of a kernel's tile loop, compiled in only with
-// -DPVT_PROFILE_PHASES: thread 0 of block 0 adds the cycles since its
-// previous mark to the phase that a mark closes. Mark 0 closes the loop's
-// own overhead, mark k > 0 the k-th "// --" phase of the loop body.
-// PVT_PHASE_READER(name) defines the C entry point that reads them.
-#ifdef PVT_PROFILE_PHASES
+// -DPVT_PROFILE_PHASES: the first thread of each warpgroup of block 0 adds
+// the cycles since its previous mark to the phase that a mark closes (mark
+// 0 closes the loop's own overhead, mark k > 0 the k-th "// --" phase of
+// the loop body), and the cycles of a statement that PHASE_TIMED wraps to
+// a counter of its own: kBarSlot barriers, kMmaSlot wgmma waits, kIssueSlot
+// issuing products (parts of the phases' cycles). The counters live in
+// g_phase_cycles [warpgroup][kPhaseSlots]; PHASE_CLOCK_AT(acc) keeps a
+// warpgroup's in `acc` instead (shared memory, cheaper than global adds),
+// and PHASE_FLUSH then adds them to g_phase_cycles. PVT_PHASE_READER(name)
+// defines the C entry point that reads them.
 constexpr int kPhaseMarks = 8;
-__device__ long long g_phase_cycles[kPhaseMarks];
-#define PHASE_CLOCK long long phase_last_ = -1
-#define PHASE_MARK(k)                                                 \
-  do {                                                                \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
-      const long long now_ = clock64();                               \
-      if (phase_last_ >= 0) g_phase_cycles[k] += now_ - phase_last_;  \
-      phase_last_ = now_;                                             \
-    }                                                                 \
+constexpr int kBarSlot = kPhaseMarks, kMmaSlot = kPhaseMarks + 1,
+              kIssueSlot = kPhaseMarks + 2;
+constexpr int kPhaseSlots = kPhaseMarks + 3;
+constexpr int kPhaseGroups = 4;  // warpgroups of a block of up to 512
+#ifdef PVT_PROFILE_PHASES
+__device__ long long g_phase_cycles[kPhaseGroups][kPhaseSlots];
+#define PHASE_CLOCK_AT(acc)                                                \
+  long long* const phase_acc_ = (acc);                                     \
+  const bool phase_lead_ = blockIdx.x == 0 && (threadIdx.x & 127) == 0;    \
+  long long phase_last_ = -1
+#define PHASE_CLOCK PHASE_CLOCK_AT(g_phase_cycles[threadIdx.x >> 7])
+#define PHASE_MARK(k)                                             \
+  do {                                                            \
+    if (phase_lead_) {                                            \
+      const long long now_ = clock64();                           \
+      if (phase_last_ >= 0) phase_acc_[k] += now_ - phase_last_;  \
+      phase_last_ = now_;                                         \
+    }                                                             \
   } while (0)
-// The phase cycles since the last reset (reset != 0 zeroes them instead):
-// out[kPhaseMarks]. Returns a cudaError_t.
+#define PHASE_TIMED(k, stmt)                                  \
+  do {                                                        \
+    const long long t0_ = phase_lead_ ? clock64() : 0;        \
+    stmt;                                                     \
+    if (phase_lead_) phase_acc_[k] += clock64() - t0_;        \
+  } while (0)
+#define PHASE_FLUSH                                                       \
+  do {                                                                    \
+    if (phase_lead_)                                                      \
+      for (int k_ = 0; k_ < kPhaseSlots; ++k_)                            \
+        g_phase_cycles[threadIdx.x >> 7][k_] += phase_acc_[k_];           \
+  } while (0)
+// The counters since the last reset (reset != 0 zeroes them instead):
+// out[kPhaseGroups][kPhaseSlots]. Returns a cudaError_t.
 #define PVT_PHASE_READER(name)                                            \
   extern "C" int name(long long* out, int reset) {                        \
     if (reset) {                                                          \
-      const long long zero[kPhaseMarks] = {};                             \
+      const long long zero[kPhaseGroups][kPhaseSlots] = {};               \
       return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero)); \
     }                                                                     \
     return (int)cudaMemcpyFromSymbol(out, g_phase_cycles,                 \
                                      sizeof(g_phase_cycles));             \
   }
 #else
+#define PHASE_CLOCK_AT(acc) do {} while (0)
 #define PHASE_CLOCK do {} while (0)
 #define PHASE_MARK(k) do {} while (0)
+#define PHASE_TIMED(k, stmt) do { stmt; } while (0)
+#define PHASE_FLUSH do {} while (0)
 #define PVT_PHASE_READER(name)
 #endif
 
@@ -169,6 +198,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// one float (4 bytes, through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -276,6 +313,69 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
   else if constexpr (N == 32) wgmma_n32<TA, TB>(d, da, db, accumulate);
   else if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db, accumulate);
   else wgmma_n128<TA, TB>(d, da, db, accumulate);
+}
+
+// D = A B for one warpgroup, m64 x nN x k16, as wgmma with accumulate 0
+// but with d written only: its old values are not an input, so they need
+// no register while the accumulator is idle between products.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16_init(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32_init(float (&d)[16], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64_init(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_init(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == 16) wgmma_n16_init<TA, TB>(d, da, db);
+  else if constexpr (N == 32) wgmma_n32_init<TA, TB>(d, da, db);
+  else wgmma_n64_init<TA, TB>(d, da, db);
 }
 
 // One warpgroup copies `bytes` (a multiple of 2 KB) into shared memory and

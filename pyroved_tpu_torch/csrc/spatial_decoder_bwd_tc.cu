@@ -13,9 +13,10 @@
 // What bounds it: 6 n_layers H^2 flops per pixel on the tensor cores. At
 // the flagship training step (B = 200, N = 784, H = 128, two layers) that
 // is 0.032 ms at the bf16 peak, at the large grid (B = 64, N = 16384)
-// 0.211 ms (f32 bounds 0.466 and 3.113 ms). The elementwise work (exact
-// tanhf or erff per hidden value, the derivatives, the bf16 casts) runs on
-// the CUDA cores beside it and is of the same order.
+// 0.211 ms. The elementwise work (exact tanhf or erff per hidden value, the
+// derivatives, the bf16 casts) runs on the CUDA cores beside it and is of
+// the same order. On an H100 the kernel is bound by the latency of its
+// epilogues and of the products' issue (PERF.md section 6).
 //
 // Design, against each cost of the f32 kernel:
 //  * Tensor cores. The R pixels of a tile (64, 32 or 16) are the N side of
@@ -49,6 +50,22 @@
 //  * Row loops. The head dot, db, dwout and the tile's du/dv/dw sums are
 //    per-thread partials over the thread's accumulator entries, finished by
 //    warp shuffles (over the 8 lanes sharing a pixel or the 4 sharing a unit).
+//    At one channel (not gelu) the head dots are taken in the last forward
+//    layer's epilogue from the h in registers, and the last layer's channel
+//    loops run over that channel alone; the sums of dbout and the loss run
+//    in the shadow of the first backward products, one warp each.
+//  * The tile loop's serial parts off its critical path. The prep kernel
+//    also folds each sample's transform (us, vs, wv), once a call; each tile's
+//    inputs (that transform, its coordinates, its cotangents) are copied
+//    into a double-buffered slot with cp.async a tile ahead, issued in the
+//    shadow of the tile's first products, so no tile waits on a global
+//    load. The two warpgroups hold the units of every layer alike (the
+//    pass's units dealt in turn), so both issue each layer's dW products.
+//  * One tile in flight. On the H100 a warp issuing a product stalls until
+//    its wgmma instructions are taken, about the product's time, so a
+//    second tile in flight (the tile's halves, one half's epilogue beside
+//    the other's product) overlapped little and paid twice the handoffs:
+//    measured slower (PERF.md section 6).
 //  * Epilogues without branches. With one block of 8 warps per SM (the unit
 //    accumulators take half the registers) an epilogue is bound by the
 //    latency of each entry's chain (tanhf, derivative, stores), so the
@@ -67,41 +84,79 @@
 //    runs R = 64 with resident weights up to two layers (215 KB of shared
 //    memory at two), R = 32 beyond; H = 256 runs R = 32 up to two layers and
 //    R = 16 beyond, with streamed weights (64 KB of panels). Registers: 128
-//    unit accumulators and R H / 256 product accumulators a thread.
+//    unit accumulators and R H / 256 product accumulators a thread, each
+//    product's first k16 step writing its accumulator without reading it
+//    (wgmma_init), so an idle accumulator holds no register.
 //  * Ragged tiles: pixels past N get zero coordinates and a zero cotangent,
-//    so they add nothing. g and x are read in place. Nothing is allocated
-//    here and nothing synchronises with the host.
+//    so they add nothing. Nothing is allocated here and nothing
+//    synchronises with the host.
 
 #include <atomic>
 
-// sm90_common.cuh (through sm90_bwd.cuh) also holds the phase marks of the
-// tile loop (PVT_PROFILE_PHASES, pyroved_tpu_torch/tools/profile_bwd_tc.py).
 #include "sm90_bwd.cuh"
 
 namespace {
 
-// hw [nl, H, H] f32 -> two bf16 copies, tiled: wb[l] the whole matrix
-// (rows = inputs, 16 H bytes per row of cores; its 64-row panels are
-// contiguous) and wf[l][p] its 64-column panels (1 KB per row of cores),
-// each contiguous.
-__global__ void sdec_tc_prep(const float* __restrict__ hw,
-                             uint8_t* __restrict__ wb, uint8_t* __restrict__ wf,
-                             int H, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int hh = H * H;
-  const int l = i / hh, r = (i - l * hh) / H, c = i % H;
-  const __nv_bfloat16 v = __float2bfloat16_rn(hw[i]);
-  const size_t base = (size_t)l * hh * 2;
-  *reinterpret_cast<__nv_bfloat16*>(wb + base + tiled(r, c, 16 * H)) = v;
-  *reinterpret_cast<__nv_bfloat16*>(wf + base + (size_t)(c >> 6) * 128 * H +
-                                    tiled(r, c & 63, 1024)) = v;
+// Before the main kernel, in one launch: blocks [0, w_blocks) round hw
+// [nl, H, H] f32 to two bf16 copies, tiled: wb[l] the whole matrix (rows =
+// inputs, 16 H bytes per row of cores; its 64-row panels are contiguous)
+// and wf[l][p] its 64-column panels (1 KB per row of cores), each
+// contiguous; the blocks after them fold every sample's transform, once a
+// call: tf [B][3][H] = us, vs, wv (the grid's rotation and scale folded
+// into the first layer's weights, and its shift, latents and bias into one
+// offset), kThreads / H samples a block, one thread a unit.
+struct Prep {
+  const float *hw, *phi, *sc, *dx, *z, *wc, *bc, *wz;
+  uint8_t *wb, *wf;
+  float* tf;
+  int H, n_w, w_blocks, B, D, L;
+};
+
+__global__ void __launch_bounds__(kThreads) sdec_tc_prep(const Prep p) {
+  const int H = p.H;
+  if ((int)blockIdx.x < p.w_blocks) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i >= p.n_w) return;
+    const int hh = H * H;
+    const int l = i / hh, r = (i - l * hh) / H, c = i % H;
+    const __nv_bfloat16 v = __float2bfloat16_rn(p.hw[i]);
+    const size_t base = (size_t)l * hh * 2;
+    *reinterpret_cast<__nv_bfloat16*>(p.wb + base + tiled(r, c, 16 * H)) = v;
+    *reinterpret_cast<__nv_bfloat16*>(p.wf + base + (size_t)(c >> 6) * 128 * H +
+                                      tiled(r, c & 63, 1024)) = v;
+    return;
+  }
+  const int b = (blockIdx.x - p.w_blocks) * (kThreads / H) + threadIdx.x / H;
+  const int h = threadIdx.x % H, D = p.D;
+  if (b >= p.B) return;
+  float cph = 1.0f, sph = 0.0f, scale = 1.0f;
+  if (D == 2) {
+    sincosf(p.phi[b], &sph, &cph);
+    scale = p.sc[b];
+  }
+  float w = 0.0f;
+  for (int d = 0; d < D; ++d) w += p.dx[b * D + d] * p.wc[d * H + h];
+  w += p.bc[h];
+  float wzl = 0.0f;
+  for (int l = 0; l < p.L; ++l) wzl += p.z[(size_t)b * p.L + l] * p.wz[l * H + h];
+  float* o = p.tf + (size_t)b * 3 * H;
+  o[2 * H + h] = w + wzl;
+  const float a0 = p.wc[h];
+  if (D == 2) {
+    const float a1 = p.wc[H + h];
+    o[h] = scale * (cph * a0 + sph * a1);
+    o[H + h] = scale * (-sph * a0 + cph * a1);
+  } else {
+    o[h] = a0;
+    o[H + h] = 0.0f;
+  }
 }
 
 struct KArgs {
   const float *grid, *phi, *dx, *sc, *z, *wc, *bc, *wz, *hb, *wout, *bout,
       *g, *x, *wgt;
   const uint8_t *wb, *wf;
+  const float* tf;  // [B][3][H] us | vs | wv of each sample
   float *blk_ws, *tile_ws;
   int B, N, D, L, nl, C, act, sigmoid_out, loss, resident, n_tiles, per_pass,
       slot;
@@ -114,6 +169,30 @@ struct KArgs {
 
 __host__ __device__ inline size_t weight_bytes(int H, int nl, bool resident) {
   return resident ? (size_t)nl * 2 * H * H : (size_t)2 * 128 * H;
+}
+
+// The profiled build's counters (-DPVT_PROFILE_PHASES,
+// pyroved_tpu_torch/tools/profile_bwd_tc.py; sm90_common.cuh's phase marks):
+// each warpgroup's in shared memory after the small buffers, flushed at the
+// end.
+#ifdef PVT_PROFILE_PHASES
+constexpr int kProfFloats = 2 * 2 * kPhaseSlots + 2;  // and 8-byte alignment
+#else
+constexpr int kProfFloats = 0;
+#endif
+
+// Floats of one slot of a tile's staged cotangents: g [R][C], or x [R]
+// and wgt.
+__host__ __device__ constexpr int stage_floats(int R) {
+  return (kMaxC * R + 1 + 3) / 4 * 4;
+}
+
+// floats of the small buffers after the derivatives: the transform,
+// coordinates and cotangents (two slots each, staged), the head's
+// buffers and the block sums (then the profiled build's counters)
+inline int tc_small_floats(int H, int R, int nl, int C) {
+  return 6 * H + 4 * R + 2 * stage_floats(R) + kMaxC * R + R +
+         kWarps * R * C + nl * H + H * C + C + 1 + kProfFloats;
 }
 
 template <int H, int R>
@@ -133,11 +212,11 @@ sdec_bwd_tc_kernel(const KArgs a) {
   uint8_t* lv = wsm + weight_bytes(H, nl, a.resident);  // levels 0 .. nl
   // derivatives (after the mxu modes' operands in an ablation build)
   float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LVL + abl_bytes(R));
-  float* us = gv + (nl + 1) * H * R;
-  float* vs = us + H;
-  float* wv = vs + H;
-  float* gs = wv + H;              // [R][2] coordinates
-  float* dl = gs + 2 * R;          // [R][kMaxC] head cotangents
+  float* tr = gv + (nl + 1) * H * R;  // [2][3][H] us | vs | wv, by parity
+  float* gs = tr + 6 * H;             // [2][R][2] coordinates, by parity
+  float* stg = gs + 4 * R;            // [2][SS] cotangents, by parity
+  constexpr int SS = stage_floats(R);
+  float* dl = stg + 2 * SS;        // [R][kMaxC] head cotangents
   float* lossp = dl + kMaxC * R;   // [R]
   float* headp = lossp + R;        // [kWarps][R][C] head partial dots
   float* db_s = headp + kWarps * R * C;  // [nl][H]   block sums from here
@@ -153,6 +232,12 @@ sdec_bwd_tc_kernel(const KArgs a) {
   const uint32_t w_addr = smem_addr(wsm), lv_addr = smem_addr(lv);
   uint8_t* panel = wsm + wg * PANEL;
   const uint32_t panel_addr = smem_addr(panel);
+#ifdef PVT_PROFILE_PHASES
+  long long* prof = reinterpret_cast<long long*>(
+      (reinterpret_cast<uintptr_t>(loss_s + 1) + 7) & ~uintptr_t(7));
+  if (tid < 2 * kPhaseSlots) prof[tid] = 0;
+#endif
+  PHASE_CLOCK_AT(prof + wg * kPhaseSlots);
   // accumulator entry (slab s, value v) of this thread: unit row m, pixel n
   auto row_of = [&](int s, int hh) {
     return 64 * (wg * SPW + s) + 16 * wi + gq + 8 * hh;
@@ -161,12 +246,14 @@ sdec_bwd_tc_kernel(const KArgs a) {
     return gv[((lvl * SPW + s) * NV + v) * kThreads + tid];
   };
 
-  // this warpgroup's dW units in this pass: layer, 64-row and 128-col block
+  // this warpgroup's dW units in this pass: layer, 64-row and 128-col
+  // block; the pass's units dealt to the warpgroups in turn, so that both
+  // hold units of each layer and share its dW products
   int u_l[kUnits], u_r[kUnits], u_c[kUnits];
   float dw[kUnits][64];
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) {
-    const int q = pass * kPassUnits + wg * kUnits + u;
+    const int q = pass * kPassUnits + u * 2 + wg;
     const int r = q % UPL;
     u_l[u] = q < nl * UPL ? q / UPL : -1;
     u_r[u] = r / (H / 128);
@@ -195,16 +282,135 @@ sdec_bwd_tc_kernel(const KArgs a) {
     fence_async_smem();
   }
   float wsum = 0.0f;
-  if constexpr (kAblate == ABL_DMA_FLOOR) wsum = weights_sum(a, H, us);
+  if constexpr (kAblate == ABL_DMA_FLOOR) wsum = weights_sum(a, H, gv);
+  float hb_acc[SPW][4];  // mxu_dhb: db_l = d_pre_l^T ones on wgmma
 #endif
+
+  // -- a tile's inputs into slot `slot` with cp.async, issued a tile ahead:
+  //    the sample's transform, the tile's coordinates (zero past N), its
+  //    cotangent rows (zero past N) and the sample's weight
+  auto stage = [&](int t, int slot) {
+    const int b = t / a.n_tiles, n0 = (t - b * a.n_tiles) * R;
+    const int rows = min(R, a.N - n0);
+    for (int i = tid; i < 3 * H / 4; i += kThreads)
+      cp_async16(tr + slot * 3 * H + 4 * i, a.tf + (size_t)b * 3 * H + 4 * i);
+    float* g2 = gs + slot * 2 * R;
+    float* st = stg + slot * SS;
+    for (int i = tid; i < 2 * R; i += kThreads) {
+      const int n = i >> 1, d = i & 1;
+      if (n < rows && d < a.D) cp_async4(g2 + i, a.grid + (size_t)(n0 + n) * a.D + d);
+      else g2[i] = 0.0f;
+    }
+    const size_t q0 = (size_t)b * a.N + n0;
+    if (a.loss) {
+      for (int i = tid; i <= R; i += kThreads) {
+        if (i == R) cp_async4(st + kMaxC * R, a.wgt + b);
+        else if (i < rows) cp_async4(st + i, a.x + q0 + i);
+        else st[i] = 0.0f;
+      }
+    } else {
+      for (int i = tid; i < R * C; i += kThreads) {
+        if (i < rows * C) cp_async4(st + i, a.g + q0 * C + i);
+        else st[i] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int total = a.B * a.n_tiles;
+  if constexpr (kAblate != ABL_DMA_FLOOR) {  // the block's first tile
+    stage(stream, 0);
+    cp_async_wait_all();
+  }
   __syncthreads();
 
-  PHASE_CLOCK;
-  const int total = a.B * a.n_tiles;
-  for (int t = stream; t < total; t += a.per_pass) {
+  float acc[SPW][NV];
+  // -- forward product of layer l: pre^T = W_l^T level l
+  auto fwd_issue = [&](int l) {
+    const uint32_t hl = lv_addr + l * LVL;
+#pragma unroll
+    for (int s = 0; s < SPW; ++s) {
+      const int slab = wg * SPW + s;
+      uint32_t wa = w_addr + l * WL + slab * 8 * 128, wlbo = RSW;
+      if (!a.resident) {
+        load_panel(panel, a.wf + (size_t)l * WL + (size_t)slab * PANEL, PANEL,
+                   wtid, wg);
+        wa = panel_addr;
+        wlbo = 1024;
+      }
+      wgmma_fence();
+      wgmma_init<R, 1, 1>(acc[s], desc(wa, wlbo, 128), desc(hl, RSH, 128));
+#pragma unroll
+      for (int k = 1; k < H / 16; ++k)
+        wgmma<R, 1, 1>(acc[s], desc(wa + k * 2 * wlbo, wlbo, 128),
+                       desc(hl + k * 2 * RSH, RSH, 128), 1);
+      if (!a.resident) {  // the panel is refilled for the next slab
+        PHASE_TIMED(kMmaSlot, wgmma_commit_wait());
+        fence_regs(acc[s]);
+      }
+    }
+    if (a.resident) wgmma_commit();
+  };
+  // -- backward products of layer l: dW_l += h_l^T d_pre_l, dh^T = W_l
+  //    d_pre_l^T
+  auto bwd_issue = [&](int l) {
+    const uint32_t hl = lv_addr + l * LVL, dp = lv_addr + (l + 1) * LVL;
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u)  // dW units of layer l
+      if (u_l[u] == l) {
+#pragma unroll
+        for (int k = 0; k < R / 16; ++k)
+          wgmma<128, 0, 0>(dw[u], desc(hl + u_r[u] * 8 * RSH + k * 256, 128, RSH),
+                           desc(dp + u_c[u] * 16 * RSH + k * 256, 128, RSH), 1);
+      }
+#ifdef PVT_ABLATE
+    if (kAblate == ABL_MXU_DHB) {  // db_l = d_pre_l^T ones
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int k = 0; k < R / 16; ++k)
+          wgmma_n8<0, 0>(hb_acc[s],
+                         desc(dp + (wg * SPW + s) * 8 * RSH + k * 256, 128, RSH),
+                         block8_desc<R>(abl_addr, k), k);
+    }
+#endif
+#pragma unroll
+    for (int s = 0; s < SPW; ++s) {
+      const int slab = wg * SPW + s;
+      uint32_t wa = w_addr + l * WL + slab * 8 * RSW;
+      if (!a.resident) {
+        PHASE_TIMED(kMmaSlot, wgmma_commit_wait());
+        load_panel(panel, a.wb + (size_t)l * WL + (size_t)slab * PANEL, PANEL,
+                   wtid, wg);
+        wa = panel_addr;
+        wgmma_fence();
+      }
+      wgmma_init<R, 0, 1>(acc[s], desc(wa, 128, RSW), desc(dp, RSH, 128));
+#pragma unroll
+      for (int k = 1; k < H / 16; ++k)
+        wgmma<R, 0, 1>(acc[s], desc(wa + k * 256, 128, RSW),
+                       desc(dp + k * 2 * RSH, RSH, 128), 1);
+    }
+    wgmma_commit();
+  };
+  auto wait_products = [&]() {
+    PHASE_TIMED(kMmaSlot, wgmma_wait());
+#pragma unroll
+    for (int s = 0; s < SPW; ++s) fence_regs(acc[s]);
+  };
+  // a level written by the threads, complete and visible to wgmma
+  auto handoff = [&]() {
+    fence_async_smem();
+    PHASE_TIMED(kBarSlot, __syncthreads());
+  };
+
+  int par = 0;  // the slot of this tile's transform and staged inputs
+  for (int t = stream; t < total; t += a.per_pass, par ^= 1) {
     const int b = t / a.n_tiles;
     const int n0 = (t - b * a.n_tiles) * R;
     const int rows = min(R, a.N - n0);
+    const int tn = t + a.per_pass;  // the block's next tile
 
     PHASE_MARK(0);
 #ifdef PVT_ABLATE
@@ -213,44 +419,11 @@ sdec_bwd_tc_kernel(const KArgs a) {
       continue;
     }
 #endif
-    // -- per-sample folded transform, tile coordinates
-    if (tid < H) {
-      const int h = tid;
-      float cph = 1.0f, sph = 0.0f, scale = 1.0f;
-      if (a.D == 2) {
-        sincosf(a.phi[b], &sph, &cph);
-        scale = a.sc[b];
-      }
-      float w = 0.0f;
-      for (int d = 0; d < a.D; ++d) w += a.dx[b * a.D + d] * a.wc[d * H + h];
-      w += a.bc[h];
-      float wzl = 0.0f;
-      for (int l = 0; l < a.L; ++l)
-        wzl += a.z[(size_t)b * a.L + l] * a.wz[l * H + h];
-      wv[h] = w + wzl;
-      const float a0 = a.wc[h];
-      if (a.D == 2) {
-        const float a1 = a.wc[H + h];
-        us[h] = scale * (cph * a0 + sph * a1);
-        vs[h] = scale * (-sph * a0 + cph * a1);
-      } else {
-        us[h] = a0;
-        vs[h] = 0.0f;
-      }
-    }
-    if (tid < R) {
-      float gx = 0.0f, gy = 0.0f;
-      if (tid < rows) {
-        gx = a.grid[(size_t)(n0 + tid) * a.D];
-        if (a.D == 2) gy = a.grid[(size_t)(n0 + tid) * a.D + 1];
-      }
-      gs[2 * tid] = gx;
-      gs[2 * tid + 1] = gy;
-    }
-    __syncthreads();
+    const float* trp = tr + par * 3 * H;   // us | vs | wv
+    const float* gsp = gs + par * 2 * R;
+    const float* stp = stg + par * SS;
 
-    PHASE_MARK(1);
-    // -- h0 = tanh(gx u + gy v + w): level 0, and 1 - h0^2
+    // -- h0 = tanh(gx u + gy v + w): level 0 and 1 - h0^2
     auto h0_pass = [&](auto pade) {
 #pragma unroll
       for (int s = 0; s < SPW; ++s) {
@@ -258,14 +431,14 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int m = row_of(s, hh);
-          u2[hh] = us[m];
-          v2[hh] = vs[m];
-          w2[hh] = wv[m];
+          u2[hh] = trp[m];
+          v2[hh] = trp[H + m];
+          w2[hh] = trp[2 * H + m];
         }
 #pragma unroll
         for (int j = 0; j < R / 8; ++j) {
           const int n = 8 * j + 2 * tq;
-          const float4 c2 = *reinterpret_cast<const float4*>(gs + 2 * n);
+          const float4 c2 = *reinterpret_cast<const float4*>(gsp + 2 * n);
           const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
@@ -285,32 +458,20 @@ sdec_bwd_tc_kernel(const KArgs a) {
     };
     if (act == ACT_TANH_APPROX) h0_pass(std::true_type{});
     else h0_pass(std::false_type{});
-    fence_async_smem();
-    __syncthreads();
-
+    PHASE_MARK(1);
+    handoff();
+    PHASE_TIMED(kIssueSlot, fwd_issue(0));
+    // the next tile's inputs, in the shadow of the first products
+    if (tn < total) stage(tn, par ^ 1);
     PHASE_MARK(2);
-    // -- forward recompute: level l + 1 = act(W_l^T level l + b_l)
-    for (int l = 0; l < nl; ++l) {
-      float acc[SPW][NV];
-      const uint32_t hl = lv_addr + l * LVL;
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) {
-        const int slab = wg * SPW + s;
-        uint32_t wa = w_addr + l * WL + slab * 8 * 128, wlbo = RSW;
-        if (!a.resident) {
-          load_panel(panel, a.wf + (size_t)l * WL + (size_t)slab * PANEL,
-                     PANEL, wtid, wg);
-          wa = panel_addr;
-          wlbo = 1024;
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < H / 16; ++k)
-          wgmma<R, 1, 1>(acc[s], desc(wa + k * 2 * wlbo, wlbo, 128),
-                         desc(hl + k * 2 * RSH, RSH, 128), k);
-        wgmma_commit_wait();
-        fence_regs(acc[s]);
-      }
+
+    // -- forward recompute: level l + 1 = act(W_l^T level l + b_l), and
+    //    after the last layer the head dots sum_m h_L[m][n] wout[m][c]
+    //    (each thread over its rows, then the 8 lanes that share a pixel;
+    //    the warps are summed below), in the last layer's epilogue at one
+    //    channel, not gelu
+    const bool fused = !kFwdOnly && C == 1 && act != ACT_GELU;
+    auto fwd_epilogue = [&](int l) {
       uint8_t* out = lv + (l + 1) * LVL;
       float bias[SPW][2];  // of this thread's rows
 #pragma unroll
@@ -318,9 +479,17 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) bias[s][hh] = a.hb[l * H + row_of(s, hh)];
       // level l + 1 in bf16; in f32 act'(pre), or for the last layer what
-      // the head pass and the backward read: h (gelu: pre)
-      auto epilogue = [&](auto tag, auto last) {
+      // the head pass and the backward read: h (gelu: pre). `dots`: the
+      // head dots of the last layer from the h in registers, in the order
+      // of head_dots (one channel, not gelu)
+      auto epilogue = [&](auto tag, auto last, auto dots) {
         constexpr int A = decltype(tag)::value;
+        constexpr bool DOTS = decltype(dots)::value && A != ACT_GELU;
+        float wo[SPW][2], part[R / 8][2] = {};
+        if (DOTS) {
+          for (int s = 0; s < SPW; ++s)
+            for (int hh = 0; hh < 2; ++hh) wo[s][hh] = a.wout[row_of(s, hh)];
+        }
 #pragma unroll
         for (int s = 0; s < SPW; ++s)
 #pragma unroll
@@ -338,18 +507,75 @@ sdec_bwd_tc_kernel(const KArgs a) {
                   dv(l + 1, s, v) = A == ACT_GELU ? pre : h[e];
                 else
                   dv(l + 1, s, v) = g;
+                if (DOTS) part[j][e] += h[e] * wo[s][hh];
               }
-              store_pair(out + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH),
-                         h[0], h[1]);
+              store_pair(out + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH), h[0],
+                         h[1]);
             }
+        if (DOTS) {
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float p = part[j][e];
+              p += __shfl_xor_sync(0xffffffffu, p, 4);
+              p += __shfl_xor_sync(0xffffffffu, p, 8);
+              p += __shfl_xor_sync(0xffffffffu, p, 16);
+              if (gq == 0)
+                headp[(wg * 4 + wi) * R + 8 * j + 2 * tq + e] = p;
+            }
+        }
       };
       with_act_k(act, [&](auto tag) {
-        if (l == nl - 1) epilogue(tag, std::true_type{});
-        else epilogue(tag, std::false_type{});
+        if (l < nl - 1) epilogue(tag, std::false_type{}, std::false_type{});
+        else if (fused) epilogue(tag, std::true_type{}, std::true_type{});
+        else epilogue(tag, std::true_type{}, std::false_type{});
       });
-      fence_async_smem();
-      __syncthreads();
+    };
+    auto head_dots = [&]() {
+      with_act(act, [&](auto tag) {
+        constexpr int A = decltype(tag)::value;
+        for (int c = 0; c < C; ++c) {
+          float wo[SPW][2];
+#pragma unroll
+          for (int s = 0; s < SPW; ++s)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) wo[s][hh] = a.wout[row_of(s, hh) * C + c];
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+            float part[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int s = 0; s < SPW; ++s)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  float h = dv(nl, s, 4 * j + 2 * hh + e);
+                  if constexpr (A == ACT_GELU) h = act_fn<A>(h);
+                  part[e] += h * wo[s][hh];
+                }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float p = part[e];
+              p += __shfl_xor_sync(0xffffffffu, p, 4);
+              p += __shfl_xor_sync(0xffffffffu, p, 8);
+              p += __shfl_xor_sync(0xffffffffu, p, 16);
+              if (gq == 0)
+                headp[((wg * 4 + wi) * R + 8 * j + 2 * tq + e) * C + c] = p;
+            }
+          }
+        }
+      });
+    };
+    for (int l = 0; l < nl; ++l) {
+      wait_products();
+      fwd_epilogue(l);
+      if (l + 1 < nl) {
+        handoff();
+        PHASE_TIMED(kIssueSlot, fwd_issue(l + 1));
+      }
     }
+    if (!kFwdOnly && !fused) head_dots();
 #ifdef PVT_ABLATE
     if constexpr (kFwdOnly) {  // h_L's sums: dwout's terms, the tile's scalar
       float tot = 0.0f;
@@ -368,50 +594,16 @@ sdec_bwd_tc_kernel(const KArgs a) {
           tot += v;
         }
       warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
+      // the next tile's inputs landed, every product of this one done
+      cp_async_wait_all();
+      __syncthreads();
       continue;
     }
 #endif
 
     PHASE_MARK(3);
-    // -- head dots sum_m h_L[m][n] wout[m][c]: each thread over its rows,
-    //    then the 8 lanes that share a pixel; the warps are summed below
-    with_act(act, [&](auto tag) {
-      constexpr int A = decltype(tag)::value;
-      for (int c = 0; c < C; ++c) {
-        float wo[SPW][2];
-#pragma unroll
-        for (int s = 0; s < SPW; ++s)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) wo[s][hh] = a.wout[row_of(s, hh) * C + c];
-#pragma unroll
-        for (int j = 0; j < R / 8; ++j) {
-          float part[2] = {0.0f, 0.0f};
-#pragma unroll
-          for (int s = 0; s < SPW; ++s)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float h = dv(nl, s, 4 * j + 2 * hh + e);
-                if constexpr (A == ACT_GELU) h = act_fn<A>(h);
-                part[e] += h * wo[s][hh];
-              }
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float p = part[e];
-            p += __shfl_xor_sync(0xffffffffu, p, 4);
-            p += __shfl_xor_sync(0xffffffffu, p, 8);
-            p += __shfl_xor_sync(0xffffffffu, p, 16);
-            if (gq == 0)
-              headp[((wg * 4 + wi) * R + 8 * j + 2 * tq + e) * C + c] = p;
-          }
-        }
-      }
-    });
-    __syncthreads();
-
-    PHASE_MARK(4);
-    // -- head: logits, cotangents, loss; dbout and the loss in one warp
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    // -- head: logits, cotangents (staged), loss
     for (int i = tid; i < R * kMaxC; i += kThreads) {
       const int n = i / kMaxC, c = i - n * kMaxC;
       float d = 0.0f, lp = 0.0f;  // channels past C stay 0
@@ -420,13 +612,12 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) p += headp[(w * R + n) * C + c];
         const float logit = p + a.bout[c];
-        const size_t q = (size_t)b * a.N + n0 + n;
         if (a.loss) {
-          const float xv = a.x[q], wm = a.wgt[b];
+          const float xv = stp[n], wm = stp[kMaxC * R];
           lp = -wm * (xv * logit - softplus(logit));
           d = wm * (sigmoid(logit) - xv);
         } else {
-          const float gv_ = a.g[q * C + c];
+          const float gv_ = stp[n * C + c];
           if (a.sigmoid_out) {
             const float sg = sigmoid(logit);
             d = gv_ * sg * (1.0f - sg);
@@ -445,23 +636,27 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #endif
     }
     if constexpr (kAblate == ABL_MXU_DWOUT) fence_async_smem();
-    __syncthreads();
-    if (tid < 32) {
-      for (int c = 0; c <= C; ++c) {  // c == C: the loss
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    // dbout and the loss, each sum (c == C: the loss) by one warp, the
+    // warpgroups' first warps first; run once the first backward products
+    // are issued, in their shadow
+    auto head_sums = [&]() {
+      for (int c = 0; c <= C; ++c) {
+        if ((tid >> 5) != (c & 1) * 4 + (c >> 1)) continue;
         float s = 0.0f;
-        for (int n = tid; n < R; n += 32)
+        for (int n = lane; n < R; n += 32)
           s += c < C ? dl[n * kMaxC + c] : lossp[n];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (tid == 0) {
+        if (lane == 0) {
           if (c < C) dbout_s[c] += s;
           else loss_s[0] += s;
         }
       }
-    }
+    };
 
-    PHASE_MARK(5);
+    PHASE_MARK(4);
 #ifdef PVT_ABLATE
     if constexpr (kAblate == ABL_MXU_DWOUT) {
       // h_L^T dl on wgmma, dl in column 0 of an [8][R] operand (written
@@ -487,18 +682,23 @@ sdec_bwd_tc_kernel(const KArgs a) {
       warp_partial(tq == 0 ? tot : 0.0f, a.tile_s, t, pass);
     }
 #endif
+    // the next tile's staged inputs: every thread's copies are visible
+    // after the next barrier
+    cp_async_wait_all();
     // -- last layer: dh = dl wout^T (f32), dwout += bf16(h_L)^T bf16(dl),
-    //    d_pre = dh act'(pre) in place of h_L, db
-    with_act(act, [&](auto tag) {
+    //    d_pre = dh act'(pre) in place of h_L, db (the channels' loops over
+    //    kMaxC, or over one at C = 1); then the first backward products
+    auto last_layer = [&](auto tag, auto kc) {
       constexpr int A = decltype(tag)::value;
+      constexpr int KC = decltype(kc)::value;
       uint8_t* top = lv + nl * LVL;
-      float dbp[SPW][2] = {}, dwp[SPW][2][kMaxC] = {}, wo[SPW][2][kMaxC];
+      float dbp[SPW][2] = {}, dwp[SPW][2][KC] = {}, wo[SPW][2][KC];
 #pragma unroll
       for (int s = 0; s < SPW; ++s)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-          for (int c = 0; c < kMaxC; ++c)
+          for (int c = 0; c < KC; ++c)
             wo[s][hh][c] = c < C ? a.wout[row_of(s, hh) * C + c] : 0.0f;
 #pragma unroll
       for (int s = 0; s < SPW; ++s)
@@ -514,7 +714,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
             for (int e = 0; e < 2; ++e) {
               float dh = 0.0f;  // channels past C add exact zeros
 #pragma unroll
-              for (int c = 0; c < kMaxC; ++c) {
+              for (int c = 0; c < KC; ++c) {
                 const float dlv = dl[(n + e) * kMaxC + c];
                 dh += dlv * wo[s][hh][c];
                 if constexpr (kAblate < 0)
@@ -543,66 +743,27 @@ sdec_bwd_tc_kernel(const KArgs a) {
           }
           if constexpr (kAblate == ABL_MXU_DWOUT) continue;
 #pragma unroll
-          for (int c = 0; c < kMaxC; ++c) {
+          for (int c = 0; c < KC; ++c) {
             float w = dwp[s][hh][c];
             w += __shfl_xor_sync(0xffffffffu, w, 1);
             w += __shfl_xor_sync(0xffffffffu, w, 2);
             if (tq == 0 && c < C) dwout_s[m * C + c] += w;
           }
         }
+    };
+    with_act(act, [&](auto tag) {
+      if (C == 1) last_layer(tag, std::integral_constant<int, 1>{});
+      else last_layer(tag, std::integral_constant<int, kMaxC>{});
     });
-    fence_async_smem();
-    __syncthreads();
+    handoff();
+    PHASE_TIMED(kIssueSlot, bwd_issue(nl - 1));
+    head_sums();
 
-    PHASE_MARK(6);
-    // -- hidden layers, last to first: level l + 1 holds d_pre_l
-    for (int l = nl - 1; l >= 0; --l) {
-      const uint32_t hl = lv_addr + l * LVL, dp = lv_addr + (l + 1) * LVL;
-      float acc[SPW][NV];
-      wgmma_fence();
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u)  // dW units of layer l
-        if (u_l[u] == l) {
-#pragma unroll
-          for (int k = 0; k < R / 16; ++k)
-            wgmma<128, 0, 0>(dw[u],
-                             desc(hl + u_r[u] * 8 * RSH + k * 256, 128, RSH),
-                             desc(dp + u_c[u] * 16 * RSH + k * 256, 128, RSH),
-                             1);
-        }
-#ifdef PVT_ABLATE
-      float hb_acc[SPW][4];  // mxu_dhb: db_l = d_pre_l^T ones on wgmma
-      if constexpr (kAblate == ABL_MXU_DHB)
-#pragma unroll
-        for (int s = 0; s < SPW; ++s)
-#pragma unroll
-          for (int k = 0; k < R / 16; ++k)
-            wgmma_n8<0, 0>(hb_acc[s],
-                           desc(dp + (wg * SPW + s) * 8 * RSH + k * 256, 128,
-                                RSH),
-                           block8_desc<R>(abl_addr, k), k);
-#endif
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) {  // dh^T = W_l d_pre^T
-        const int slab = wg * SPW + s;
-        uint32_t wa = w_addr + l * WL + slab * 8 * RSW;
-        if (!a.resident) {
-          wgmma_commit_wait();
-          load_panel(panel, a.wb + (size_t)l * WL + (size_t)slab * PANEL,
-                     PANEL, wtid, wg);
-          wa = panel_addr;
-          wgmma_fence();
-        }
-#pragma unroll
-        for (int k = 0; k < H / 16; ++k)
-          wgmma<R, 0, 1>(acc[s], desc(wa + k * 256, 128, RSW),
-                         desc(dp + k * 2 * RSH, RSH, 128), k);
-      }
-      wgmma_commit_wait();
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) fence_regs(acc[s]);
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u) fence_regs(dw[u]);
+    PHASE_MARK(5);
+    // -- hidden layers, last to first: level l + 1 holds d_pre_l; d =
+    //    dh act'(pre_l) is d_pre_{l-1} into level l (and db)
+    for (int l = nl - 1; l > 0; --l) {
+      wait_products();
 #ifdef PVT_ABLATE
       if constexpr (kAblate == ABL_MXU_DHB)
 #pragma unroll
@@ -614,125 +775,99 @@ sdec_bwd_tc_kernel(const KArgs a) {
           }
         }
 #endif
-      __syncthreads();  // both warpgroups are done reading level l
-
-      // d = dh act'(pre_l): d_pre_{l-1} into level l (and db), or for l = 0
-      // d0, summed into this tile's du, dv, dw
-      if (l > 0) {
-        float sp[SPW][2] = {};
+      PHASE_TIMED(kBarSlot, __syncthreads());  // both warpgroups are done
+                                            // reading level l
+      float sp[SPW][2] = {};
 #pragma unroll
-        for (int s = 0; s < SPW; ++s)
+      for (int s = 0; s < SPW; ++s)
 #pragma unroll
-          for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              float d[2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int v = 4 * j + 2 * hh + e;
-                d[e] = acc[s][v] * dv(l, s, v);
-                if constexpr (kAblate != ABL_MXU_DHB) sp[s][hh] += d[e];
-              }
-              store_pair(lv + l * LVL + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH),
-                         d[0], d[1]);
-            }
-#pragma unroll
-        for (int s = 0; s < SPW; ++s)
+        for (int j = 0; j < R / 8; ++j)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            if constexpr (kAblate == ABL_MXU_DHB) continue;
-            float v = sp[s][hh];
-            v += __shfl_xor_sync(0xffffffffu, v, 1);
-            v += __shfl_xor_sync(0xffffffffu, v, 2);
-            if (tq == 0) db_s[(l - 1) * H + row_of(s, hh)] += v;
-          }
-#ifdef PVT_ABLATE
-      } else if constexpr (kAblate == ABL_NO_BREDUCE) {
-        // the tile's dw sum; du and dv only on the tiles of a batch tile's
-        // first sample (one branch a tile, outside the unrolled loops)
-        auto l0 = [&](auto uv) {
-          constexpr bool UV = decltype(uv)::value;
-          float sp[SPW][2][3] = {};
+            float d[2];
 #pragma unroll
-          for (int j = 0; j < R / 8; ++j) {
-            const float4 c2 =
-                *reinterpret_cast<const float4*>(gs + 16 * j + 4 * tq);
-            const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
-#pragma unroll
-            for (int s = 0; s < SPW; ++s)
-#pragma unroll
-              for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const int v = 4 * j + 2 * hh + e;
-                  const float d = acc[s][v] * dv(0, s, v);
-                  if constexpr (UV) {
-                    sp[s][hh][0] += gx[e] * d;
-                    sp[s][hh][1] += gy[e] * d;
-                  }
-                  sp[s][hh][2] += d;
-                }
-          }
-          float* tw = a.tile_ws + (size_t)t * 3 * H;
-#pragma unroll
-          for (int s = 0; s < SPW; ++s)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-              for (int q = UV ? 0 : 2; q < 3; ++q) {
-                float v = sp[s][hh][q];
-                v += __shfl_xor_sync(0xffffffffu, v, 1);
-                v += __shfl_xor_sync(0xffffffffu, v, 2);
-                if (tq == 0 && pass == 0) tw[q * H + row_of(s, hh)] = v;
-              }
+            for (int e = 0; e < 2; ++e) {
+              const int v = 4 * j + 2 * hh + e;
+              d[e] = acc[s][v] * dv(l, s, v);
+              if constexpr (kAblate != ABL_MXU_DHB) sp[s][hh] += d[e];
             }
-        };
-        if (b % a.b_t == 0) l0(std::true_type{});
-        else l0(std::false_type{});
+            store_pair(lv + l * LVL + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH),
+                       d[0], d[1]);
+          }
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)  // db, before the products
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if constexpr (kAblate == ABL_MXU_DHB) continue;
+          float v = sp[s][hh];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (tq == 0) db_s[(l - 1) * H + row_of(s, hh)] += v;
+        }
+      handoff();
+      PHASE_TIMED(kIssueSlot, bwd_issue(l - 1));
+    }
+
+    PHASE_MARK(6);
+    // -- layer 0: d0 = dh act'(pre_0), summed into this tile's du, dv, dw
+    //    (no_breduce: du and dv only on the tiles of a batch tile's first
+    //    sample, the choice once a tile, outside the unrolled loops)
+    wait_products();
+#ifdef PVT_ABLATE
+    if constexpr (kAblate == ABL_MXU_DHB)
+#pragma unroll
+      for (int s = 0; s < SPW; ++s) {
+        fence_regs(hb_acc[s]);
+        if (tq == 0) {
+          db_s[row_of(s, 0)] += hb_acc[s][0];
+          db_s[row_of(s, 1)] += hb_acc[s][2];
+        }
+      }
 #endif
-      } else {
-        float sp[SPW][2][3] = {};
+    auto l0 = [&](auto uv) {
+      constexpr bool UV = decltype(uv)::value;
+      float sp[SPW][2][3] = {};
 #pragma unroll
-        for (int j = 0; j < R / 8; ++j) {
-          const float4 c2 = *reinterpret_cast<const float4*>(gs + 16 * j + 4 * tq);
-          const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
+      for (int j = 0; j < R / 8; ++j) {
+        const float4 c2 = *reinterpret_cast<const float4*>(gsp + 16 * j + 4 * tq);
+        const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
 #pragma unroll
-          for (int s = 0; s < SPW; ++s)
+        for (int s = 0; s < SPW; ++s)
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
+          for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int v = 4 * j + 2 * hh + e;
-                const float d = acc[s][v] * dv(0, s, v);
+            for (int e = 0; e < 2; ++e) {
+              const int v = 4 * j + 2 * hh + e;
+              const float d = acc[s][v] * dv(0, s, v);
+              if constexpr (UV) {
                 sp[s][hh][0] += gx[e] * d;
                 sp[s][hh][1] += gy[e] * d;
-                sp[s][hh][2] += d;
               }
-        }
-#pragma unroll
-        for (int s = 0; s < SPW; ++s)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q) {
-              float v = sp[s][hh][q];
-              v += __shfl_xor_sync(0xffffffffu, v, 1);
-              v += __shfl_xor_sync(0xffffffffu, v, 2);
-              sp[s][hh][q] = v;
+              sp[s][hh][2] += d;
             }
-            const int m = row_of(s, hh);
-            if (tq == 0 && pass == 0) {
-              float* tw = a.tile_ws + (size_t)t * 3 * H;
-              tw[m] = sp[s][hh][0];
-              tw[H + m] = sp[s][hh][1];
-              tw[2 * H + m] = sp[s][hh][2];
-            }
-          }
       }
-      fence_async_smem();
-      __syncthreads();
-    }
+      float* tw = a.tile_ws + (size_t)t * 3 * H;
+#pragma unroll
+      for (int s = 0; s < SPW; ++s)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int k = UV ? 0 : 2; k < 3; ++k) {
+            float v = sp[s][hh][k];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (tq == 0 && pass == 0) tw[k * H + row_of(s, hh)] = v;
+          }
+    };
+#ifdef PVT_ABLATE
+    if (kAblate == ABL_NO_BREDUCE && b % a.b_t != 0) l0(std::false_type{});
+    else l0(std::true_type{});
+#else
+    l0(std::true_type{});
+#endif
     PHASE_MARK(7);
+    // every product of this tile done
+    PHASE_TIMED(kBarSlot, __syncthreads());
   }
 
   // -- the block's slot: its dW units, then db, dwout, dbout, loss
@@ -740,7 +875,8 @@ sdec_bwd_tc_kernel(const KArgs a) {
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) {
     if (u_l[u] < 0) continue;
-    float* o = slot + (wg * kUnits + u) * kUnitFloats;
+    fence_regs(dw[u]);
+    float* o = slot + (u * 2 + wg) * kUnitFloats;  // unit q's place
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -753,6 +889,7 @@ sdec_bwd_tc_kernel(const KArgs a) {
   __syncthreads();
   float* sums = slot + kPassUnits * kUnitFloats;
   for (int i = tid; i < n_sums; i += kThreads) sums[i] = db_s[i];
+  PHASE_FLUSH;
 }
 
 // What a call runs: tile rows R, whether the weights stay resident, the
@@ -763,7 +900,7 @@ struct Plan {
 
 inline size_t smem_bytes(int H, int R, int nl, int C, bool resident) {
   return weight_bytes(H, nl, resident) + (size_t)(nl + 1) * 6 * H * R +
-         abl_bytes(R) + 4 * (size_t)small_floats(H, R, nl, C);
+         abl_bytes(R) + 4 * (size_t)tc_small_floats(H, R, nl, C);
 }
 
 template <int H, int R>
@@ -824,9 +961,10 @@ cudaError_t make_plan(int B, int N, int H, int nl, int C, Plan* p) {
 }
 
 // workspace: wb | wf (bf16 weights) | block slots | tile sums | sample sums
+// | the samples' transforms
 inline size_t workspace_floats(const Plan& p, int B, int H, int nl, int C) {
   return (size_t)nl * H * H + (size_t)p.passes * p.per_pass * slot_floats(H, nl, C) +
-         (size_t)B * p.n_tiles * 3 * H + (size_t)B * 3 * H;
+         (size_t)B * p.n_tiles * 3 * H + (size_t)B * 3 * H * 2;
 }
 
 struct Args {
@@ -854,6 +992,18 @@ cudaError_t launch_main(const KArgs& k, const Plan& p, int H, int n_blocks,
   return cudaGetLastError();
 }
 
+// before the main kernel (one launch): the bf16 weights and the samples'
+// transforms
+cudaError_t prep(const Args& a, uint8_t* wb, uint8_t* wf, float* tf) {
+  const int n_w = a.n_layers * a.H * a.H;
+  const int w_blocks = (n_w + kThreads - 1) / kThreads;
+  const int spb = kThreads / a.H;  // samples a block
+  const Prep p{a.hw, a.phi, a.sc, a.dx, a.z, a.wc, a.bc, a.wz, wb, wf, tf,
+               a.H, n_w, w_blocks, a.B, a.D, a.L};
+  sdec_tc_prep<<<w_blocks + (a.B + spb - 1) / spb, kThreads, 0, a.stream>>>(p);
+  return cudaGetLastError();
+}
+
 cudaError_t launch(const Args& a) {
   Plan p;
   cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, a.C, &p);
@@ -866,14 +1016,12 @@ cudaError_t launch(const Args& a) {
   float* blk_ws = a.ws + (size_t)nl * H * H;
   float* tile_ws = blk_ws + (size_t)a.n_blocks * slot;
   float* duvw = tile_ws + (size_t)a.B * p.n_tiles * 3 * H;
+  float* tf = duvw + (size_t)a.B * 3 * H;
 
-  const int n_w = nl * H * H;
-  sdec_tc_prep<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
-      a.hw, wb, wf, H, n_w);
-  err = cudaGetLastError();
+  err = prep(a, wb, wf, tf);
   if (err != cudaSuccess) return err;
   const KArgs k{a.grid, a.phi, a.dx, a.sc, a.z, a.wc, a.bc, a.wz, a.hb,
-                a.wout, a.bout, a.g, a.x, a.wgt, wb, wf, blk_ws, tile_ws,
+                a.wout, a.bout, a.g, a.x, a.wgt, wb, wf, tf, blk_ws, tile_ws,
                 a.B, a.N, a.D, a.L, nl, a.C, a.act, a.sigmoid_out, a.loss,
                 p.resident, p.n_tiles, p.per_pass, (int)slot};
   err = launch_main(k, p, H, a.n_blocks, a.stream);
@@ -885,8 +1033,8 @@ cudaError_t launch(const Args& a) {
 
 #ifdef PVT_ABLATE
 // An ablation call: K2's plan and workspace, a scalar a tile after it;
-// the prep kernel (not for dma_floor, which reads hw in f32), the mode's
-// main kernel and its reductions (sm90_bwd.cuh).
+// the prep kernel (not for dma_floor, which reads hw in f32 and no
+// transform), the mode's main kernel and its reductions (sm90_bwd.cuh).
 cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
   Plan p;
   cudaError_t err = make_plan(a.B, a.N, a.H, a.n_layers, 1, &p);
@@ -900,17 +1048,15 @@ cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
   float* blk_ws = a.ws + (size_t)nl * H * H;
   float* tile_ws = blk_ws + (size_t)a.n_blocks * slot;
   float* duvw = tile_ws + (size_t)a.B * p.n_tiles * 3 * H;
-  float* tile_s = duvw + (size_t)a.B * 3 * H;
+  float* tf = duvw + (size_t)a.B * 3 * H;
+  float* tile_s = tf + (size_t)a.B * 3 * H;
   float* raw = tile_s + (size_t)a.B * p.n_tiles * kWarps;
   if constexpr (kAblate != ABL_DMA_FLOOR) {
-    const int n_w = nl * H * H;
-    sdec_tc_prep<<<(n_w + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
-        a.hw, wb, wf, H, n_w);
-    err = cudaGetLastError();
+    err = prep(a, wb, wf, tf);
     if (err != cudaSuccess) return err;
   }
   const KArgs k{a.grid, a.phi, a.dx, a.sc, a.z, a.wc, a.bc, a.wz, a.hb,
-                a.wout, a.bout, a.g, nullptr, nullptr, wb, wf, blk_ws,
+                a.wout, a.bout, a.g, nullptr, nullptr, wb, wf, tf, blk_ws,
                 tile_ws, a.B, a.N, 2, a.L, nl, 1, ACT_TANH, 1, 0, p.resident,
                 p.n_tiles, p.per_pass, (int)slot, a.hw, tile_s, b_t, n_t};
   err = launch_main(k, p, H, a.n_blocks, a.stream);
@@ -926,7 +1072,9 @@ cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
 
 // Workspace and grid of one call: *n_blocks blocks of the main kernel and
 // *ws_floats floats of workspace. The same inputs on the same card give the
-// same plan.
+// same plan. With ws_floats null, n_blocks points to six ints and receives
+// the plan itself (for checks and tools): R, weights resident, shared
+// memory bytes, passes, blocks per pass, tiles a sample.
 extern "C" int pvt_sdec_bwd_tc_plan(int B, int N, int D, int L, int H,
                                     int n_layers, int C, int act,
                                     int loss_mode, long long* ws_floats,
@@ -936,6 +1084,12 @@ extern "C" int pvt_sdec_bwd_tc_plan(int B, int N, int D, int L, int H,
   Plan p;
   const cudaError_t err = make_plan(B, N, H, n_layers, C, &p);
   if (err != cudaSuccess) return (int)err;
+  if (!ws_floats) {
+    const int v[6] = {p.R, p.resident, p.smem, p.passes, p.per_pass,
+                      p.n_tiles};
+    for (int i = 0; i < 6; ++i) n_blocks[i] = v[i];
+    return (int)cudaSuccess;
+  }
   *n_blocks = p.passes * p.per_pass;
   *ws_floats = (long long)workspace_floats(p, B, H, n_layers, C);
   return (int)cudaSuccess;

@@ -5,7 +5,7 @@ Counterpart of ``benchmarks/bwd_ablation.py``'s ``time_variant`` and
 
     python3 -m pyroved_tpu_torch.tools.bwd_ablation [--B 200] [--N 784]
         [--H 128] [--layers 2] [--b-t 40] [--n-t 128] [--f32]
-        [--baseline DIR]
+        [--baseline DIR [--same SOURCE ...]]
 
 Builds the eight ablation libraries of the flag's K2 source
 (``csrc/spatial_decoder_bwd_tc.cu``, or with ``--f32``
@@ -15,12 +15,15 @@ Builds the eight ablation libraries of the flag's K2 source
 default 40/128, JAX's choice at the flagship), and times each mode as a
 chain of :data:`CHAIN_LEN` launches in which ``z <- z + 1e-9 dz`` (CUDA
 events, after a warm-up chain), beside the device's busy time a call
-(``torch.profiler``, 50 launches) and the host's time to enqueue one.
+(``torch.profiler``, 50 launches; also by kernel) and the host's time to
+enqueue one. Before the times, each mode's build: the main kernels'
+registers, spills and ptxas's wgmma notes, and counts of their SASS.
 Prints microseconds a call per mode, then
 the attribution lines of the JAX harness, each beside what it asks of the
 Hopper kernel (:data:`MEANING`). ``--baseline DIR`` first compares the
 production K2 libraries' machine code (``cuobjdump -sass``, function by
-function) with those of the sources in DIR (an earlier ``csrc``). Raises
+function) with those of the sources in DIR (an earlier ``csrc``), and
+raises if a source named by ``--same`` (default both) differs. Raises
 without a Hopper card.
 """
 import argparse
@@ -35,7 +38,9 @@ import torch
 
 from ..ops import bwd_ablation as ab
 from ..ops import spatial_decoder as sd
-from .measure import bf16_matmul, card_info, card_peaks
+from ..ops import _build
+from .measure import (bf16_matmul, card_info, card_peaks, cuda_ms, sass,
+                      sass_counts, usage)
 
 CHAIN_LEN = 200
 
@@ -116,10 +121,11 @@ def chain_ms(mode, a, n_layers, b_t, n_t, chain=CHAIN_LEN):
 
 
 def busy_ms(mode, a, n_layers, b_t, n_t, n=50):
-    """The device's busy time a call of the chain, ms: its kernels' device
-    times (``torch.profiler``) over ``n`` chained launches, z's update
-    included, over ``n``; below :func:`chain_ms` where the host set the
-    pace."""
+    """(ms, {kernel: ms}): the device's busy time a call of the chain, its
+    kernels' device times (``torch.profiler``) over ``n`` chained launches,
+    z's update included, over ``n`` (below :func:`chain_ms` where the host
+    set the pace); and each kernel's share, named as far as its first
+    ``<`` or ``(``."""
     step = _bound_chain(mode, a, n_layers, b_t, n_t)
     step()
     torch.cuda.synchronize()
@@ -128,9 +134,14 @@ def busy_ms(mode, a, n_layers, b_t, n_t, n=50):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total", 0.0)
-             for ev in prof.key_averages())
-    return us / 1e3 / n
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us:
+            key = re.split(r"[<(]", ev.key.replace("(anonymous namespace)::",
+                                                   ""))[0]
+            by[key] = by.get(key, 0.0) + us / 1e3 / n
+    return sum(by.values()), by
 
 
 def work(mode, a, bf16):
@@ -163,7 +174,6 @@ def library_ms(mode, a, bf16, reps=10):
     matrices of K2's shapes, ms; None for dma_floor, which has none."""
     if mode == "dma_floor":
         return None
-    from .measure import cuda_ms
     B, N = a["g"].shape
     nl, H = a["hw"].shape[:2]
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -188,25 +198,6 @@ def library_ms(mode, a, bf16, reps=10):
     ms = cuda_ms(products, reps=reps)
     del h, d, col
     return ms
-
-
-def kernel_usage(log):
-    """{"H=128 R=64": "255 registers, 0 bytes spill stores", ...} of the
-    main kernel's instantiations, from a build's ptxas report."""
-    out, name, spill = {}, None, ""
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            name, spill = m.group(1), ""
-        elif "spill stores" in ln:
-            spill = ln.split(",")[1].strip()
-        elif "Used" in ln and "registers" in ln and name and (
-                "sdec_bwd_tc_kernel" in name or "sdec_bwd_x3_kernel" in name):
-            hr = re.search(r"ILi(\d+)ELi(\d+)E", name)
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out[f"H={hr.group(1)} R={hr.group(2)}"] = (f"{regs} registers, "
-                                                      f"{spill}")
-    return out
 
 
 def attribution(t):
@@ -240,8 +231,6 @@ def same_machine_code(base_dir):
     """{source: True/False} for the two production K2/K3 sources: whether
     the build of ``base_dir``'s copy has the port's machine code, function
     by function."""
-    from .profile_f32 import sass
-    from ..ops import _build
     out = {}
     for name in sd.BWD_SOURCES.values():
         old = sass(os.path.join(os.path.abspath(base_dir), name + ".cu"))
@@ -261,8 +250,11 @@ def main(argv=None) -> int:
     ap.add_argument("--f32", action="store_true",
                     help="the f32 source (BF16_MATMUL = False)")
     ap.add_argument("--baseline", help="a directory of earlier K2 sources "
-                    "whose production builds must have the port's machine "
-                    "code")
+                    "whose production builds are compared with the port's "
+                    "machine code")
+    ap.add_argument("--same", nargs="*", default=list(sd.BWD_SOURCES.values()),
+                    help="the sources whose machine code must equal the "
+                    "baseline's (default both)")
     args = ap.parse_args(argv)
     if not (torch.cuda.is_available() and ab.on_hopper("cuda")):
         raise RuntimeError("bwd_ablation needs a Hopper card")
@@ -274,20 +266,20 @@ def main(argv=None) -> int:
         same = same_machine_code(args.baseline)
         print(f"production machine code equal to {args.baseline}'s: "
               f"{json.dumps(same)}", flush=True)
-        if not all(same.values()):
-            raise AssertionError("a production K2 library's machine code "
-                                 "changed")
+        changed = [n for n in args.same if not same[n]]
+        if changed:
+            raise AssertionError(f"the machine code of {changed} changed")
     bf16 = not args.f32
     t0 = time.perf_counter()
     ab.load_all(flags=(bf16,))
     print(f"built the eight libraries of {sd.BWD_SOURCES[bf16]} in "
-          f"{time.perf_counter() - t0:.1f} s; main kernels' ptxas usage:",
-          flush=True)
-    from ..ops import _build
+          f"{time.perf_counter() - t0:.1f} s; main kernels' ptxas usage and "
+          f"SASS counts:", flush=True)
     for mode in ab.MODES:
-        usage = kernel_usage(_build.build_log(sd.BWD_SOURCES[bf16],
-                                              ab.defines(mode)))
-        print(f"  {mode}: {json.dumps(usage)}", flush=True)
+        name, defines = sd.BWD_SOURCES[bf16], ab.defines(mode)
+        lib = _build._target(name, defines)[1]
+        print(f"  {mode}: {json.dumps(usage(_build.build_log(name, defines)))}"
+              f"\n    {json.dumps(sass_counts(lib))}", flush=True)
     L = 4
     a = inputs(args.B, args.N, args.H, L, args.layers, args.b_t, args.n_t)
     print(f"backward ablation at B={args.B} N={args.N} H={args.H} "
@@ -298,13 +290,14 @@ def main(argv=None) -> int:
     with bf16_matmul(bf16):
         for mode in ab.MODES:
             ms, host = chain_ms(mode, a, args.layers, args.b_t, args.n_t)
-            busy = busy_ms(mode, a, args.layers, args.b_t, args.n_t)
+            busy, kernels = busy_ms(mode, a, args.layers, args.b_t, args.n_t)
             t[mode] = 1e3 * ms
             b, by = bound_ms(mode, a, bf16, peaks)
+            per = {k: round(1e3 * v, 1) for k, v in kernels.items()}
             print(f"  {mode:10s} {t[mode]:8.1f} us/call  (tiles ({args.b_t},"
                   f"{args.n_t})); device busy {1e3 * busy:.1f} us/call, host "
-                  f"{1e3 * host:.1f} us/call, bound {1e3 * b:.1f} us ({by})",
-                  flush=True)
+                  f"{1e3 * host:.1f} us/call, bound {1e3 * b:.1f} us ({by}); "
+                  f"by kernel (us/call) {json.dumps(per)}", flush=True)
     print("\nattribution:")
     for line in attribution(t):
         print(line)

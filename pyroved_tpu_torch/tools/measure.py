@@ -1,14 +1,22 @@
 """What the port's measurement scripts share (``chip_smoke.py`` and the
 tools of :mod:`pyroved_tpu_torch.tools`): the flag and the plain versions
 swapped in for a block, the training data, random kernel inputs, CUDA-event
-timing, the card's name and its data-sheet peaks."""
+timing, the card's name and its data-sheet peaks, K2's work and bounds,
+cuBLAS's bare products; and for the tools, builds of sources outside the
+port's ``csrc``, a library bound in the port's place, the phase marks, and
+what ptxas and ``cuobjdump`` say of a build."""
 import contextlib
+import ctypes
+import hashlib
+import os
+import re
 import statistics
 import subprocess
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops import spatial_decoder as sd
 
 # Data-sheet peaks (dense) of the H100 SXM5, the part nvidia-smi names
@@ -124,3 +132,246 @@ def random_case(rng, dev, D, C, H, B, N, L, nl):
                 Wc=t(D, H, k=0.5), bc=t(H, k=0.1), Wz=t(L, H, k=0.5),
                 hw=t(nl, H, H, k=1.5 / H ** 0.5), hb=t(nl, H, k=0.1),
                 wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
+
+
+def k2_inputs(B, N, L, seed, H=128):
+    """K2's and K3's random inputs at one shape (two tanh layers of width
+    ``H``): the decoder's inputs, a cotangent, observations and weights."""
+    a = random_case(np.random.default_rng(seed), "cuda", 2, 1, H, B, N, L, 2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(B, N, generator=gen, device="cuda")
+    x = torch.rand(B, N, generator=gen, device="cuda")
+    w = torch.rand(B, generator=gen, device="cuda")
+    return a, g, x, w
+
+
+def work_bwd(a, loss_mode=False):
+    """(flops, bytes) one K2 (or K3) call needs: per pixel the forward
+    recompute (h0, nl H x H layers, head) and the backward (head, dW and dh
+    of each layer, the du/dv/dw sums); every input read once (with the
+    cotangent, or x and the weights), every grad written once."""
+    N, D = a["grid"].shape
+    B = a["z"].shape[0]
+    H = a["Wc"].shape[1]
+    nl = a["hw"].shape[0]
+    C = a["wout"].shape[1]
+    flops = B * N * (6 * nl * H * H + 2 * (D + 1) * H + 6 * C * H + 6 * H)
+    inputs = sum(t.numel() for t in a.values())
+    grads = inputs - a["grid"].numel()
+    extra = B * N + B if loss_mode else B * N * C
+    return flops, 4 * (inputs + grads + extra)
+
+
+def bounds(flops, nbytes, peaks):
+    """(f32 bound, bf16 bound, what bounds f32, what bounds bf16), ms."""
+    peak_f32, peak_bf16, peak_bw = peaks
+    by = lambda peak: ("operations" if flops / peak >= nbytes / peak_bw  # noqa: E731
+                       else "bytes")
+    return (1e3 * max(flops / peak_f32, nbytes / peak_bw),
+            1e3 * max(flops / peak_bf16, nbytes / peak_bw),
+            by(peak_f32), by(peak_bf16))
+
+
+def cublas_ms(B, N, H=128, dtype=torch.float32, chunks=1, nl=2):
+    """cuBLAS's time for the bare products of one K2 call's hidden layers
+    (``nl`` of width ``H``, operands in ``dtype``; f32 with TF32 as the
+    caller set it): h W, h^T d and d W^T a layer, over ``chunks`` row
+    chunks."""
+    rows = B * N // chunks
+    h = torch.randn(rows, H, device="cuda").to(dtype)
+    d = torch.randn(rows, H, device="cuda").to(dtype)
+    w = torch.randn(nl, H, H, device="cuda").to(dtype)
+
+    def products():
+        for i in range(nl):
+            torch.matmul(h, w[i])
+            torch.matmul(h.T, d)
+            torch.matmul(d, w[i].T)
+
+    return chunks * cuda_ms(products, reps=5 if chunks > 1 else 20)
+
+
+def start_build(path, defines=()):
+    """Start building ``path`` (a source outside the port's ``csrc``, with
+    its headers beside it) as the port builds a source, into the build
+    directory under a name of its own: (the ``nvcc`` process, or None where
+    the library is already there, the library's path)."""
+    with open(path, "rb") as f:
+        text = f.read()
+    cmd = " ".join(_build.nvcc_command(path, "OUT", defines)).encode()
+    digest = hashlib.sha256(text + b"\0" + cmd).hexdigest()[:16]
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    name = os.path.splitext(os.path.basename(path))[0]
+    lib = os.path.join(_build.BUILD_DIR, f"ext-{name}-{digest}.so")
+    if os.path.exists(lib):
+        return None, lib
+    return subprocess.Popen(_build.nvcc_command(path, lib, defines),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def finish_build(proc, lib):
+    """The loaded library of :func:`start_build` and its build's log."""
+    if proc is not None:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({lib}):\n{log}")
+        with open(lib + ".log", "w") as f:
+            f.write(log)
+    with open(lib + ".log") as f:
+        return ctypes.CDLL(lib), f.read()
+
+
+def build(path, defines=()):
+    """``path`` built (:func:`start_build`) and loaded: the library and its
+    build's log."""
+    return finish_build(*start_build(path, defines))
+
+
+@contextlib.contextmanager
+def bound_bwd(lib, entry, bf16):
+    """``lib`` (entry points ``entry`` and ``entry + "_plan"``) bound as
+    the K2/K3 of the flag value ``bf16`` inside the block."""
+    saved = dict(sd._bwd_fns)
+    sd._bwd_fns[bf16] = sd._bind_bwd(lib, entry)
+    sd._bwd_plan.cache_clear()
+    try:
+        yield
+    finally:
+        sd._bwd_fns.clear()
+        sd._bwd_fns.update(saved)
+        sd._bwd_plan.cache_clear()
+
+
+@contextlib.contextmanager
+def bound_fwd(lib, bf16):
+    """``lib`` bound as the K1 of the flag value ``bf16`` inside the
+    block."""
+    saved = dict(sd._fwd_fns)
+    sd._fwd_fns[bf16] = sd._bind_fwd(lib, bf16)
+    try:
+        yield
+    finally:
+        sd._fwd_fns.clear()
+        sd._fwd_fns.update(saved)
+
+
+#: The phase counters of a profiled build (``csrc/sm90_common.cuh``):
+#: per warpgroup, the phases that marks 0-7 close, then the cycles in
+#: barriers, in wgmma waits and issuing products.
+PHASE_GROUPS, PHASE_MARKS, PHASE_SLOTS = 4, 8, 11
+
+
+def phase_cycles(lib, reader, fn):
+    """[warpgroup][counter] of one call of ``fn`` (after a warm call) in
+    the profiled build ``lib``, whose entry point ``reader`` reads the
+    counters (``PVT_PHASE_READER``)."""
+    read = getattr(lib, reader)
+    read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    read.restype = ctypes.c_int
+    cycles = (ctypes.c_longlong * (PHASE_GROUPS * PHASE_SLOTS))()
+    fn()
+    torch.cuda.synchronize()
+    if read(cycles, 1) != 0:
+        raise RuntimeError("resetting the phase cycles failed")
+    fn()
+    torch.cuda.synchronize()
+    if read(cycles, 0) != 0:
+        raise RuntimeError("reading the phase cycles failed")
+    return [list(cycles[g * PHASE_SLOTS:(g + 1) * PHASE_SLOTS])
+            for g in range(PHASE_GROUPS)]
+
+
+def per_tile(cycles, names, tiles):
+    """{name: cycles a tile} of the counters ``cycles`` named by ``names``
+    in order, and "total", the sum of the first :data:`PHASE_MARKS`."""
+    out = {name: round(cycles[k] / tiles, 1) for k, name in enumerate(names)}
+    out["total"] = round(sum(cycles[:min(len(names), PHASE_MARKS)]) / tiles,
+                         1)
+    return out
+
+
+#: The main kernels of the two K2/K3 sources, by their mangled names.
+BWD_KERNELS = r"sdec_bwd_(?:tc|x3)_kernel"
+
+
+def usage(log, kernels=BWD_KERNELS):
+    """{main kernel: its registers and spills, and how many times ptxas
+    noted each wgmma diagnostic in it (C7519: a warpgroup.arrive injected
+    to touch registers of an in-flight wgmma; C7520: wgmma serialised)}
+    of a build's ptxas report; a kernel is one whose name matches
+    ``kernels``, named by its template arguments."""
+    out, notes, kernel = {}, {}, None
+    name = lambda s: re.sub(r"^.*" + kernels, "", s)  # noqa: E731
+    for ln in log.splitlines():
+        m = re.search(r"\((C75\d\d)\).*function '([^']*)'", ln)
+        if m:
+            if re.search(kernels, m.group(2)):
+                key = name(m.group(2))
+                notes.setdefault(key, {}).setdefault(m.group(1), 0)
+                notes[key][m.group(1)] += 1
+        elif "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            kernel = name(fn) if re.search(kernels, fn) else None
+        elif kernel and ("registers" in ln or "spill" in ln):
+            out.setdefault(kernel, []).append(ln.replace("ptxas info    : ",
+                                                         "").strip())
+    for key, val in notes.items():
+        out.setdefault(key, []).append(val)
+    return out
+
+
+def cuobjdump(path):
+    """``cuobjdump -sass`` of the library or cubin at ``path``."""
+    return subprocess.run(
+        [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"),
+         "-sass", path], capture_output=True, text=True, check=True).stdout
+
+
+#: SASS instructions :func:`sass_counts` counts
+SASS_OPS = ("CALL", "LDL", "STL", "BAR", "HGMMA", "WARPGROUP.ARRIVE",
+            "WARPGROUP.DEPBAR")
+
+
+def sass_counts(path, kernels=BWD_KERNELS):
+    """{main kernel: {op: count, "all": instructions}} of the library at
+    ``path``: calls, local-memory loads and stores (spills), barriers,
+    wgmma and its fences and waits, in each kernel whose name matches
+    ``kernels``."""
+    out, cur = {}, None
+    for ln in cuobjdump(path).splitlines():
+        if "Function :" in ln:
+            fn = ln.split(":", 1)[1].strip()
+            cur = None
+            if re.search(kernels, fn):
+                cur = out.setdefault(re.sub(r"^.*" + kernels, "", fn),
+                                     dict.fromkeys(SASS_OPS + ("all",), 0))
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
+            words = ln.split("*/", 1)[1].split()
+            op = words[1] if words and words[0].startswith("@") else \
+                (words[0] if words else "")
+            cur["all"] += 1
+            for k in SASS_OPS:
+                if op.startswith(k):
+                    cur[k] += 1
+    return out
+
+
+def sass(path):
+    """{function: instructions} of ``path`` compiled to a cubin as the port
+    builds it, the anonymous namespace's hash left out of the names."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(_build.BUILD_DIR, "sass-" + hashlib.sha256(
+        path.encode()).hexdigest()[:16] + ".cubin")
+    cmd = [c for c in _build.nvcc_command(path, cubin)
+           if c not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    subprocess.run(cmd + ["-cubin"], check=True, capture_output=True)
+    out, cur = {}, None
+    for ln in cuobjdump(cubin).splitlines():
+        if "Function :" in ln:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "",
+                         ln.split(":", 1)[1].strip())
+            out[cur] = []
+        elif cur is not None and ln.strip():
+            out[cur].append(ln.strip())
+    return out

@@ -1,135 +1,204 @@
-"""Profile the tensor-core K2 (``csrc/spatial_decoder_bwd_tc.cu``) on the card.
+"""Profile the tensor-core K2/K3 (``csrc/spatial_decoder_bwd_tc.cu``) on the
+card, and hold it against an earlier version of the same source.
 
 Run from the repository root on a machine with one Hopper GPU:
 
-    python3 -m pyroved_tpu_torch.tools.profile_bwd_tc
+    python3 -m pyroved_tpu_torch.tools.profile_bwd_tc [--baseline DIR]
 
-1. Per-phase cycles of one tile: builds the source with
-   ``PVT_PROFILE_PHASES`` defined, which compiles in a ``clock64()`` mark
-   before each ``// --`` phase of the tile loop (block 0, thread 0; a few
-   cycles each), binds it in place of the kernel and prints the cycles per
-   tile of each phase at the flagship shape (B=200, N=784, H=128, two tanh
-   layers).
-2. Device time of each kernel of one K2 call (torch.profiler) and of the
-   call (CUDA events), at the flagship shape with hidden width 128 (every
-   layer's weights resident in shared memory) and 256 (64-unit weight
-   panels streamed from L2 per product, four passes over the tiles at
-   two layers).
-3. Chaos of bf16 training: the flagship trains 3 epochs through ``fit``
-   with the wrappers running their plain versions (the same numerics as
-   the kernels), under each ``BF16_MATMUL``, from the seed-0 weights and
-   from those weights scaled by 1 + 1e-6 noise; prints the per-epoch
-   losses.
+1. Builds the source as the port does and with ``PVT_PROFILE_PHASES`` (the
+   phase marks of ``csrc/sm90_common.cuh``, one series per warpgroup),
+   together, and prints each build's ptxas usage of the main kernels
+   (registers, spills, and any note that ptxas serialised or fenced the
+   wgmma pipeline) and counts of their SASS (calls, local-memory loads and
+   stores, barriers, wgmma).
+2. Per-warpgroup cycles a tile of block 0 by phase at the flagship (B=200,
+   N=784, H=128, two tanh layers), at jiVAE's 2,000 enumerated rows and at
+   H=256: each warpgroup's phases, and the part of them it spent waiting in
+   a barrier, in a wgmma wait and issuing products (with streamed weights,
+   their panel loads and waits too).
+3. K2 and K3 times (CUDA events, medians of one call; K2 also back to
+   back, 20 calls a chain, up to 4 M pixel rows) at the shapes of
+   ``PERF.md`` section 6 (:data:`SHAPES`) and at H=256, in turns over the
+   versions (baseline, port, port, baseline), so that two versions compare
+   within one run and the repeats show the spread; each beside the bound
+   (``measure.work_bwd``: tensor-core flops or bytes, whichever is larger)
+   and cuBLAS's time for the bare bf16 products of the same hidden layers.
+   The baseline's grads are held to the port's (bitwise or the largest
+   difference over the largest entry).
+
+``--baseline DIR`` adds an earlier version: ``DIR/spatial_decoder_bwd_tc.cu``
+with the headers beside it, e.g. the parent commit's
+``pyroved_tpu_torch/csrc`` unpacked under ``_checkout/`` (which
+``.gitignore`` lists), built as the port builds it: its ptxas usage, SASS
+counts and times (steps 1 and 3). Prints one JSON line at the end.
 """
+import argparse
 import ctypes
-import subprocess
+import json
+import os
 import sys
 
-import numpy as np
 import torch
 
-from ..models import iVAE
 from ..ops import _build
 from ..ops import spatial_decoder as sd
-from .measure import bf16_matmul, blobs, cuda_ms, plain_versions, random_case
+from .measure import (bf16_matmul, bound_bwd, bounds, card_info, card_peaks,
+                      cublas_ms, cuda_ms, cuda_ms_queued, finish_build,
+                      k2_inputs, per_tile, phase_cycles, sass_counts,
+                      start_build, usage, work_bwd)
 
-#: What each mark of the profiled source closes, in mark order: mark 0 the
-#: loop's own overhead, mark k > 0 the k-th ``// --`` phase of the loop.
-PHASES = ("(loop)", "per-sample transform, tile coordinates", "h0",
-          "forward recompute", "head dots", "head: logits, cotangents, loss",
-          "last layer", "hidden layers, last to first")
-DEFINES = ("PVT_PROFILE_PHASES",)
+NAME = "spatial_decoder_bwd_tc"
+ENTRY = "pvt_sdec_bwd_tc"
+PROFILE = ("PVT_PROFILE_PHASES",)
+#: What each mark closes, then the counters of sm90_common.cuh's
+#: PHASE_TIMED slots.
+PHASES = ("(loop)", "staging, h0", "first handoff and products",
+          "forward, head dots", "head: logits, cotangents, loss",
+          "last layer, first backward products",
+          "hidden layers, last to first", "layer 0, tile sums, end",
+          "in barriers", "in wgmma waits", "issuing products")
+#: (name, B, N, L, H): PERF.md section 6's bf16 shapes, then H = 256.
+SHAPES = (("flagship", 200, 784, 2, 128), ("large grid", 64, 16384, 2, 128),
+          ("jiVAE B=2000", 2000, 784, 12, 128), ("B=50", 50, 784, 2, 128),
+          ("top-3 B=600", 600, 784, 12, 128),
+          ("512x512 tile", 200, 16384, 2, 128),
+          ("pixel rank", 200, 131072, 2, 128),
+          ("H=256 flagship", 200, 784, 2, 256))
+MARK_SHAPES = (SHAPES[0], SHAPES[2], SHAPES[7])
+BIG = 4_000_000  # B N above which timings take fewer calls
 
 
-def flagship_inputs(H):
-    """K2's inputs at the flagship training shape (B=200, N=784, two
-    layers) with hidden width H, and a cotangent."""
-    a = random_case(np.random.default_rng(0), "cuda", 2, 1, H, 200, 784, 2, 2)
-    return a, torch.randn(200, 784, device="cuda")
+def plan_info(lib, B, N, L, H, nl=2, C=1, D=2, act=0, loss_mode=0):
+    """The plan (R, resident, smem, passes, per_pass, n_tiles) that the
+    library ``lib``'s ``pvt_sdec_bwd_tc_plan`` reports for one call
+    (``act`` an activation's code)."""
+    info = (ctypes.c_int * 6)()
+    plan, _ = sd._bind_bwd(lib, ENTRY)
+    err = plan(B, N, D, L, H, nl, C, act, loss_mode, None, info)
+    if err:
+        raise RuntimeError(f"the bf16 K2/K3 plan failed: CUDA error {err}")
+    return dict(zip(("R", "resident", "smem", "passes", "per_pass",
+                     "n_tiles"), info))
 
 
-def phase_cycles(a, g):
-    """{phase: cycles per tile of block 0} of one K2 call, from the
-    profiled build bound in place of the kernel for the call."""
-    lib = _build.load("spatial_decoder_bwd_tc", DEFINES)
-    read = lib.pvt_sdec_bwd_tc_phase_cycles
-    read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
-    read.restype = ctypes.c_int
-    saved = dict(sd._bwd_fns)
-    sd._bwd_fns[True] = sd._bind_bwd(lib, sd.BWD_ENTRIES[True])
-    sd._bwd_plan.cache_clear()
-    cycles = (ctypes.c_longlong * len(PHASES))()
-    try:
-        with bf16_matmul(True):
-            sd.fused_spatial_decoder_backward(**a, g=g)  # warm
+def marks(lib, a, g):
+    """Block 0's cycles a tile by phase, per warpgroup, in one K2 call of
+    the profiled build ``lib``."""
+    B, N, L = a["z"].shape[0], a["grid"].shape[0], a["z"].shape[1]
+    info = plan_info(lib, B, N, L, a["Wc"].shape[1])
+    with bound_bwd(lib, ENTRY, True), bf16_matmul(True):
+        cycles = phase_cycles(lib, ENTRY + "_phase_cycles",
+                              lambda: sd.fused_spatial_decoder_backward(
+                                  **a, g=g))
+    blocks = info["passes"] * info["per_pass"]
+    tiles = -(-B * info["n_tiles"] // (blocks // info["passes"]))
+    res = {"tiles_of_block0": tiles, "plan": info}
+    for w in range(2):
+        res[f"warpgroup {w}"] = per_tile(cycles[w], PHASES, tiles)
+    return res
+
+
+def compare(got, ref):
+    """'bitwise', or the largest difference over its grad's largest
+    entry."""
+    if all(torch.equal(x, y) for x, y in zip(got, ref)):
+        return "bitwise"
+    return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+               for x, y in zip(got, ref))
+
+
+def times(versions, peaks):
+    """Each version's K2 and K3 times at every shape, in turns; its grads
+    against the port's; the bounds and cuBLAS's products."""
+    res = {"k2": {}, "k2_chain": {}, "k3": {}, "same": {}, "bound": {},
+           "cublas_bf16_ms": {}}
+    order = versions + versions[::-1]
+    with bf16_matmul(True), torch.no_grad():
+        for i, (shape, B, N, L, H) in enumerate(SHAPES):
+            a, g, x, w = k2_inputs(B, N, L, 30 + i, H)
+            reps = 5 if B * N > BIG else 20
+            k2 = lambda: sd.fused_spatial_decoder_backward(**a, g=g)  # noqa: E731
+            k3 = lambda: sd.fused_bernoulli_recon_loss_kernel(  # noqa: E731
+                **a, x=x, wgt=w)
+            outs = {}
+            for label, lib in versions:
+                with bound_bwd(lib, ENTRY, True):
+                    loss, grads = k3()
+                    outs[label] = (k2(), (loss,) + tuple(grads))
+            for label, (o2, o3) in outs.items():
+                res["same"].setdefault(label, {})[shape] = {
+                    "k2": compare(o2, outs["port"][0]),
+                    "k3": compare(o3, outs["port"][1])}
+            del outs
+            for label, lib in order:
+                with bound_bwd(lib, ENTRY, True):
+                    res["k2"].setdefault(label, {}).setdefault(
+                        shape, []).append(round(cuda_ms(k2, reps=reps), 4))
+                    res["k3"].setdefault(label, {}).setdefault(
+                        shape, []).append(round(cuda_ms(k3, reps=reps), 4))
+                    if B * N <= BIG:  # back to back: the device's time
+                        res["k2_chain"].setdefault(label, {}).setdefault(
+                            shape, []).append(round(cuda_ms_queued(
+                                k2, n=20, reps=5), 4))
+            res["bound"][shape] = {
+                k: [round(b[1], 4), b[3]] for k, b in (
+                    ("k2", bounds(*work_bwd(a), peaks)),
+                    ("k3", bounds(*work_bwd(a, loss_mode=True), peaks)))}
+            res["cublas_bf16_ms"][shape] = round(cublas_ms(
+                B, N, H, torch.bfloat16, 8 if B * N > BIG else 1), 4)
+            print(json.dumps({shape: {k: {v: res[k][v][shape] for v in res[k]
+                                          if shape in res[k][v]}
+                                      for k in ("k2", "k2_chain", "k3")},
+                                  "same": {v: res["same"][v][shape]
+                                           for v in res["same"]},
+                                  "bound": res["bound"][shape],
+                                  "cublas_bf16_ms":
+                                      res["cublas_bf16_ms"][shape]}),
+                  flush=True)
+            del a, g, x, w
             torch.cuda.synchronize()
-            if read(cycles, 1) != 0:
-                raise RuntimeError("resetting the phase cycles failed")
-            sd.fused_spatial_decoder_backward(**a, g=g)
-            torch.cuda.synchronize()
-            if read(cycles, 0) != 0:
-                raise RuntimeError("reading the phase cycles failed")
-            B, N = a["z"].shape[0], a["grid"].shape[0]
-            _, blocks = sd.bwd_workspace(B, N, 2, a["z"].shape[1], 128,
-                                         a["hw"].shape[0], 1)
-    finally:
-        sd._bwd_fns.clear()
-        sd._bwd_fns.update(saved)
-        sd._bwd_plan.cache_clear()
-    # the flagship plan: 64-pixel tiles, one pass of `blocks` blocks
-    tiles = -(-B * -(-N // 64) // blocks)
-    return {name: cycles[k] / tiles for k, name in enumerate(PHASES)}
+    return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", help="a directory holding an earlier "
+                    "spatial_decoder_bwd_tc.cu and its headers")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_bwd_tc: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    a, g = flagship_inputs(128)
-
-    # 1. per-phase cycles
-    phases = phase_cycles(a, g)
-    print(f"cycles per tile by phase, block 0: {phases}; total "
-          f"{sum(phases.values()):.0f}", flush=True)
-
-    # 2. each kernel of a K2 call, and the call, at H = 128 and 256
-    k2 = sd.fused_spatial_decoder_backward
-    for H in (128, 256):
-        a, g = flagship_inputs(H)
-        with bf16_matmul(True):
-            call_ms = cuda_ms(lambda: k2(**a, g=g), reps=20)
-            acts = [torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(10):
-                    k2(**a, g=g)
-                torch.cuda.synchronize()
-        kernels = {ev.key[:60]:
-                   getattr(ev, "self_device_time_total", 0.0) / 1e4
-                   for ev in prof.key_averages()
-                   if getattr(ev, "self_device_time_total", 0.0) > 0}
-        print(f"H={H}: K2 call {call_ms:.4f} ms (CUDA events); kernels, ms "
-              f"per call: {kernels}", flush=True)
-
-    # 3. chaos of bf16 training, plain versions
-    X = blobs(10000, (28, 28), seed=1)
-    for on in (True, False):
-        for noise in (0.0, 1e-6):
-            with bf16_matmul(on), plain_versions():
-                m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
-                gen = torch.Generator(device="cuda").manual_seed(7)
-                with torch.no_grad():
-                    for p in m.nets.parameters():
-                        p.mul_(1 + noise * torch.randn(
-                            p.shape, generator=gen, device="cuda"))
-                hist = m.fit(X, epochs=3, batch_size=200).loss_history[
-                    "training_loss"]
-            print(f"BF16_MATMUL={on}, weights x (1 + {noise:g} noise): "
-                  f"per-epoch losses {hist}", flush=True)
+    card = card_info()
+    print(card, flush=True)
+    peaks = card_peaks(card)
+    base = None
+    if args.baseline:  # started first: the port's builds run beside them
+        path = os.path.join(os.path.abspath(args.baseline), NAME + ".cu")
+        base = start_build(path)
+    builds = {"port": (), "port, profiled": PROFILE}
+    port, prof = _build.load_targets([(NAME, d) for d in builds.values()])
+    libs = {"port": port}
+    report = {"card": card, "ptxas": {}, "marks": {}, "sass": {}}
+    for label, defines in builds.items():
+        report["ptxas"][label] = usage(_build.build_log(NAME, defines))
+        report["sass"][label] = sass_counts(_build._target(NAME, defines)[1])
+    if base:
+        blib, blog = finish_build(*base)
+        libs = {"baseline": blib, **libs}
+        report["sass"]["baseline"] = sass_counts(base[1])
+        report["ptxas"]["baseline"] = usage(blog)
+    for label, lines in report["ptxas"].items():
+        print(f"ptxas {label}: {json.dumps(lines)}", flush=True)
+    for label, counts in report["sass"].items():
+        print(f"sass {label}: {json.dumps(counts)}", flush=True)
+    for shape, B, N, L, H in MARK_SHAPES:
+        a, g, _, _ = k2_inputs(B, N, L, 1, H)
+        report["marks"][shape] = marks(prof, a, g)
+        print(f"marks {shape}: {json.dumps(report['marks'][shape])}",
+              flush=True)
+    report.update(times(list(libs.items()), peaks))
+    print(json.dumps(report), flush=True)
     return 0
 
 

@@ -26,21 +26,13 @@ sources in ``DIR``: ``spatial_decoder_fwd.cu`` and a K2/K3 source, either
 parent commit's ``pyroved_tpu_torch/csrc`` unpacked under ``_checkout/``,
 which ``.gitignore`` lists. Each K2 time is then taken in turns, baseline,
 port, port, baseline, so that two versions compare within one run and the
-repeats show the spread. Where ``DIR`` also holds the bf16 K2/K3,
-``spatial_decoder_bwd_tc.cu``, it is held against the port's the same way
-(its time at the flagship and the 512x512 tile in turns), and the two
-builds' machine code is compared function by function (``cuobjdump
--sass``, the anonymous namespace's hash left out). Prints one JSON line
-per version at the end.
+repeats show the spread. Prints one JSON line per version at the end (the
+bf16 K2/K3's A/B is ``tools/profile_bwd_tc.py``'s).
 """
 import argparse
 import contextlib
-import ctypes
-import hashlib
 import json
 import os
-import re
-import subprocess
 import sys
 
 import numpy as np
@@ -48,7 +40,9 @@ import torch
 
 from ..ops import _build
 from ..ops import spatial_decoder as sd
-from .measure import bf16_matmul, cuda_ms, random_case
+from .measure import (bf16_matmul, bound_bwd, bound_fwd, build, card_info,
+                      cublas_ms, cuda_ms, k2_inputs, per_tile, phase_cycles,
+                      random_case, usage)
 
 DEFINES = ("PVT_PROFILE_PHASES",)
 #: What each mark closes, in mark order (K1 counts block 0's tiles in 7).
@@ -76,107 +70,17 @@ K2_SHAPES = (("flagship", 200, 784, 2), ("large grid", 64, 16384, 2),
 WITH_LIBRARY = 4
 
 
-def build(path, defines=()):
-    """``path`` built as the port builds a source (``_build.nvcc_command``),
-    into the build directory under a name of its own; the loaded library
-    and the build's log."""
-    name = os.path.splitext(os.path.basename(path))[0]
-    with open(path, "rb") as f:
-        text = f.read()
-    cmd = " ".join(_build.nvcc_command(path, "OUT", defines)).encode()
-    digest = hashlib.sha256(text + b"\0" + cmd).hexdigest()[:16]
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    lib = os.path.join(_build.BUILD_DIR, f"ext-{name}-{digest}.so")
-    if not os.path.exists(lib):
-        res = subprocess.run(_build.nvcc_command(path, lib, defines),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {path}:\n{res.stdout}"
-                               f"{res.stderr}")
-        with open(lib + ".log", "w") as f:
-            f.write(res.stdout + res.stderr)
-    with open(lib + ".log") as f:
-        return ctypes.CDLL(lib), f.read()
-
-
-def usage(log):
-    """The registers and spill lines of a build's ptxas report."""
-    return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+#: The main kernels of the two f32 sources, for ptxas's report.
+KERNELS = r"sdec_(?:fwd|bwd_x3|bwd)_kernel"
 
 
 @contextlib.contextmanager
 def bound(fwd_lib, bwd_lib, bwd_name):
     """The two libraries bound as the f32 K1 and K2/K3 inside the block
     (``bwd_name`` the K2/K3 source's file name)."""
-    saved_f, saved_b = dict(sd._fwd_fns), dict(sd._bwd_fns)
-    sd._fwd_fns[False] = sd._bind_fwd(fwd_lib, False)
-    sd._bwd_fns[False] = sd._bind_bwd(bwd_lib, K2_ENTRIES[bwd_name])
-    sd._bwd_plan.cache_clear()
-    try:
+    with bound_fwd(fwd_lib, False), bound_bwd(bwd_lib, K2_ENTRIES[bwd_name],
+                                              False):
         yield
-    finally:
-        for fns, saved in ((sd._fwd_fns, saved_f), (sd._bwd_fns, saved_b)):
-            fns.clear()
-            fns.update(saved)
-        sd._bwd_plan.cache_clear()
-
-
-def reader(lib, name):
-    read = getattr(lib, name)
-    read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
-    read.restype = ctypes.c_int
-    return read
-
-
-def marks(read, fn):
-    """The 8 phase counters of one call of ``fn`` (after a warm call)."""
-    cycles = (ctypes.c_longlong * 8)()
-    fn()
-    torch.cuda.synchronize()
-    if read(cycles, 1) != 0:
-        raise RuntimeError("resetting the phase cycles failed")
-    fn()
-    torch.cuda.synchronize()
-    if read(cycles, 0) != 0:
-        raise RuntimeError("reading the phase cycles failed")
-    return list(cycles)
-
-
-def per_tile(cycles, names, tiles):
-    out = {name: round(cycles[k] / tiles, 1) for k, name in enumerate(names)}
-    out["total"] = round(sum(cycles[:len(names)]) / tiles, 1)
-    return out
-
-
-def k2_inputs(B, N, L, seed):
-    """K2's and K3's random inputs at one shape: the decoder's inputs, a
-    cotangent, observations and weights."""
-    a = random_case(np.random.default_rng(seed), "cuda", 2, 1, 128, B, N, L,
-                    2)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    g = torch.randn(B, N, generator=gen, device="cuda")
-    x = torch.rand(B, N, generator=gen, device="cuda")
-    w = torch.rand(B, generator=gen, device="cuda")
-    return a, g, x, w
-
-
-def cublas_ms(B, N, chunks=1):
-    """cuBLAS's f32 time (TF32 off) for the hidden products of one K2 call
-    at the flagship's two 128-wide layers, as bare matrix products: h W,
-    h^T d and d W^T a layer, over ``chunks`` row chunks."""
-    rows = B * N // chunks
-    h = torch.randn(rows, 128, device="cuda")
-    d = torch.randn(rows, 128, device="cuda")
-    w = torch.randn(2, 128, 128, device="cuda")
-
-    def products():
-        for i in range(2):
-            torch.matmul(h, w[i])
-            torch.matmul(h.T, d)
-            torch.matmul(d, w[i].T)
-
-    return chunks * cuda_ms(products, reps=5 if chunks > 1 else 20)
 
 
 def phases(label, libs):
@@ -189,15 +93,15 @@ def phases(label, libs):
     with bf16_matmul(False), torch.no_grad(), bound(fwd, bwd, bwd_name):
         for B, N in K1_SHAPES:
             a = random_case(rng, "cuda", 2, 1, 128, B, N, 2, 2)
-            c = marks(reader(fwd, "pvt_sdec_fwd_phase_cycles"),
-                      lambda: sd.fused_spatial_decoder_forward(**a))
+            c = phase_cycles(fwd, "pvt_sdec_fwd_phase_cycles",
+                             lambda: sd.fused_spatial_decoder_forward(**a))[0]
             tiles = c[7]
             res["k1"][f"B={B} N={N}"] = {
                 "cycles_per_tile": per_tile(c, K1_PHASES, tiles),
                 "tiles_of_block0": tiles}
         a, g, _, _ = k2_inputs(200, 784, 2, 1)
-        c = marks(reader(bwd, K2_ENTRIES[bwd_name] + "_phase_cycles"),
-                  lambda: sd.fused_spatial_decoder_backward(**a, g=g))
+        c = phase_cycles(bwd, K2_ENTRIES[bwd_name] + "_phase_cycles",
+                         lambda: sd.fused_spatial_decoder_backward(**a, g=g))[0]
         _, blocks = sd.bwd_workspace(200, 784, 2, 2, 128, 2, 1, bf16=False)
         tiles = -(-200 * -(-784 // 64) // blocks)  # block 0's, 64-pixel tiles
         res["k2"] = {"cycles_per_tile": per_tile(c, K2_PHASES[bwd_name],
@@ -238,67 +142,10 @@ def times(versions):
                             round(ms3, 4))
             torch.cuda.synchronize()
             del a, g, x, w
-    library = {shape: round(cublas_ms(B, N, 8 if B * N > 4_000_000 else 1),
-                            4) for shape, B, N, _ in K2_SHAPES[:WITH_LIBRARY]}
+    library = {shape: round(cublas_ms(B, N, chunks=8 if B * N > 4_000_000
+                                      else 1), 4)
+               for shape, B, N, _ in K2_SHAPES[:WITH_LIBRARY]}
     return res, library
-
-
-def sass(path):
-    """{function: instructions} of ``path`` compiled to a cubin as the port
-    builds it, the anonymous namespace's hash left out of the names."""
-    cubin = os.path.join(_build.BUILD_DIR, "sass-" + hashlib.sha256(
-        path.encode()).hexdigest()[:16] + ".cubin")
-    cmd = [c for c in _build.nvcc_command(path, cubin)
-           if c not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
-    subprocess.run(cmd + ["-cubin"], check=True, capture_output=True)
-    dump = subprocess.run(
-        [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"),
-         "-sass", cubin], check=True, capture_output=True, text=True).stdout
-    out, cur = {}, None
-    for ln in dump.splitlines():
-        if "Function :" in ln:
-            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "",
-                         ln.split(":", 1)[1].strip())
-            out[cur] = []
-        elif cur is not None and ln.strip():
-            out[cur].append(ln.strip())
-    return out
-
-
-def bf16_ab(base_dir):
-    """The bf16 K2 of ``base_dir`` against the port's: the same machine
-    code or not, the same grads or not, and K2's time at the flagship and
-    the 512x512 tile, in turns (baseline, port, port, baseline)."""
-    name = sd.BWD_SOURCES[True]
-    path = os.path.join(base_dir, name + ".cu")
-    old, new = sass(path), sass(os.path.join(_build.CSRC, name + ".cu"))
-    same = sorted(old) == sorted(new) and all(old[k] == new[k] for k in old)
-    libs = (("baseline", build(path)[0]), ("port", _build.load(name)))
-    res = {"same_sass": same, "functions": len(old), "ms": {}}
-    saved = dict(sd._bwd_fns)
-    try:
-        with bf16_matmul(True), torch.no_grad():
-            for i, (shape, B, N, L) in enumerate(
-                    (K2_SHAPES[0], K2_SHAPES[3])):
-                a, g, _, _ = k2_inputs(B, N, L, 20 + i)
-                grads = []
-                for label, lib in libs:
-                    sd._bwd_fns[True] = sd._bind_bwd(lib, sd.BWD_ENTRIES[True])
-                    sd._bwd_plan.cache_clear()
-                    grads.append(sd.fused_spatial_decoder_backward(**a, g=g))
-                res[f"same_output {shape}"] = all(
-                    torch.equal(x, y) for x, y in zip(*grads))
-                for label, lib in libs + libs[::-1]:
-                    sd._bwd_fns[True] = sd._bind_bwd(lib, sd.BWD_ENTRIES[True])
-                    sd._bwd_plan.cache_clear()
-                    res["ms"].setdefault(f"{shape} {label}", []).append(
-                        round(cuda_ms(lambda: sd.fused_spatial_decoder_backward(
-                            **a, g=g), reps=20), 4))
-    finally:
-        sd._bwd_fns.clear()
-        sd._bwd_fns.update(saved)
-        sd._bwd_plan.cache_clear()
-    return res
 
 
 def main(argv=None) -> int:
@@ -310,16 +157,14 @@ def main(argv=None) -> int:
         print("profile_f32: CUDA is not available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
+    smi = card_info()
     print(smi, flush=True)
     names = [sd.FWD_SOURCES[False], sd.BWD_SOURCES[False]]
     plain = _build.load_all(names)
     prof = _build.load_all(names, DEFINES)
     for n in names:
-        print(f"ptxas {n} (profiled): {usage(_build.build_log(n, DEFINES))}",
-              flush=True)
+        print(f"ptxas {n} (profiled): "
+              f"{usage(_build.build_log(n, DEFINES), KERNELS)}", flush=True)
     versions, profiled = [], []
     if args.baseline:
         bwd_name = next(n for n in ("spatial_decoder_bwd_x3",
@@ -332,7 +177,7 @@ def main(argv=None) -> int:
         base_prof = [build(p, DEFINES) for p in paths]
         for p, (_, log) in zip(paths, base_prof):
             print(f"ptxas baseline {os.path.basename(p)} (profiled): "
-                  f"{usage(log)}", flush=True)
+                  f"{usage(log, KERNELS)}", flush=True)
         versions.append(("baseline", base[0], base[1], bwd_name))
         profiled.append(("baseline", (base_prof[0][0], base_prof[1][0],
                                       bwd_name)))
@@ -345,10 +190,6 @@ def main(argv=None) -> int:
         res["cublas_f32_ms"] = library
         res["card"] = smi
         print(json.dumps(res), flush=True)
-    if args.baseline and os.path.exists(os.path.join(
-            args.baseline, sd.BWD_SOURCES[True] + ".cu")):
-        print(json.dumps({"bf16_k2": bf16_ab(args.baseline), "card": smi}),
-              flush=True)
     return 0
 
 
