@@ -25,7 +25,9 @@ source.
    ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
    activations, hidden width 128 and 256, ragged B and N, 0 to 5 hidden
    layers for every activation at both widths, one pixel of one sample and
-   the large grid, each launched twice to show bitwise-equal outputs; then
+   the large grid, each launched twice to show bitwise-equal outputs; the
+   tensor-core K1's tanh over every f32 input against f64 tanh
+   (``phase_tanh_probe``); then
    the backward K2 against ``spatial_decoder_bwd_plain`` (random
    cotangent) and the one-pass Bernoulli kernel K3 against
    ``recon_loss_plain`` on K2's matrix (K3 with C = 1), each launched
@@ -261,9 +263,12 @@ from pyroved_tpu_torch.serving import ServedModel, export_model
 from pyroved_tpu_torch.tools import bwd_ablation as abt
 from pyroved_tpu_torch.tools.profile_bwd_tc import plan_info
 from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, bounds,
-                                             card_info, card_peaks, cuda_ms,
+                                             card_info, card_peaks,
+                                             cublas_fwd_ms, cuda_ms,
                                              cuda_ms_queued, plain_versions,
-                                             random_case, work_bwd)
+                                             random_case, row_chunks,
+                                             sfu_floor_ms,
+                                             work_bwd, work_fwd)
 from pyroved_tpu_torch.tools.measure import usage as ptxas_usage
 from pyroved_tpu_torch.trainers import SVItrainer, auxSVItrainer
 from pyroved_tpu_torch.utils.coord import generate_latent_grid
@@ -503,19 +508,6 @@ def check_grads(what, got, ref, names=GRAD_NAMES, per_sample=PER_SAMPLE,
     return worst
 
 
-def work(a):
-    """(flops, bytes) one K1 call needs: every input read once, the output
-    written once."""
-    N, D = a["grid"].shape
-    B = a["z"].shape[0]
-    H = a["Wc"].shape[1]
-    nl = a["hw"].shape[0]
-    C = a["wout"].shape[1]
-    flops = B * N * (2 * D * H + nl * 2 * H * H + 2 * C * H)
-    nbytes = 4 * (sum(t.numel() for t in a.values()) + B * N * C)
-    return flops, nbytes
-
-
 def host_ms(fn, reps=10, warmup=2):
     """Median wall time of a whole request, ending in a synchronize."""
     for _ in range(warmup):
@@ -589,6 +581,46 @@ def phase_k1_vs_plain(dev):
         else:
             raise AssertionError(f"K1 took {deep} layers at H=128")
     return max(errs)
+
+
+# The tensor-core K1's tanh (csrc/sm90_common.cuh, tanh_exp2) against f64
+# tanh: f32's resolution of the output range. Every value it feeds is
+# rounded to bf16 (2^-8 relative) or summed in f32 into the head.
+TANH_BOUND = 2.5e-7
+TANH_CHUNK = 1 << 27  # bit patterns a probe launch takes
+
+
+def phase_tanh_probe(dev):
+    """Phase 2: the tensor-core K1's tanh over every f32 bit pattern (2^32
+    inputs in chunks of TANH_CHUNK: every value of [-10, 10], every power
+    of two down to the denormals, +-inf and every NaN) against f64 tanh:
+    within TANH_BOUND, NaN exactly where the input is NaN, +-inf to +-1."""
+    base = torch.arange(TANH_CHUNK, dtype=torch.int32, device=dev)
+    worst = (-1.0, 0.0, 0.0)  # (error, x, tanh)
+    for lo in range(-(1 << 31), 1 << 31, TANH_CHUNK):
+        x = (base + lo).view(torch.float32)
+        y = sd.fwd_tc_tanh(x)
+        nan = torch.isnan(x)
+        if not torch.equal(torch.isnan(y), nan):
+            raise AssertionError(f"tanh probe: NaN not exactly where the "
+                                 f"input is NaN in bit patterns {lo}..")
+        err = torch.where(nan, 0.0, (y.double() - torch.tanh(x.double()))
+                          .abs())
+        i = int(err.argmax())
+        if err[i].item() > worst[0]:
+            worst = (err[i].item(), x[i].item(), y[i].item())
+        del x, y, nan, err
+    ends = sd.fwd_tc_tanh(torch.tensor([float("inf"), -float("inf")],
+                                       device=dev)).tolist()
+    if ends != [1.0, -1.0]:
+        raise AssertionError(f"tanh probe: +-inf gave {ends}, not +-1")
+    log(f"  tanh probe: max abs err {worst[0]:.4e} at x = {worst[1]!r} "
+        f"(tanh {worst[2]!r}) over all {1 << 32} f32 inputs, bound "
+        f"{TANH_BOUND}")
+    if not worst[0] <= TANH_BOUND:
+        raise AssertionError(f"tanh probe: {worst[0]:.4e} > {TANH_BOUND}")
+    return {"inputs": 1 << 32, "max_abs_err": worst[0], "at": worst[1],
+            "tanh": worst[2]}
 
 
 def phase_padded_model():
@@ -1075,15 +1107,6 @@ def step_breakdown(model, xb, y=None, warmup=5, steps=10):
             "top_kernels_ms_per_step": sorted(top, reverse=True)[:12]}
 
 
-def row_chunks(a, chunks):
-    """Kernel inputs ``a`` cut into ``chunks`` equal row chunks of the
-    batch (the per-sample inputs split, the grid and weights shared)."""
-    B = a["z"].shape[0]
-    step = B // chunks
-    return [{k: (v[i:i + step] if k in ("phi", "dx", "sc", "z") else v)
-             for k, v in a.items()} for i in range(0, B, step)]
-
-
 def plain_fwd(a, chunks=1):
     """K1's plain version, over ``chunks`` row chunks of the batch."""
     return torch.cat([sd.spatial_decoder_plain(**c)
@@ -1103,19 +1126,11 @@ def time_k1(name, a, peaks, chunks=1):
     B, N = a["z"].shape[0], a["grid"].shape[0]
     H, nl = a["Wc"].shape[1], a["hw"].shape[0]
     label = f"{name} B={B} N={N}"
-    flops, nbytes = work(a)
+    flops, nbytes = work_fwd(a)
     b32, b16, by32, by16 = bounds(flops, nbytes, peaks)
-    h32 = torch.randn(B * N // chunks, H, device="cuda")
-    w32 = a["hw"]
-    lib = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        hh, ww = h32.to(dtype), w32.to(dtype)
-        # h_l W_l of every layer as bare products, in and out dtype
-        lib[dtype] = chunks * cuda_ms(lambda: [torch.matmul(hh, ww[i])
-                                               for i in range(nl)],
-                                      reps=5 if few else 20)
-        del hh, ww
-    del h32
+    # h_l W_l of every layer as bare products, in and out dtype
+    lib = {dtype: cublas_fwd_ms(B, N, H, nl, dtype, chunks)
+           for dtype in (torch.float32, torch.bfloat16)}
     rows = {}
     for on in (False, True):
         tag = "bf16" if on else "f32"
@@ -1141,10 +1156,12 @@ def time_k1(name, a, peaks, chunks=1):
             "plain_ms": p_ms, "plain_row_chunks": chunks, "max_abs_err": err,
             "bound_ms": b16 if on else b32, "bound_by": by16 if on else by32,
             "bound_ms_f32": b32, "bound_ms_bf16": b16, "library_ms": lib_ms,
+            "sfu_floor_ms": sfu_floor_ms(B, N, H, nl),
             "flops": flops, "bytes": nbytes, "tflops": flops / k_ms / 1e9}
         log(f"  {what}: kernel {k_ms:.4f} ms (back to back {q_ms:.4f} ms), "
             f"plain {p_ms:.4f} ms, bound f32 {b32:.4f} ms, bound bf16 "
-            f"{b16:.4f} ms, cuBLAS {tag} hidden products {lib_ms:.4f} ms, "
+            f"{b16:.4f} ms, SFU floor {sfu_floor_ms(B, N, H, nl):.4f} ms, "
+            f"cuBLAS {tag} hidden products {lib_ms:.4f} ms, "
             f"{flops / k_ms / 1e9:.2f} TFLOP/s, max abs err vs plain "
             f"{err:.3e}, bitwise equal across launches")
     log(f"  K1 {label}: tensor-core kernel faster than the f32 one: "
@@ -4098,6 +4115,7 @@ def main() -> int:
                 k1 = max(k1, phase_padded_model())
             k2, k3 = phase_k2_k3_vs_plain(dev)
             errs[on] = {"K1": k1, "K2": k2, "K3": k3}
+    tanh_probe = phase_tanh_probe(dev)
     if not sd.BF16_MATMUL:
         raise AssertionError("the port's default is BF16_MATMUL = True")
 
@@ -4469,7 +4487,8 @@ def main() -> int:
               max(errs[True]["K1"], *serve_errs, fam["k1_err"],
                   *shape_errs("K1", 1)),
               rows["K1", True], launches_per_request=launches,
-              request_ms=request_ms, weights_ms=weights_ms),
+              request_ms=request_ms, weights_ms=weights_ms,
+              tanh_probe=tanh_probe),
         entry("spatial_decoder_bwd_x3", bwd, k2_at, "K2",
               max(errs[False]["K2"], train32["max_err"],
                   *shape_errs("K2", 0)),

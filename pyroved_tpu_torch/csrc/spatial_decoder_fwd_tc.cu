@@ -5,20 +5,29 @@
 // package's default BF16_MATMUL = True: the operands of every hidden product
 // h_l W_l (:448, _mxu_dot) are rounded to bf16 and the products summed in
 // f32. The folded transform, h0 = tanh (the Pade tanh for tanh_approx),
-// biases, activations (exact tanhf and erff) and the head stay in f32; h_l
-// is rounded to bf16 only where it feeds a product, and the head reads the
-// last layer's f32 values. spatial_decoder_fwd.cu is the BF16_MATMUL = False
-// version and holds the formulas.
+// biases, activations and the head stay in f32; h_l is rounded to bf16 only
+// where it feeds a product, and the head reads the last layer's f32 values.
+// spatial_decoder_fwd.cu is the BF16_MATMUL = False version and holds the
+// formulas.
 //
-// What bounds it: 2 n_layers H^2 flops per pixel on the tensor cores
-// against 4 C bytes of output per pixel. At the flagship training step
-// (B = 200, N = 784, H = 128, two layers) that is 0.010 ms at the bf16 peak,
-// at the posed decode of 1024 latents 0.054 ms, at the large grid (B = 64,
-// N = 16384) 0.069 ms. The f32 work beside it (an exact tanhf or erff per
-// hidden value, the bf16 packing, the head) is several times the
-// tensor-core time, so the design is about overlapping it.
+// What bounds it: not the tensor cores (2 n_layers H^2 flops a pixel, 0.054
+// ms at the bf16 peak for the posed decode of 1024 latents) and not the
+// bytes (4 C a pixel out), but the activations' f32 work: (n_layers + 1) H
+// tanh values a pixel, each of which tanhf issues as MUFU.EX2 and MUFU.RCP
+// on the special-function units (16 a clock an SM) among about a dozen
+// other instructions. At two MUFU operations an activation the SFU alone
+// takes 0.147 ms at that shape, and the first version of this kernel
+// (tanhf, bias adds, a separate head pass) took 0.33 ms back to back.
 //
-// Design:
+// Design, around that bound:
+//  * The tanh (sm90_common.cuh, tanh_exp2): tanh(x) = 1 - 2 / (2^a + 1)
+//    with a = 2 log2(e) x, five instructions with its two MUFU operations,
+//    within 2.4e-7 of f64 tanh over every f32 input. The scale 2 log2(e)
+//    is folded into what makes a: into the per-sample vectors u, v, w (so
+//    h0's argument is still two FMAs) and into the biases (a hidden
+//    layer's argument is one FMA of its accumulator, which replaces the
+//    bias add). Other activations keep act_fn after the bias add; h0 is
+//    the new tanh for every activation but tanh_approx.
 //  * Tensor cores. A tile is R pixels of one sample (64 at H = 128, 32 at
 //    H = 256). Pixels are the N side of each product and the hidden units
 //    fill wgmma's M = 64: pre^T [H, R] = W_l^T h_l^T, both operands from
@@ -28,13 +37,20 @@
 //    as bf16 pairs, without bank conflicts, in place of h_{l-1}.
 //  * One warpgroup, one tile. A block holds up to four warpgroups that
 //    share the weights and nothing else: each runs its own tiles with its
-//    own named barrier, so one warpgroup's epilogue (bias, tanhf, bf16
-//    packing, head) overlaps another's wgmma. Every epilogue is unrolled
-//    over the thread's accumulator entries with the activation a template
-//    argument, so it holds no branch; the head is a pass of its own. Each
-//    layer's wgmma run from one fence to one wait with no other
-//    instruction touching the accumulators in between, so ptxas keeps them
-//    pipelined.
+//    own named barrier, so one warpgroup's epilogue overlaps another's
+//    wgmma, and the four keep the SFU and the issue slots of every SM
+//    quadrant busy. Every epilogue is unrolled over the thread's
+//    accumulator entries with the activation a template argument, so it
+//    holds no branch. Each layer's wgmma run from one fence to one wait
+//    with no other instruction touching the accumulators in between, so
+//    ptxas keeps them pipelined.
+//  * The head at C = 1 (every main path): each activated f32 value of the
+//    last layer is multiplied into the thread's head partials as it is
+//    made, inside the SFU-bound epilogue; C > 1 takes a pass of its own.
+//    Then over the 8 lanes that share a pixel by three halving exchanges
+//    (each lane keeps half of the sums it holds and trades the other half),
+//    then over the 4 warps in shared memory, all in f32 and in a fixed
+//    order.
 //  * One persistent launch. The grid is as many blocks as fit on the card
 //    at once (at most one per warpgroups' worth of tiles); warpgroup g of W
 //    takes the contiguous run [g T / W, (g + 1) T / W) of the flat (sample,
@@ -42,17 +58,16 @@
 //    the sample changes, and it loads the next tile's coordinates into
 //    shared memory during the head. No prep kernel, no workspace, no
 //    atomics: each output is one thread's fixed-order sum, and a second
-//    launch on the same inputs is bitwise equal.
+//    launch on the same inputs is bitwise equal. The launch plan
+//    (warpgroups, shared memory, blocks an SM) is worked out once per
+//    device, width, activation, depth and channel count, so a call makes
+//    no occupancy query.
 //  * Weights rounded to bf16 once per block. At H = 128 each block rounds
 //    every layer's weights into shared memory once, as 64-unit panels
 //    (64 x H, MN-major): up to six layers fit beside a warpgroup, five
 //    beside two. At H = 256 (128 KB a layer) each warpgroup streams one
 //    panel per product through two slots: it rounds the next product's
 //    panel into the free slot while the tensor cores run the current one.
-//  * Head: per thread over its units, then over the 8 lanes that share a
-//    pixel by three halving exchanges (each lane keeps half of the sums it
-//    holds and trades the other half), then over the 4 warps in shared
-//    memory, all in f32.
 //  * Ragged tiles: pixels past N get zero coordinates and are never stored.
 //    The output is written as [B, N, C] ([B, N] when C = 1), coalesced.
 //
@@ -66,9 +81,15 @@
 //    four warpgroups at the flagship. At H = 256: two 32 KB panel slots and
 //    a 16 KB level a warpgroup, two warpgroups.
 // Nothing is allocated here and nothing synchronises with the host.
+//
+// pvt_sdec_fwd_tc_tanh applies the kernel's tanh to a buffer: chip_smoke.py
+// holds it to f64 tanh over every f32 input.
 
 #include <atomic>
 #include <climits>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 // sm90_common.cuh also holds the phase marks of the tile loop
 // (PVT_PROFILE_PHASES, pyroved_tpu_torch/tools/profile_fwd_tc.py).
@@ -130,10 +151,34 @@ struct KArgs {
   int B, N, D, L, nl, C, sigmoid_out, n_tiles;
 };
 
+// h0 from the coordinates and the sample's u, v, w, which hold
+// 2 log2(e) times the folded vectors for the new tanh (A != tanh_approx).
 template <int A>
-__device__ __forceinline__ float h0_act(float x) {
-  if constexpr (A == ACT_TANH_APPROX) return pade_tanh(x);
-  else return tanhf(x);
+__device__ __forceinline__ float h0_act(float gx, float gy, float u, float v,
+                                        float w) {
+  if constexpr (A == ACT_TANH_APPROX) return pade_tanh(gx * u + gy * v + w);
+  else return tanh_exp2(fmaf(gx, u, fmaf(gy, v, w)));
+}
+
+// A hidden layer's activation from its accumulator and its bias
+// bk: under tanh bk holds 2 log2(e) b, and one FMA makes the tanh's
+// argument; other activations add the bias.
+template <int A>
+__device__ __forceinline__ float hidden_act(float acc, float bk) {
+  if constexpr (A == ACT_TANH) return tanh_exp2(fmaf(acc, kTwoLog2e, bk));
+  else return act_fn<A>(acc + bk);
+}
+
+// The scale of the biases and of u, v, w in shared memory: 2 log2(e)
+// where the new tanh reads them.
+template <int A>
+__device__ constexpr float bias_scale() {
+  return A == ACT_TANH ? kTwoLog2e : 1.0f;
+}
+
+template <int A>
+__device__ constexpr float h0_scale() {
+  return A == ACT_TANH_APPROX ? 1.0f : kTwoLog2e;
 }
 
 // Rounds n_panels 64-unit panels of hw [nl, H, H] (input-major) to bf16,
@@ -240,9 +285,25 @@ sdec_fwd_tc_kernel(const KArgs a) {
   const uint32_t lv_addr = smem_addr(lv);
   // accumulator entry (slab s, value v) of this thread: unit m, pixel n
   auto row_of = [&](int s, int hh) { return 64 * s + 16 * wi + gq + 8 * hh; };
+  // the head's partial dots p[2 j + e] of this thread's units for pixel
+  // 8 j + 2 tq + e, channel c, summed over the 8 lanes that share a pixel
+  // by three halving exchanges and stored for the sum over the 4 warps
+  const int gr = ((gq & 1) << 2) | (gq & 2) | (gq >> 2);  // gq reversed
+  auto fold_store = [&](float(&p)[NP], int c) {
+    fold_half<NP>(p, 4, lane);
+    fold_half<NP / 2>(p, 8, lane);
+    fold_half<NP / 4>(p, 16, lane);
+#pragma unroll
+    for (int k = 0; k < NP / 8; ++k) {  // entry k + NP / 8 gr of p
+      const int i = k + NP / 8 * gr;
+      headp[(wi * R + 8 * (i >> 1) + 2 * tq + (i & 1)) * C + c] = p[k];
+    }
+  };
 
-  // -- once per block: biases, head, resident weights in bf16
-  for (int i = tid; i < nl * H; i += blockDim.x) hb_s[i] = a.hb[i];
+  // -- once per block: biases (scaled for tanh), head, resident weights in
+  //    bf16
+  for (int i = tid; i < nl * H; i += blockDim.x)
+    hb_s[i] = bias_scale<A>() * a.hb[i];
   for (int i = tid; i < H * C; i += blockDim.x) wout_s[i] = a.wout[i];
   if (tid < kMaxC) bout_s[tid] = tid < C ? a.bout[tid] : 0.0f;
   if constexpr (!STREAM)
@@ -287,14 +348,15 @@ sdec_fwd_tc_kernel(const KArgs a) {
         float wzl = 0.0f;
         for (int l = 0; l < a.L; ++l)
           wzl += a.z[(size_t)b * a.L + l] * a.wz[l * H + h];
-        wv[h] = w + wzl;
+        constexpr float k = h0_scale<A>();
+        wv[h] = k * (w + wzl);
         const float a0 = a.wc[h];
         if (a.D == 2) {
           const float a1 = a.wc[H + h];
-          us[h] = scale * (cph * a0 + sph * a1);
-          vs[h] = scale * (-sph * a0 + cph * a1);
+          us[h] = k * (scale * (cph * a0 + sph * a1));
+          vs[h] = k * (scale * (-sph * a0 + cph * a1));
         } else {
-          us[h] = a0;
+          us[h] = k * a0;
           vs[h] = 0.0f;
         }
       }
@@ -324,9 +386,11 @@ sdec_fwd_tc_kernel(const KArgs a) {
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              acc[s][4 * j + 2 * hh + e] = h0_act<A>(
-                  gx[e] * u2[s][hh] + gy[e] * v2[s][hh] + w2[s][hh]);
+            for (int e = 0; e < 2; ++e) {
+              const int v = 4 * j + 2 * hh + e;
+              acc[s][v] = h0_act<A>(gx[e], gy[e], u2[s][hh], v2[s][hh],
+                                    w2[s][hh]);
+            }
       }
     }
     if (nl > 0) {
@@ -345,7 +409,8 @@ sdec_fwd_tc_kernel(const KArgs a) {
 
     PHASE_MARK(2);
     // -- hidden layers: pre^T = W_l^T h_l^T on the tensor cores (phase 3),
-    //    then bias and activation (phase 4)
+    //    then bias and activation (phase 4), at C = 1 with the head's dots
+    //    in the last layer's
     for (int l = 0; l < nl; ++l) {
       if constexpr (!STREAM) {
         wgmma_fence();
@@ -397,49 +462,65 @@ sdec_fwd_tc_kernel(const KArgs a) {
             for (int hh = 0; hh < 2; ++hh) {
               const int v = 4 * j + 2 * hh;
               store_pair(lv + tiled(row_of(s, hh), 8 * j + 2 * tq, RSH),
-                         act_fn<A>(acc[s][v] + bias[s][hh]),
-                         act_fn<A>(acc[s][v + 1] + bias[s][hh]));
+                         hidden_act<A>(acc[s][v], bias[s][hh]),
+                         hidden_act<A>(acc[s][v + 1], bias[s][hh]));
             }
         fence_async_smem();
         wg_barrier(wg);
+      } else if (C == 1) {  // h_L = act(pre) into the head's dots, in f32
+        float wo[SPW][2], p[NP];
+#pragma unroll
+        for (int s = 0; s < SPW; ++s)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) wo[s][hh] = wout_s[row_of(s, hh)];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) p[i] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < SPW; ++s)
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int v = 4 * j + 2 * hh + e;
+                p[2 * j + e] += hidden_act<A>(acc[s][v], bias[s][hh]) *
+                                wo[s][hh];
+              }
+        fold_store(p, 0);
       } else {  // h_L = act(pre) stays in f32 for the head
 #pragma unroll
         for (int s = 0; s < SPW; ++s)
 #pragma unroll
           for (int v = 0; v < NV; ++v)
-            acc[s][v] = act_fn<A>(acc[s][v] + bias[s][(v >> 1) & 1]);
+            acc[s][v] = hidden_act<A>(acc[s][v], bias[s][(v >> 1) & 1]);
       }
       PHASE_MARK(4);
     }
 
-    // -- head dots sum_m h_L[m][n] wout[m][c] in f32: each thread over its
-    //    units, then the 8 lanes that share a pixel by three halving
-    //    exchanges, then the 4 warps; the next tile's coordinates meanwhile
+    // -- head dots sum_m h_L[m][n] wout[m][c] in f32 where the last
+    //    epilogue did not make them (C > 1, or no hidden layer): each
+    //    thread over its units, then fold_store; the next tile's
+    //    coordinates meanwhile
     if (t + 1 < t_end) load_coords<R>(gs, a, t + 1, wtid);
-    const int gr = ((gq & 1) << 2) | (gq & 2) | (gq >> 2);  // gq reversed
-    for (int c = 0; c < C; ++c) {
-      float wo[SPW][2];
-#pragma unroll
-      for (int s = 0; s < SPW; ++s)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) wo[s][hh] = wout_s[row_of(s, hh) * C + c];
-      float p[NP];  // p[2 j + e]: pixel 8 j + 2 tq + e
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        p[i] = 0.0f;
+    if (C > 1 || nl == 0) {
+      for (int c = 0; c < C; ++c) {
+        float wo[SPW][2], p[NP];
 #pragma unroll
         for (int s = 0; s < SPW; ++s)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
-            p[i] += acc[s][4 * (i >> 1) + 2 * hh + (i & 1)] * wo[s][hh];
-      }
-      fold_half<NP>(p, 4, lane);
-      fold_half<NP / 2>(p, 8, lane);
-      fold_half<NP / 4>(p, 16, lane);
+            wo[s][hh] = wout_s[row_of(s, hh) * C + c];
 #pragma unroll
-      for (int k = 0; k < NP / 8; ++k) {  // entry k + NP / 8 gr of p
-        const int i = k + NP / 8 * gr;
-        headp[(wi * R + 8 * (i >> 1) + 2 * tq + (i & 1)) * C + c] = p[k];
+        for (int i = 0; i < NP; ++i) {
+          p[i] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < SPW; ++s)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              p[i] += acc[s][4 * (i >> 1) + 2 * hh + (i & 1)] * wo[s][hh];
+        }
+        fold_store(p, c);
       }
     }
     wg_barrier(wg);
@@ -459,6 +540,14 @@ sdec_fwd_tc_kernel(const KArgs a) {
   }
 }
 
+// The kernel's tanh applied to x[0 .. n): a = 2 log2(e) x, then tanh_exp2.
+__global__ void tanh_probe_kernel(const float* __restrict__ x,
+                                  float* __restrict__ y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    y[i] = tanh_exp2(x[i] * kTwoLog2e);
+}
+
 // Opt every instance into the device's largest dynamic shared memory once
 // per device: the attribute stays set, and each launch asks for less.
 template <int H, int A>
@@ -474,10 +563,10 @@ cudaError_t allow_smem(int dev, int bytes) {
 }
 
 // The card's shared memory a block can opt into and its SM count, read
-// once per device.
+// once per device (the current one where *dev < 0).
 cudaError_t device_limits(int* dev, int* optin, int* sms) {
   static std::atomic<int> cached[kMaxDevices][2];
-  cudaError_t err = cudaGetDevice(dev);
+  cudaError_t err = *dev < 0 ? cudaGetDevice(dev) : cudaSuccess;
   if (err != cudaSuccess) return err;
   const bool known = *dev >= 0 && *dev < kMaxDevices;
   if (known && cached[*dev][1].load(std::memory_order_acquire) > 0) {
@@ -496,14 +585,28 @@ cudaError_t device_limits(int* dev, int* optin, int* sms) {
   return cudaSuccess;
 }
 
+// A launch's plan: warpgroups a block, its shared memory, and how many
+// blocks fit on the card at once.
+struct Plan {
+  int wgs, smem, resident;
+};
+
+// The plan of instance <H, A> for nl layers and C channels on device dev,
+// worked out on the first call with them (the occupancy query) and kept.
 template <int H, int A>
-cudaError_t launch(const float* grid, const float* phi, const float* dx,
-                   const float* sc, const float* z, const float* wc,
-                   const float* bc, const float* wz, const float* hw,
-                   const float* hb, const float* wout, const float* bout,
-                   float* out, int B, int N, int D, int L, int nl, int C,
-                   int sigmoid_out, cudaStream_t stream) {
-  int dev = 0, optin = 0, sms = 0;
+cudaError_t launch_plan(int dev, int nl, int C, Plan* plan) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, Plan> plans;
+  const auto key = std::make_tuple(dev, nl, C);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = plans.find(key);
+    if (it != plans.end()) {
+      *plan = it->second;
+      return cudaSuccess;
+    }
+  }
+  int optin = 0, sms = 0;
   cudaError_t err = device_limits(&dev, &optin, &sms);
   if (err != cudaSuccess) return err;
   // as many warpgroups as fit, up to kMaxWG
@@ -518,12 +621,31 @@ cudaError_t launch(const float* grid, const float* phi, const float* dx,
       &per_sm, sdec_fwd_tc_kernel<H, A>, 128 * wgs, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *plan = Plan{wgs, smem, per_sm * sms};
+  std::lock_guard<std::mutex> lock(mu);
+  plans.emplace(key, *plan);
+  return cudaSuccess;
+}
+
+template <int H, int A>
+cudaError_t launch(const float* grid, const float* phi, const float* dx,
+                   const float* sc, const float* z, const float* wc,
+                   const float* bc, const float* wz, const float* hw,
+                   const float* hb, const float* wout, const float* bout,
+                   float* out, int B, int N, int D, int L, int nl, int C,
+                   int sigmoid_out, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  Plan plan;
+  err = launch_plan<H, A>(dev, nl, C, &plan);
+  if (err != cudaSuccess) return err;
+  const int wgs = plan.wgs, smem = plan.smem;
   const int R = tile_rows(H);
   const int n_tiles = (N + R - 1) / R;
   const long long total = (long long)B * n_tiles;
   const long long want = (total + wgs - 1) / wgs;
-  const long long fit = (long long)per_sm * sms;
-  const int blocks = (int)(want < fit ? want : fit);
+  const int blocks = (int)(want < plan.resident ? want : plan.resident);
   const KArgs k{grid, phi, dx, sc, z, wc, bc, wz, hw, hb, wout, bout, out,
                 B, N, D, L, nl, C, sigmoid_out, n_tiles};
   sdec_fwd_tc_kernel<H, A><<<blocks, 128 * wgs, smem, stream>>>(k);
@@ -598,11 +720,23 @@ extern "C" int pvt_sdec_fwd_tc(const float* grid, const float* phi,
 // channel count it does not take, or when the device cannot be read.
 extern "C" int pvt_sdec_fwd_tc_max_layers(int H, int C) {
   if ((H != 128 && H != 256) || C < 1 || C > kMaxC) return -1;
-  int dev = 0, optin = 0, sms = 0;
+  int dev = -1, optin = 0, sms = 0;
   if (device_limits(&dev, &optin, &sms) != cudaSuccess) return -1;
   int nl = -1;
   while (smem_bytes(H, nl + 1, C, 1) <= (size_t)optin) ++nl;
   return nl;
+}
+
+// The kernel's tanh of n floats x into y on `stream`. Returns the launch's
+// cudaError_t.
+extern "C" int pvt_sdec_fwd_tc_tanh(const float* x, float* y, long long n,
+                                    void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const long long want = (n + 255) / 256;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  tanh_probe_kernel<<<blocks, 256, 0, s>>>(x, y, n);
+  return (int)cudaGetLastError();
 }
 
 PVT_PHASE_READER(pvt_sdec_fwd_tc_phase_cycles)

@@ -50,6 +50,7 @@ The JAX package's tile selection, per-TPU tunings and size thresholds were
 measured on a TPU and have no counterpart here: the kernels pick their own
 tiles, and a supported configuration always runs them.
 """
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -145,6 +146,29 @@ def _pade_tanh(x: Tensor) -> Tensor:
     num = x * (135135.0 + x2 * (17325.0 + x2 * (378.0 + x2)))
     den = 135135.0 + x2 * (62370.0 + x2 * (3150.0 + 28.0 * x2))
     return num / den
+
+
+#: The tensor-core K1's tanh (``csrc/sm90_common.cuh``, ``tanh_exp2``):
+#: tanh(x) = 1 - 2 / (2^a + 1) with a = TWO_LOG2E x in f32, 2^a from the
+#: special-function unit. Within 2.5e-7 of f64 tanh: the card's over every
+#: f32 input (``chip_smoke.py``'s probe), the mirror below over the CPU
+#: tests' sweep.
+TWO_LOG2E = float.fromhex("0x1.715476p+1")
+
+
+def _fma32(a: Tensor, b, c) -> Tensor:
+    """fma(a, b, c) of f32 values, rounded once to f32 (through f64, whose
+    53 bits hold the product exactly)."""
+    return (a.double() * b + c).float()
+
+
+def tanh_exp2_plain(x: Tensor) -> Tensor:
+    """The kernel's tanh of f32 ``x`` (``tanh_exp2`` on a = TWO_LOG2E x)
+    in f32 steps, 2^a and the reciprocal correctly rounded where the
+    card's are approximate: for the tests; the port's plain versions use
+    torch.tanh."""
+    e = torch.exp2(x.float() * TWO_LOG2E)
+    return _fma32(torch.reciprocal(e + 1.0), -2.0, 1.0)
 
 
 def _act(name: str, x: Tensor) -> Tensor:
@@ -399,6 +423,29 @@ def _bind_bwd(lib, prefix: str):
     return plan, run
 
 
+def fwd_tc_tanh(x: Tensor) -> Tensor:
+    """The tensor-core K1's tanh of the contiguous f32 tensor ``x``. On a
+    CUDA tensor it launches the source's probe kernel
+    (``pvt_sdec_fwd_tc_tanh``) on the current stream, on a CPU tensor it is
+    :func:`tanh_exp2_plain`. ``chip_smoke.py`` holds the card's to f64
+    tanh."""
+    if x.device.type == "cpu":
+        return tanh_exp2_plain(x)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 tensor")
+    f = _build.load(FWD_SOURCES[True]).pvt_sdec_fwd_tc_tanh
+    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = f(x.data_ptr(), y.data_ptr(), x.numel(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the tanh probe's launch failed: CUDA error {err}")
+    return y
+
+
 def _bwd_kernel(bf16: bool):
     """(plan, launch) of K2/K3's source for the flag value ``bf16``
     (:data:`BWD_SOURCES`)."""
@@ -409,6 +456,12 @@ def _bwd_kernel(bf16: bool):
 
 
 def _check(name: str, t: Tensor, shape: Tuple[int, ...], device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device``: one combined test lets a valid tensor through (every decode
+    pays it), the tests after it name the fault."""
+    if (t.device == device and t.dtype == torch.float32 and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -424,8 +477,9 @@ def _kernel_dims(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout,
     """(B, N, D, L, H, nl, C) of decoder inputs on a CUDA device that the
     kernels take, or raise: H 128 or 256, D 1 or 2, C 1..4, float32,
     contiguous, hw 16-byte aligned."""
-    if grid.device.type != "cuda":
-        raise ValueError(f"no spatial-decoder kernel for {grid.device}")
+    dev = grid.device
+    if dev.type != "cuda":
+        raise ValueError(f"no spatial-decoder kernel for {dev}")
     N, D = grid.shape
     B, L = z.shape
     H = Wc.shape[1]
@@ -439,7 +493,6 @@ def _kernel_dims(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout,
                          f"D={D}, C={C}")
     if act not in _ACT_CODE:
         raise ValueError(f"kernel has no activation {act!r}")
-    dev = grid.device
     for name, t, shape in (
             ("grid", grid, (N, D)), ("phi", phi, (B,)), ("dx", dx, (B, D)),
             ("sc", sc, (B,)), ("z", z, (B, L)), ("Wc", Wc, (D, H)),
@@ -449,6 +502,12 @@ def _kernel_dims(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb, wout, bout,
     if hw.data_ptr() % 16:  # the kernels stage weights as float4
         raise ValueError("hw must be 16-byte aligned")
     return B, N, D, L, H, nl, C
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a pointer, without
+    the Python Stream object ``torch.cuda.current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
@@ -478,23 +537,26 @@ def fused_spatial_decoder_forward(grid, phi, dx, sc, z, Wc, bc, Wz, hw, hb,
                            "under torch.no_grad()")
     bf16 = BF16_MATMUL
     dev = grid.device
-    if bf16 and nl > fwd_tc_max_layers(H, C, dev):
-        raise ValueError(f"the tensor-core forward kernel takes at most "
-                         f"{fwd_tc_max_layers(H, C, dev)} hidden layers at "
-                         f"width {H} with {C} channels, got {nl}")
+    if bf16:
+        limit = _fwd_tc_max_layers(H, C, dev.index)
+        if nl > limit:
+            raise ValueError(f"the tensor-core forward kernel takes at most "
+                             f"{limit} hidden layers at width {H} with {C} "
+                             f"channels, got {nl}")
     out = torch.empty((B, N, C) if C > 1 else (B, N), device=dev,
                       dtype=torch.float32)
     if B == 0 or N == 0:  # nothing to launch
         return out
     fn = _fwd_kernel(bf16)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # the launch's device is the current one: switch only when it is not
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         err = fn(grid.data_ptr(), phi.data_ptr(), dx.data_ptr(),
                  sc.data_ptr(), z.data_ptr(), Wc.data_ptr(), bc.data_ptr(),
                  Wz.data_ptr(), hw.data_ptr(), hb.data_ptr(),
                  wout.data_ptr(), bout.data_ptr(), out.data_ptr(),
                  B, N, D, L, H, nl, C, _ACT_CODE[act], int(bool(sigmoid_out)),
-                 int(bf16), stream)
+                 int(bf16), _raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"spatial-decoder kernel launch failed: CUDA error "
                            f"{err}")

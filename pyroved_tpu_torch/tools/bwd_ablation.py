@@ -28,7 +28,6 @@ without a Hopper card.
 """
 import argparse
 import json
-import os
 import re
 import sys
 import time
@@ -39,8 +38,8 @@ import torch
 from ..ops import bwd_ablation as ab
 from ..ops import spatial_decoder as sd
 from ..ops import _build
-from .measure import (bf16_matmul, card_info, card_peaks, cuda_ms, sass,
-                      sass_counts, usage)
+from .measure import (bf16_matmul, card_info, card_peaks, cuda_ms,
+                      same_machine_code, sass_counts, usage)
 
 CHAIN_LEN = 200
 
@@ -227,18 +226,6 @@ def attribution(t):
             for name, us, extra, meaning in rows]
 
 
-def same_machine_code(base_dir):
-    """{source: True/False} for the two production K2/K3 sources: whether
-    the build of ``base_dir``'s copy has the port's machine code, function
-    by function."""
-    out = {}
-    for name in sd.BWD_SOURCES.values():
-        old = sass(os.path.join(os.path.abspath(base_dir), name + ".cu"))
-        new = sass(os.path.join(_build.CSRC, name + ".cu"))
-        out[name] = old == new
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", type=int, default=200)
@@ -263,10 +250,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     peaks = card_peaks(card)
     if args.baseline:
-        same = same_machine_code(args.baseline)
+        same = same_machine_code(args.baseline, [
+            (n, ()) for n in sd.BWD_SOURCES.values()])
         print(f"production machine code equal to {args.baseline}'s: "
               f"{json.dumps(same)}", flush=True)
-        changed = [n for n in args.same if not same[n]]
+        changed = [n for n in args.same if not same[n]["same"]]
         if changed:
             raise AssertionError(f"the machine code of {changed} changed")
     bf16 = not args.f32

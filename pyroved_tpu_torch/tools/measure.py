@@ -24,6 +24,10 @@ from ..ops import spatial_decoder as sd
 # HBM bandwidth. Other cards have no row: their bounds would be wrong.
 H100_SXM = "H100 80GB HBM3"
 PEAKS = (67e12, 989e12, 3.35e12)  # (f32 flop/s, bf16 flop/s, bytes/s)
+# The same card's special-function units: 16 MUFU operations a clock an SM
+# (CUDA's throughput table, compute capability 9.0), 132 SMs, at the
+# 1.98 GHz boost clock.
+SFU_OPS = 16 * 132 * 1.98e9  # MUFU operations a second
 
 
 def card_peaks(name):
@@ -134,6 +138,23 @@ def random_case(rng, dev, D, C, H, B, N, L, nl):
                 wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
 
 
+def row_chunks(a, chunks):
+    """Kernel inputs ``a`` cut into ``chunks`` equal row chunks of the
+    batch (the per-sample inputs split, the grid and weights shared)."""
+    B = a["z"].shape[0]
+    step = B // chunks
+    return [{k: (v[i:i + step] if k in ("phi", "dx", "sc", "z") else v)
+             for k, v in a.items()} for i in range(0, B, step)]
+
+
+def sfu_floor_ms(B, N, H, nl, mufu=2):
+    """The least time of K1's activations on the special-function units,
+    ms: h0 and nl hidden layers of width H for B N pixels, ``mufu``
+    operations each (tanhf and the tensor-core K1's tanh_exp2: MUFU.EX2 and
+    MUFU.RCP), at :data:`SFU_OPS`."""
+    return 1e3 * B * N * (nl + 1) * H * mufu / SFU_OPS
+
+
 def k2_inputs(B, N, L, seed, H=128):
     """K2's and K3's random inputs at one shape (two tanh layers of width
     ``H``): the decoder's inputs, a cotangent, observations and weights."""
@@ -143,6 +164,20 @@ def k2_inputs(B, N, L, seed, H=128):
     x = torch.rand(B, N, generator=gen, device="cuda")
     w = torch.rand(B, generator=gen, device="cuda")
     return a, g, x, w
+
+
+def work_fwd(a):
+    """(flops, bytes) one K1 call needs: per pixel the coordinate layer,
+    nl H x H layers and the head; every input read once, the output written
+    once."""
+    N, D = a["grid"].shape
+    B = a["z"].shape[0]
+    H = a["Wc"].shape[1]
+    nl = a["hw"].shape[0]
+    C = a["wout"].shape[1]
+    flops = B * N * (2 * D * H + nl * 2 * H * H + 2 * C * H)
+    nbytes = 4 * (sum(t.numel() for t in a.values()) + B * N * C)
+    return flops, nbytes
 
 
 def work_bwd(a, loss_mode=False):
@@ -189,6 +224,17 @@ def cublas_ms(B, N, H=128, dtype=torch.float32, chunks=1, nl=2):
             torch.matmul(d, w[i].T)
 
     return chunks * cuda_ms(products, reps=5 if chunks > 1 else 20)
+
+
+def cublas_fwd_ms(B, N, H=128, nl=2, dtype=torch.bfloat16, chunks=1):
+    """cuBLAS's time for the bare products of one K1 call's hidden layers:
+    h W_l for each of ``nl`` layers of width ``H`` on B N rows, operands
+    and output in ``dtype``, over ``chunks`` row chunks."""
+    h = torch.randn(B * N // chunks, H, device="cuda").to(dtype)
+    w = torch.randn(nl, H, H, device="cuda").to(dtype)
+    return chunks * cuda_ms(lambda: [torch.matmul(h, w[i])
+                                     for i in range(nl)],
+                            reps=5 if chunks > 1 else 20)
 
 
 def start_build(path, defines=()):
@@ -291,11 +337,11 @@ def per_tile(cycles, names, tiles):
     return out
 
 
-#: The main kernels of the two K2/K3 sources, by their mangled names.
-BWD_KERNELS = r"sdec_bwd_(?:tc|x3)_kernel"
+#: The main kernels of the K1 and K2/K3 sources, by their mangled names.
+MAIN_KERNELS = r"sdec_(?:fwd|bwd)_(?:tc|x3)_kernel"
 
 
-def usage(log, kernels=BWD_KERNELS):
+def usage(log, kernels=MAIN_KERNELS):
     """{main kernel: its registers and spills, and how many times ptxas
     noted each wgmma diagnostic in it (C7519: a warpgroup.arrive injected
     to touch registers of an in-flight wgmma; C7520: wgmma serialised)}
@@ -330,14 +376,14 @@ def cuobjdump(path):
 
 #: SASS instructions :func:`sass_counts` counts
 SASS_OPS = ("CALL", "LDL", "STL", "BAR", "HGMMA", "WARPGROUP.ARRIVE",
-            "WARPGROUP.DEPBAR")
+            "WARPGROUP.DEPBAR", "MUFU", "FFMA")
 
 
-def sass_counts(path, kernels=BWD_KERNELS):
+def sass_counts(path, kernels=MAIN_KERNELS):
     """{main kernel: {op: count, "all": instructions}} of the library at
     ``path``: calls, local-memory loads and stores (spills), barriers,
-    wgmma and its fences and waits, in each kernel whose name matches
-    ``kernels``."""
+    wgmma and its fences and waits, special-function and FMA instructions,
+    in each kernel whose name matches ``kernels``."""
     out, cur = {}, None
     for ln in cuobjdump(path).splitlines():
         if "Function :" in ln:
@@ -357,21 +403,76 @@ def sass_counts(path, kernels=BWD_KERNELS):
     return out
 
 
-def sass(path):
-    """{function: instructions} of ``path`` compiled to a cubin as the port
-    builds it, the anonymous namespace's hash left out of the names."""
+def sass_all(items):
+    """[{function: instructions}] of each ``(path, defines)`` of ``items``
+    compiled to a cubin as the port builds it (one ``nvcc`` each, all
+    started together), the anonymous namespace's hash left out of the
+    names."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cubin = os.path.join(_build.BUILD_DIR, "sass-" + hashlib.sha256(
-        path.encode()).hexdigest()[:16] + ".cubin")
-    cmd = [c for c in _build.nvcc_command(path, cubin)
-           if c not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
-    subprocess.run(cmd + ["-cubin"], check=True, capture_output=True)
-    out, cur = {}, None
-    for ln in cuobjdump(cubin).splitlines():
-        if "Function :" in ln:
-            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "",
-                         ln.split(":", 1)[1].strip())
-            out[cur] = []
-        elif cur is not None and ln.strip():
-            out[cur].append(ln.strip())
-    return out
+    procs = []
+    for path, defines in items:
+        cubin = os.path.join(_build.BUILD_DIR, "sass-" + hashlib.sha256(
+            "\0".join((path,) + tuple(defines)).encode()).hexdigest()[:16]
+            + ".cubin")
+        cmd = [c for c in _build.nvcc_command(path, cubin, defines)
+               if c not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+        procs.append((cubin, subprocess.Popen(
+            cmd + ["-cubin"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    outs = []
+    for cubin, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({cubin}):\n{log}")
+        out, cur = {}, None
+        for ln in cuobjdump(cubin).splitlines():
+            if "Function :" in ln:
+                cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "",
+                             ln.split(":", 1)[1].strip())
+                out[cur] = []
+            elif cur is not None and ln.strip():
+                out[cur].append(ln.strip())
+        outs.append(out)
+    return outs
+
+
+def first_difference(old, new):
+    """[line, baseline's, port's] at the first line where two functions'
+    SASS listings differ (None past the shorter one's end), or None."""
+    for i in range(max(len(old), len(new))):
+        a = old[i] if i < len(old) else None
+        b = new[i] if i < len(new) else None
+        if a != b:
+            return [i, a, b]
+    return None
+
+
+def same_machine_code(base_dir, builds):
+    """{build: {"same": bool, "alone": bool, "instructions": {function:
+    [baseline's, port's]}, "differs": {function: first_difference}}} for
+    each ``(name, defines)`` of ``builds``: whether ``base_dir``'s copy of
+    ``name.cu`` compiles to the port's machine code, function by function,
+    each function's instruction counts and, for a function that differs,
+    where; a build is keyed by its name and macros. All builds compile at
+    once; a build whose two sides differ there is compiled again alone,
+    one side after the other (``alone``), and that decides: with 32 builds
+    of one source at once on an H100 host, ptxas swapped the operands of a
+    few commutative FADDs in 7 of them, where builds alone all agreed."""
+    items = [(os.path.join(d, n + ".cu"), tuple(defs)) for n, defs in builds
+             for d in (os.path.abspath(base_dir), _build.CSRC)]
+    out = sass_all(items)
+    res = {}
+    for i, (n, defs) in enumerate(builds):
+        old, new = out[2 * i], out[2 * i + 1]
+        alone = old != new
+        if alone:
+            old, new = (sass_all([it])[0] for it in items[2 * i:2 * i + 2])
+        fns = sorted(set(old) | set(new))
+        res[" ".join((n,) + tuple(defs))] = {
+            "same": old == new, "alone": alone,
+            "instructions": {fn: [len(old.get(fn, ())), len(new.get(fn, ()))]
+                             for fn in fns},
+            "differs": {fn: first_difference(old.get(fn, []),
+                                             new.get(fn, []))
+                        for fn in fns if old.get(fn) != new.get(fn)}}
+    return res

@@ -1,73 +1,302 @@
-"""Profile the tensor-core K1 (``csrc/spatial_decoder_fwd_tc.cu``) on the card.
+"""Profile the tensor-core K1 (``csrc/spatial_decoder_fwd_tc.cu``) on the
+card, and hold it against an earlier version of the same source.
 
 Run from the repository root on a machine with one Hopper GPU:
 
-    python3 -m pyroved_tpu_torch.tools.profile_fwd_tc
+    python3 -m pyroved_tpu_torch.tools.profile_fwd_tc [--baseline DIR]
+        [--same]
 
-Builds the source as the port does, with ``PVT_PROFILE_PHASES`` defined
-(a ``clock64()`` mark before each ``// --`` phase of the tile loop, read by
-the first thread of each warpgroup of block 0: ``csrc/sm90_common.cuh``),
-and prints its ptxas report. Then, on random inputs of the flagship decoder
-(H=128, two tanh layers) at B = 1024 and 200 with N = 784, prints the first
-warpgroup's cycles per tile by phase.
+1. Builds the source as the port does and with ``PVT_PROFILE_PHASES`` (the
+   phase marks of ``csrc/sm90_common.cuh``, one series per warpgroup), and
+   the baseline, all together; prints each build's ptxas usage of the main
+   kernels (registers, spills, wgmma notes) and counts of their SASS (MUFU
+   and FFMA among them).
+2. Per-warpgroup cycles a tile of block 0 by phase at :data:`MARK_SHAPES`.
+3. K1 at :data:`SHAPES` (``PERF.md`` section 6's nine and H = 256) in
+   turns over the versions (baseline, port, port, baseline): one call and
+   20 back to back (CUDA events, medians); each version's outputs against
+   the plain version (phase 2's bf16 bound) and a second launch (bitwise),
+   and against each other; beside the SFU floor (:func:`measure.sfu_floor_ms`),
+   the tensor-core bound and cuBLAS's bf16 products of the same layers.
+4. Each version's wrapper: host time a call (a one-tile decode, calls
+   queued without a synchronise), and the bare C entry's.
+
+``--baseline DIR`` adds an earlier version: ``DIR/spatial_decoder_fwd_tc.cu``
+with the headers beside it, e.g. the parent commit's ``pyroved_tpu_torch``
+unpacked under ``_checkout/`` (which ``.gitignore`` lists) with ``DIR`` its
+``csrc``, built as the port builds it. Where ``DIR/../ops/spatial_decoder.py``
+exists the baseline runs through that wrapper (its host work included),
+else through the port's. ``--same`` compiles every other production
+source (both K2/K3 sources, their K4 builds, the f32 K1) from ``DIR`` and
+from the port and prints whether each has the same machine code, with its
+SASS counts and, where a function differs, its first differing lines; the
+tool then exits 1. Prints one JSON line at the end.
 """
+import argparse
+import contextlib
+import importlib.util
+import json
+import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops import bwd_ablation as ab
 from ..ops import spatial_decoder as sd
-from .measure import (bf16_matmul, bound_fwd, card_info, phase_cycles,
-                      random_case)
+from .measure import (bf16_matmul, bound_fwd, bounds, card_info, card_peaks,
+                      cublas_fwd_ms, cuda_ms, cuda_ms_queued, finish_build,
+                      per_tile, phase_cycles, random_case, row_chunks,
+                      same_machine_code, sass_counts, sfu_floor_ms,
+                      start_build, usage, work_fwd)
 
 NAME = "spatial_decoder_fwd_tc"
+PROFILE = ("PVT_PROFILE_PHASES",)
 #: What each mark of the profiled source closes, in mark order.
-PHASES = ("(loop)", "per-sample transform", "h0", "products",
-          "layer epilogues", "head dots", "logits out")
-PROFILED = ("PVT_PROFILE_PHASES",)
-SHAPES = ((1024, 784), (200, 784))
+PHASES = ("(loop)", "per-sample transform", "h0",
+          "products", "layer epilogues (C = 1: with the head's dots)",
+          "head: dots (C > 1), folds, partials", "logits out")
+#: (name, B, N, L, H): PERF.md section 6's nine K1 shapes (two tanh layers,
+#: one channel), then H = 256 at the flagship's training shape.
+SHAPES = (("B=1024", 1024, 784, 2, 128), ("B=200", 200, 784, 2, 128),
+          ("B=452", 452, 784, 2, 128), ("large grid", 64, 16384, 2, 128),
+          ("2,000 rows", 2000, 784, 12, 128), ("B=50", 50, 784, 2, 128),
+          ("600 rows", 600, 784, 12, 128),
+          ("512x512 tile", 200, 16384, 2, 128),
+          ("pixel rank", 200, 131072, 2, 128),
+          ("H=256 B=200", 200, 784, 2, 256))
+MARK_SHAPES = (SHAPES[0], SHAPES[1], SHAPES[9])
+BIG = 4_000_000  # B N above which the plain version runs in 8 row chunks
+# K1 against its plain version in bf16: chip_smoke.py's bound
+# (BF16_ATOL + BF16_OUT_REL of the largest output; why there).
+ATOL, OUT_REL = 3e-3, 2e-3
 
 
-def first_warpgroup_tiles(B, N, wgs=4, tile=64):
-    """Tiles of block 0's first warpgroup: the kernel's split of the flat
-    tile list over one block of ``wgs`` warpgroups on each SM."""
+def warpgroups(H):
+    """Warpgroups a block of the tensor-core K1 holds at two layers and
+    one channel: four at H = 128, two at H = 256 (its panel slots)."""
+    return 4 if H == 128 else 2
+
+
+def warpgroup_tiles(B, N, H, g, sms):
+    """Tiles of block 0's warpgroup g: the kernel's split of the flat tile
+    list [g T / W, (g + 1) T / W) over W warpgroups, one block an SM."""
+    tile, wgs = (64 if H == 128 else 32), warpgroups(H)
     total = B * -(-N // tile)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = min(-(-total // wgs), sms)
-    return total // (blocks * wgs)
+    w = min(-(-total // wgs), sms) * wgs
+    return (g + 1) * total // w - g * total // w
 
 
-def first_warpgroup_cycles(lib, a):
-    """{phase: cycles per tile of the first warpgroup} of one K1 call with
-    the profiled library ``lib`` bound in place of the kernel."""
-    with bound_fwd(lib, True):
+def marks(lib, a):
+    """Block 0's cycles a tile by phase, per warpgroup, in one K1 call of
+    the profiled build ``lib``."""
+    B, N, H = a["z"].shape[0], a["grid"].shape[0], a["Wc"].shape[1]
+    with bound_fwd(lib, True), bf16_matmul(True):
         cycles = phase_cycles(lib, "pvt_sdec_fwd_tc_phase_cycles",
-                              lambda: sd.fused_spatial_decoder_forward(**a))[0]
-    tiles = first_warpgroup_tiles(a["z"].shape[0], a["grid"].shape[0])
-    return {name: cycles[k] / tiles for k, name in enumerate(PHASES)}
+                              lambda: sd.fused_spatial_decoder_forward(**a))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {f"warpgroup {g}": per_tile(
+        cycles[g], PHASES, warpgroup_tiles(B, N, H, g, sms))
+        for g in range(warpgroups(H))}
 
 
-def main() -> int:
+def baseline_module(csrc):
+    """The K1 wrapper beside ``csrc`` (``csrc/../ops/spatial_decoder.py``),
+    loaded inside the port's package so that its relative imports resolve
+    to the port's modules, or None where there is none."""
+    path = os.path.join(csrc, os.pardir, "ops", "spatial_decoder.py")
+    if not os.path.isfile(path):
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "pyroved_tpu_torch.ops._baseline_spatial_decoder", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def bound(mod, lib):
+    """``lib`` bound as the bf16 K1 of the wrapper module ``mod``."""
+    saved = dict(mod._fwd_fns)
+    mod._fwd_fns[True] = mod._bind_fwd(lib, True)
+    try:
+        yield mod.fused_spatial_decoder_forward
+    finally:
+        mod._fwd_fns.clear()
+        mod._fwd_fns.update(saved)
+
+
+def plain(a, chunks):
+    """K1's plain version (bf16 products) over ``chunks`` row chunks."""
+    return torch.cat([sd.spatial_decoder_plain(**c, bf16=True)
+                      for c in row_chunks(a, chunks)])
+
+
+def compare(got, ref):
+    """'bitwise', or the largest absolute difference."""
+    return ("bitwise" if torch.equal(got, ref)
+            else (got - ref).abs().max().item())
+
+
+def times(versions, peaks):
+    """Each version's K1 times at every shape in turns; its outputs against
+    the plain version, a second launch and the port's; the floors, bounds
+    and cuBLAS's products."""
+    res = {"one_call": {}, "back_to_back": {}, "vs_plain": {},
+           "vs_port": {}, "sfu_floor_ms": {}, "bound": {}, "cublas_bf16_ms": {}}
+    order = versions + versions[::-1]
+    rng = np.random.default_rng(0)
+    with bf16_matmul(True), torch.no_grad():
+        for shape, B, N, L, H in SHAPES:
+            a = random_case(rng, "cuda", 2, 1, H, B, N, L, 2)
+            big = B * N > BIG
+            ref = plain(a, 8 if big else 1)
+            outs = {}
+            for label, mod, lib in versions:
+                with bound(mod, lib) as k1:
+                    out, again = k1(**a), k1(**a)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{label} {shape}: two launches "
+                                         f"differ")
+                err = (out - ref).abs().max().item()
+                if err > ATOL + OUT_REL * ref.abs().max().item():
+                    raise AssertionError(f"{label} {shape}: {err:.3e} from "
+                                         f"the plain version")
+                res["vs_plain"].setdefault(label, {})[shape] = err
+                outs[label] = out
+            for label in outs:
+                res["vs_port"].setdefault(label, {})[shape] = compare(
+                    outs[label], outs["port"])
+            del outs, ref, out, again
+            for label, mod, lib in order:
+                with bound(mod, lib) as k1:
+                    fn = lambda: k1(**a)  # noqa: E731
+                    res["one_call"].setdefault(label, {}).setdefault(
+                        shape, []).append(round(cuda_ms(
+                            fn, reps=5 if big else 25), 4))
+                    res["back_to_back"].setdefault(label, {}).setdefault(
+                        shape, []).append(round(cuda_ms_queued(fn), 4))
+            res["sfu_floor_ms"][shape] = round(sfu_floor_ms(B, N, H, 2), 4)
+            b = bounds(*work_fwd(a), peaks)
+            res["bound"][shape] = [round(b[1], 4), b[3]]
+            res["cublas_bf16_ms"][shape] = round(cublas_fwd_ms(
+                B, N, H, 2, torch.bfloat16, 8 if big else 1), 4)
+            print(json.dumps({shape: {k: {v: res[k][v][shape]
+                                          for v in res[k]}
+                                      for k in ("one_call", "back_to_back",
+                                                "vs_plain", "vs_port")} | {
+                k: res[k][shape] for k in ("sfu_floor_ms", "bound",
+                                           "cublas_bf16_ms")}}), flush=True)
+            del a
+            torch.cuda.synchronize()
+    return res
+
+
+def host_us(fn, n=2000):
+    """Host microseconds a call of ``fn``, ``n`` calls queued without a
+    synchronise (the device keeps up at a one-tile decode)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return round(us, 3)
+
+
+def host_times(versions):
+    """Each version's wrapper host time a call at B = 1, N = 64 (one tile),
+    and the bare C entry's (pointers and stream read once)."""
+    a = random_case(np.random.default_rng(1), "cuda", 2, 1, 128, 1, 64, 2, 2)
+    out = torch.empty(1, 64, device="cuda")
+    ptrs = [a[k].data_ptr() for k in ("grid", "phi", "dx", "sc", "z", "Wc",
+                                      "bc", "Wz", "hw", "hb", "wout", "bout")]
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    with bf16_matmul(True), torch.no_grad():
+        for label, mod, lib in versions:
+            with bound(mod, lib) as k1:
+                res[f"{label} wrapper"] = host_us(lambda: k1(**a))
+            entry = sd._bind_fwd(lib, True)
+            res[f"{label} C entry"] = host_us(lambda: entry(
+                *ptrs, out.data_ptr(), 1, 64, 2, 2, 128, 2, 1, 0, 1, 1,
+                stream))
+    return res
+
+
+def changed(same):
+    """The builds of a :func:`measure.same_machine_code` result whose
+    machine code differs from the baseline's."""
+    return [b for b, r in same.items() if not r["same"]]
+
+
+def other_builds():
+    """Every other production build: both K2/K3 sources, their K4 builds
+    and the f32 K1, as ``(name, defines)``."""
+    return ([(n, ()) for n in (*sd.BWD_SOURCES.values(), sd.FWD_SOURCES[False])]
+            + [(n, ab.defines(m)) for n in sd.BWD_SOURCES.values()
+               for m in ab.MODES])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", help="a directory holding an earlier "
+                    "spatial_decoder_fwd_tc.cu and its headers")
+    ap.add_argument("--same", action="store_true", help="compare the other "
+                    "sources' machine code with the baseline's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fwd_tc: CUDA is not available", file=sys.stderr)
         return 1
-    smi = card_info()
-    print(smi, flush=True)
-    lib = _build.load(NAME, PROFILED)
-    usage = [line.strip()
-             for line in _build.build_log(NAME, PROFILED).splitlines()
-             if "registers" in line or "spill" in line]
-    print(f"ptxas (12 instances: H 128, 256 x six activations): {usage}",
-          flush=True)
-    rng = np.random.default_rng(0)
-    with bf16_matmul(True), torch.no_grad():
-        for B, N in SHAPES:
-            phases = first_warpgroup_cycles(lib, random_case(
-                rng, "cuda", 2, 1, 128, B, N, 2, 2))
-            print(f"B={B} N={N}: cycles per tile of the first warpgroup by "
-                  f"phase {phases}; total {sum(phases.values()):.0f}",
-                  flush=True)
+    if args.same and not args.baseline:
+        ap.error("--same needs --baseline")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_info()
+    print(card, flush=True)
+    peaks = card_peaks(card)
+    base = None
+    if args.baseline:  # started first: the port's builds run beside it
+        csrc = os.path.abspath(args.baseline)
+        base = start_build(os.path.join(csrc, NAME + ".cu"))
+    builds = {"port": (), "port, profiled": PROFILE}
+    libs = dict(zip(builds, _build.load_targets(
+        [(NAME, d) for d in builds.values()])))
+    report = {"card": card, "ptxas": {}, "sass": {}, "marks": {}}
+    for label, defines in builds.items():
+        report["ptxas"][label] = usage(_build.build_log(NAME, defines))
+        report["sass"][label] = sass_counts(_build._target(NAME, defines)[1])
+    versions = [("port", sd, libs["port"])]
+    if base:
+        blib, blog = finish_build(*base)
+        report["ptxas"]["baseline"] = usage(blog)
+        report["sass"]["baseline"] = sass_counts(base[1])
+        versions.insert(0, ("baseline", baseline_module(csrc) or sd, blib))
+    for label, lines in report["ptxas"].items():
+        print(f"ptxas {label}: {json.dumps(lines)}", flush=True)
+    for label, counts in report["sass"].items():
+        print(f"sass {label}: {json.dumps(counts)}", flush=True)
+    rng = np.random.default_rng(1)
+    for shape, B, N, L, H in MARK_SHAPES:
+        report["marks"][shape] = marks(libs["port, profiled"], random_case(
+            rng, "cuda", 2, 1, H, B, N, L, 2))
+        print(f"marks {shape}: {json.dumps(report['marks'][shape])}",
+              flush=True)
+    report.update(times(versions, peaks))
+    report["host_us"] = host_times(versions)
+    print(f"host us a call: {json.dumps(report['host_us'])}", flush=True)
+    if args.same:
+        report["same"] = same_machine_code(args.baseline, other_builds())
+        print(f"same machine code: {json.dumps(report['same'])}", flush=True)
+    print(json.dumps(report), flush=True)
+    differ = changed(report.get("same", {}))
+    if differ:
+        print(f"profile_fwd_tc: the machine code of {differ} differs from "
+              f"the baseline's", file=sys.stderr)
+        return 1
     return 0
 
 

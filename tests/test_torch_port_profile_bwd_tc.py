@@ -57,7 +57,8 @@ def test_sass_counts_reads_main_kernels_ops(monkeypatch):
     out = measure.sass_counts("lib.so")
     assert out == {"ILi128ELi64ELi1EEEvNS_5KArgsE": {
         "CALL": 0, "LDL": 1, "STL": 1, "BAR": 1, "HGMMA": 1,
-        "WARPGROUP.ARRIVE": 1, "WARPGROUP.DEPBAR": 1, "all": 8}}
+        "WARPGROUP.ARRIVE": 1, "WARPGROUP.DEPBAR": 1, "MUFU": 0, "FFMA": 0,
+        "all": 8}}
 
 
 def test_per_tile_totals_the_phases_not_the_wait_counters():
