@@ -237,6 +237,39 @@ source.
    version and cuBLAS's bare products of the mode, and the attribution of
    K2's time.
 
+14. Captured epochs (``trainers/_graph.py``; run after 12, while 13's
+   builds finish): every ``fit``, ``train``, ``evaluate``, ``step`` and
+   ``run`` above on a CUDA model over resident loaders already took the
+   captured path (the first epoch of each kind eager, as the capture's
+   warm-up, the second captured and replayed; each launch check counts a
+   replay's kernels). Here, under each
+   flag, five models train 3 epochs captured and 3 on the eager loop
+   (``CAPTURE`` cleared), through ``step``: the flagship (10,000 blob
+   images at batch 200, with a 1,000-image held-out loss), the flagship
+   with ``one_pass_train``, the enumerated jiVAE of
+   ``benchmarks/enum_bench.py:31-46`` (2,000 uniform images, K = 10), the
+   ssiVAE of phase 7 through ``auxSVItrainer`` (its labeled-set metric
+   each epoch) and the large grid of ``bench.py:99-120`` (1,024 blobs at
+   128x128, batch 64): parameters, buffers, every step's loss, the
+   history, the optimizers' states and the noise generator's state bitwise
+   equal, and one K1 and one K2 a decode (one K3 under one_pass_train)
+   each way. Then each model's steady training epochs each way: steps/s,
+   wall and device time a step, the idle share, a profiled replayed
+   epoch's K1 or K2 kernels (as many as the counters say) and its CUDA API
+   calls (at most one ``cudaGraphLaunch``), the capture's time, its pool's
+   memory and the peak memory. Under each flag a resume after a captured
+   epoch bitwise equal to the uninterrupted run. At the flagship (bf16),
+   programs made again when their key changes: a fresh DataLoader each
+   epoch, and the learning rate changed each epoch (as a scheduler writes
+   it), each captured and eager bitwise equal, one program held (the
+   replaced ones freed, their graphs and pools with them), each epoch
+   timed; K2's workspaces during a capture found in the graph's private
+   pool (``torch.cuda.memory_snapshot``);
+   ``run(loader, 20)``, bench.py's window, at the
+   flagship captured and eager (final losses bitwise equal, times); the
+   im2spec VED 2 epochs captured and eager, bitwise equal under cuDNN's
+   deterministic algorithms (with its default ones the gaps are printed).
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -1003,7 +1036,8 @@ def phase_training(module_run=None):
         ld = init_dataloader(X, batch_size=200)
         w = torch.ones(200, device="cuda")
         step = host_ms(lambda: tr.train_step((xb,), w), reps=30, warmup=5)
-        tr.train(ld)  # warm
+        for _ in range(2):  # the warm-up, then the capture (CUDA graphs)
+            tr.train(ld)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.train(ld)
@@ -1870,19 +1904,24 @@ def device_busy_ms(fn):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and "#" not in ev.name)
+    spans = [(ev.time_range.start, ev.time_range.end)
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "#" not in ev.name]
+    return busy_us(spans) / 1e3, wall
+
+
+def busy_us(spans):
+    """The length of the union of the (start, end) intervals ``spans``."""
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, -1.0
-    for a, b in spans:
+    for a, b in sorted(spans):
         if b <= end:
             continue
         busy += b - max(a, end)
         end = b
-    return busy / 1e3, wall
+    return busy
 
 
 def ooc_variant(name, make_loader, rows, ref=None):
@@ -1978,27 +2017,47 @@ def phase_out_of_core():
 
 @contextlib.contextmanager
 def kernel_rows():
-    """The rows (B) of every K1 and K2 call inside the block, in order, as
-    ("K1", B) and ("K2", B): the wrappers wrapped, their counts untouched."""
-    calls = []
+    """The rows (B) of every K1 and K2 launch inside the block, in order, as
+    ("K1", B) and ("K2", B): the wrappers wrapped, their counts untouched.
+    A call made while a graph is captured launches nothing: its rows are
+    kept with the graph's program and added at each of its replays."""
+    from pyroved_tpu_torch.trainers import _graph
+    calls, captured, capturing = [], {}, []
     fwd, bwd = sd.fused_spatial_decoder_forward, sd.fused_spatial_decoder_backward
+    capture, launch = _graph.Program._capture, _graph.Program._launch
+
+    def record(kernel, rows):
+        (capturing[-1] if capturing else calls).append((kernel, rows))
 
     def fwd_rows(grid, phi, dx, sc, z, *a, **k):
-        calls.append(("K1", z.shape[0]))
+        record("K1", z.shape[0])
         return fwd(grid, phi, dx, sc, z, *a, **k)
 
     def bwd_rows(grid, phi, dx, sc, z, *a, **k):
-        calls.append(("K2", z.shape[0]))
+        record("K2", z.shape[0])
         return bwd(grid, phi, dx, sc, z, *a, **k)
+
+    def capture_rows(prog):
+        capturing.append([])
+        try:
+            capture(prog)
+        finally:
+            captured[prog] = capturing.pop()
+
+    def launch_rows(prog):
+        launch(prog)
+        calls.extend(captured.get(prog, ()))
 
     fwd_rows.launches, bwd_rows.launches = fwd.launches, bwd.launches
     sd.fused_spatial_decoder_forward = fwd_rows
     sd.fused_spatial_decoder_backward = bwd_rows
+    _graph.Program._capture, _graph.Program._launch = capture_rows, launch_rows
     try:
         yield calls
     finally:
         sd.fused_spatial_decoder_forward = fwd
         sd.fused_spatial_decoder_backward = bwd
+        _graph.Program._capture, _graph.Program._launch = capture, launch
 
 
 def row_counts(calls):
@@ -4083,6 +4142,511 @@ def phase_ablation(smi, peaks, build):
             "errs": errs, "ptxas": usage, "seconds": time.perf_counter() - t13}
 
 
+# -- phase 14: captured epochs ------------------------------------------------
+
+CAP_EPOCHS = 3  # epochs of each trajectory, captured and eager
+CAP_TIMED = 3   # epochs timed after them, each way
+
+
+def cap_cases():
+    """The captured phase's models: (name, make(), loaders(), training
+    steps an epoch, K1 and K2 launches (K3 under one_pass_train) an epoch,
+    the step method whose losses the eager loop records). Each ``make``
+    draws the same weights and noise every time; each ``loaders`` the same
+    rows in the same order."""
+    flag = dict(latent_dim=2, invariances=["r"], seed=0)
+    X = blobs(10000, (28, 28), seed=1)
+    Xt = blobs(1000, (28, 28), seed=7)
+    U = np.random.default_rng(0).uniform(0, 1, (2000, 28, 28)).astype(
+        np.float32)  # benchmarks/enum_bench.py:31-46
+    G = blobs(1024, (128, 128), seed=1)  # bench.py:99-120
+    Xf, y, _ = family_data()
+    labels = np.eye(N_CLASSES, dtype=np.float32)[y]
+
+    def svi(m, **kw):
+        return m, SVItrainer(m, **kw)
+
+    def ss():
+        m = ssiVAE(FAMILY_DIM, num_classes=N_CLASSES, **FAMILY)
+        return m, auxSVItrainer(m)
+
+    return (
+        ("flagship", lambda: svi(iVAE((28, 28), **flag)),
+         lambda: (init_dataloader(X, batch_size=200, seed=0),
+                  init_dataloader(Xt, batch_size=200, seed=0)), 50, 50,
+         "_batch_loss"),
+        ("flagship one_pass_train", lambda: svi(iVAE(
+            (28, 28), one_pass_train=True, **flag)),
+         lambda: (init_dataloader(X, batch_size=200, seed=0),), 50, 50,
+         "_batch_loss"),
+        ("jiVAE enumerated", lambda: svi(jiVAE(
+            (28, 28), latent_dim=2, discrete_dim=10, invariances=["r"],
+            seed=1)),
+         lambda: (init_dataloader(U, batch_size=200, seed=0),), 10, 10,
+         "_batch_loss"),
+        # 10 unlabeled steps an epoch, a labeled one after the 2nd and the
+        # 8th (phase 7's schedule), each decoding once
+        ("ssiVAE", ss,
+         lambda: init_ssvae_dataloaders(
+             Xf, (Xf[:400], labels[:400]), (Xf[:400], labels[:400]),
+             batch_size=200), 10, 12, "unsup_step"),
+        ("large grid", lambda: svi(iVAE((128, 128), latent_dim=2,
+                                        invariances=["r"], seed=1)),
+         lambda: (init_dataloader(G, batch_size=64, seed=0),), 16, 16,
+         "_batch_loss"))
+
+
+def cap_epoch(trainer, loaders):
+    """One epoch queued through the trainer's ``step`` (training, and the
+    held-out loss or the labeled-set metric when a third loader is
+    given)."""
+    if isinstance(trainer, auxSVItrainer):
+        trainer.step(loaders[0], loaders[1],
+                     loaders[2] if len(loaders) > 2 else None, sync=False)
+    else:
+        trainer.step(loaders[0], loaders[1] if len(loaders) > 1 else None,
+                     sync=False)
+
+
+def cap_train_losses(trainer):
+    """The loss table of ``trainer``'s captured training epoch: its steps'
+    losses in the epoch that ran last."""
+    progs = trainer._graphs.programs
+    prog = progs.get(("svi", True)) or progs[("aux",)]
+    return prog.tables.losses.clone()
+
+
+def cap_trajectory(make, loaders, method, captured):
+    """``CAP_EPOCHS`` epochs of a fresh model, captured or on the eager
+    loop, counted as one path: the model, its trainer, every step's loss
+    (from the captured program's loss table, or recorded from ``method``
+    on the eager loop), the seconds, the launches and the device's peak
+    memory above what was allocated before."""
+    from pyroved_tpu_torch.trainers import _graph
+    _graph.CAPTURE = captured
+    try:
+        model, trainer = make()
+        lds = loaders()
+        seen, per_step = [], []
+        if not captured:
+            inner = getattr(trainer, method)
+
+            def record(*a, **k):
+                out = inner(*a, **k)
+                if method != "_batch_loss" or a[3]:  # training steps only
+                    seen.append(out.detach().clone())
+                return out
+            setattr(trainer, method, record)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def epochs():
+            for _ in range(CAP_EPOCHS):
+                cap_epoch(trainer, lds)
+                per_step.append(cap_train_losses(trainer) if captured
+                                else torch.stack(seen))
+                seen.clear()
+            trainer.sync_history()
+        _, secs, launches = run_path(epochs)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        if not captured:
+            delattr(trainer, method)
+    finally:
+        _graph.CAPTURE = True
+    return {"model": model, "trainer": trainer, "loaders": lds,
+            "losses": torch.stack(per_step), "seconds": secs,
+            "launches": launches, "peak_mib": peak}
+
+
+def cap_same(what, a, b):
+    """Raise unless runs ``a`` and ``b`` are bitwise equal: parameters,
+    buffers, per-step losses, history, optimizer states and the noise
+    generator's state."""
+    ta, tb = a["trainer"], b["trainer"]
+    for (n, p), q in zip(a["model"].nets.state_dict().items(),
+                         b["model"].nets.state_dict().values()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"{what}: {n} differs by "
+                                 f"{(p.float() - q.float()).abs().max():.3e}")
+    if not torch.equal(a["losses"], b["losses"]):
+        gap = (a["losses"] - b["losses"]).abs().max().item()
+        raise AssertionError(f"{what}: the per-step losses differ by {gap}")
+    hist = (lambda t: getattr(t, "loss_history", None) or t.history)
+    if hist(ta) != hist(tb):
+        raise AssertionError(f"{what}: history {hist(ta)} != {hist(tb)}")
+    for name in ("optimizer", "aux_optimizer"):
+        oa, ob = getattr(ta, name, None), getattr(tb, name, None)
+        if oa is None:
+            continue
+        for sa, sb in zip(oa.state_dict()["state"].values(),
+                          ob.state_dict()["state"].values()):
+            if not all(torch.equal(sa[k], sb[k]) for k in sa):
+                raise AssertionError(f"{what}: the {name}'s state differs")
+    if not torch.equal(ta.generator.get_state(), tb.generator.get_state()):
+        raise AssertionError(f"{what}: the noise generators' states differ")
+
+
+def cap_profile(fn, nb):
+    """One epoch ``fn()`` under torch.profiler: the device's busy time a
+    step (the union of its kernels' and copies' intervals), the kernel
+    launches of K1 and K2 (their ``__global__`` names, which K3 shares
+    with K2) and the CUDA API calls of the host, by name, an epoch."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, kernels, api = [], {}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if "#" in ev.name:
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            for g in GLOBALS.values():  # demangled: name<template args>
+                if g + "<" in ev.name:
+                    kernels[g] = kernels.get(g, 0) + 1
+        elif ev.name.startswith("cu") and not ev.name.startswith("cudnn"):
+            api[ev.name] = api.get(ev.name, 0) + 1  # the CUDA API's calls
+    return busy_us(spans) / 1e3 / nb, kernels, api
+
+
+def cap_times(run, nb, captured):
+    """Steady training epochs of a run that has taken its trajectory (no
+    held-out loss or metric), captured or eager as it was: wall time and
+    steps/s over ``CAP_TIMED`` epochs queued back to back, then one
+    profiled epoch's device time a step, kernels and API calls."""
+    from pyroved_tpu_torch.trainers import _graph
+    trainer, lds = run["trainer"], run["loaders"]
+    lds = lds[:2] if isinstance(trainer, auxSVItrainer) else lds[:1]
+    _graph.CAPTURE = captured
+    try:
+        cap_epoch(trainer, lds)  # untimed: a program for training alone
+        trainer.sync_history()
+        t0 = time.perf_counter()
+        for _ in range(CAP_TIMED):
+            cap_epoch(trainer, lds)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / (CAP_TIMED * nb)
+        device, kernels, api = cap_profile(lambda: cap_epoch(trainer, lds),
+                                           nb)
+        trainer.sync_history()
+    finally:
+        _graph.CAPTURE = True
+    return {"steps_per_s": 1e3 / wall, "wall_ms_per_step": wall,
+            "device_ms_per_step": device, "idle_share": 1.0 - device / wall,
+            "profiled_kernels_per_epoch": kernels,
+            "api_calls_per_epoch": api}
+
+
+def cap_case(name, make, loaders, nb, decodes, method):
+    """One model under the current flag: the trajectory captured and
+    eager, bitwise equal, each launching one K1 and one K2 a step (one K3
+    under one_pass_train); then their steady times."""
+    on = sd.BF16_MATMUL
+    tag = "bf16" if on else "f32"
+    cap = cap_trajectory(make, loaders, method, True)
+    eager = cap_trajectory(make, loaders, method, False)
+    cap_same(f"{tag} {name}", cap, eager)
+    suffix = "_bf16" if on else ""
+    one = getattr(cap["model"], "one_pass_train", False)
+    expected = ({"K3" + suffix: CAP_EPOCHS * decodes} if one else
+                {"K1" + suffix: CAP_EPOCHS * decodes,
+                 "K2" + suffix: CAP_EPOCHS * decodes})
+    if isinstance(cap["trainer"], SVItrainer) and len(cap["loaders"]) > 1:
+        # the held-out decodes
+        expected["K1" + suffix] += CAP_EPOCHS * len(cap["loaders"][1])
+    for run in (cap, eager):
+        if not only(run["launches"], **expected):
+            raise AssertionError(f"{tag} {name}: launches "
+                                 f"{run['launches']}, expected {expected}")
+    progs = cap["trainer"]._graphs.captured()
+    replays = sum(p.replays for p in progs)
+    times = {"captured": cap_times(cap, nb, True),
+             "eager": cap_times(eager, nb, False)}
+    k_name = GLOBALS["K2" if one else "K1", on]
+    traced = times["captured"]["profiled_kernels_per_epoch"]
+    if traced.get(k_name, 0) != decodes:
+        raise AssertionError(f"{tag} {name}: the trace of a replayed "
+                             f"epoch holds {traced} kernels, expected "
+                             f"{decodes} of {k_name}")
+    graphs = times["captured"]["api_calls_per_epoch"].get(
+        "cudaGraphLaunch", 0)
+    if graphs != 1 or times["eager"]["api_calls_per_epoch"].get(
+            "cudaGraphLaunch", 0):
+        raise AssertionError(f"{tag} {name}: {graphs} graph launches a "
+                             f"captured epoch, {times['eager']} eager")
+    out = {"steps_per_epoch": nb,
+           "launches": cap["launches"], "replays": replays,
+           "capture_s": [p.capture_s for p in progs],
+           "pool_mib": [p.pool_bytes / 2 ** 20 for p in progs],
+           "peak_mib": {"captured": cap["peak_mib"],
+                        "eager": eager["peak_mib"]},
+           "trajectory_s": {"captured": cap["seconds"],
+                            "eager": eager["seconds"]},
+           "losses": (cap["trainer"].loss_history["training_loss"]
+                      if isinstance(cap["trainer"], SVItrainer)
+                      else cap["trainer"].history["training_loss"]),
+           "times": times}
+    log(f"  {tag} {name}: {CAP_EPOCHS} epochs of {nb} steps "
+        f"captured and eager bitwise equal (parameters, per-step losses, "
+        f"optimizer state, generator), launches {cap['launches']}; "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+    return out
+
+
+def cap_rekeys(X):
+    """Programs made again when their key changes, at the flagship under
+    the current flag. A fresh DataLoader each of 3 epochs (over the same
+    host array, so new device arrays): a program each epoch, none captured
+    (each serves one epoch, its warm-up). The learning rate written into
+    the optimizer's groups before each of 4 epochs (1e-3, 1e-3, 5e-4,
+    5e-4, as a scheduler writes it): two programs, the second captured at
+    its second epoch with the new rate. Each captured and eager:
+    parameters, every epoch's loss and the generator bitwise equal; one
+    program held at the end, the replaced ones freed (and their graphs and
+    pools with them); each epoch timed (host clock to the loss's read)
+    each way."""
+    import weakref
+    from pyroved_tpu_torch.trainers import _graph
+    out = {}
+    for what, epochs in (("fresh loader", 3), ("lr change", 4)):
+        runs = {}
+        for captured in (True, False):
+            _graph.CAPTURE = captured
+            try:
+                m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+                tr = SVItrainer(m)
+                ld = init_dataloader(X, batch_size=200, seed=0)
+                secs, refs = [], []
+                for e in range(epochs):
+                    if what == "fresh loader":
+                        ld = init_dataloader(X, batch_size=200, seed=0)
+                        ld.set_epoch(e)
+                    else:
+                        for g in tr.optimizer.param_groups:
+                            g["lr"] = 1e-3 / 2 ** (e // 2)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tr.train(ld)
+                    secs.append(time.perf_counter() - t0)
+                    if captured:
+                        prog = tr._graphs.programs[("svi", True)]
+                        if not refs or refs[-1]() is not prog:
+                            refs.append(weakref.ref(prog))
+                        del prog
+            finally:
+                _graph.CAPTURE = True
+            runs[captured] = (m, tr, secs, refs)
+        (cm, ct, csecs, refs), (em, et, esecs, _) = runs[True], runs[False]
+        cap_same(f"{what}, captured against eager",
+                 {"model": cm, "trainer": ct, "losses": torch.zeros(1)},
+                 {"model": em, "trainer": et, "losses": torch.zeros(1)})
+        live = [r() for r in refs]
+        last = ct._graphs.programs[("svi", True)]
+        made, replays = (3, 0) if what == "fresh loader" else (2, 1)
+        if (len(refs) != made or len(ct._graphs.programs) != 1
+                or live[-1] is not last or any(live[:-1])
+                or last.replays != replays):
+            raise AssertionError(f"{what}: {len(refs)} programs made, "
+                                 f"{live} held, {last.replays} replays; "
+                                 f"expected {made}, the last, {replays}")
+        out[what] = {"captured_s": csecs, "eager_s": esecs,
+                     "programs_made": len(refs),
+                     "capture_s": last.capture_s,
+                     "memory_reserved_mib":
+                         torch.cuda.memory_reserved() / 2 ** 20}
+        del live, last
+    log(f"  {'bf16' if sd.BF16_MATMUL else 'f32'} flagship, programs made "
+        f"again: a fresh loader each epoch and the lr changed, captured and "
+        f"eager bitwise equal, the replaced programs freed; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def cap_workspace_in_pool(X):
+    """K2's workspace (the ``torch.empty`` of ``_launch_bwd``) comes from
+    the graph's private pool while a capture runs: the workspace pointers
+    the K2 entry point receives during the flagship's capture all lie in
+    segments of a private pool (``torch.cuda.memory_snapshot``'s
+    ``segment_pool_id``), none in the default pool."""
+    from pyroved_tpu_torch.trainers import _graph
+    seen = []
+    bind = sd._bwd_kernel
+
+    def recording(bf16):
+        plan, run = bind(bf16)
+
+        def launch(*args):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(args[16])  # ws.data_ptr(), after 16 pointers
+            return run(*args)
+        return plan, launch
+
+    sd._bwd_kernel = recording
+    try:
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+        tr = SVItrainer(m)
+        ld = init_dataloader(X, batch_size=200, seed=0)
+        for _ in range(2):  # the warm-up, then the capture and a replay
+            tr.train(ld)
+    finally:
+        sd._bwd_kernel = bind
+    (prog,) = tr._graphs.captured()
+    segments = [(seg["address"], seg["address"] + seg["total_size"],
+                 tuple(seg.get("segment_pool_id", (None, None))))
+                for seg in torch.cuda.memory_snapshot()]
+    pools = []
+    for ptr in seen:
+        owner = [pool for lo, hi, pool in segments if lo <= ptr < hi]
+        if len(owner) != 1 or owner[0] in ((0, 0), (None, None)):
+            raise AssertionError(f"K2's workspace at {ptr:#x} during the "
+                                 f"capture is not in a private pool: {owner}")
+        pools.append(owner[0])
+    if len(seen) != prog.nb or len(set(pools)) != 1:
+        raise AssertionError(f"{len(seen)} workspaces captured in pools "
+                             f"{set(pools)}, expected {prog.nb} in one")
+    log(f"  K2's workspace during the flagship's capture: {len(seen)} "
+        f"allocations, all in the graph's private pool {pools[0]}")
+    return len(seen)
+
+
+def cap_window(X):
+    """bench.py's 20-epoch window at the flagship: ``run(loader, 20)``
+    captured and eager, their final losses (bitwise equal) and times."""
+    from pyroved_tpu_torch.trainers import _graph
+    out = {}
+    for captured in (True, False):
+        _graph.CAPTURE = captured
+        try:
+            m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0)
+            tr = SVItrainer(m)
+            ld = init_dataloader(X, batch_size=200, seed=0)
+            _, secs, launches = run_path(lambda: tr.run(ld, 20))
+        finally:
+            _graph.CAPTURE = True
+        out["captured" if captured else "eager"] = {
+            "final_loss": tr.loss_history["training_loss"][-1],
+            "seconds": secs, "steps_per_s": 20 * len(ld) / secs,
+            "launches": launches, "checksum": checksum(m)}
+    if (out["captured"]["final_loss"] != out["eager"]["final_loss"]
+            or out["captured"]["checksum"] != out["eager"]["checksum"]):
+        raise AssertionError(f"run(loader, 20): captured and eager differ: "
+                             f"{out}")
+    log(f"  run(loader, 20) at the flagship, {20 * len(ld)} steps: final loss "
+        f"captured {out['captured']['final_loss']!r}, eager "
+        f"{out['eager']['final_loss']!r}; {json.dumps(out)}")
+    return out
+
+
+def cap_resume(X):
+    """Resume after captured epochs: 2 epochs through ``run`` (the first
+    eager as the warm-up, the second captured and replayed), a checkpoint, a fresh
+    model and trainer (other seeds) that resume, 2 more, against 4 in one
+    go: history, parameters, optimizer state and generator bitwise."""
+    def make(seed):
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=seed)
+        return m, SVItrainer(m, seed=1 + seed)
+
+    whole_model, whole = make(0)
+    whole.run(init_dataloader(X, batch_size=200, seed=0), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ckpt.npz"
+        first_model, first = make(0)
+        first.run(init_dataloader(X, batch_size=200, seed=0), 2)
+        if sum(p.replays for p in first._graphs.captured()) != 1:
+            raise AssertionError("resume: the second epoch was not replayed")
+        save_checkpoint(path, first_model, first)
+        model, trainer = make(1)
+        trainer.resume(path)
+    loader = init_dataloader(X, batch_size=200, seed=0)
+    loader.set_epoch(trainer.current_epoch)
+    _, secs, launches = run_path(lambda: trainer.run(loader, 2))
+    cap_same("resume after a captured epoch",
+             {"model": model, "trainer": trainer, "losses": torch.zeros(1)},
+             {"model": whole_model, "trainer": whole,
+              "losses": torch.zeros(1)})
+    expect_steps(f"resumed 2 epochs ({secs:.2f} s)", launches,
+                 2 * len(loader))
+    log(f"  {'bf16' if sd.BF16_MATMUL else 'f32'} resume after a captured "
+        f"epoch: 2 epochs, a checkpoint, a fresh trainer's resume and 2 "
+        f"more bitwise equal to 4 in one go (history, parameters, Adam's "
+        f"state, generator); launches {launches}")
+    return launches
+
+
+def cap_ved():
+    """The im2spec VED (phase 8's configuration, batch 100, 2,000 pairs,
+    cuDNN's TF32 allowed), 2 epochs each: captured and eager with cuDNN's
+    deterministic algorithms (bitwise equal), then with its default ones,
+    captured and eager twice (the parameter gaps, printed)."""
+    from pyroved_tpu_torch.trainers import _graph
+    X, Y = im2spec_pairs(2000)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+
+    def go(captured, deterministic):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = deterministic
+        _graph.CAPTURE = captured
+        try:
+            m = VED((16, 16), (2048,), latent_dim=2, seed=0)
+            tr = SVItrainer(m)
+            ld = init_dataloader(X, Y, batch_size=100, seed=0)
+            losses, secs, _ = run_path(lambda: [tr.train(ld) for _ in range(2)])
+        finally:
+            _graph.CAPTURE = True
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic) = prev
+        return m, losses, secs
+
+    def gap(a, b):
+        return max((p.float() - q.float()).abs().max().item() for p, q in zip(
+            a[0].nets.state_dict().values(), b[0].nets.state_dict().values()))
+
+    det_cap, det_eager = go(True, True), go(False, True)
+    if gap(det_cap, det_eager) != 0.0 or det_cap[1] != det_eager[1]:
+        raise AssertionError(f"VED, deterministic cuDNN: captured and eager "
+                             f"differ by {gap(det_cap, det_eager)}")
+    cap, eager, eager2 = go(True, False), go(False, False), go(False, False)
+    out = {"deterministic_bitwise": True,
+           "default_gap_captured_eager": gap(cap, eager),
+           "default_gap_eager_eager": gap(eager, eager2),
+           "losses": {"captured": cap[1], "eager": eager[1]},
+           "seconds": {"captured": cap[2], "eager": eager[2]}}
+    log(f"  VED im2spec 2 epochs, deterministic cuDNN: captured and eager "
+        f"bitwise equal; default cuDNN: {json.dumps(out)}")
+    return out
+
+
+def phase_captured(smi):
+    """Phase 14: the trainers' captured epochs (``trainers/_graph.py``)
+    against the eager loop on the card."""
+    t0 = time.perf_counter()
+    out = {"cases": {}, "launches": {}}
+    cases = cap_cases()
+    for on in (False, True):
+        with bf16_matmul(on):
+            tag = "bf16" if on else "f32"
+            for case in cases:
+                name = case[0]
+                res = cap_case(*case)
+                out["cases"][f"{name} {tag}"] = res
+                out["launches"][f"captured {name} {tag}"] = res["launches"]
+            out["launches"][f"captured resume {tag}"] = cap_resume(
+                blobs(2000, (28, 28), seed=1))
+    out["rekeys"] = cap_rekeys(blobs(10000, (28, 28), seed=1))
+    out["workspaces_in_pool"] = cap_workspace_in_pool(
+        blobs(2000, (28, 28), seed=1))
+    out["window"] = cap_window(blobs(10000, (28, 28), seed=1))
+    out["ved"] = cap_ved()
+    out["max_memory_allocated_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  ({smi}) max_memory_allocated {out['max_memory_allocated_mib']:.1f}"
+        f" MiB; phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4403,6 +4967,12 @@ def main() -> int:
         rows[key] += more
     log(f"phase 12 took {parallel['seconds']:.1f} s ({smi})")
 
+    # -- 14. the trainers' captured epochs (run before 13, whose builds
+    # finish meanwhile) ---------------------------------------------------
+    log("phase 14: captured epochs against the eager loop: trajectories, "
+        "the 20-epoch window, resume, launches, times")
+    captured = phase_captured(smi)
+
     # -- 13. K4: the backward in ablation modes --------------------------
     log("phase 13: K4's eight modes of both K2 sources against their plain "
         "versions and K2, timed chains and the attribution of K2's time")
@@ -4432,7 +5002,9 @@ def main() -> int:
                    for tag, f in (("bf16", pix), ("f32", pix32))
                    for path, n in pixel_launches(f).items()},
                 **{path: n[key] for path, n in job_launches.items()},
-                **{path: n[key] for path, n in par_launches.items()}}
+                **{path: n[key] for path, n in par_launches.items()},
+                **{path: n[key]
+                   for path, n in captured["launches"].items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -4518,7 +5090,7 @@ def main() -> int:
                             "seconds": phase9_s},
         "pixel_int8_viz": {"bf16": pix, "f32": pix32,
                            "seconds": phase10_s},
-        "jobs": jobs, "parallel": parallel}
+        "jobs": jobs, "parallel": parallel, "captured_epochs": captured}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -569,6 +569,7 @@ class baseVAE:
              or getattr(self, "reg_dim", 0))  # the labels' width
         probe = (x0,) if c == 0 else (x0, torch.zeros(2, c))
         self.nets["encoder_z"] = self._injected(encoder_net, probe)
+        self._weights_replaced()
 
     def set_decoder(self, decoder_net: nn.Module) -> None:
         """Put a user-defined ``nn.Module`` in place of the generator network
@@ -589,10 +590,17 @@ class baseVAE:
                               zc0))
         self.nets["decoder"] = self._injected(decoder_net, *probes)
         self._fused = False
+        self._weights_replaced()
 
     # ------------------------------------------------------------------
     # Weights
     # ------------------------------------------------------------------
+    def _weights_replaced(self) -> None:
+        """Move the generation that the trainers' captured epochs
+        (``trainers._graph``) key their programs by, so that they are
+        captured again over the new weights or networks."""
+        self._graph_generation = getattr(self, "_graph_generation", 0) + 1
+
     def state_dict(self):
         return self.nets.state_dict()
 
@@ -634,6 +642,7 @@ class baseVAE:
         gen = getattr(self, "generator", None)
         if gen is not None and "generator" in arrays:
             gen.set_state(torch.from_numpy(arrays["generator"]))
+        self._weights_replaced()
 
     def load_jax_params(self, params) -> None:
         """Load the JAX model's parameter tree (``{"encoder_z": ...,

@@ -827,8 +827,11 @@ def _kernel_weights(decoder) -> Tuple[Tensor, ...]:
     counter, so ``load_state_dict``, an in-place update or ``.to()`` makes
     the next call rebuild it. It holds the keyed storages alive, so no
     other weight can reuse their addresses while it lives. With autograd
-    on, the weights are padded afresh so that gradients reach the module."""
-    if torch.is_grad_enabled():
+    on, the weights are padded afresh so that gradients reach the module,
+    and so they are while a CUDA graph is captured, so that each replay
+    pads the parameters as they then are."""
+    if torch.is_grad_enabled() or (decoder.out.weight.is_cuda and
+                                   torch.cuda.is_current_stream_capturing()):
         return padded_sdecoder_weights(decoder)
     params = list(decoder.parameters())
     key = [(p.data_ptr(), p.device, p._version) for p in params]

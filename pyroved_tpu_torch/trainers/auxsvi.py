@@ -12,10 +12,15 @@ epoch loss is the unlabeled losses' sum over the unlabeled count. Accuracy
 stochastic weight averaging of a sub-network.
 
 Loaders are :class:`~pyroved_tpu_torch.utils.data.DataLoader`\\ s, resident
-or streaming, or any iterables of batches. With two DataLoaders the
-labeled batch of each step comes from the labeled loader's epoch
-permutation, cycled (the schedule of the JAX package's resident and
-chunked paths), so a streamed epoch is bitwise equal to a resident one.
+or streaming, or any iterables of batches. On a CUDA model whose loaders
+are all resident, an epoch (its unlabeled and labeled steps, both
+optimizers' updates) and the metric on ``loader_val`` are each captured
+once as a CUDA graph and replayed, one graph launch each, as
+``SVItrainer``'s are (:mod:`._graph`; the same eager-only
+configurations). With two DataLoaders the labeled batch of each step
+comes from the labeled loader's epoch permutation, cycled (the schedule of
+the JAX package's resident and chunked paths), so a streamed epoch is
+bitwise equal to a resident one.
 With an iterable the loaders are iterated, the labeled one afresh whenever
 it runs out, and ``sup_period`` gives p when they have no length.
 
@@ -42,8 +47,9 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import DataAxis, is_writer
-from ..utils.data import DataLoader
+from ..utils.data import DataLoader, StaticTables
 from ..utils.nn import average_weights
+from . import _graph
 from ._segmented import SegmentedRunsMixin
 from .svi import (GradAccumulator, _PendingLoss, apply_update,
                   draw_noise, pad_batch, save_if_due, streamed_batches,
@@ -60,7 +66,8 @@ class auxSVItrainer(SegmentedRunsMixin):
         model: a port model with ``nets`` (``encoder_y`` among them),
             ``weighted_loss_fn``, ``aux_loss_fn`` and ``noise_shapes``.
         optimizer: a ``torch.optim.Optimizer`` over ``model.nets``'
-            parameters (default ``Adam(lr)``); the auxiliary optimizer is
+            parameters (default ``Adam(lr)``, ``capturable`` on CUDA:
+            :func:`._graph.default_optimizer`); the auxiliary optimizer is
             one of its type and defaults over ``encoder_y``'s.
         seed: seed of the noise.
         lr: learning rate of the default optimizers (5e-4).
@@ -96,8 +103,10 @@ class auxSVItrainer(SegmentedRunsMixin):
         self.device = model.device
         aux_params = model.nets["encoder_y"].parameters()
         if optimizer is None:
-            self.optimizer = torch.optim.Adam(model.nets.parameters(), lr=lr)
-            self.aux_optimizer = torch.optim.Adam(aux_params, lr=lr)
+            self.optimizer = _graph.default_optimizer(
+                model.nets.parameters(), lr, self.device)
+            self.aux_optimizer = _graph.default_optimizer(aux_params, lr,
+                                                          self.device)
         else:  # the same rule, with a state of its own
             self.optimizer = optimizer
             self.aux_optimizer = type(optimizer)(aux_params,
@@ -115,6 +124,7 @@ class auxSVItrainer(SegmentedRunsMixin):
         self.best_metric = None
         self._deferred_records = []
         self.running_weights: Dict[int, Dict[str, Tensor]] = {}
+        self._graphs = _graph.GraphCache()
 
     # ------------------------------------------------------------------
     def draw_noise(self, batch_size: int, labeled: bool):
@@ -189,7 +199,11 @@ class auxSVItrainer(SegmentedRunsMixin):
     def _epoch_indexed(self, loader_unsup: DataLoader,
                        loader_sup: DataLoader, beta, aux_mult, sup_period):
         """An epoch over two DataLoaders (either resident or streaming):
-        (sum of the unlabeled losses, the unlabeled count)."""
+        (sum of the unlabeled losses, the unlabeled count); captured where
+        :func:`._graph.route` says."""
+        if _graph.route(self, (loader_unsup, loader_sup)):
+            return self._captured_epoch(loader_unsup, loader_sup, beta,
+                                        aux_mult, sup_period)
         idx_u, w_u = loader_unsup.epoch_indices()
         idx_s, w_s = loader_sup.epoch_indices()
         mask, sup_j = self._schedule(loader_unsup, loader_sup,
@@ -207,6 +221,49 @@ class auxSVItrainer(SegmentedRunsMixin):
                 xs, ys = loader_sup.batch_at(sup_rows[j])
                 self.sup_step(xs, ys, ws[j], beta, aux_mult)
         return torch.stack(losses).sum(), max(float(w_u.sum()), 1.0)
+
+    def _captured_epoch(self, loader_unsup: DataLoader,
+                        loader_sup: DataLoader, beta, aux_mult, sup_period):
+        """:meth:`_epoch_indexed` over resident loaders as one captured
+        program (:mod:`._graph`): both loaders' index and weight tables and
+        the KL scale are static device tensors filled once an epoch; the
+        interleave, which the loaders' lengths fix, and the auxiliary
+        loss's multiplier are part of the program's key."""
+        idx_u, w_u = loader_unsup.epoch_indices()
+        idx_s, w_s = loader_sup.epoch_indices()
+        nb, bs = idx_u.shape
+        ns, bss = idx_s.shape
+        mask, sup_j = self._schedule(loader_unsup, loader_sup, nb, ns,
+                                     sup_period)
+        shape = tuple(torch.as_tensor(beta).shape)
+
+        def make():
+            t = StaticTables(self.device, iu=((nb, bs), torch.int32),
+                             wu=((nb, bs), torch.float32),
+                             is_=((ns, bss), torch.int32),
+                             ws=((ns, bss), torch.float32),
+                             beta=(shape, torch.float32),
+                             losses=((nb,), torch.float32))
+
+            def step(i):
+                (x,) = loader_unsup.gather(t.iu[i])
+                t.losses[i].copy_(self.unsup_step(x, t.wu[i], t.beta))
+                if mask[i]:
+                    j = int(sup_j[i])
+                    xs, ys = loader_sup.gather(t.is_[j])
+                    self.sup_step(xs, ys, t.ws[j], t.beta, aux_mult)
+
+            return _graph.Program(self.device, nb, step,
+                                  lambda: (t.losses.sum(),), t,
+                                  self.generator)
+
+        key = (_graph.loader_key(loader_unsup),
+               _graph.loader_key(loader_sup), shape, float(aux_mult),
+               mask.tobytes())
+        (total,) = self._graphs.run(
+            self, ("aux",), key, make,
+            lambda t: t.fill(iu=idx_u, wu=w_u, is_=idx_s, ws=w_s, beta=beta))
+        return total, max(float(w_u.sum()), 1.0)
 
     def _epoch_streamed(self, loader_unsup, loader_sup, beta, aux_mult,
                         sup_period):
@@ -286,21 +343,56 @@ class auxSVItrainer(SegmentedRunsMixin):
     @torch.no_grad()
     def _metric(self, loader_val, classification: bool) -> _PendingLoss:
         """The metric of :meth:`evaluate_cls` or :meth:`evaluate_reg`,
-        without waiting for the device."""
+        without waiting for the device; over a resident DataLoader on the
+        captured path a captured program (:mod:`._graph`) whose static
+        table holds the pass's row order."""
+        if (isinstance(loader_val, DataLoader)
+                and _graph.route(self, (loader_val,))):
+            return self._captured_metric(loader_val, classification)
+        return self._metric_sums(loader_val, classification)
+
+    def _metric_sums(self, batches, classification: bool) -> _PendingLoss:
+        """Over ``(data, labels)`` batches: the hits and the row count
+        (classification), or the batches' mean squared errors summed and
+        their count (regression)."""
         if classification:
             correct, total = 0, 0
-            for data, labels in loader_val:
+            for data, labels in batches:
                 predicted = self.model.classifier(data)
                 correct = correct + (predicted == labels.argmax(1)).sum()
                 total += data.shape[0]
             return _PendingLoss(correct, total)
-        total, batches = 0.0, 0
-        for data, gt in loader_val:
+        total, count = 0.0, 0
+        for data, gt in batches:
             predicted = self.model.regressor(data)
             total = total + torch.mean((predicted - gt.reshape(
                 predicted.shape)) ** 2)
-            batches += 1
-        return _PendingLoss(total, max(batches, 1))
+            count += 1
+        return _PendingLoss(total, max(count, 1))
+
+    def _captured_metric(self, loader: DataLoader,
+                         classification: bool) -> _PendingLoss:
+        """:meth:`_metric` as a captured program of one step: the pass's
+        batches gathered at slices of a static order table."""
+        n, bs = loader.dataset_size, loader.batch_size
+        order = loader.epoch_order()
+
+        def make():
+            t = StaticTables(self.device, order=((n,), torch.int32))
+            out = []
+
+            def step(_):
+                out[:] = [self._metric_sums(
+                    (loader.gather(t.order[lo:lo + bs])
+                     for lo in range(0, n, bs)), classification).total]
+
+            return _graph.Program(self.device, 1, step, lambda: tuple(out),
+                                  t, self.generator)
+
+        (value,) = self._graphs.run(
+            self, ("metric",), (classification, _graph.loader_key(loader)),
+            make, lambda t: t.fill(order=order))
+        return _PendingLoss(value, n if classification else -(-n // bs))
 
     def _seg_epoch(self, loaders, scale_factor, kwargs) -> None:
         """One epoch queued (and the metric on ``loader_val``), appended to

@@ -5,14 +5,23 @@ Counterpart of ``pyroved_tpu/trainers/svi.py`` with the same surface:
 ``loss_history``, each step minimizing the weighted SUM of per-example
 negative ELBOs and each epoch's loss normalized by the dataset size.
 
-The JAX trainer runs an epoch as one compiled ``lax.scan``. Here an epoch
-is a Python loop over batches: gathered on the device from a
-device-resident :class:`~pyroved_tpu_torch.utils.data.DataLoader`, staged
-from the host for a streaming one (``device_resident=False``), or taken
-from any iterable of batches (a short final batch padded with zero
-weights). The per-step losses stay on the device and the host reads them
-once, at the end of the epoch. Optimization is ``torch.optim.Adam(lr=1e-3)``
-(betas 0.9/0.999, eps 1e-8, as ``optax.adam``). The latent noise comes from
+The JAX trainer runs an epoch as one compiled ``lax.scan``. Here, on a
+CUDA model over a device-resident
+:class:`~pyroved_tpu_torch.utils.data.DataLoader`, the training and the
+evaluation epoch are each captured once as a CUDA graph and replayed, one
+graph launch an epoch (:mod:`._graph`: the first epoch of each kind runs
+eagerly as the capture's warm-up, and the graph gives the eager loop's
+trajectory bit for bit). Every other configuration runs an epoch as a
+Python loop over batches: CPU models, a streaming loader
+(``device_resident=False``, staged from the host) or any iterable of
+batches (a short final batch padded with zero weights), a ``mesh``,
+``grad_accum > 1``, ``pixel_chunks`` and an optimizer the graph cannot take
+(:func:`._graph.route`). Either way the per-step losses stay on the device
+and the host reads them only at ``float()``, ``sync_history`` and the
+segment ends of ``run``. Optimization is ``torch.optim.Adam(lr=1e-3)``
+(betas 0.9/0.999, eps 1e-8, as ``optax.adam``), on CUDA with
+``capturable=True``, its step count and bias corrections on the device,
+on the captured path and the eager loop alike. The latent noise comes from
 a ``torch.Generator`` on the model's device seeded from ``seed``, in the
 shapes the model states (``noise_shapes``), one draw per step in the order
 of the steps whatever the loader; it cannot reproduce JAX's random bits, so
@@ -51,7 +60,8 @@ from torch.utils.checkpoint import checkpoint as _remat
 
 from ..parallel.collectives import DataAxis, barrier, distributed, is_writer
 from ..nets.conv import batch_stats_over
-from ..utils.data import DataLoader
+from ..utils.data import DataLoader, StaticTables
+from . import _graph
 from ._segmented import SegmentedRunsMixin
 
 Tensor = torch.Tensor
@@ -72,11 +82,17 @@ def fill_zero_grads(optimizer: torch.optim.Optimizer) -> None:
     """A zero grad for every parameter that got none, so that the step
     moves it by its momentum and advances its count, as ``optax.adam``
     updates every leaf at every step (``torch.optim.Adam`` skips a
-    parameter whose grad is None)."""
+    parameter whose grad is None). The zeros are made once per parameter
+    and kept on the optimizer (nothing writes them), so a captured step
+    allocates none."""
+    zeros = optimizer.__dict__.setdefault("_zero_grads", {})
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                z = zeros.get(p)
+                if z is None or z.shape != p.shape or z.device != p.device:
+                    z = zeros[p] = torch.zeros_like(p)
+                p.grad = z
 
 
 class GradAccumulator:
@@ -213,7 +229,8 @@ class SVItrainer(SegmentedRunsMixin):
         model: a port model with ``nets``, ``device`` and
             ``weighted_loss_fn(x, y, weights, beta, eps=None)``.
         optimizer: a ``torch.optim.Optimizer`` over ``model.nets``'
-            parameters (default ``Adam(lr)``).
+            parameters (default ``Adam(lr)``, ``capturable`` on CUDA:
+            :func:`._graph.default_optimizer`).
         loss: a :class:`~pyroved_tpu_torch.infer.elbo.TraceELBO` whose
             settings are applied to the model.
         enumerate_parallel: accepted for the JAX package's signature.
@@ -248,7 +265,8 @@ class SVItrainer(SegmentedRunsMixin):
         self.model = model
         self.device = model.device
         self.optimizer = (optimizer if optimizer is not None
-                          else torch.optim.Adam(model.nets.parameters(), lr=lr))
+                          else _graph.default_optimizer(
+                              model.nets.parameters(), lr, self.device))
         self.grad_accumulator = (GradAccumulator(self.optimizer,
                                                  self.grad_accum)
                                  if self.grad_accum > 1 else None)
@@ -261,6 +279,7 @@ class SVItrainer(SegmentedRunsMixin):
         self.best_epoch = None  # set by patience= runs
         self.best_metric = None
         self._deferred_records = []
+        self._graphs = _graph.GraphCache()
 
     # ------------------------------------------------------------------
     def _noise(self, batch_size: int):
@@ -278,8 +297,11 @@ class SVItrainer(SegmentedRunsMixin):
         fn = self.model.weighted_loss_fn
         if not self.remat:
             return fn(x, y, weights, beta, eps=eps)
+        # the forward draws nothing (its noise is eps), so the RNG state
+        # needs no saving, which a capture would refuse
         return _remat(lambda x_, y_, w_, e_: fn(x_, y_, w_, beta, eps=e_),
-                      x, y, weights, eps, use_reentrant=False)
+                      x, y, weights, eps, use_reentrant=False,
+                      preserve_rng_state=False)
 
     def train_step(self, batch, weights: Tensor, beta=1.0,
                    eps: Optional[Tensor] = None) -> Tensor:
@@ -319,7 +341,9 @@ class SVItrainer(SegmentedRunsMixin):
     def _epoch(self, loader, scale_factor, train: bool):
         """(sum of the epoch's batch losses as a 0-d device tensor, the
         rows it covered) over a DataLoader, resident or streaming, or an
-        iterable of batches."""
+        iterable of batches; captured where :func:`._graph.route` says."""
+        if isinstance(loader, DataLoader) and _graph.route(self, (loader,)):
+            return self._captured_epoch(loader, scale_factor, train)
         beta = self._prep_beta(scale_factor)
         losses = []
         if isinstance(loader, DataLoader):
@@ -339,6 +363,38 @@ class SVItrainer(SegmentedRunsMixin):
         if not train:  # the ranks' rows' shares
             total = self.data_axis.all_reduce(total)
         return total, max(norm, 1)
+
+    def _captured_epoch(self, loader: DataLoader, scale_factor, train: bool):
+        """:meth:`_epoch` over a resident DataLoader as a captured program
+        (:mod:`._graph`): each step gathers its rows at its row of a static
+        index table, weighs them by its row of a static weights table and
+        takes the KL scale from a device scalar (a pair for jiVAE), so that
+        ``scale_schedule`` changes it without a new capture; the steps'
+        losses go into a static buffer, summed at the end."""
+        beta = self._prep_beta(scale_factor)
+        shape = tuple(torch.as_tensor(beta).shape)
+        nb, bs = loader.num_batches, loader.batch_size
+
+        def make():
+            t = StaticTables(self.device, idx=((nb, bs), torch.int32),
+                             w=((nb, bs), torch.float32),
+                             beta=(shape, torch.float32),
+                             losses=((nb,), torch.float32))
+
+            def step(i):
+                batch = loader.gather(t.idx[i])
+                t.losses[i].copy_(self._batch_loss(batch, t.w[i], t.beta,
+                                                   train))
+
+            return _graph.Program(self.device, nb, step,
+                                  lambda: (t.losses.sum(),), t,
+                                  self.generator)
+
+        idx, w = loader.epoch_indices()
+        (total,) = self._graphs.run(
+            self, ("svi", train), (_graph.loader_key(loader), shape), make,
+            lambda t: t.fill(idx=idx, w=w, beta=beta))
+        return total, loader.dataset_size
 
     def train(self, train_loader, **kwargs):
         """One training epoch; returns loss / dataset_size.

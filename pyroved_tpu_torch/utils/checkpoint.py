@@ -49,6 +49,10 @@ import torch
 CHECKPOINT_FORMAT = "pyroved_tpu_torch.checkpoint"
 WEIGHTS_FORMAT = "pyroved_tpu_torch.weights"
 _OPTIMIZERS = ("optimizer", "aux_optimizer")
+#: optimizer settings a load keeps from the live optimizer: where its state
+#: lives and which kernels step it (a CUDA trainer's capturable Adam keeps
+#: its step count on the device whatever optimizer saved the file)
+_IMPLEMENTATION = ("capturable", "foreach", "fused", "differentiable")
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +200,8 @@ def _optimizer_state(model, optimizer, desc, arrays, prefix: str) -> dict:
     for cur, saved in zip(current["param_groups"], desc["groups"]):
         g = dict(cur)
         for k, v in saved.items():  # JSON turns tuples into lists
+            if k in _IMPLEMENTATION and k in cur:
+                continue  # how the optimizer steps, not what it computes
             g[k] = tuple(v) if isinstance(cur.get(k), tuple) else v
         groups.append(g)
     return {"state": state, "param_groups": groups}
@@ -443,6 +449,7 @@ def load_checkpoint(path: str, model, trainer=None,
     gen = getattr(model, "generator", None)
     if gen is not None and "model_generator" in arrays:
         gen.set_state(torch.from_numpy(np.array(arrays["model_generator"])))
+    model._weights_replaced()  # the trainers' captured epochs made again
     if trainer is None:
         return
     for name, sd in opt_states.items():

@@ -10,7 +10,9 @@ every step has the same shape and the padding adds nothing to the loss.
 
 By default the whole dataset is copied to the device once; trainers upload
 the epoch's ``[num_batches, batch_size]`` indices and gather each batch on
-the device with ``index_select``. With ``device_resident=False`` the arrays
+the device with ``index_select`` (a captured epoch reads the indices and
+weights from :class:`StaticTables`, filled once an epoch from pinned
+memory). With ``device_resident=False`` the arrays
 stay where they are on the host (a memmap is never read whole): the rows of
 ``stream_chunks`` batches at a time (one batch by default) are gathered
 into a pinned host buffer and copied to the device on a copy stream while
@@ -340,12 +342,18 @@ class DataLoader:
             for i in range(c):
                 yield tuple(t[i * bs:(i + 1) * bs] for t in current)
 
+    def epoch_order(self) -> np.ndarray:
+        """The row order of the next pass over the loader (its permutation,
+        or the rows in order without ``shuffle``), advancing the epoch
+        counter when it shuffles, as iterating does."""
+        if not self.shuffle:
+            return np.arange(self.dataset_size, dtype=np.int32)
+        order = shuffle_indices(self.dataset_size, self.seed, self._epoch)
+        self._epoch += 1
+        return order
+
     def __iter__(self) -> Iterator[Tuple[Tensor, ...]]:
-        if self.shuffle:
-            order = shuffle_indices(self.dataset_size, self.seed, self._epoch)
-            self._epoch += 1
-        else:
-            order = np.arange(self.dataset_size, dtype=np.int32)
+        order = self.epoch_order()
         if self.device_resident:
             order = torch.as_tensor(order, device=self.device)
         for start in range(0, self.dataset_size, self.batch_size):
@@ -353,6 +361,33 @@ class DataLoader:
 
     def __len__(self) -> int:
         return self.num_batches
+
+
+class StaticTables:
+    """Device tensors at fixed addresses, the inputs of a captured epoch
+    (``trainers._graph``): ``StaticTables(device, name=(shape, dtype),
+    ...)`` makes each, zeroed, as an attribute. :meth:`fill` copies new
+    values in on the current stream, a host array through pinned memory
+    without waiting: the caching host allocator keeps a pinned block from
+    reuse until the copy that reads it has run."""
+
+    def __init__(self, device, **specs):
+        for name, (shape, dtype) in specs.items():
+            setattr(self, name, torch.zeros(shape, dtype=dtype, device=device))
+
+    def fill(self, **values) -> None:
+        """Copy each value (an array-like, or a tensor) into the table of
+        its name, cast to the table's dtype."""
+        for name, v in values.items():
+            dst = getattr(self, name)
+            if isinstance(v, Tensor):
+                dst.copy_(v.reshape(dst.shape))
+                continue
+            src = torch.from_numpy(np.array(v).reshape(dst.shape)).to(
+                dst.dtype)
+            if dst.device.type == "cuda":
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=dst.device.type == "cuda")
 
 
 def prefetch(loader, size: int = 2):
