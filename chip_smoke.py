@@ -277,6 +277,7 @@ Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, without CUDA.
 """
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -4150,8 +4151,8 @@ CAP_TIMED = 3   # epochs timed after them, each way
 
 def cap_cases():
     """The captured phase's models: (name, make(), loaders(), training
-    steps an epoch, K1 and K2 launches (K3 under one_pass_train) an epoch,
-    the step method whose losses the eager loop records). Each ``make``
+    steps an epoch, K1 and K2 launches (K3 under one_pass_train) an
+    epoch). Each ``make``
     draws the same weights and noise every time; each ``loaders`` the same
     rows in the same order."""
     flag = dict(latent_dim=2, invariances=["r"], seed=0)
@@ -4173,27 +4174,23 @@ def cap_cases():
     return (
         ("flagship", lambda: svi(iVAE((28, 28), **flag)),
          lambda: (init_dataloader(X, batch_size=200, seed=0),
-                  init_dataloader(Xt, batch_size=200, seed=0)), 50, 50,
-         "_batch_loss"),
+                  init_dataloader(Xt, batch_size=200, seed=0)), 50, 50),
         ("flagship one_pass_train", lambda: svi(iVAE(
             (28, 28), one_pass_train=True, **flag)),
-         lambda: (init_dataloader(X, batch_size=200, seed=0),), 50, 50,
-         "_batch_loss"),
+         lambda: (init_dataloader(X, batch_size=200, seed=0),), 50, 50),
         ("jiVAE enumerated", lambda: svi(jiVAE(
             (28, 28), latent_dim=2, discrete_dim=10, invariances=["r"],
             seed=1)),
-         lambda: (init_dataloader(U, batch_size=200, seed=0),), 10, 10,
-         "_batch_loss"),
+         lambda: (init_dataloader(U, batch_size=200, seed=0),), 10, 10),
         # 10 unlabeled steps an epoch, a labeled one after the 2nd and the
         # 8th (phase 7's schedule), each decoding once
         ("ssiVAE", ss,
          lambda: init_ssvae_dataloaders(
              Xf, (Xf[:400], labels[:400]), (Xf[:400], labels[:400]),
-             batch_size=200), 10, 12, "unsup_step"),
+             batch_size=200), 10, 12),
         ("large grid", lambda: svi(iVAE((128, 128), latent_dim=2,
                                         invariances=["r"], seed=1)),
-         lambda: (init_dataloader(G, batch_size=64, seed=0),), 16, 16,
-         "_batch_loss"))
+         lambda: (init_dataloader(G, batch_size=64, seed=0),), 16, 16))
 
 
 def cap_epoch(trainer, loaders):
@@ -4208,55 +4205,77 @@ def cap_epoch(trainer, loaders):
                      sync=False)
 
 
-def cap_train_losses(trainer):
-    """The loss table of ``trainer``'s captured training epoch: its steps'
-    losses in the epoch that ran last."""
-    progs = trainer._graphs.programs
-    prog = progs.get(("svi", True)) or progs[("aux",)]
-    return prog.tables.losses.clone()
+def record_step_losses(trainer, captured):
+    """A list that collects the training steps' losses of ``trainer``'s
+    epochs, in order: on the captured path each training program's loss
+    table after each of its runs (a chunk's, or an epoch's), read outside
+    the graph; on the eager loop each training step's loss. Returns it and
+    the (object, attribute) whose deletion stops the recording."""
+    seen = []
+    if captured:
+        cache = trainer._graphs
+        run = cache.run
+
+        def recording(tr, kind, *a, **k):
+            out = run(tr, kind, *a, **k)
+            if kind in (("svi", True), ("aux",)):  # the one run last
+                seen.append(next(reversed(
+                    cache.programs.values())).tables.losses.clone())
+            return out
+        cache.run = recording
+        return seen, (cache, "run")
+    method = ("_batch_loss" if isinstance(trainer, SVItrainer)
+              else "unsup_step")
+    inner = getattr(trainer, method)
+
+    def eager(*a, **k):
+        out = inner(*a, **k)
+        if method != "_batch_loss" or a[3]:  # training steps only
+            seen.append(out.detach().clone().reshape(1))
+        return out
+    setattr(trainer, method, eager)
+    return seen, (trainer, method)
 
 
-def cap_trajectory(make, loaders, method, captured):
-    """``CAP_EPOCHS`` epochs of a fresh model, captured or on the eager
-    loop, counted as one path: the model, its trainer, every step's loss
-    (from the captured program's loss table, or recorded from ``method``
-    on the eager loop), the seconds, the launches and the device's peak
-    memory above what was allocated before."""
+def h2d_bytes(loaders):
+    return sum(getattr(ld, "host_to_device_bytes", 0) for ld in loaders
+               if ld is not None)
+
+
+def trajectory(make, loaders, epochs, captured):
+    """``epochs`` epochs of a fresh model through its trainer's ``step``,
+    captured or with ``CAPTURE`` cleared, counted as one path: the model,
+    its trainer, every training step's loss, each epoch's seconds (host
+    clock to the device's end) and all of them, the launches, the bytes
+    copied to the device and the device's peak memory above what was
+    allocated before."""
     from pyroved_tpu_torch.trainers import _graph
     _graph.CAPTURE = captured
     try:
         model, trainer = make()
         lds = loaders()
-        seen, per_step = [], []
-        if not captured:
-            inner = getattr(trainer, method)
-
-            def record(*a, **k):
-                out = inner(*a, **k)
-                if method != "_batch_loss" or a[3]:  # training steps only
-                    seen.append(out.detach().clone())
-                return out
-            setattr(trainer, method, record)
+        seen, recorder = record_step_losses(trainer, captured)
+        epoch_s = []
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
 
-        def epochs():
-            for _ in range(CAP_EPOCHS):
+        def go():
+            for _ in range(epochs):
+                t0 = time.perf_counter()
                 cap_epoch(trainer, lds)
-                per_step.append(cap_train_losses(trainer) if captured
-                                else torch.stack(seen))
-                seen.clear()
+                torch.cuda.synchronize()
+                epoch_s.append(time.perf_counter() - t0)
             trainer.sync_history()
-        _, secs, launches = run_path(epochs)
+        _, secs, launches = run_path(go)
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        if not captured:
-            delattr(trainer, method)
+        delattr(*recorder)
     finally:
         _graph.CAPTURE = True
     return {"model": model, "trainer": trainer, "loaders": lds,
-            "losses": torch.stack(per_step), "seconds": secs,
-            "launches": launches, "peak_mib": peak}
+            "losses": torch.cat(seen), "epoch_s": epoch_s, "seconds": secs,
+            "launches": launches, "h2d_bytes": h2d_bytes(lds),
+            "peak_mib": peak}
 
 
 def cap_same(what, a, b):
@@ -4287,29 +4306,81 @@ def cap_same(what, a, b):
         raise AssertionError(f"{what}: the noise generators' states differ")
 
 
-def cap_profile(fn, nb):
-    """One epoch ``fn()`` under torch.profiler: the device's busy time a
-    step (the union of its kernels' and copies' intervals), the kernel
-    launches of K1 and K2 (their ``__global__`` names, which K3 shares
-    with K2) and the CUDA API calls of the host, by name, an epoch."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+def idle_gaps(spans, n=3):
+    """The ``n`` longest stretches (ms) in which the device ran none of
+    the (start, end) intervals ``spans`` (µs), between its first start and
+    its last end."""
+    gaps, end = [], None
+    for a, b in sorted(spans):
+        if end is not None and a > end:
+            gaps.append((a - end) / 1e3)
+        end = b if end is None else max(end, b)
+    return sorted(gaps, reverse=True)[:n]
+
+
+#: takes of a profiled epoch at most (:func:`profile_epoch`)
+PROFILE_TAKES = 3
+
+
+def profile_epoch(fn, host=True):
+    """One epoch ``fn()`` under torch.profiler: the device's busy time (the
+    union of its kernels' and copies' intervals), its kernels' alone and
+    its host-to-device copies' alone (ms), its three longest idle gaps,
+    K1's and K2's launches by their ``__global__`` names, and, with
+    ``host``, the host's CUDA API calls by name (tracing the host's
+    operators costs seconds an eager epoch); ``launched``, the K1 and K2
+    launches the counters counted in it, by those names. The profiler
+    now and then loses some of the device's records, on the eager loop
+    and in graph replays alike (the parent tree's eager loop too): a
+    profile that names fewer K1 or K2 launches than were counted is taken
+    again, with another epoch and the host traced too, at most
+    :data:`PROFILE_TAKES` times (``takes``); the callers' checks hold the
+    last one. The window opens and closes 50 ms from the epoch's work."""
+    names = {"K1": GLOBALS["K1", False], "K1_bf16": GLOBALS["K1", True],
+             "K2": GLOBALS["K2", False], "K2_bf16": GLOBALS["K2", True],
+             "K3": GLOBALS["K2", False], "K3_bf16": GLOBALS["K2", True]}
+    for take in range(1, PROFILE_TAKES + 1):
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        if host or take > 1:
+            acts.append(torch.profiler.ProfilerActivity.CPU)
+        before = counts()
         torch.cuda.synchronize()
-    spans, kernels, api = [], {}, {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            if "#" in ev.name:
-                continue
-            spans.append((ev.time_range.start, ev.time_range.end))
-            for g in GLOBALS.values():  # demangled: name<template args>
-                if g + "<" in ev.name:
-                    kernels[g] = kernels.get(g, 0) + 1
-        elif ev.name.startswith("cu") and not ev.name.startswith("cudnn"):
-            api[ev.name] = api.get(ev.name, 0) + 1  # the CUDA API's calls
-    return busy_us(spans) / 1e3 / nb, kernels, api
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        launched = {}
+        for k, n in counts().items():
+            if n - before[k]:
+                launched[names[k]] = launched.get(names[k], 0) + n - before[k]
+        spans, kernel_spans, copy_spans, kernels, api = [], [], [], {}, {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                if "#" in ev.name:
+                    continue
+                span = (ev.time_range.start, ev.time_range.end)
+                spans.append(span)
+                if "Memcpy HtoD" in ev.name:
+                    copy_spans.append(span)
+                elif not ev.name.startswith("Memcpy") and not (
+                        ev.name.startswith("Memset")):
+                    kernel_spans.append(span)
+                for g in GLOBALS.values():
+                    if g + "<" in ev.name:
+                        kernels[g] = kernels.get(g, 0) + 1
+            elif ev.name.startswith("cu") and not ev.name.startswith("cudnn"):
+                api[ev.name] = api.get(ev.name, 0) + 1
+        if not any(kernels.get(g, 0) < n for g, n in launched.items()):
+            break
+        log(f"  a profiled epoch named {kernels} of the launches {launched}:"
+            f" taken again ({take} of {PROFILE_TAKES})")
+    return {"busy_ms": busy_us(spans) / 1e3,
+            "kernels_ms": busy_us(kernel_spans) / 1e3 if kernel_spans
+            else 0.0,
+            "h2d_copy_ms": busy_us(copy_spans) / 1e3 if copy_spans else 0.0,
+            "idle_gaps_ms": idle_gaps(spans), "kernels": kernels,
+            "api": api, "takes": take, "launched": launched}
 
 
 def cap_times(run, nb, captured):
@@ -4329,25 +4400,25 @@ def cap_times(run, nb, captured):
             cap_epoch(trainer, lds)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / (CAP_TIMED * nb)
-        device, kernels, api = cap_profile(lambda: cap_epoch(trainer, lds),
-                                           nb)
+        prof = profile_epoch(lambda: cap_epoch(trainer, lds))
         trainer.sync_history()
     finally:
         _graph.CAPTURE = True
+    device = prof["busy_ms"] / nb
     return {"steps_per_s": 1e3 / wall, "wall_ms_per_step": wall,
             "device_ms_per_step": device, "idle_share": 1.0 - device / wall,
-            "profiled_kernels_per_epoch": kernels,
-            "api_calls_per_epoch": api}
+            "profiled_kernels_per_epoch": prof["kernels"],
+            "api_calls_per_epoch": prof["api"]}
 
 
-def cap_case(name, make, loaders, nb, decodes, method):
+def cap_case(name, make, loaders, nb, decodes):
     """One model under the current flag: the trajectory captured and
     eager, bitwise equal, each launching one K1 and one K2 a step (one K3
     under one_pass_train); then their steady times."""
     on = sd.BF16_MATMUL
     tag = "bf16" if on else "f32"
-    cap = cap_trajectory(make, loaders, method, True)
-    eager = cap_trajectory(make, loaders, method, False)
+    cap = trajectory(make, loaders, CAP_EPOCHS, True)
+    eager = trajectory(make, loaders, CAP_EPOCHS, False)
     cap_same(f"{tag} {name}", cap, eager)
     suffix = "_bf16" if on else ""
     one = getattr(cap["model"], "one_pass_train", False)
@@ -4644,6 +4715,418 @@ def phase_captured(smi):
     out["seconds"] = time.perf_counter() - t0
     log(f"  ({smi}) max_memory_allocated {out['max_memory_allocated_mib']:.1f}"
         f" MiB; phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 15: captured chunked streaming and grad_accum ---------------------
+# examples/out_of_core_training.py:35-60 streams the flagship in chunks of
+# 64 batches of 200; examples/large_effective_batch.py:44-49 trains it at
+# batch 50 x grad_accum=4 on 4,000 rotated bars.
+STREAM_CHUNKS = 64
+
+
+def stream_same(what, a, b):
+    """:func:`cap_same`, and the ``grad_accum`` windows bitwise equal."""
+    cap_same(what, a, b)
+    wa, wb = a["trainer"].grad_accumulator, b["trainer"].grad_accumulator
+    if (wa is None) != (wb is None):
+        raise AssertionError(f"{what}: one run accumulates, one does not")
+    if wa is not None and (wa.mini_step != wb.mini_step or not all(
+            torch.equal(p, q) for p, q in zip(wa.acc, wb.acc))):
+        raise AssertionError(f"{what}: the grad_accum windows differ "
+                             f"(mini_step {wa.mini_step}, {wb.mini_step})")
+
+
+@contextlib.contextmanager
+def host_gather_seconds():
+    """The host seconds spent in the streaming loaders' row gathers inside
+    the block (``utils.data.gather_rows`` wrapped), as a one-entry list."""
+    from pyroved_tpu_torch.utils import data as tdata
+    gather, spent = tdata.gather_rows, [0.0]
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t0
+    tdata.gather_rows = timed
+    try:
+        yield spent
+    finally:
+        tdata.gather_rows = gather
+
+
+def stream_steady(run, captured, profile_loaders, decodes):
+    """After a run's trajectory, captured or eager as it was: a steady
+    epoch's time (steps/s, host-to-device GB/s; captured, one more epoch,
+    all replays, with the host's gather time; eager, the trajectory's last
+    epoch, as every eager epoch is alike), then one epoch over
+    ``profile_loaders(loaders)`` profiled (device time, kernels, API calls
+    and graph launches, copies). ``decodes`` is the profiled epoch's K1
+    (and K2) launches. The eager profile traces the device alone, so its
+    graph launches and API calls are not counted."""
+    from pyroved_tpu_torch.trainers import _graph
+    trainer, lds = run["trainer"], run["loaders"]
+    profile_loaders = profile_loaders(lds)
+    steps = len(lds[0])
+    _graph.CAPTURE = captured
+    try:
+        wall = run["epoch_s"][-1]
+        moved = run["h2d_bytes"] / len(run["epoch_s"])
+        gathered = [None]
+        if captured:
+            before = h2d_bytes(lds)
+            with host_gather_seconds() as gathered:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cap_epoch(trainer, lds)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            moved = h2d_bytes(lds) - before
+        t1 = time.perf_counter()
+        prof = profile_epoch(lambda: cap_epoch(trainer, profile_loaders),
+                             host=captured)
+        profile_s = time.perf_counter() - t1
+        trainer.sync_history()
+    finally:
+        _graph.CAPTURE = True
+    p_steps = len(profile_loaders[0])
+    step_ms = 1e3 * wall / steps
+    graphs = prof["api"].get("cudaGraphLaunch", 0)
+    out = {"steps_per_s": steps / wall, "wall_ms_per_step": step_ms,
+           "h2d_gb_per_s": moved / wall / 1e9, "h2d_bytes": moved,
+           "host_gather_s": gathered[0],
+           "device_ms_per_step": prof["busy_ms"] / p_steps,
+           "kernels_ms_per_step": prof["kernels_ms"] / p_steps,
+           "h2d_copy_ms_per_step": prof["h2d_copy_ms"] / p_steps,
+           "idle_gaps_ms": prof["idle_gaps_ms"],
+           "idle_share": 1.0 - prof["busy_ms"] / p_steps / step_ms,
+           "profiled_steps": p_steps, "profile_s": profile_s,
+           "profiled_kernels": prof["kernels"],
+           "profile_takes": prof["takes"],
+           "graph_launches": graphs,
+           "api_calls_per_launch": (sum(prof["api"].values()) / graphs
+                                    if graphs else None),
+           "api_calls": prof["api"]}
+    k1, k2 = (GLOBALS["K1", bool(sd.BF16_MATMUL)],
+              GLOBALS["K2", bool(sd.BF16_MATMUL)])
+    want = {k1: decodes, k2: decodes}
+    if prof["launched"] != want:
+        raise AssertionError(f"the profiled epoch launched "
+                             f"{prof['launched']}, expected {want}")
+    if set(prof["kernels"]) - set(want) or any(
+            prof["kernels"].get(g, 0) > n for g, n in want.items()):
+        raise AssertionError(f"the profiled epoch ran {prof['kernels']}, "
+                             f"expected {decodes} of {k1} and of {k2}")
+    # records the profiler lost (profile_epoch): every launch is counted
+    # above; phase_captured_stream wants, under each flag, a captured
+    # replay whose trace names them all
+    out["records_lost"] = {g: n - prof["kernels"].get(g, 0)
+                           for g, n in want.items()}
+    return out
+
+
+def stream_case(name, make, loaders, epochs, decodes, profile_loaders,
+                p_decodes, chunks, programs):
+    """One configuration under the current flag: ``epochs`` epochs captured
+    and eager, bitwise equal (parameters, buffers, every training step's
+    loss, the history, the optimizers' states, the generator, the
+    ``grad_accum`` window), each launching one K1 and one K2 a micro-step
+    (``decodes`` an epoch); the programs made (``programs``, as
+    ``_graph.variants`` has them), captured, their capture seconds and
+    their kind's pool, shared; then a steady epoch and a profiled one each
+    way, the captured one with ``chunks`` graph launches (its chunks, or
+    1)."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    what = f"{tag} {name}"
+    t0 = time.perf_counter()
+    cap = trajectory(make, loaders, epochs, True)
+    eager = trajectory(make, loaders, epochs, False)
+    stream_same(what, cap, eager)
+    suffix = "_bf16" if sd.BF16_MATMUL else ""
+    expected = {"K1" + suffix: epochs * decodes,
+                "K2" + suffix: epochs * decodes}
+    for run in (cap, eager):
+        if not only(run["launches"], **expected):
+            raise AssertionError(f"{what}: launches {run['launches']}, "
+                                 f"expected {expected}")
+    cache = cap["trainer"]._graphs
+    progs = cache.captured()
+    if not cache.made == len(progs) == programs:
+        raise AssertionError(f"{what}: {cache.made} programs made, "
+                             f"{len(progs)} captured, expected {programs}")
+    made = cache.made
+    times = {"captured": stream_steady(cap, True, profile_loaders,
+                                       p_decodes),
+             "eager": stream_steady(eager, False, profile_loaders,
+                                    p_decodes)}
+    if (times["captured"]["graph_launches"] != chunks
+            or times["eager"]["graph_launches"]):
+        raise AssertionError(f"{what}: {times['captured']['graph_launches']}"
+                             f" graph launches in the profiled captured "
+                             f"epoch (expected {chunks}), "
+                             f"{times['eager']['graph_launches']} eager")
+    out = {"epochs": epochs, "micro_steps_per_epoch": decodes,
+           "launches": cap["launches"],
+           "epoch_s": {"captured": cap["epoch_s"], "eager": eager["epoch_s"]},
+           "h2d_bytes": {"captured": cap["h2d_bytes"],
+                         "eager": eager["h2d_bytes"]},
+           "programs_made": made, "programs_captured": len(progs),
+           "replays": sum(p.replays for p in progs),
+           "capture_s": [p.capture_s for p in progs],
+           "pool_mib": [p.pool_bytes / 2 ** 20 for p in progs],
+           "pool_mib_total": sum(p.pool_bytes for p in progs) / 2 ** 20,
+           "peak_mib": {"captured": cap["peak_mib"],
+                        "eager": eager["peak_mib"]},
+           "speedup": (times["captured"]["steps_per_s"]
+                       / times["eager"]["steps_per_s"]),
+           "times": times, "seconds": time.perf_counter() - t0}
+    log(f"  {what}: {epochs} epochs of {decodes} micro-steps captured and "
+        f"eager bitwise equal (parameters, every step's loss, history, "
+        f"optimizers, generator, window), launches {cap['launches']}; "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+    return out
+
+
+def stream_resume(X):
+    """A resume in the middle of a ``grad_accum=4`` window on the card: 82
+    micro-steps an epoch (so the window sits at 2 after odd epochs), 3
+    epochs (two eager warm-ups, a capture), a checkpoint, a fresh model and
+    trainer (other seeds) that resume and take 4 more (two warm-ups, two
+    captures), against 7 in one go: bitwise."""
+    t0 = time.perf_counter()
+
+    def make(seed):
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=4 + seed)
+        return m, SVItrainer(m, seed=2 + seed, grad_accum=4)
+
+    def loader(epoch):
+        ld = init_dataloader(X, batch_size=50, seed=0)
+        ld.set_epoch(epoch)
+        return ld
+
+    whole_model, whole = make(0)
+    whole.run(loader(0), 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ckpt.npz"
+        first_model, first = make(0)
+        first.run(loader(0), 3)
+        if first.grad_accumulator.mini_step != 2 or not first._graphs.captured():
+            raise AssertionError("resume: the first run did not end "
+                                 "mid-window after a capture")
+        save_checkpoint(path, first_model, first)
+        model, trainer = make(1)
+        trainer.resume(path)
+    _, secs, launches = run_path(lambda: trainer.run(loader(3), 4))
+    stream_same("resume mid-window",
+                {"model": model, "trainer": trainer, "losses": torch.zeros(1)},
+                {"model": whole_model, "trainer": whole,
+                 "losses": torch.zeros(1)})
+    if not trainer._graphs.captured():
+        raise AssertionError("resume: nothing was captured after it")
+    expect_steps(f"resumed 4 epochs mid-window ({secs:.2f} s)", launches,
+                 4 * 82)
+    log(f"  {'bf16' if sd.BF16_MATMUL else 'f32'} resume mid-window: 3 "
+        f"epochs of 82 micro-steps at grad_accum=4, a checkpoint at "
+        f"mini_step 2, a fresh trainer's resume and 4 more bitwise equal to "
+        f"7 in one go; launches {launches} ({time.perf_counter() - t0:.1f}"
+        f" s)")
+    return launches
+
+
+def feed_dropped_mid_copy(x32):
+    """A streaming feed dropped with a chunk's copy in flight: its landing
+    buffers lie in blocks of the copy stream (``torch.cuda.memory_snapshot``),
+    and the compute stream's allocations of their size that follow take
+    none of them, so no pending copy writes into a compute-stream tensor."""
+    ld = init_dataloader(x32[:3 * STREAM_CHUNKS * 200], batch_size=200,
+                         seed=0, device_resident=False,
+                         stream_chunks=STREAM_CHUNKS)
+    idx, _ = ld.epoch_indices()
+    feed = ld._chunks(idx)
+    rows = [next(feed)[2][0], next(feed)[2][0]]  # chunk 1's copy queued
+    current = torch.cuda.current_stream().cuda_stream
+    segs = {}
+    for seg in torch.cuda.memory_snapshot():
+        for t in rows:
+            if seg["address"] <= t.data_ptr() < seg["address"] + seg[
+                    "total_size"]:
+                segs[t.data_ptr()] = seg["stream"]
+    if len(segs) != 2 or current in segs.values():
+        raise AssertionError(f"the landing buffers' streams {segs}, the "
+                             f"compute stream {current}")
+    nbytes = rows[0].numel() * rows[0].element_size()
+    del rows
+    feed.close()
+    taken = [torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+             for _ in range(4)]
+    hit = [t.data_ptr() for t in taken if t.data_ptr() in segs]
+    del taken
+    if hit:
+        raise AssertionError(f"a compute-stream tensor took a landing "
+                             f"buffer's block at {hit}")
+    log(f"  a feed dropped mid-copy: its landing buffers on the copy "
+        f"stream, none taken by the compute stream's next 4 allocations "
+        f"of {nbytes / 2 ** 20:.1f} MiB")
+    return {"landing_streams": sorted(set(segs.values())),
+            "compute_stream": current}
+
+
+def stream_vs_resident(x32):
+    """The chunk's own cost: the flagship over the same 12,800 memmapped
+    rows (64 batches) resident and streamed as one chunk of 64, each
+    captured (a warm-up epoch, a capture) and then timed over 3 epochs, in
+    turns (resident, streamed, streamed, resident): milliseconds a step,
+    the host clock to the device's end."""
+    rows = x32[:STREAM_CHUNKS * 200]
+    runs = {}
+    for kw in ({}, dict(device_resident=False, stream_chunks=STREAM_CHUNKS)):
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=1)
+        tr = SVItrainer(m)
+        ld = init_dataloader(rows, batch_size=200, seed=0, **kw)
+        for _ in range(2):
+            tr.train(ld)
+        runs["resident" if not kw else "streamed"] = (tr, ld, [])
+    for name in ("resident", "streamed", "streamed", "resident"):
+        tr, ld, ms = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.step(ld, sync=False)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / (3 * len(ld)))
+    out = {name: ms for name, (_, _, ms) in runs.items()}
+    log(f"  {'bf16' if sd.BF16_MATMUL else 'f32'} flagship over 12,800 "
+        f"memmapped rows, captured, ms a step in turns: {json.dumps(out)}")
+    return out
+
+
+def stream_cases(x32, x8):
+    """Phase 15's configurations under the current flag: (name, make,
+    loaders, epochs, micro-steps an epoch, the profiled epoch's loaders
+    (a function of the run's: a resident loader made afresh would hold new
+    device arrays, and so take new programs) and micro-steps, its graph
+    launches captured, the programs its trainer makes)."""
+    rows = OOC_ROWS if sd.BF16_MATMUL else OOC_ROWS_F32
+    prof_rows = 2 * STREAM_CHUNKS * 200  # two full chunks
+
+    def flagship(seed=1, **kw):
+        m = iVAE((28, 28), latent_dim=2, invariances=["r"], seed=seed)
+        return m, SVItrainer(m, **kw)
+
+    def ooc(src, **kw):
+        return lambda n: (init_dataloader(
+            src[:n], batch_size=200, seed=0, device_resident=False,
+            stream_chunks=STREAM_CHUNKS, **kw),)
+
+    u8 = dict(scale=1.0 / 255.0)
+    steps = -(-rows // 200)
+    chunks = -(-steps // STREAM_CHUNKS)
+    Xf, y, _ = family_data()
+    labels = np.eye(N_CLASSES, dtype=np.float32)[y]
+
+    def ss():
+        m = ssiVAE(FAMILY_DIM, num_classes=N_CLASSES, **FAMILY)
+        return m, auxSVItrainer(m)
+
+    def ss_loaders():
+        # 10 unlabeled batches in chunks of 4 (4, 4, 2), a labeled one
+        # after the 2nd and the 8th: three programs
+        return (init_dataloader(Xf, batch_size=200, seed=0,
+                                device_resident=False, stream_chunks=4),
+                init_dataloader(Xf[:400], labels[:400], batch_size=200,
+                                seed=0, random_sampler=True))
+
+    def ss_ratio():
+        # the cadence of 300 unlabeled and 15 labeled batches, (15 + 300)
+        # // 15 = 21, given as sup_period, so that a shorter unlabeled
+        # loader keeps it
+        m, tr = ss()
+        tr.step = functools.partial(tr.step, sup_period=21)
+        return m, tr
+
+    def ss_ratio_loaders(batches=300):
+        # unlabeled batches of the memmap in chunks of 64 (300: 4 x 64,
+        # 44) and 15 labeled ones: a labeled step every 21st, at 1, 22,
+        # ..., 295 (15 an epoch); 64 mod 21 = 1 moves the pattern a place
+        # each chunk: a program a chunk, five
+        return (init_dataloader(x32[:batches * 200], batch_size=200, seed=0,
+                                device_resident=False,
+                                stream_chunks=STREAM_CHUNKS),
+                init_dataloader(np.tile(Xf, (2, 1, 1))[:3000],
+                                np.tile(labels, (2, 1))[:3000],
+                                batch_size=200, seed=0, random_sampler=True))
+
+    def ss_ratio_profiled(lds):
+        # the first two chunks (7 labeled steps): the first two programs
+        return ss_ratio_loaders(2 * STREAM_CHUNKS)[:1] + lds[1:]
+
+    bars4000, bars4100 = bars(4000), bars(4100)
+    same = lambda lds: lds  # noqa: E731
+
+    def accum(**kw):
+        return lambda: flagship(seed=4, grad_accum=4, **kw)
+
+    def batches(X, **kw):
+        return lambda: (init_dataloader(X, batch_size=50, seed=0, **kw),)
+
+    return (
+        (f"out-of-core flagship f32 memmap ({rows:,} rows, {chunks} chunks)",
+         flagship, lambda: ooc(x32)(rows), 2, steps,
+         lambda lds: ooc(x32)(prof_rows), 2 * STREAM_CHUNKS, 2, 2),
+        (f"out-of-core flagship uint8 scale=1/255 ({rows:,} rows)",
+         flagship, lambda: ooc(x8, **u8)(rows), 2, steps,
+         lambda lds: ooc(x8, **u8)(prof_rows), 2 * STREAM_CHUNKS, 2, 2),
+        ("ssiVAE, chunked unlabeled (4, 4, 2), resident labeled", ss,
+         ss_loaders, 3, 12, same, 12, 3, 3),
+        ("ssiVAE, 300 memmapped unlabeled batches in chunks of 64, 15 "
+         "labeled (p = 21)", ss_ratio, ss_ratio_loaders, 3, 315,
+         ss_ratio_profiled, 2 * STREAM_CHUNKS + 7, 2, 5),
+        ("flagship batch 50 x grad_accum=4, 4,000 bars (80 micro-steps)",
+         accum(), batches(bars4000), 3, 80, same, 80, 1, 1),
+        ("flagship batch 50 x grad_accum=4, 4,100 bars (82: nb % k = 2)",
+         accum(), batches(bars4100), 6, 82, same, 82, 1, 2),
+        ("flagship grad_accum=4 over chunks of 24 (24, 24, 24, 8)",
+         accum(), batches(bars4000, device_resident=False, stream_chunks=24),
+         3, 80, same, 80, 4, 2))
+
+
+def phase_captured_stream(smi):
+    """Phase 15: the captured chunked streaming and ``grad_accum``
+    programs (``trainers/_graph.py``) against the eager loop on the card,
+    under each flag."""
+    t0 = time.perf_counter()
+    out = {"cases": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        x32, x8 = write_memmaps(tmp, OOC_ROWS)
+        out["memmap_write_s"] = time.perf_counter() - t1
+        for on in (False, True):
+            with bf16_matmul(on):
+                tag = "bf16" if on else "f32"
+                named = []
+                for case in stream_cases(x32, x8):
+                    res = stream_case(*case)
+                    out["cases"][f"{case[0]} {tag}"] = res
+                    out["launches"][f"stream {case[0]} {tag}"] = res[
+                        "launches"]
+                    if not any(res["times"]["captured"][
+                            "records_lost"].values()):
+                        named.append(case[0])
+                if not named:
+                    raise AssertionError(f"{tag}: no captured replay's "
+                                         f"trace named every K1 and K2")
+                out[f"traces_naming_every_launch_{tag}"] = named
+                out["launches"][f"stream resume mid-window {tag}"] = (
+                    stream_resume(bars(4100)))
+                out[f"chunk_vs_resident_{tag}"] = stream_vs_resident(x32)
+        out["feed_dropped_mid_copy"] = feed_dropped_mid_copy(x32)
+        del x32, x8
+    out["max_memory_allocated_mib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 20)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  ({smi}) phase 15 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4973,6 +5456,12 @@ def main() -> int:
         "the 20-epoch window, resume, launches, times")
     captured = phase_captured(smi)
 
+    # -- 15. captured chunked streaming and grad_accum (also before 13) ----
+    log("phase 15: captured chunked streaming and grad_accum against the "
+        "eager loop: the out-of-core flagship, ssiVAE, batch 50 x "
+        "grad_accum=4, resume mid-window")
+    stream = phase_captured_stream(smi)
+
     # -- 13. K4: the backward in ablation modes --------------------------
     log("phase 13: K4's eight modes of both K2 sources against their plain "
         "versions and K2, timed chains and the attribution of K2's time")
@@ -5004,7 +5493,9 @@ def main() -> int:
                 **{path: n[key] for path, n in job_launches.items()},
                 **{path: n[key] for path, n in par_launches.items()},
                 **{path: n[key]
-                   for path, n in captured["launches"].items()}}
+                   for path, n in captured["launches"].items()},
+                **{path: n[key]
+                   for path, n in stream["launches"].items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -5090,7 +5581,8 @@ def main() -> int:
                             "seconds": phase9_s},
         "pixel_int8_viz": {"bf16": pix, "f32": pix32,
                            "seconds": phase10_s},
-        "jobs": jobs, "parallel": parallel, "captured_epochs": captured}
+        "jobs": jobs, "parallel": parallel, "captured_epochs": captured,
+        "captured_streaming": stream}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,9 @@ between segments, and the enumeration schedule (``enum_schedule``).
 Counterpart of ``pyroved_tpu/trainers/_segmented.py``
 (``SegmentedRunsMixin``). The JAX package dispatches compiled multi-epoch
 scans, blocking or pipelined; the port queues each epoch without waiting
-(``sync=False``: on the captured path one graph replay an epoch, and one
-for its held-out loss or labeled-set metric; else its eager steps) and has
+(``sync=False``: on the captured path one graph replay an epoch, or a
+chunk of a streamed one, and one for its held-out loss or labeled-set
+metric; else its eager steps) and has
 one runner whose segments, records, checkpoint epochs and callback
 arguments are those of the JAX package's two runners:
 

@@ -17,8 +17,14 @@ are all resident, an epoch (its unlabeled and labeled steps, both
 optimizers' updates) and the metric on ``loader_val`` are each captured
 once as a CUDA graph and replayed, one graph launch each, as
 ``SVItrainer``'s are (:mod:`._graph`; the same eager-only
-configurations). With two DataLoaders the labeled batch of each step
-comes from the labeled loader's epoch permutation, cycled (the schedule of
+configurations, ``grad_accum`` captured too). With a streaming unlabeled
+loader of ``stream_chunks=c > 1`` and a resident labeled one, each chunk
+of c unlabeled batches and the labeled steps among them is a captured
+program, as the JAX package's ``_train_chunked_stream`` scans a chunk:
+the labeled steps' places (``mask[start:start + c]``) are part of its
+variant, their rows and weights a table filled each chunk. With two
+DataLoaders the labeled batch of each step comes from the labeled
+loader's epoch permutation, cycled (the schedule of
 the JAX package's resident and chunked paths), so a streamed epoch is
 bitwise equal to a resident one.
 With an iterable the loaders are iterated, the labeled one afresh whenever
@@ -202,8 +208,9 @@ class auxSVItrainer(SegmentedRunsMixin):
         (sum of the unlabeled losses, the unlabeled count); captured where
         :func:`._graph.route` says."""
         if _graph.route(self, (loader_unsup, loader_sup)):
-            return self._captured_epoch(loader_unsup, loader_sup, beta,
-                                        aux_mult, sup_period)
+            run = (self._captured_epoch if loader_unsup.device_resident
+                   else self._chunked_epoch)
+            return run(loader_unsup, loader_sup, beta, aux_mult, sup_period)
         idx_u, w_u = loader_unsup.epoch_indices()
         idx_s, w_s = loader_sup.epoch_indices()
         mask, sup_j = self._schedule(loader_unsup, loader_sup,
@@ -260,10 +267,80 @@ class auxSVItrainer(SegmentedRunsMixin):
         key = (_graph.loader_key(loader_unsup),
                _graph.loader_key(loader_sup), shape, float(aux_mult),
                mask.tobytes())
+        micro = nb + int(mask.sum())
         (total,) = self._graphs.run(
             self, ("aux",), key, make,
-            lambda t: t.fill(iu=idx_u, wu=w_u, is_=idx_s, ws=w_s, beta=beta))
+            lambda t: t.fill(iu=idx_u, wu=w_u, is_=idx_s, ws=w_s, beta=beta),
+            micro=micro, keep=_graph.variants(self, [((), micro)]))
         return total, max(float(w_u.sum()), 1.0)
+
+    def _chunked_epoch(self, loader_unsup: DataLoader,
+                       loader_sup: DataLoader, beta, aux_mult, sup_period):
+        """:meth:`_epoch_indexed` over a streaming unlabeled DataLoader and
+        a resident labeled one, each chunk of ``stream_chunks`` unlabeled
+        batches a captured program (:mod:`._graph`): the unlabeled rows
+        cast from the chunk rows' tables (the kind's, shared), the q-th
+        labeled step of the chunk gathered at row q of a labeled index
+        table filled each chunk; the chunk's length and its labeled steps'
+        places are the program's variant, so an epoch takes at most one
+        program a chunk, and p / gcd(c, p) full chunks' patterns at a
+        cadence p."""
+        idx_u, w_u = loader_unsup.epoch_indices()
+        idx_s, w_s = loader_sup.epoch_indices()
+        nb, bs = idx_u.shape
+        bss = idx_s.shape[1]
+        mask, sup_j = self._schedule(loader_unsup, loader_sup, nb,
+                                     idx_s.shape[0], sup_period)
+        shape = tuple(torch.as_tensor(beta).shape)
+        spans = [(start, c, tuple(int(i) for i in np.flatnonzero(
+            mask[start:start + c])))
+            for start, c in loader_unsup.chunk_spans(nb)]
+        keep = _graph.variants(
+            self, [((c, labeled), c + len(labeled))
+                   for _, c, labeled in spans])
+
+        def make(c, labeled):
+            nl = len(labeled)
+            t = StaticTables(self.device, wu=((c, bs), torch.float32),
+                             is_=((nl, bss), torch.int32),
+                             ws=((nl, bss), torch.float32),
+                             beta=(shape, torch.float32),
+                             losses=((c,), torch.float32))
+            t.rows = self._graphs.shared(
+                ("aux",), lambda: loader_unsup.chunk_tables(spans[0][1]))
+            place = {i: q for q, i in enumerate(labeled)}
+
+            def step(i):
+                (x,) = loader_unsup.chunk_batch(t.rows, i)
+                t.losses[i].copy_(self.unsup_step(x, t.wu[i], t.beta))
+                if i in place:
+                    q = place[i]
+                    xs, ys = loader_sup.gather(t.is_[q])
+                    self.sup_step(xs, ys, t.ws[q], t.beta, aux_mult)
+
+            return _graph.Program(self.device, c, step,
+                                  lambda: (t.losses.clone(),), t,
+                                  self.generator)
+
+        key = (loader_unsup.chunk_key(), _graph.loader_key(loader_sup),
+               shape, float(aux_mult))
+        losses = []
+        feed = loader_unsup.chunk_feed(idx_u)
+        for (start, c, put), (_, _, labeled) in zip(feed, spans):
+            js = sup_j[start:start + c][list(labeled)]
+
+            def fill(t, start=start, c=c, put=put, js=js):
+                put(t.rows)
+                t.fill(wu=w_u[start:start + c], beta=beta)
+                if len(js):
+                    t.fill(is_=idx_s[js], ws=w_s[js])
+
+            losses += self._graphs.run(
+                self, ("aux",), key,
+                lambda c=c, labeled=labeled: make(c, labeled), fill,
+                variant=(c, labeled), micro=c + len(labeled),
+                keep=keep)
+        return torch.cat(losses).sum(), max(float(w_u.sum()), 1.0)
 
     def _epoch_streamed(self, loader_unsup, loader_sup, beta, aux_mult,
                         sup_period):
@@ -347,7 +424,7 @@ class auxSVItrainer(SegmentedRunsMixin):
         captured path a captured program (:mod:`._graph`) whose static
         table holds the pass's row order."""
         if (isinstance(loader_val, DataLoader)
-                and _graph.route(self, (loader_val,))):
+                and _graph.route(self, (loader_val,), chunked=False)):
             return self._captured_metric(loader_val, classification)
         return self._metric_sums(loader_val, classification)
 

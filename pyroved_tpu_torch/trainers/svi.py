@@ -5,17 +5,19 @@ Counterpart of ``pyroved_tpu/trainers/svi.py`` with the same surface:
 ``loss_history``, each step minimizing the weighted SUM of per-example
 negative ELBOs and each epoch's loss normalized by the dataset size.
 
-The JAX trainer runs an epoch as one compiled ``lax.scan``. Here, on a
-CUDA model over a device-resident
-:class:`~pyroved_tpu_torch.utils.data.DataLoader`, the training and the
-evaluation epoch are each captured once as a CUDA graph and replayed, one
-graph launch an epoch (:mod:`._graph`: the first epoch of each kind runs
-eagerly as the capture's warm-up, and the graph gives the eager loop's
-trajectory bit for bit). Every other configuration runs an epoch as a
-Python loop over batches: CPU models, a streaming loader
-(``device_resident=False``, staged from the host) or any iterable of
-batches (a short final batch padded with zero weights), a ``mesh``,
-``grad_accum > 1``, ``pixel_chunks`` and an optimizer the graph cannot take
+The JAX trainer runs an epoch as one compiled ``lax.scan``, and a chunked
+streaming epoch as one scan a chunk. Here, on a CUDA model over a
+device-resident :class:`~pyroved_tpu_torch.utils.data.DataLoader`, the
+training and the evaluation epoch are each captured once as a CUDA graph
+and replayed, one graph launch an epoch; over a streaming DataLoader with
+``stream_chunks=c > 1`` each chunk of c batches is, its rows copied into
+the program's tables while the previous chunk replays (:mod:`._graph`: the
+first run of each program is eager, the capture's warm-up, and the graph
+gives the eager loop's trajectory bit for bit; ``grad_accum`` included).
+Every other configuration runs an epoch as a Python loop over batches: CPU
+models, a streaming loader of one batch at a time (staged from the host)
+or any iterable of batches (a short final batch padded with zero weights),
+a ``mesh``, ``pixel_chunks`` and an optimizer the graph cannot take
 (:func:`._graph.route`). Either way the per-step losses stay on the device
 and the host reads them only at ``float()``, ``sync_history`` and the
 segment ends of ``run``. Optimization is ``torch.optim.Adam(lr=1e-3)``
@@ -102,7 +104,10 @@ class GradAccumulator:
     and steps the optimizer on every k-th call only, with the mean as the
     grad; between updates the optimizer does not step at all, so its
     step counts advance once per update. ``acc`` and ``mini_step`` are the
-    window's state (saved by checkpoints)."""
+    window's state (saved by checkpoints). A captured program freezes
+    each micro-step's divisor and whether it updates, so the window's
+    position at its start is part of its variant, and ``mini_step`` is set
+    after each run (:meth:`._graph.GraphCache.run`)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, k: int):
         self.optimizer = optimizer
@@ -343,7 +348,9 @@ class SVItrainer(SegmentedRunsMixin):
         rows it covered) over a DataLoader, resident or streaming, or an
         iterable of batches; captured where :func:`._graph.route` says."""
         if isinstance(loader, DataLoader) and _graph.route(self, (loader,)):
-            return self._captured_epoch(loader, scale_factor, train)
+            if loader.device_resident:
+                return self._captured_epoch(loader, scale_factor, train)
+            return self._chunked_epoch(loader, scale_factor, train)
         beta = self._prep_beta(scale_factor)
         losses = []
         if isinstance(loader, DataLoader):
@@ -391,10 +398,57 @@ class SVItrainer(SegmentedRunsMixin):
                                   self.generator)
 
         idx, w = loader.epoch_indices()
+        micro = nb if train else 0
         (total,) = self._graphs.run(
             self, ("svi", train), (_graph.loader_key(loader), shape), make,
-            lambda t: t.fill(idx=idx, w=w, beta=beta))
+            lambda t: t.fill(idx=idx, w=w, beta=beta), micro=micro,
+            keep=_graph.variants(self, [((), micro)]))
         return total, loader.dataset_size
+
+    def _chunked_epoch(self, loader: DataLoader, scale_factor, train: bool):
+        """:meth:`_epoch` over a streaming DataLoader, each chunk of
+        ``stream_chunks`` batches a captured program (:mod:`._graph`; the
+        full chunk and the short last one are two): step i casts batch i
+        of the chunk rows' tables (the kind's, shared), weighs it by row i
+        of a ``[c, bs]`` weights table and takes the KL scale from a
+        device scalar. The chunks' per-step losses are summed on the
+        device at the end, as the eager loop sums them."""
+        beta = self._prep_beta(scale_factor)
+        shape = tuple(torch.as_tensor(beta).shape)
+        bs = loader.batch_size
+        kind = ("svi", train)
+        idx, w = loader.epoch_indices()
+        spans = loader.chunk_spans(idx.shape[0])
+        keep = _graph.variants(
+            self, [((c,), c if train else 0) for _, c in spans])
+
+        def make(c):
+            t = StaticTables(self.device, w=((c, bs), torch.float32),
+                             beta=(shape, torch.float32),
+                             losses=((c,), torch.float32))
+            t.rows = self._graphs.shared(
+                kind, lambda: loader.chunk_tables(spans[0][1]))
+
+            def step(i):
+                batch = loader.chunk_batch(t.rows, i)
+                t.losses[i].copy_(self._batch_loss(batch, t.w[i], t.beta,
+                                                   train))
+
+            return _graph.Program(self.device, c, step,
+                                  lambda: (t.losses.clone(),), t,
+                                  self.generator)
+
+        key = (loader.chunk_key(), shape)
+        losses = []
+        for start, c, put in loader.chunk_feed(idx):
+            def fill(t, start=start, c=c, put=put):
+                put(t.rows)
+                t.fill(w=w[start:start + c], beta=beta)
+
+            losses += self._graphs.run(
+                self, kind, key, lambda c=c: make(c), fill, variant=(c,),
+                micro=c if train else 0, keep=keep)
+        return torch.cat(losses).sum(), loader.dataset_size
 
     def train(self, train_loader, **kwargs):
         """One training epoch; returns loss / dataset_size.

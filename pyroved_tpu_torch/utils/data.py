@@ -13,12 +13,17 @@ the epoch's ``[num_batches, batch_size]`` indices and gather each batch on
 the device with ``index_select`` (a captured epoch reads the indices and
 weights from :class:`StaticTables`, filled once an epoch from pinned
 memory). With ``device_resident=False`` the arrays
-stay where they are on the host (a memmap is never read whole): the rows of
-``stream_chunks`` batches at a time (one batch by default) are gathered
-into a pinned host buffer and copied to the device on a copy stream while
-the previous chunk trains (two buffers, an event each). The same rows in
-the same order reach the model either way, so a streamed epoch is bitwise
-equal to a resident one.
+stay where they are on the host (a memmap is never read whole): the rows
+of ``stream_chunks`` batches at a time (one batch by default) are gathered
+into a pinned host buffer and copied on a copy stream into a device
+landing buffer (two of each, an event each), from which the eager loop
+casts each batch; the next chunk is gathered only
+after the current one's work is queued, so that the host's gather and the
+copy run under it. A trainer's captured chunk (``trainers._graph``) reads
+its rows from static tables that :meth:`DataLoader.chunk_feed` copies each
+chunk into before its launch, and casts them inside the graph. The same
+rows in the same order reach the model either way, so a streamed epoch is
+bitwise equal to a resident one.
 
 ``scale=`` keeps an array in its stored dtype (a uint8 image stack stays
 uint8 on the device or on the wire) and casts each batch to float32 times
@@ -113,32 +118,60 @@ def _apply_store_dtype(host, scale, store_dtype):
     return out, tuple(scales), tuple(bf16)
 
 
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    """The torch dtype of a host array's stored dtype."""
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+_copy_streams = {}
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The copy stream of ``device``, one for every stager: the landing
+    buffers are allocated on it, so an epoch's stager takes the blocks of
+    the one before from the allocator's cache for that stream."""
+    if device not in _copy_streams:
+        _copy_streams[device] = torch.cuda.Stream(device)
+    return _copy_streams[device]
+
+
 class _Stager:
     """Chunks of a streaming loader's rows on their way to the device.
 
-    :meth:`stage` gathers the rows into one of two pinned host buffers and
-    starts their copy on a copy stream, recording an event after it;
-    :meth:`take` makes the compute stream wait for that event, ties the
-    copied tensors to the compute stream (``record_stream``) and casts
-    them. A buffer is gathered into again only once the event of its last
-    copy has passed. On the CPU the rows are gathered and cast in place."""
+    :meth:`stage` gathers the rows into one of two slots, each a pinned
+    host buffer and a device landing buffer, and starts their copy on a
+    copy stream, recording an event after it. A slot is gathered into
+    again only once the event of its last copy has passed, and its landing
+    buffer written again only after the event :meth:`release` recorded on
+    the compute stream once that stream's reads of it were queued; with
+    two slots, one chunk's copy runs under the work on the one before.
+    :meth:`take` makes the compute stream wait for the copy. The landing
+    buffers are allocated on the device's copy stream (:func:`_copy_stream`)
+    and their reads on the compute stream recorded (``record_stream``), so
+    a stager dropped with a copy in flight frees no block another stream
+    could take before the copy has landed. On the CPU the rows are
+    gathered in place."""
 
     def __init__(self, loader: "DataLoader", rows: int):
         self.loader, self.rows = loader, rows
         self.cuda = loader.device.type == "cuda"
         if self.cuda:
-            self.stream = torch.cuda.Stream(loader.device)
+            self.stream = _copy_stream(loader.device)
             self.bufs = [None, None]
             self.events = [None, None]
+            self.released = [None, None]
             self.slot = 0
 
     def _buffers(self, slot: int):
         if self.bufs[slot] is None:
-            self.bufs[slot] = tuple(
-                torch.empty((self.rows,) + a.shape[1:],
-                            dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
-                            pin_memory=True)
-                for a in self.loader._host)
+            host = tuple(torch.empty((self.rows,) + a.shape[1:],
+                                     dtype=_torch_dtype(a), pin_memory=True)
+                         for a in self.loader._host)
+            with torch.cuda.stream(self.stream):
+                dev = tuple(torch.empty(h.shape, dtype=h.dtype,
+                                        device=self.loader.device)
+                            for h in host)
+            self.bufs[slot] = host, dev
         return self.bufs[slot]
 
     def stage(self, rows: np.ndarray):
@@ -146,32 +179,45 @@ class _Stager:
         ld = self.loader
         if not self.cuda:
             return tuple(torch.from_numpy(gather_rows(a, rows))
-                         for a in ld._host), None
+                         for a in ld._host), None, None
         slot, self.slot = self.slot, 1 - self.slot
         if self.events[slot] is not None:  # its last copy has landed
             self.events[slot].synchronize()
         n = rows.shape[0]
-        bufs = self._buffers(slot)
-        for a, b in zip(ld._host, bufs):
+        host, landing = self._buffers(slot)
+        for a, b in zip(ld._host, host):
             gather_rows(a, rows, out=b.numpy()[:n])
         with torch.cuda.stream(self.stream):
-            dev = tuple(b[:n].to(ld.device, non_blocking=True) for b in bufs)
+            if self.released[slot] is not None:
+                self.stream.wait_event(self.released[slot])
+            dev = tuple(d[:n].copy_(b[:n], non_blocking=True)
+                        for d, b in zip(landing, host))
             event = torch.cuda.Event()
             event.record(self.stream)
         self.events[slot] = event
         ld.host_to_device_bytes += sum(t.numel() * t.element_size()
                                        for t in dev)
-        return dev, event
+        return dev, event, slot
 
     def take(self, staged) -> Tuple[Tensor, ...]:
-        """The staged tensors, usable on the current stream, cast."""
-        dev, event = staged
+        """The staged rows in their stored dtypes, usable on the current
+        stream until :meth:`release`."""
+        dev, event, _ = staged
         if event is not None:
             current = torch.cuda.current_stream(self.loader.device)
             current.wait_event(event)
             for t in dev:
                 t.record_stream(current)
-        return self.loader._cast(dev)
+        return dev
+
+    def release(self, staged) -> None:
+        """The current stream's work queued so far is the last to read the
+        staged rows: their slot may be written once it has run."""
+        _, event, slot = staged
+        if event is not None:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.loader.device))
+            self.released[slot] = done
 
 
 class DataLoader:
@@ -321,26 +367,88 @@ class DataLoader:
     def padded_batches(self, idx: np.ndarray) -> Iterator[Tuple[Tensor, ...]]:
         """The batches at the rows ``idx [nb, batch_size]`` (as
         :meth:`epoch_indices` gives them), in order, on the device:
-        gathered there for a resident loader; for a streaming one staged
-        ``stream_chunks`` batches at a time, the next chunk's copy under
-        way while the current one is consumed."""
+        gathered there for a resident loader; for a streaming one cast
+        from its landing buffers ``stream_chunks`` batches at a time
+        (:meth:`_chunks`), the next chunk's gather and copy started once
+        the current one's batches are handed out. A streamed batch that
+        needs no cast is a view of a landing buffer, written again once
+        the next chunk's batches are asked for: queue its work before."""
         if self.device_resident:
             rows = torch.as_tensor(idx, device=self.device)
             for i in range(idx.shape[0]):
                 yield self.gather(rows[i])
             return
-        nb, bs = idx.shape
-        cb = max(1, min(self.stream_chunks, nb))
-        stager = _Stager(self, cb * bs)
-        staged = stager.stage(idx[:cb].reshape(-1))
-        for start in range(0, nb, cb):
-            c = min(cb, nb - start)
-            current = stager.take(staged)
-            if start + cb < nb:
-                staged = stager.stage(idx[start + cb:start + 2 * cb]
-                                      .reshape(-1))
+        for _, c, rows in self._chunks(idx):
             for i in range(c):
-                yield tuple(t[i * bs:(i + 1) * bs] for t in current)
+                yield self.chunk_batch(rows, i)
+
+    def chunk_spans(self, nb: int) -> list:
+        """``(start, c)`` of each chunk of a streamed epoch of ``nb``
+        batches: ``stream_chunks`` batches each (at least one), the last
+        one short where they do not divide ``nb``."""
+        cb = max(1, min(self.stream_chunks, nb))
+        return [(s, min(cb, nb - s)) for s in range(0, nb, cb)]
+
+    def chunk_key(self) -> tuple:
+        """What a program over :meth:`chunk_tables` depends on: the batch
+        size, the full chunk's batches, the scales and the arrays' row
+        shapes and stored dtypes (bfloat16 bits among them). Not the host
+        arrays, whose rows are copied in: a fresh loader over rows of the
+        same shapes takes the same programs."""
+        return (self.batch_size, self.chunk_spans(self.num_batches)[0][1],
+                self.scale, self._bf16,
+                tuple((a.shape[1:], a.dtype.str) for a in self._host))
+
+    def chunk_tables(self, c: int) -> Tuple[Tensor, ...]:
+        """Device tables of the rows of ``c`` batches, one for each array in
+        its stored dtype (bfloat16 as int16 bits), which :meth:`chunk_feed`'s
+        copies fill and :meth:`chunk_batch` reads."""
+        return tuple(torch.empty((c * self.batch_size,) + a.shape[1:],
+                                 dtype=_torch_dtype(a), device=self.device)
+                     for a in self._host)
+
+    def chunk_batch(self, tables: Tuple[Tensor, ...], i: int
+                    ) -> Tuple[Tensor, ...]:
+        """Batch ``i`` of a chunk's rows (:meth:`chunk_tables`' tables or
+        a landing buffer), cast as the model takes it (:meth:`_cast`)."""
+        bs = self.batch_size
+        return self._cast(tuple(t[i * bs:(i + 1) * bs] for t in tables))
+
+    def _chunks(self, idx: np.ndarray) -> Iterator[tuple]:
+        """``(start, c, rows)`` for each chunk of a streaming loader's epoch
+        at the rows ``idx [nb, batch_size]`` (:meth:`chunk_spans`):
+        ``rows`` its device rows in their stored dtypes, for the current
+        stream until the consumer asks for the next chunk. Only then is
+        the next chunk gathered on the host and its copy started, after
+        the consumer has queued its work on this one."""
+        bs = idx.shape[1]
+        spans = self.chunk_spans(idx.shape[0])
+        if not spans:
+            return
+        stager = _Stager(self, spans[0][1] * bs)
+        for j, (start, c) in enumerate(spans):
+            if j == 0:
+                staged = stager.stage(idx[:c].reshape(-1))
+            yield start, c, stager.take(staged)
+            stager.release(staged)
+            if j + 1 < len(spans):
+                s, n = spans[j + 1]
+                staged = stager.stage(idx[s:s + n].reshape(-1))
+
+    def chunk_feed(self, idx: np.ndarray) -> Iterator[tuple]:
+        """The chunks of a streaming loader's epoch at the rows ``idx [nb,
+        batch_size]``: ``(start, c, put)`` for each chunk of ``c`` batches
+        from batch ``start`` on (:meth:`chunk_spans`), where
+        ``put(tables)`` copies its rows into the first rows of
+        :meth:`chunk_tables`' tables on the current stream. The next
+        chunk is gathered and its copy started when the consumer asks for
+        it, after it has queued the current one's work (a captured
+        program's launch)."""
+        for start, c, rows in self._chunks(idx):
+            def put(tables, rows=rows):
+                for dst, src in zip(tables, rows):
+                    dst[:src.shape[0]].copy_(src)
+            yield start, c, put
 
     def epoch_order(self) -> np.ndarray:
         """The row order of the next pass over the loader (its permutation,

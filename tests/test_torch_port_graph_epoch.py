@@ -473,8 +473,8 @@ def _aux():
     return auxSVItrainer(m, optimizer=_capturable_adam(m, 5e-4))
 
 
-def _meshed():
-    t = _svi()
+def _meshed(**kw):
+    t = _svi(**kw)
     t.mesh = "a DeviceMesh"  # the trainer's configuration, as route reads it
     return t
 
@@ -491,13 +491,17 @@ ROUTES = {
     "resident_with_held_out": (_svi, lambda: (_loader(), _loader()), True),
     "streaming": (_svi, lambda: (_loader(device_resident=False),), False),
     "streaming_chunks": (_svi, lambda: (
-        _loader(device_resident=False, stream_chunks=2),), False),
+        _loader(device_resident=False, stream_chunks=2),), True),
     "streaming_held_out": (_svi, lambda: (
         _loader(), _loader(device_resident=False)), False),
     "iterable_of_batches": (_svi, lambda: ([np.zeros((16,) + DATA,
                                                      np.float32)],), False),
     "mesh": (_meshed, lambda: (_loader(),), False),
-    "grad_accum": (lambda: _svi(grad_accum=2), lambda: (_loader(),), False),
+    "grad_accum": (lambda: _svi(grad_accum=2), lambda: (_loader(),), True),
+    "grad_accum_streaming_chunks": (lambda: _svi(grad_accum=2), lambda: (
+        _loader(device_resident=False, stream_chunks=2),), True),
+    "grad_accum_mesh": (lambda: _meshed(grad_accum=2), lambda: (_loader(),),
+                        False),
     "remat": (lambda: _svi(remat=True), lambda: (_loader(),), True),
     "pixel_chunks": (lambda: _svi(pixel_chunks=3), lambda: (_loader(),),
                      False),
@@ -513,6 +517,10 @@ ROUTES = {
     "aux_resident": (_aux, lambda: (_loader(), _loader()), True),
     "aux_streaming_labeled": (_aux, lambda: (
         _loader(), _loader(device_resident=False)), False),
+    "aux_chunked_unlabeled": (_aux, lambda: (
+        _loader(device_resident=False, stream_chunks=2), _loader()), True),
+    "aux_chunked_labeled": (_aux, lambda: (
+        _loader(), _loader(device_resident=False, stream_chunks=2)), False),
 }
 
 
