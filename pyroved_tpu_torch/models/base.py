@@ -66,35 +66,40 @@ def tile_rows(a: Optional[Tensor], P: int) -> Optional[Tensor]:
 
 def posed_decode(decoder: nn.Module, grid: Optional[Tensor], z: Tensor,
                  fused: bool, act: str, sigmoid_out: bool, angle=0.0,
-                 shift=0.0, scale=1.0) -> Tensor:
+                 shift=0.0, scale=1.0, weights=None) -> Tensor:
     """Decode latents ``z [B, L]`` under one fixed pose for the batch.
 
     Spatial decoders (``grid`` given) go through the fused kernel when
-    ``fused``, else through the module on the transformed grid. Returns
-    ``[B, N(, C)]`` or, for a plain decoder, ``[B, prod(out)]``."""
+    ``fused`` (on ``weights``, as :func:`padded_sdecoder_weights` gives
+    them, where given), else through the module on the transformed grid.
+    The pose is Python numbers or arrays, or float32 tensors on ``z``'s
+    device, which are read in place with no host-to-device copy (angle and
+    scale of one element, shift of one or D), as a captured request passes
+    them. Returns ``[B, N(, C)]`` or, for a plain decoder,
+    ``[B, prod(out)]``."""
     if grid is None:
         return decoder(z)
-    B = z.shape[0]
-    dev = z.device
+    B, D = z.shape[0], grid.shape[-1]
+    angle, shift, scale = (torch.as_tensor(v, dtype=torch.float32,
+                                           device=z.device)
+                           for v in (angle, shift, scale))
     if fused:
-        full = lambda v: torch.as_tensor(  # noqa: E731
-            v, dtype=torch.float32, device=dev).reshape(()).expand(B)
-        dx = torch.as_tensor(shift, dtype=torch.float32, device=dev)
-        dx = dx.expand(B, grid.shape[-1]).contiguous()
-        return apply_fused_sdecoder(decoder, grid, full(angle), dx, full(scale),
-                                    z, act, sigmoid_out)
+        return apply_fused_sdecoder(
+            decoder, grid, angle.reshape(()).expand(B),
+            shift.expand(B, D).contiguous(), scale.reshape(()).expand(B), z,
+            act, sigmoid_out, weights=weights)
     coords = fixed_transform_grid(grid, angle, shift, scale)
     return decoder(coords.expand((B,) + coords.shape), z)
 
 
 def fixed_transform_grid(grid: Tensor, angle=0.0, shift=0.0, scale=1.0
                          ) -> Tensor:
-    """``grid [N, D]`` under one angle/shift/scale (shift is a scalar or
-    ``[D]``; 1-D grids only shift)."""
+    """``grid [N, D]`` under one angle/shift/scale (angle and scale of one
+    element; shift a scalar or ``[D]``; 1-D grids only shift)."""
     as_t = lambda v: torch.as_tensor(  # noqa: E731
         v, dtype=torch.float32, device=grid.device)
-    return transform_coordinates(grid[None], as_t(angle)[None], as_t(shift),
-                                 as_t(scale)[None])[0]
+    return transform_coordinates(grid[None], as_t(angle).reshape(1),
+                                 as_t(shift), as_t(scale).reshape(1))[0]
 
 
 def plot_manifold(ndim: int, loc: Tensor, d: int, axes, kwargs) -> None:

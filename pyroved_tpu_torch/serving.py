@@ -18,27 +18,37 @@ package's per-call dequantize gives, and then serves as a float32 one:
 compute stays float32 (or the ``BF16_MATMUL`` hidden products), so its
 error comes from the weight rounding alone.
 
-The JAX package pads symbolic-batch requests to power-of-two buckets to
-bound recompiles. Eager PyTorch compiles nothing per shape, so requests
-here are only chunked (at ``max_bucket`` rows, or at the archive's fixed
-``batch_size``, where chunks are also padded to that size).
+Requests are bucketed as the JAX package's: a symbolic-batch archive
+(``batch_size=None``) cuts a request into chunks of at most
+``max_bucket`` rows and pads each chunk with zero rows to its power-of-two
+bucket, ``min(max_bucket, max(8, 2^ceil(log2 m)))``; a fixed-batch archive
+cuts at its ``batch_size`` and pads to it. Each chunk runs its bucket's
+body and the rows asked for are copied into the request's result. On
+CUDA each function at each bucket is a program of ``trainers/_graph.py``:
+its first call runs eagerly (the warm-up), its second is captured as a
+CUDA graph and replayed, later ones are replays, as the JAX package runs
+one executable compiled per bucket (:class:`ServedModel`).
 """
 import json
-from typing import Dict, Optional, Union
+import threading
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .models.base import chunked, posed_decode
+from .models.base import posed_decode
 from .models.ved import VED
 from .nets.fc import (fcClassifierNet, fcDecoderNet, fcEncoderNet,
                       fcRegressorNet, jfcEncoderNet, sDecoderNet)
-from .ops.spatial_decoder import sdecoder_supports_fusion
+from .ops import spatial_decoder as _sd
+from .ops.spatial_decoder import (padded_sdecoder_weights,
+                                  sdecoder_supports_fusion)
 from .parallel.collectives import is_writer
 from .parallel.mesh import whole_tensors
+from .trainers import _graph
 from .utils.checkpoint import write_archive
 from .utils.coord import generate_grid
-from .utils.nn import as_f32, resolve_device, to_onehot
+from .utils.nn import as_f32, as_numpy, resolve_device
 
 Tensor = torch.Tensor
 
@@ -144,10 +154,71 @@ def export_model(model, path: str, batch_size: Union[int, None] = None,
     write_archive(path, arrays, manifest)
 
 
+def route(device: torch.device) -> bool:
+    """True when :class:`ServedModel`'s requests on ``device`` run as
+    captured programs: a CUDA device while ``_graph.CAPTURE`` is set (read
+    at each request). Elsewhere the same bucketed bodies run eagerly."""
+    return _graph.CAPTURE and device.type == "cuda"
+
+
+def _padded(rows: Tensor, bucket: int) -> Tensor:
+    """``rows`` with zero rows appended up to ``bucket``."""
+    m = rows.shape[0]
+    if m == bucket:
+        return rows
+    return torch.cat([rows, rows.new_zeros((bucket - m,) + rows.shape[1:])])
+
+
+def _as_tuple(res) -> tuple:
+    return res if isinstance(res, tuple) else (res,)
+
+
 class ServedModel:
     """Serves an :func:`export_model` archive on ``device`` (None means
     "cuda"; without CUDA pass ``device="cpu"``). ``quantize`` is the
-    archive's (None or ``"int8"``)."""
+    archive's (None or ``"int8"``).
+
+    A request is cut into chunks and each chunk padded to its bucket
+    (:meth:`chunks`, :meth:`bucket`; module docstring). On CUDA, while
+    :func:`route` holds, each function (``encode``, ``decode``,
+    ``classify`` or ``regress``) at each bucket is a
+    :class:`~pyroved_tpu_torch.trainers._graph.Program` over static
+    inputs allocated outside the graphs: the function's rows (one buffer
+    an input, of the largest bucket's rows, which a bucket's program reads
+    the first rows of) and, for a spatial decode, the pose (one ``[1 + D +
+    1]`` vector: angle, shift, scale). A request fills them (the rows,
+    then zeros up to the bucket), runs the program (the first time eagerly
+    on a side stream, the second captured and replayed, then replays) and
+    copies the rows it asked for out of the outputs into its result, one
+    tensor for the whole request, before any other program runs. Elsewhere
+    (the CPU, or ``_graph.CAPTURE`` cleared) the same bodies run eagerly on
+    the zero-padded chunks, and give the same bits. A capture or replay
+    that fails raises; nothing falls back to the eager bodies.
+
+    The programs are bounded by construction: one a function and bucket of
+    :meth:`buckets`, which follow from ``max_bucket`` and the archive's
+    ``batch_size`` (a symbolic batch: 8, 16, ..., 1024, so at most 8 a
+    function; a fixed batch: 1). None is evicted. A program's key is what
+    its graph freezes: its slot in ``programs``, the function and bucket,
+    and :meth:`settings`; when the settings change (a new
+    ``max_bucket``, or ``ops.spatial_decoder.BF16_MATMUL``, which picks
+    K1's source at the call) every program is dropped, its graph and pool
+    with it, and made again. ``made`` counts the programs made. The weights
+    are loaded once and never replaced, so they are not in the key: the
+    programs read them in place, the spatial decoder's padded copy
+    (``padded_sdecoder_weights``) made once at load, so a replay runs no
+    padding kernels. A model's programs share one memory pool, which holds
+    every program's static outputs and about one body's intermediates (the
+    128x128 grid's 1024-row decode outputs 64 MiB); each program's
+    ``pool_bytes`` is what its capture added. A capture collects no
+    garbage, does not synchronize and leaves the allocator's cache to the
+    process (``_graph.Program.body``): the weights it reads live as long
+    as the model.
+
+    Requests are serialized per model, one lock around the fill, the run
+    and the copy out, since the static buffers are shared; each is queued
+    on the caller's current stream, after the model's previous request
+    (an event, when that ran on another stream)."""
 
     #: Largest number of rows one call handles for an archive without a
     #: fixed batch size; larger requests are chunked at this size.
@@ -202,40 +273,142 @@ class ServedModel:
             self.head_net = head_cls(out_shape, y_dim, m["hidden_dim_y"],
                                      self._act)
             nets["encoder_y"] = self.head_net
-        self._y_dim = y_dim
         nets = torch.nn.ModuleDict(nets)
         nets.load_state_dict(state, strict=True)
         nets.to(self.device)
         self._fused = sdecoder_supports_fusion(
             m["hidden_dim_d"], self._act, self._sig, self.coord,
             self.channels, self.device)
+        self._weights = None
+        if self.grid is not None and self._fused:
+            with torch.no_grad():
+                self._weights = padded_sdecoder_weights(self.decoder)
+        self._lock = threading.Lock()
+        self._settings = None  # the settings the programs were made under
+        self._pool = None  # the programs' memory pool
+        self.programs = {}  # (function, bucket) -> Program
+        self._inputs = {}  # function -> its static input buffers
+        self._last = None  # (stream, event) after the last captured request
+        self.made = 0
 
-    def _run(self, fn, *batched: Tensor):
-        """``fn`` over the rows of ``batched``, chunked (and, for a fixed
-        batch size, each chunk zero-padded to it and the result cut back)."""
-        if self.batch_size is None:
-            return chunked(fn, *batched, batch_size=self.max_bucket)
-        bs = self.batch_size
+    # -- buckets and programs ----------------------------------------------
+    def settings(self) -> tuple:
+        """What every program's graph freezes besides its function and
+        bucket: ``max_bucket``, the archive's ``batch_size`` and
+        ``BF16_MATMUL``."""
+        return (self.max_bucket, self.batch_size, _sd.BF16_MATMUL)
 
-        def padded(*chunk):
-            m = chunk[0].shape[0]
-            if m < bs:
-                chunk = [torch.cat([c, c.new_zeros((bs - m,) + c.shape[1:])])
-                         for c in chunk]
-            res = fn(*chunk)
-            if isinstance(res, tuple):
-                return tuple(r[:m] for r in res)
-            return res[:m]
+    def bucket(self, m: int) -> int:
+        """The rows a call of ``m`` rows runs at: the fixed batch size, or
+        the JAX package's bucket, ``min(max_bucket, max(8, the power of two
+        at or above m))``."""
+        if self.batch_size is not None:
+            return self.batch_size
+        return min(self.max_bucket, max(8, 1 << max(m - 1, 0).bit_length()))
 
-        return chunked(padded, *batched, batch_size=bs)
+    def buckets(self) -> Tuple[int, ...]:
+        """Every bucket a request can take: the bound on a function's
+        programs."""
+        if self.batch_size is not None:
+            return (self.batch_size,)
+        out, b = [], 8
+        while b < self.max_bucket:
+            out.append(b)
+            b *= 2
+        return tuple(out) + (self.max_bucket,)
 
+    def chunks(self, n: int) -> list:
+        """``(first row, rows)`` of each call a request of ``n`` rows makes:
+        chunks of the fixed batch size or of ``max_bucket`` (one call of no
+        rows for an empty request)."""
+        size = self.batch_size or self.max_bucket
+        return [(s, min(size, n - s)) for s in range(0, max(n, 1), size)]
+
+    def _run(self, name: str, body, batched, extra=()):
+        """``body`` over the rows of ``batched`` (device tensors of n rows)
+        and the non-batched device tensors ``extra``, a call a chunk, each
+        padded to its bucket (class docstring). Returns the n rows'
+        outputs: a tensor or a tuple."""
+        n = batched[0].shape[0]
+        captured = route(self.device)
+        with self._lock:
+            stream = None
+            if captured and self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                if self._last is not None and self._last[0] != stream:
+                    stream.wait_event(self._last[1])
+            outs = None
+            for start, m in self.chunks(n):
+                rows = [b[start:start + m] for b in batched]
+                bucket = self.bucket(m)
+                if captured:
+                    res = self._program_run(name, bucket, body, rows, extra)
+                else:
+                    res = _as_tuple(body(*(_padded(r, bucket) for r in rows),
+                                         *extra))
+                if outs is None:
+                    outs = tuple(r.new_empty((n,) + r.shape[1:]) for r in res)
+                for o, r in zip(outs, res):
+                    o[start:start + m].copy_(r[:m])
+            if stream is not None:
+                event = (torch.cuda.Event() if self._last is None
+                         else self._last[1])
+                event.record(stream)
+                self._last = (stream, event)
+        return outs if len(outs) > 1 else outs[0]
+
+    def _program_run(self, name: str, bucket: int, body, rows, extra
+                     ) -> tuple:
+        """Fill ``name``'s static inputs with ``rows`` (zeros up to
+        ``bucket``) and ``extra``, and run its program at ``bucket`` (made
+        at its first call); returns the program's outputs, which the
+        caller copies out before any other program runs."""
+        if self._settings != self.settings():
+            self.programs.clear()  # their graphs and pool go with them
+            self._inputs.clear()
+            self._settings, self._pool = self.settings(), _graph.Pool()
+        inputs = self._inputs.get(name)
+        if inputs is None:
+            top = max(self.buckets())
+            inputs = self._inputs[name] = (
+                [torch.zeros((top,) + r.shape[1:], device=self.device)
+                 for r in rows] + [torch.empty_like(e) for e in extra])
+        m = rows[0].shape[0]
+        for buf, r in zip(inputs, rows):
+            buf[:m].copy_(r)
+            buf[m:bucket].zero_()
+        for buf, e in zip(inputs[len(rows):], extra):
+            buf.copy_(e)
+        prog = self.programs.get((name, bucket))
+        if prog is None:
+            statics = ([buf[:bucket] for buf in inputs[:len(rows)]]
+                       + inputs[len(rows):])
+            prog = _graph.Program.body(
+                self.device, lambda: _as_tuple(body(*statics)), statics,
+                self._pool)
+            self.programs[name, bucket] = prog
+            self.made += 1
+        return prog.run(clone=False)
+
+    # -- the bodies and the served functions -------------------------------
     def _labeled_encode(self, x: Tensor):
-        """q(z|x, y) with y from the head: one-hot argmax classes, or the
-        regressed values."""
+        """q(z|x, y) with y from the head: the one-hot of its argmax
+        classes, made on the device, or the regressed values."""
         y = self.head_net(x)
-        if self.head == "classify":
-            y = to_onehot(torch.argmax(y, -1), self._y_dim, x.device)
+        if self.head == "classify":  # an argmax is in range: no host check
+            y = torch.zeros_like(y).scatter_(
+                -1, torch.argmax(y, -1, keepdim=True), 1.0)
         return self.encoder(x, y)
+
+    def _decode(self, z: Tensor, pose: Optional[Tensor] = None) -> Tensor:
+        """The decode body: a spatial decoder under ``pose`` (``[1 + D +
+        1]`` on the device: angle, shift, scale), or a plain one."""
+        if pose is None:
+            return self.decoder(z)
+        D = self.grid.shape[-1]
+        return posed_decode(self.decoder, self.grid, z, self._fused,
+                            self._act, self._sig, pose[:1], pose[1:1 + D],
+                            pose[1 + D:], weights=self._weights)
 
     @torch.no_grad()
     def encode(self, x, y=None):
@@ -244,37 +417,42 @@ class ServedModel:
         x = as_f32(x, self.device)
         x = x.reshape(x.shape[0], -1)
         if self.head is not None:
-            return self._run(self._labeled_encode, x)
+            return self._run("encode", self._labeled_encode, (x,))
         if self.c_dim > 0:
             if y is None:
                 raise ValueError(
                     f"This export was built for a conditional encoder; pass "
                     f"y with {self.c_dim} features")
             y = as_f32(y, self.device).reshape(x.shape[0], self.c_dim)
-            return self._run(self.encoder, x, y)
-        return self._run(self.encoder, x)
+            return self._run("encode", self.encoder, (x, y))
+        return self._run("encode", self.encoder, (x,))
 
     @torch.no_grad()
     def decode(self, z, angle=0.0, shift=0.0, scale=1.0) -> Tensor:
         """Decode latents (content latents, then any conditional features);
-        for spatial exports the pose re-poses the generated signal."""
+        for spatial exports the pose re-poses the generated signal (angle
+        and scale of one element, shift of one or ``grid_dim``)."""
         z = as_f32(z, self.device)
-
-        def dec(zz):
-            return posed_decode(self.decoder, self.grid, zz, self._fused,
-                                self._act, self._sig, angle, shift, scale)
-
-        out = self._run(dec, z)
+        extra = ()
+        if self.grid is not None:
+            D = self.grid.shape[-1]
+            part = lambda v: np.asarray(  # noqa: E731
+                as_numpy(v), np.float32).reshape(-1)
+            pose = np.concatenate([part(angle).reshape(1),
+                                   np.broadcast_to(part(shift), (D,)),
+                                   part(scale).reshape(1)])
+            extra = (torch.from_numpy(pose).to(self.device),)
+        out = self._run("decode", self._decode, (z,), extra)
         if int(np.prod(out.shape[1:])) == int(np.prod(self.data_dim)):
             out = out.reshape((out.shape[0],) + self.data_dim)
         return out
 
+    @torch.no_grad()
     def _head(self, which: str, x) -> Tensor:
         if self.head != which:
             raise ValueError(f"this export has no {which} head")
         x = as_f32(x, self.device)
-        with torch.no_grad():
-            return self._run(self.head_net, x.reshape(x.shape[0], -1))
+        return self._run(which, self.head_net, (x.reshape(x.shape[0], -1),))
 
     def classify(self, x) -> Tensor:
         """Class probabilities of an ssiVAE export's classifier."""

@@ -83,8 +83,10 @@ import torch
 
 from ..ops import spatial_decoder as _sd
 
-#: Capture the trainers' epochs on CUDA (the default). Cleared, every epoch
-#: runs the eager loop, on the card too, for A/B runs. Read at each epoch.
+#: Capture the trainers' epochs and ``ServedModel``'s requests on CUDA
+#: (the default). Cleared, every epoch runs the eager loop and every request
+#: its bucketed body eagerly, on the card too, for A/B runs. Read at each
+#: epoch and each request.
 CAPTURE = True
 
 _COUNTED = (_sd.fused_spatial_decoder_forward,
@@ -237,6 +239,20 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _side_streams[device]
 
 
+class Pool:
+    """A graph memory pool that programs captured one after another and
+    replayed one at a time, in one stream's order, share; made at the
+    first capture into it."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 class Program:
     """One epoch's (or chunk's) body: ``step(i)`` for each of ``nb``
     steps, then ``finish()``, which returns the outputs as a tuple of
@@ -244,18 +260,22 @@ class Program:
     side stream the first time, captured and replayed the second, replayed
     after that (module docstring). ``tables`` holds the static inputs the
     body reads; ``generator`` is registered with the graph, which is
-    captured into the memory pool of its kind's ``shared`` state where it
-    has one (:class:`GraphCache`). After the capture, ``capture_s`` is its
-    host time, ``pool_bytes`` the memory the capture added to the reserve
-    and ``counts`` the kernel launches a replay adds; ``replays`` counts
-    the graph launches."""
+    captured into ``pool`` where given (a :class:`Pool`; a kind's, from
+    :class:`GraphCache`). With ``tidy`` a capture first collects the
+    garbage, synchronizes and empties the allocator's cache (an epoch's
+    capture is rare and large; :meth:`body`'s skip it). After the capture,
+    ``capture_s`` is its host time, ``pool_bytes`` the memory the capture
+    added to the reserve and ``counts`` the kernel launches a replay adds;
+    ``replays`` counts the graph launches."""
 
     def __init__(self, device, nb: int, step: Callable, finish: Callable,
-                 tables, generator: Optional[torch.Generator] = None):
+                 tables, generator: Optional[torch.Generator] = None,
+                 pool: Optional[Pool] = None, tidy: bool = True):
         self.device = torch.device(device)
         self.nb, self.step, self.finish = int(nb), step, finish
         self.tables, self.generator = tables, generator
-        self.kind = self.shared = None
+        self.pool, self.tidy = pool, tidy
+        self.kind = None
         self.warm = False
         self.graph = None
         self.outputs = None
@@ -265,12 +285,21 @@ class Program:
         self.pool_bytes = None
         self.replays = 0
 
+    @classmethod
+    def body(cls, device, fn: Callable, tables, pool: Pool) -> "Program":
+        """A program of one body, ``fn()``, which returns its outputs as a
+        tuple of tensors and reads ``tables``, captured into ``pool``
+        without the tidy-up (a served request's; ``serving.py``)."""
+        return cls(device, 0, None, fn, tables, pool=pool, tidy=False)
+
     def _steps(self) -> None:
         for i in range(self.nb):
             self.step(i)
 
-    def run(self):
-        """The epoch's outputs, in tensors of their own."""
+    def run(self, clone: bool = True):
+        """The epoch's outputs, in tensors of their own; with ``clone``
+        False, after a replay, the graph's static outputs themselves, which
+        the caller copies before any program of the pool runs again."""
         if self.device.type != "cuda":
             self._steps()
             return self.finish()
@@ -282,41 +311,47 @@ class Program:
                 self._steps()
                 outputs = self.finish()
             current.wait_stream(side)
+            for o in outputs:  # made on the side stream, read on this one
+                if o.is_cuda:
+                    o.record_stream(current)
             self.warm = True
             return outputs
         if self.graph is None:
             self._capture()
         self._launch()
+        if not clone:
+            return self.outputs
         return tuple(o.clone() for o in self.outputs)
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        # A graph freed mid-capture (a dead trainer's, by the cycle
-        # collector) would end the capture: collect first, then hold the
-        # collector until the capture is over.
-        gc.collect()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
+        if self.tidy:
+            # A graph freed mid-capture (a dead trainer's, by the cycle
+            # collector) would end the capture: collect first (and hold
+            # the collector until the capture is over, below).
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        pool = None
-        if self.shared is not None:
-            if self.shared.pool is None:
-                self.shared.pool = torch.cuda.graph_pool_handle()
-            pool = self.shared.pool
+        pool = None if self.pool is None else self.pool.handle()
         before = _counts()
         t0 = time.perf_counter()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            # other threads (a checkpoint writer, a process group's
-            # watchdog) keep the runtime; this thread makes no call a
-            # capture refuses
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self._steps()
-                self.outputs = self.finish()
+            # on the side stream, which the replays need not wait for (a
+            # capture runs nothing); other threads (a checkpoint writer, a
+            # process group's watchdog) keep the runtime, and this thread
+            # makes no call a capture refuses
+            with torch.cuda.stream(_side_stream(self.device)):
+                graph.capture_begin(pool, capture_error_mode="thread_local")
+                try:
+                    self._steps()
+                    self.outputs = self.finish()
+                finally:
+                    graph.capture_end()
         finally:
             if collecting:
                 gc.enable()
@@ -333,14 +368,14 @@ class Program:
         _add_counts(self.counts)
 
 
-class _Kind:
+class _Kind(Pool):
     """What the programs of one kind of epoch share: the key they were
-    made under, one memory pool (made at the kind's first capture) and the
-    kind's tables (:meth:`GraphCache.shared`)."""
+    made under, one memory pool and the kind's tables
+    (:meth:`GraphCache.shared`)."""
 
     def __init__(self, key):
+        super().__init__()
         self.key = key
-        self.pool = None
         self.tables = None
 
 
@@ -390,7 +425,7 @@ class GraphCache:
         if prog is None or (prog.addresses is not None
                             and prog.addresses != _addresses(trainer)):
             prog = make()
-            prog.kind, prog.shared = kind, state
+            prog.kind, prog.pool = kind, state
             self.made += 1
         self.programs[slot] = prog
         for s in [s for s, p in self.programs.items()

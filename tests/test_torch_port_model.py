@@ -274,7 +274,7 @@ def test_served_ragged_decode_chunks_at_max_bucket(served_pair, monkeypatch):
     monkeypatch.setattr(tsd, "fused_spatial_decoder_forward", spy)
     z = np.random.default_rng(4).normal(size=(1100, 2)).astype(np.float32)
     _close(ts.decode(z, angle=0.2), js.decode(z, angle=0.2))
-    assert calls == [1024, 76]
+    assert calls == [1024, 128]  # the 76-row remainder in its bucket
     calls.clear()
     served8 = served_pair[8][1]
     served8.decode(z[:13])
