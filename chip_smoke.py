@@ -298,6 +298,27 @@ source.
    alone) and a capturing decode with the trainers' tidy-up before the
    capture against one as served, in turns.
 
+17. Captured pixel tiles (``pixel_chunks`` on ``trainers/_graph.py``; run
+   after 16, before 13): phase 10's pixel-chunked fits above already took
+   the captured path. Here each configuration trains 3 epochs captured
+   and 3 on the eager loop (``CAPTURE`` cleared), through ``step``: the
+   large grid of ``bench.py:99-120`` (1,024 blobs at 128x128, batch 64) on
+   4 tiles on the kernels under each flag and on the module path (f32);
+   phase 14's ssiVAE on 4 tiles under each flag; the flagship at batch
+   50 x ``grad_accum=2`` over a streaming loader in chunks of 8 (8, 8, 4)
+   on 4 tiles under each flag; and ``benchmarks/pixel_chunk_scale.py:
+   29-34`` at full width (the 512x512 grid, 400 rows, batch 200, 16
+   tiles), bf16 on the kernels and f32 on the module path. Each: the
+   trajectories bitwise equal (parameters, buffers, every step's loss,
+   history, optimizers' states, generator, window), k K1 and k K2 a
+   decode each way on the kernels' path (none on the module path), the
+   programs made, one graph launch a steady captured epoch (one a chunk),
+   the captured peak memory at most 1.1 x the eager one; steps/s, wall
+   and device time a step, idle share, pool and capture time. For the
+   resident iVAE cases, one step captured into a graph that keeps its
+   nodes and replayed under the profiler: its nodes against the
+   profiler's device records, and the replay's time by CUDA events.
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -4372,15 +4393,17 @@ def cap_same(what, a, b):
         raise AssertionError(f"{what}: the noise generators' states differ")
 
 
-def idle_gaps(spans, n=3):
-    """The ``n`` longest stretches (ms) in which the device ran none of
-    the (start, end) intervals ``spans`` (µs), between its first start and
-    its last end."""
-    gaps, end = [], None
-    for a, b in sorted(spans):
+def idle_gaps(records, n=3):
+    """The ``n`` longest stretches in which the device ran none of the
+    (start µs, end µs, name) ``records``, between its first start and its
+    last end: (ms, the name of the record that ended last before it, the
+    name of the one that ends it)."""
+    gaps, end, last = [], None, None
+    for a, b, name in sorted(records):
         if end is not None and a > end:
-            gaps.append((a - end) / 1e3)
-        end = b if end is None else max(end, b)
+            gaps.append(((a - end) / 1e3, last[:80], name[:80]))
+        if end is None or b > end:
+            end, last = b, name
     return sorted(gaps, reverse=True)[:n]
 
 
@@ -4425,7 +4448,7 @@ def profile_epoch(fn, host=True):
             if on_device:
                 if "#" in name:
                     continue
-                spans.append((a, b))
+                spans.append((a, b, name))
                 if "Memcpy HtoD" in name:
                     copy_spans.append((a, b))
                 elif not name.startswith("Memcpy") and not (
@@ -4440,11 +4463,13 @@ def profile_epoch(fn, host=True):
             break
         log(f"  a profiled epoch named {kernels} of the launches {launched}:"
             f" taken again ({take} of {PROFILE_TAKES})")
-    return {"busy_ms": busy_us(spans) / 1e3,
+    gaps = idle_gaps(spans)
+    return {"busy_ms": busy_us([(a, b) for a, b, _ in spans]) / 1e3,
             "kernels_ms": busy_us(kernel_spans) / 1e3 if kernel_spans
             else 0.0,
             "h2d_copy_ms": busy_us(copy_spans) / 1e3 if copy_spans else 0.0,
-            "idle_gaps_ms": idle_gaps(spans), "kernels": kernels,
+            "idle_gaps_ms": [g[0] for g in gaps], "idle_gap_sides": gaps,
+            "kernels": kernels,
             "api": api, "takes": take, "launched": launched}
 
 
@@ -5674,6 +5699,249 @@ def phase_captured_serving(smi, x, z_req, z_rag, pose):
     return out
 
 
+# -- phase 17: captured pixel tiles ------------------------------------------
+#: tiles of phase 17's large grid, ssiVAE and accumulated flagship (its
+#: 512x512 grid takes phase 10's PIXEL_CHUNKS)
+PIX_TILES = 4
+#: a captured trajectory's peak memory against the eager one's, at most
+PIX_PEAK_RATIO = 1.1
+
+
+def pix_cases():
+    """Phase 17's configurations: (name, the flags it runs under, make(),
+    loaders(), tiles, training steps an epoch, decodes an epoch (each one
+    K1 and one K2 a tile on the kernels' path), graph launches a captured
+    epoch, programs its trainer makes). Each ``make`` draws the same
+    weights and noise every time, each ``loaders`` the same rows in the
+    same order."""
+    G = blobs(1024, (128, 128), seed=1)  # bench.py:99-120
+    P = blobs(400, PIXEL_DIM, seed=9)  # benchmarks/pixel_chunk_scale.py
+    Xf, y, _ = family_data()
+    labels = np.eye(N_CLASSES, dtype=np.float32)[y]
+    B = bars(1000)  # examples/large_effective_batch.py's bars
+
+    def svi(dim, seed, k, fused=True, **kw):
+        def make():
+            m = iVAE(dim, latent_dim=2, invariances=["r"], seed=seed,
+                     fused=fused, pixel_chunks=k)
+            if m._fused != fused:
+                raise AssertionError(f"{dim}: not routed as configured")
+            return m, SVItrainer(m, **kw)
+        return make
+
+    def ss():
+        m = ssiVAE(FAMILY_DIM, num_classes=N_CLASSES, pixel_chunks=PIX_TILES,
+                   **FAMILY)
+        return m, auxSVItrainer(m)
+
+    def resident(X, bs):
+        return lambda: (init_dataloader(X, batch_size=bs, seed=0),)
+
+    both, f32, bf16 = (False, True), (False,), (True,)
+    return (
+        # (a) and (b): bench.py's large grid, batch 64, 16 steps an epoch
+        ("large grid, kernels, 4 tiles", both,
+         svi((128, 128), 1, PIX_TILES), resident(G, 64), PIX_TILES, 16, 16,
+         1, 1),
+        ("large grid, module path, 4 tiles", f32,
+         svi((128, 128), 1, PIX_TILES, fused=False), resident(G, 64),
+         PIX_TILES, 16, 16, 1, 1),
+        # (c) phase 14's ssiVAE: 10 unlabeled steps, a labeled one after the
+        # 2nd and the 8th (phase 14 holds its labeled-set metric, which
+        # decodes nothing)
+        ("ssiVAE, 4 tiles", both, ss, lambda: init_ssvae_dataloaders(
+            Xf, (Xf[:400], labels[:400]), (Xf[:400], labels[:400]),
+            batch_size=200)[:2], PIX_TILES, 10, 12, 1, 1),
+        # (d) 20 micro-steps in chunks of 8, 8 and 4: the window at 0 at
+        # each chunk's start, so two programs (the full and the short
+        # chunk), three graph launches an epoch
+        ("flagship batch 50 x grad_accum=2 over chunks of 8 (8, 8, 4), "
+         "4 tiles", both, svi((28, 28), 4, PIX_TILES, grad_accum=2),
+         lambda: (init_dataloader(B, batch_size=50, seed=0,
+                                  device_resident=False, stream_chunks=8),),
+         PIX_TILES, 20, 20, 3, 2),
+        # (e) benchmarks/pixel_chunk_scale.py:29-34 at full width: 400 rows,
+        # batch 200, 16 tiles
+        ("512x512, kernels, 16 tiles", bf16, svi(PIXEL_DIM, 0, PIXEL_CHUNKS),
+         resident(P, 200), PIXEL_CHUNKS, 2, 2, 1, 1),
+        ("512x512, module path, 16 tiles", f32,
+         svi(PIXEL_DIM, 0, PIXEL_CHUNKS, fused=False), resident(P, 200),
+         PIXEL_CHUNKS, 2, 2, 1, 1))
+
+
+def pix_times(run, captured, tiles_an_epoch):
+    """A run that has taken its trajectory, captured or eager as it was:
+    its last epoch's wall time a step (a replay, or a steady eager epoch),
+    then one more epoch profiled: device time a step, the idle share, the
+    longest idle stretches, the K1/K2 kernels traced (``tiles_an_epoch``
+    of each, by the counters) and, captured, its graph launches and CUDA
+    API calls (the eager profile traces the device alone)."""
+    from pyroved_tpu_torch.trainers import _graph
+    trainer, lds = run["trainer"], run["loaders"]
+    steps = len(lds[0])
+    _graph.CAPTURE = captured
+    try:
+        prof = profile_epoch(lambda: cap_epoch(trainer, lds), host=captured)
+        trainer.sync_history()
+    finally:
+        _graph.CAPTURE = True
+    on = bool(sd.BF16_MATMUL)
+    want = ({GLOBALS["K1", on]: tiles_an_epoch,
+             GLOBALS["K2", on]: tiles_an_epoch} if tiles_an_epoch else {})
+    if prof["launched"] != want:
+        raise AssertionError(f"a profiled epoch launched {prof['launched']}, "
+                             f"expected {want}")
+    wall = 1e3 * run["epoch_s"][-1] / steps
+    device = prof["busy_ms"] / steps
+    return {"steps_per_s": 1e3 / wall, "wall_ms_per_step": wall,
+            "device_ms_per_step": device,
+            "kernels_ms_per_step": prof["kernels_ms"] / steps,
+            "idle_share": 1.0 - device / wall,
+            "idle_gaps_ms": prof["idle_gaps_ms"],
+            "idle_gap_sides": prof["idle_gap_sides"],
+            "profiled_kernels": prof["kernels"],
+            "profile_takes": prof["takes"],
+            "graph_launches": prof["api"].get("cudaGraphLaunch", 0),
+            "api_calls": sum(prof["api"].values())}
+
+
+def pix_records(make, loaders):
+    """One training step of a fresh model on the first batch of
+    ``loaders()``, captured into a graph that keeps its nodes
+    (:class:`KeptGraph`) and replayed under torch.profiler: the graph's
+    nodes by type, the device records the profiler kept of the replay,
+    their busy time, and the replay's time by CUDA events (ms). Records
+    fewer than the kernel, memset and memcpy nodes mean an idle share read
+    from the profiler is not the device's."""
+    model, trainer = make()
+    batch = next(iter(loaders()[0]))
+    w = torch.ones(batch[0].shape[0], device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up a capture asks for
+        for _ in range(2):
+            trainer.train_step(batch, w)
+    torch.cuda.current_stream().wait_stream(side)
+    saved = [dict(k.launches) for k in KERNELS]
+    graph = KeptGraph()
+    graph.register_generator_state(trainer.generator)
+    with torch.cuda.graph(graph):
+        trainer.train_step(batch, w)
+    for k, c in zip(KERNELS, saved):  # a capture runs nothing
+        k.launches.clear()
+        k.launches.update(c)
+    nodes = graph_nodes(graph)
+    graph.replay()
+    torch.cuda.synchronize()
+    before = counts()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    if counts() != before:
+        raise AssertionError("a bare replay moved the launch counters")
+    spans = [(a, b) for name, on_device, a, b in trace_events(prof)
+             if on_device and "#" not in name]
+    active = sum(n for t, n in (nodes or {}).items()
+                 if t in ("kernel", "memset", "memcpy"))
+    out = {"nodes": nodes, "device_nodes": active if nodes else None,
+           "records": len(spans), "busy_ms": busy_us(spans) / 1e3,
+           "replay_event_ms": start.elapsed_time(end)}
+    del graph, trainer, model
+    return out
+
+
+def pix_case(name, make, loaders, tiles, steps, decodes, graphs, programs):
+    """One pixel-chunked configuration under the current flag: the
+    trajectory captured and eager bitwise equal (parameters, buffers,
+    every training step's loss, history, optimizers' states, generator,
+    the ``grad_accum`` window), ``tiles`` K1 and ``tiles`` K2 a decode each
+    way on the kernels' path (none on the module path), the programs made
+    and captured, ``graphs`` graph launches a steady captured epoch, the
+    captured peak at most PIX_PEAK_RATIO of the eager one; the steady
+    epochs' times; for the resident cases, a step's replay against its
+    profiler records (:func:`pix_records`)."""
+    tag = "bf16" if sd.BF16_MATMUL else "f32"
+    what = f"{tag} {name}"
+    t0 = time.perf_counter()
+    cap = trajectory(make, loaders, CAP_EPOCHS, True)
+    eager = trajectory(make, loaders, CAP_EPOCHS, False)
+    stream_same(what, cap, eager)
+    fused = cap["model"]._fused
+    suffix = "_bf16" if sd.BF16_MATMUL else ""
+    n = CAP_EPOCHS * decodes * tiles
+    expected = {"K1" + suffix: n, "K2" + suffix: n} if fused else {}
+    for run in (cap, eager):
+        if not only(run["launches"], **expected):
+            raise AssertionError(f"{what}: launches {run['launches']}, "
+                                 f"expected {expected}")
+    cache = cap["trainer"]._graphs
+    progs = cache.captured()
+    if not cache.made == len(progs) == programs:
+        raise AssertionError(f"{what}: {cache.made} programs made, "
+                             f"{len(progs)} captured, expected {programs}")
+    ratio = cap["peak_mib"] / eager["peak_mib"]
+    if not ratio <= PIX_PEAK_RATIO:
+        raise AssertionError(f"{what}: captured peak {cap['peak_mib']:.1f} "
+                             f"MiB, {ratio:.3f} of the eager "
+                             f"{eager['peak_mib']:.1f}")
+    per_epoch = decodes * tiles if fused else 0
+    times = {"captured": pix_times(cap, True, per_epoch),
+             "eager": pix_times(eager, False, per_epoch)}
+    if times["captured"]["graph_launches"] != graphs:
+        raise AssertionError(f"{what}: {times['captured']['graph_launches']}"
+                             f" graph launches a captured epoch, expected "
+                             f"{graphs}")
+    out = {"tiles": tiles, "steps_per_epoch": steps,
+           "launches": cap["launches"], "programs_made": cache.made,
+           "replays": sum(p.replays for p in progs),
+           "capture_s": [p.capture_s for p in progs],
+           "pool_mib": [p.pool_bytes / 2 ** 20 for p in progs],
+           "peak_mib": {"captured": cap["peak_mib"],
+                        "eager": eager["peak_mib"]},
+           "peak_ratio": ratio,
+           "trajectory_s": {"captured": cap["seconds"],
+                            "eager": eager["seconds"]},
+           "speedup": (times["captured"]["steps_per_s"]
+                       / times["eager"]["steps_per_s"]),
+           "times": times}
+    resident = graphs == 1 and isinstance(cap["trainer"], SVItrainer)
+    del cap, eager, progs
+    if resident:
+        out["step_replay"] = pix_records(make, loaders)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  {what}: {CAP_EPOCHS} epochs of {steps} steps captured and eager "
+        f"bitwise equal (parameters, every step's loss, history, optimizers,"
+        f" generator, window), launches {out['launches']}; "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+    return out
+
+
+def phase_captured_pixels(smi):
+    """Phase 17: pixel-chunked epochs (``pixel_chunks``) as captured
+    programs (``trainers/_graph.py``) against the eager loop on the card,
+    each configuration under its flags."""
+    t0 = time.perf_counter()
+    out = {"cases": {}, "launches": {}}
+    for name, flags, *case in pix_cases():
+        for on in flags:
+            with bf16_matmul(on):
+                tag = "bf16" if on else "f32"
+                res = pix_case(name, *case)
+                out["cases"][f"{name} {tag}"] = res
+                out["launches"][f"captured pixel tiles {name} {tag}"] = res[
+                    "launches"]
+    out["seconds"] = time.perf_counter() - t0
+    secs = {k: round(v["seconds"], 1) for k, v in out["cases"].items()}
+    log(f"  ({smi}) phase 17 took {out['seconds']:.1f} s: "
+        f"{json.dumps(secs)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6025,6 +6293,12 @@ def main() -> int:
         "bucket, programs, pools, nodes, API calls, latency in turns")
     serving16 = phase_captured_serving(smi, x, z_req, z_rag, pose)
 
+    # -- 17. captured pixel tiles (also before 13) -------------------------
+    log("phase 17: pixel-chunked epochs captured against the eager loop: "
+        "the large grid on 4 tiles (kernels, module path), ssiVAE, "
+        "grad_accum over chunks, 512x512 on 16 tiles")
+    pix17 = phase_captured_pixels(smi)
+
     # -- 13. K4: the backward in ablation modes --------------------------
     log("phase 13: K4's eight modes of both K2 sources against their plain "
         "versions and K2, timed chains and the attribution of K2's time")
@@ -6060,7 +6334,8 @@ def main() -> int:
                 **{path: n[key]
                    for path, n in stream["launches"].items()},
                 **{path: n[key]
-                   for path, n in serving16["launches"].items()}}
+                   for path, n in serving16["launches"].items()},
+                **{path: n[key] for path, n in pix17["launches"].items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -6148,7 +6423,8 @@ def main() -> int:
         "pixel_int8_viz": {"bf16": pix, "f32": pix32,
                            "seconds": phase10_s},
         "jobs": jobs, "parallel": parallel, "captured_epochs": captured,
-        "captured_streaming": stream, "captured_serving": serving16}
+        "captured_streaming": stream, "captured_serving": serving16,
+        "captured_pixel_tiles": pix17}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

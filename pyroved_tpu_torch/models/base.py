@@ -482,8 +482,9 @@ class baseVAE:
         each tile runs under a checkpoint, so the backward holds one tile's
         ``[batch..., N/k, H]`` activations at a time; the kernels save
         only their inputs, so their tiles run plain: k K1 and k K2 a
-        step. The tiles draw no random numbers. ``xp`` is ``[batch..., N]``
-        or ``[batch..., N, C]``."""
+        step. The tiles draw no random numbers, so the checkpoint keeps no
+        RNG state (reading the CUDA generator's would fail a captured
+        epoch). ``xp`` is ``[batch..., N]`` or ``[batch..., N, C]``."""
         k = int(self.pixel_chunks)
         C = self.channels
         batch = zc.shape[:-1]
@@ -497,7 +498,8 @@ class baseVAE:
                     mask[rows], phi, dx, sc, zc)
             if remat:
                 acc = acc + checkpoint(self._tile_recon, *args,
-                                       use_reentrant=False)
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
             else:
                 acc = acc + self._tile_recon(*args)
         return acc

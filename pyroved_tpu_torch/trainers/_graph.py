@@ -20,14 +20,19 @@ Routing (:func:`route`) is by configuration alone. The captured path takes
 a CUDA device; loaders that are device-resident DataLoaders, except that
 the epoch's first loader (the training loader, the held-out one, or
 ``auxSVItrainer``'s unlabeled one, not its labeled or validation loader)
-may be a streaming DataLoader with ``stream_chunks > 1``; no ``mesh``; no
-``pixel_chunks`` or ``shard_pixels``; and optimizers built with
-``capturable=True`` (the default on CUDA:
-``torch.optim.Adam(capturable=True)``, :func:`default_optimizer`).
-``grad_accum`` takes either path. Every other configuration keeps the
-eager loop: CPU models, streaming loaders of one batch at a time and
-iterables of batches (the JAX package dispatches those once a batch too),
-meshes (their collectives), partitioned pixels and other optimizers. So
+may be a streaming DataLoader with ``stream_chunks > 1``; no ``mesh`` and
+no ``shard_pixels``; and optimizers built with ``capturable=True`` (the
+default on CUDA: ``torch.optim.Adam(capturable=True)``,
+:func:`default_optimizer`). ``grad_accum``, ``remat`` and ``pixel_chunks``
+take either path: the JAX trainers run a pixel-chunked loss (its
+``lax.scan`` over grid tiles) inside their one-dispatch epoch, and here a
+step's k tiles (k K1 and k K2 on the kernels' path, each tile checkpointed
+without RNG state on the module path) are captured with it. Every other
+configuration keeps the eager loop: CPU models, streaming loaders of one
+batch at a time and iterables of batches (the JAX package dispatches those
+once a batch too), meshes and pixel shards (their collectives: gloo's
+cannot be captured, and NCCL takes one rank a device, so a captured
+``all_reduce`` cannot be checked on one card) and other optimizers. So
 does every epoch while :data:`CAPTURE` is cleared. A capture or replay
 that fails raises; nothing falls back to the eager loop.
 
@@ -139,7 +144,6 @@ def route(trainer, loaders: Sequence, device_type: Optional[str] = None,
             and all(fits(i, ld) for i, ld in enumerate(loaders)
                     if ld is not None)
             and trainer.mesh is None
-            and int(getattr(model, "pixel_chunks", 0) or 0) <= 1
             and getattr(model, "_pixel_mesh", None) is None
             and all(graph_optimizer(o) for o in _optimizers(trainer)))
 
@@ -151,9 +155,11 @@ def route(trainer, loaders: Sequence, device_type: Optional[str] = None,
 def settings(trainer) -> tuple:
     """The Python values a program's steps read besides its tables: the
     kernels' flag, the model's and trainer's switches of the loss's path
-    (``enum_schedule`` changes ``enum_topk``) and, for each optimizer and
-    group, every hyperparameter that is not a tensor (``lr``, ``betas``,
-    ``eps``, ...)."""
+    (``enum_schedule`` changes ``enum_topk``; the pixel mode and
+    ``pixel_chunks``, as the JAX package's ``_pixel_gate_key`` keys its
+    trainers' rebuild) and, for each optimizer and group, every
+    hyperparameter that is not a tensor (``lr``, ``betas``, ``eps``,
+    ...)."""
     model = trainer.model
     hyper = tuple(
         tuple(sorted((k, v) for k, v in g.items()
@@ -165,7 +171,8 @@ def settings(trainer) -> tuple:
             bool(getattr(model, "_fused", False)),
             getattr(model, "_dec_act", None),
             int(getattr(model, "num_particles", 1)),
-            getattr(model, "kl_mode", None), hyper)
+            getattr(model, "kl_mode", None), model._pixel_mode(),
+            int(model.pixel_chunks or 0), hyper)
 
 
 def _addresses(trainer) -> tuple:

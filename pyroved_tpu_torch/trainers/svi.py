@@ -14,10 +14,11 @@ and replayed, one graph launch an epoch; over a streaming DataLoader with
 the program's tables while the previous chunk replays (:mod:`._graph`: the
 first run of each program is eager, the capture's warm-up, and the graph
 gives the eager loop's trajectory bit for bit; ``grad_accum`` included).
-Every other configuration runs an epoch as a Python loop over batches: CPU
-models, a streaming loader of one batch at a time (staged from the host)
-or any iterable of batches (a short final batch padded with zero weights),
-a ``mesh``, ``pixel_chunks`` and an optimizer the graph cannot take
+``pixel_chunks`` and ``remat`` are captured with the step. Every other
+configuration runs an epoch as a Python loop over batches: CPU models, a
+streaming loader of one batch at a time (staged from the host) or any
+iterable of batches (a short final batch padded with zero weights), a
+``mesh``, ``shard_pixels`` and an optimizer the graph cannot take
 (:func:`._graph.route`). Either way the per-step losses stay on the device
 and the host reads them only at ``float()``, ``sync_history`` and the
 segment ends of ``run``. Optimization is ``torch.optim.Adam(lr=1e-3)``

@@ -458,7 +458,7 @@ def _loader(**kw):
 
 
 def _svi(**kw):
-    m = _ivae(**{k: kw.pop(k) for k in ("pixel_chunks",) if k in kw})
+    m = _ivae(**{k: kw.pop(k) for k in ("pixel_chunks", "fused") if k in kw})
     opt = kw.pop("optimizer", "capturable")
     if opt == "capturable":
         kw["optimizer"] = _capturable_adam(m)
@@ -467,9 +467,9 @@ def _svi(**kw):
     return SVItrainer(m, **kw)
 
 
-def _aux():
+def _aux(**kw):
     m = tmodels.ssiVAE(DATA, 2, 3, invariances=["r"], device="cpu",
-                       **SMALL)
+                       **SMALL, **kw)
     return auxSVItrainer(m, optimizer=_capturable_adam(m, 5e-4))
 
 
@@ -504,7 +504,12 @@ ROUTES = {
                         False),
     "remat": (lambda: _svi(remat=True), lambda: (_loader(),), True),
     "pixel_chunks": (lambda: _svi(pixel_chunks=3), lambda: (_loader(),),
-                     False),
+                     True),
+    "pixel_chunks_module": (lambda: _svi(pixel_chunks=3, fused=False),
+                            lambda: (_loader(),), True),
+    "pixel_chunks_remat_accum_chunks": (
+        lambda: _svi(pixel_chunks=3, remat=True, grad_accum=2), lambda: (
+            _loader(device_resident=False, stream_chunks=2),), True),
     "shard_pixels": (_sharded, lambda: (_loader(),), False),
     "torch_adam": (lambda: _svi(optimizer=lambda m: torch.optim.Adam(
         m.nets.parameters())), lambda: (_loader(),), False),
@@ -521,6 +526,10 @@ ROUTES = {
         _loader(device_resident=False, stream_chunks=2), _loader()), True),
     "aux_chunked_labeled": (_aux, lambda: (
         _loader(), _loader(device_resident=False, stream_chunks=2)), False),
+    "aux_pixel_chunks": (lambda: _aux(pixel_chunks=3), lambda: (
+        _loader(), _loader()), True),
+    "aux_pixel_chunks_module": (lambda: _aux(pixel_chunks=3, fused=False),
+                                lambda: (_loader(), _loader()), True),
 }
 
 
