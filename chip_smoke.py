@@ -319,6 +319,30 @@ source.
    nodes and replayed under the profiler: its nodes against the
    profiler's device records, and the replay's time by CUDA events.
 
+18. Captured model requests (``baseVAE._request`` on
+   ``trainers/_requests.py``; run after 17, before 13): every model
+   request above (phases 3-12) already took its bucket's program. Here,
+   under each flag, the flagship and the large grid (encode, posed decode
+   of one and more chunks and under ``batch_size``, reconstruct,
+   manifold2d(32)), phase 7's jiVAE (encode, with ``logits``,
+   ``guide_probs`` at the 512-row probe, posed decode), ssiVAE
+   (classifier, unlabeled encode, ``guide_probs``), ss_reg_iVAE
+   (regressor, encode) and phase 8's im2spec VED with and without
+   batchnorm (encode, also under ``batch_size``, decode, predict of 30
+   samples; cuDNN's deterministic algorithms), random weights from seed 0:
+   each request eagerly (``CAPTURE`` cleared), then three rounds on the
+   captured route (a warm-up, a capture, replays), every output bitwise
+   the eager one, one K1 of the flag's source a decoded chunk and nothing
+   else; every program captured and replayed, within the bound (8 of the
+   power-of-two rule and 4 others a function); programs, pool MiB,
+   capture s, request ms. Then one more epoch of ``fit`` (no program made,
+   every request bitwise eager on the new weights) and ``load_weights``
+   of the weights before it (every program made again, bitwise eager).
+   Then phase 6's three model requests (reconstruct 200, manifold2d(32),
+   the large grid's posed decode of 64) captured and eager in turns
+   (captured, eager, eager, captured; median of 30), and the flagship's
+   decode program's graph nodes at 1024 rows.
+
 TF32 is off for the plain version's matrix products and convolutions, so
 they compute in full f32 (on bf16-rounded operands under the flag).
 
@@ -5942,6 +5966,246 @@ def phase_captured_pixels(smi):
     return out
 
 
+# -- phase 18: captured model requests -----------------------------------------
+#: rows of phase 18's fits (one more epoch each): the large grid's, the
+#: VEDs' (pairs) and the others'
+REQ_FIT_ROWS = {"large grid": 128, "VED": 200, "VED batchnorm": 200}
+
+
+def req_cases():
+    """Phase 18's models at full width, random weights from seed 0, and
+    their requests: name -> (model, {request: (call, K1 launches a call on
+    the kernels' path)}, one more epoch of ``fit``). The flagship and the
+    large grid (``bench.py:25-52``, ``:99-120``): encode, posed decode
+    (one and more chunks, and under ``batch_size``), reconstruct 200 (64),
+    manifold2d(32); phase 7's jiVAE (encode, with ``logits``,
+    ``guide_probs`` of ``enum_schedule="auto"``'s 512-row probe, posed
+    decode), ssiVAE (classifier, its unlabeled encode) and ss_reg_iVAE
+    (regressor, encode); phase 8's im2spec VED (16x16 to 2048, default
+    filters), f32, with and without batchnorm (encode, decode, predict of
+    30 samples on given noise)."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x28 = torch.as_tensor(blobs(2500, (28, 28), seed=18), device="cuda")
+    x128 = torch.as_tensor(blobs(128, (128, 128), seed=18), device="cuda")
+    z = torch.randn(2500, 2, generator=gen, device="cuda")
+    y1h = torch.eye(N_CLASSES, device="cuda")[torch.randint(
+        0, N_CLASSES, (1000,), generator=gen, device="cuda")]
+    pose = dict(angle=0.3, shift=(0.1, -0.05), scale=1.1)
+    xl, cx = blobs(400, FAMILY_DIM, seed=19, centers=True)
+    classes = np.digitize(cx, np.linspace(-0.4, 0.4, N_CLASSES + 1)[1:-1])
+    img, spec = (torch.as_tensor(a, device="cuda")
+                 for a in im2spec_pairs(200, seed=18))
+    eps = torch.randn(30, 32, 2, generator=gen, device="cuda")
+
+    def fit_iv(X):
+        return lambda m: m.fit(X, epochs=1, batch_size=min(200, len(X) // 2))
+
+    def fit_ss(m):
+        y = classes if isinstance(m, ssiVAE) else cx[:, None]
+        return m.fit(xl, (xl[:200], y[:200]), epochs=1, batch_size=200)
+
+    flagship = {
+        "encode 1000": (lambda m: m.encode(x28[:1000]), 0),
+        "encode 1025": (lambda m: m.encode(x28[:1025]), 0),
+        "decode posed 1024": (lambda m: m.decode(z[:1024], **pose), 1),
+        "decode posed 2500": (lambda m: m.decode(z, **pose), 3),
+        "decode posed 200 batch_size=64": (
+            lambda m: m.decode(z[:200], batch_size=64, **pose), 4),
+        "reconstruct 200": (lambda m: m.reconstruct(x28[:200]), 1),
+        "manifold2d 32": (lambda m: m.manifold2d(32, plot=False), 1)}
+    large = {
+        "encode 64": (lambda m: m.encode(x128[:64]), 0),
+        "decode posed 64": (lambda m: m.decode(z[:64], **pose), 1),
+        "decode posed 1100": (lambda m: m.decode(z[:1100], **pose), 2),
+        "reconstruct 64": (lambda m: m.reconstruct(x128[:64]), 1),
+        "manifold2d 32": (lambda m: m.manifold2d(32, plot=False), 1)}
+    ved = {
+        "encode 100": (lambda m: m.encode(img[:100]), 0),
+        "encode 200 batch_size=64": (
+            lambda m: m.encode(img, batch_size=64), 0),
+        "decode 100": (lambda m: m.decode(z[:100]), 0),
+        "predict 32 x 30": (lambda m: m.predict(img[:32], num_samples=30,
+                                                eps=eps), 0)}
+    fam = dict(FAMILY)
+    return {
+        "flagship": (iVAE((28, 28), latent_dim=2, invariances=["r"], seed=0),
+                     flagship, fit_iv(x28[:400])),
+        "large grid": (iVAE((128, 128), latent_dim=2, invariances=["r"],
+                            seed=0), large, fit_iv(x128)),
+        "jiVAE": (jiVAE(FAMILY_DIM, **fam, discrete_dim=N_CLASSES), {
+            "encode 1000": (lambda m: m.encode(x28[:1000]), 0),
+            "encode 1000 logits": (lambda m: m.encode(x28[:1000],
+                                                      logits=True), 0),
+            "guide_probs 512": (lambda m: m.guide_probs(x28[:512]), 0),
+            "decode posed 1000": (lambda m: m.decode(z[:1000], y1h,
+                                                     **pose), 1)},
+            fit_iv(x28[:400])),
+        "ssiVAE": (ssiVAE(FAMILY_DIM, **fam, num_classes=N_CLASSES), {
+            "classifier 1000": (lambda m: m.classifier(x28[:1000]), 0),
+            "encode 1000 unlabeled": (lambda m: m.encode(x28[:1000]), 0),
+            "guide_probs 512": (lambda m: m.guide_probs(x28[:512]), 0)},
+            fit_ss),
+        "ss_reg_iVAE": (ss_reg_iVAE(FAMILY_DIM, **fam, reg_dim=1), {
+            "regressor 1000": (lambda m: m.regressor(x28[:1000]), 0),
+            "encode 1000": (lambda m: m.encode(x28[:1000]), 0)}, fit_ss),
+        "VED": (VED((16, 16), (2048,), latent_dim=2, seed=0), ved,
+                lambda m: m.fit(img, spec, epochs=1, batch_size=100)),
+        "VED batchnorm": (VED((16, 16), (2048,), latent_dim=2, seed=0,
+                              batchnorm=True), ved,
+                          lambda m: m.fit(img, spec, epochs=1,
+                                          batch_size=100)),
+    }
+
+
+def req_round(what, m, reqs, eager=None):
+    """Each of ``reqs`` on ``m`` once on the captured route: the launches
+    exact (``k`` K1 of the flag's source on the kernels' path, nothing
+    else) and the outputs bitwise ``eager``'s (by default each request
+    with ``CAPTURE`` cleared, made first). Returns each request's host ms
+    (a synchronize to a synchronize) and ``eager``."""
+    from pyroved_tpu_torch.trainers import _graph
+    k1 = "K1_bf16" if sd.BF16_MATMUL else "K1"
+    if eager is None:
+        _graph.CAPTURE = False
+        try:
+            eager = {r: as_tuple(call(m)) for r, (call, _) in reqs.items()}
+        finally:
+            _graph.CAPTURE = True
+    ms = {}
+    for r, (call, k) in reqs.items():
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = as_tuple(call(m))
+        torch.cuda.synchronize()
+        ms[r] = 1e3 * (time.perf_counter() - t0)
+        launched = {n: c - before[n] for n, c in counts().items()}
+        expect = {k1: k} if k and getattr(m, "_fused", False) else {}
+        if not only(launched, **expect):
+            raise AssertionError(f"{what} {r}: launches {launched}, expected "
+                                 f"{expect}")
+        if len(got) != len(eager[r]) or not all(
+                torch.equal(g, e) for g, e in zip(got, eager[r])):
+            raise AssertionError(f"{what} {r}: captured differs from eager")
+    return ms, eager
+
+
+def req_bound(what, runner):
+    """The programs within the bound a function: at most 8 of the
+    power-of-two rule and 4 others."""
+    kinds = {}
+    for (name, _), p in runner.programs.items():
+        key = (name[0], p.kind)
+        kinds[key] = kinds.get(key, 0) + 1
+    for (fn, kind), n in kinds.items():
+        if n > (8 if kind == "bucket" else 4):
+            raise AssertionError(f"{what}: {n} {kind} programs of {fn}")
+    return {f"{fn} {kind}": n for (fn, kind), n in kinds.items()}
+
+
+def req_case(name, m, reqs, fit, tmp):
+    """One model under the current flag: its requests three rounds on the
+    captured route (a warm-up, a capture, replays), each bitwise eager's
+    with K1 exact; every program captured and replayed, within the bound;
+    then one more epoch of ``fit`` (the programs read the new weights in
+    place: none made, each request bitwise the eager one) and
+    ``load_weights`` of the weights before it (a new generation: every
+    program made again, and bitwise eager over three rounds)."""
+    on = sd.BF16_MATMUL
+    what = f"{'bf16' if on else 'f32'} {name}"
+    rounds = [req_round(what, m, reqs)]
+    eager = rounds[0][1]
+    rounds += [req_round(what, m, reqs, eager) for _ in range(2)]
+    runner = m._requests
+    progs = list(runner.programs.values())
+    if any(p.graph is None or p.replays < 1 for p in progs):
+        raise AssertionError(f"{what}: programs not captured and replayed: "
+                             f"{[(p.graph is not None, p.replays) for p in progs]}")
+    bound = req_bound(what, runner)
+    made = runner.made
+    out = {"programs": len(progs), "made": made, "by_kind": bound,
+           "capture_s": max(p.capture_s for p in progs),
+           "capture_s_sum": sum(p.capture_s for p in progs),
+           "pool_mib": sum(p.pool_bytes for p in progs) / 2 ** 20,
+           "request_ms": {r: {"warm-up": rounds[0][0][r],
+                              "capturing": rounds[1][0][r],
+                              "replay": rounds[2][0][r]} for r in reqs}}
+    path = os.path.join(tmp, "w")
+    m.save_weights(path)
+    fit(m)
+    torch.cuda.synchronize()
+    if m._requests is not runner:
+        raise AssertionError(f"{what}: fit replaced the request runner")
+    req_round(f"{what} after an epoch", m, reqs)
+    if runner.made != made:
+        raise AssertionError(f"{what}: an epoch of fit made "
+                             f"{runner.made - made} programs")
+    m.load_weights(path)
+    eager = req_round(f"{what} after load_weights", m, reqs)[1]
+    for _ in range(2):
+        req_round(f"{what} after load_weights", m, reqs, eager)
+    out["made_after_load"] = runner.made - made
+    if not out["made_after_load"]:
+        raise AssertionError(f"{what}: load_weights made no program")
+    req_bound(what, runner)
+    return out
+
+
+def phase_captured_models(smi, model, big, x, z_big, pose):
+    """Phase 18: the models' own requests as captured programs, one a
+    function and bucket (``baseVAE._request`` on
+    ``trainers/_requests.py``), against the same bodies run eagerly, each
+    model under each flag (the VEDs' under cuDNN's deterministic
+    algorithms, f32); then phase 6's three model requests on its models
+    (``model``, ``big``; its inputs) captured and eager in turns."""
+    from pyroved_tpu_torch.trainers import _graph
+    t0 = time.perf_counter()
+    out = {"cases": {}, "launches": {}, "ms": {}}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cases = req_cases()
+        with tempfile.TemporaryDirectory() as tmp:
+            for on in (False, True):
+                with bf16_matmul(on):
+                    tag = "bf16" if on else "f32"
+                    reset_counts()  # the captured model requests start here
+                    for name, (m, reqs, fit) in cases.items():
+                        t1 = time.perf_counter()
+                        res = req_case(name, m, reqs, fit, tmp)
+                        res["seconds"] = time.perf_counter() - t1
+                        out["cases"][f"{name} {tag}"] = res
+                    out["launches"][f"captured model requests {tag}"] = (
+                        counts())  # and end here
+                    for name in cases:
+                        log(f"  {tag} {name}: "
+                            f"{json.dumps(out['cases'][f'{name} {tag}'])}")
+        flagship = cases["flagship"][0]
+        try:  # the flagship decode program's nodes, its body kept
+            prog = flagship._requests.programs[("decode",), 1024]
+            out["decode_1024_nodes"] = kept_nodes(prog.finish)[1]
+        except (KeyError, TypeError, RuntimeError):
+            out["decode_1024_nodes"] = None
+        del cases, flagship
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    with torch.no_grad():
+        for req, fn in (
+                ("reconstruct_200", lambda: model.reconstruct(x[:200])),
+                ("manifold2d_32", lambda: model.manifold2d(32, plot=False)),
+                ("large_grid_decode_64", lambda: big.decode(z_big, **pose))):
+            out["ms"][req] = in_turns(fn)
+    if not _graph.CAPTURE:
+        raise AssertionError("phase 18 left CAPTURE cleared")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 6's model requests, ms (host clock, median of 30, in "
+        f"turns): {json.dumps(out['ms'])}; the flagship's decode program "
+        f"at 1024 rows, nodes: {json.dumps(out['decode_1024_nodes'])}")
+    log(f"  ({smi}) phase 18 took {out['seconds']:.1f} s: "
+        f"{json.dumps({k: round(v['seconds'], 1) for k, v in out['cases'].items()})}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6299,6 +6563,13 @@ def main() -> int:
         "grad_accum over chunks, 512x512 on 16 tiles")
     pix17 = phase_captured_pixels(smi)
 
+    # -- 18. the models' own requests captured (also before 13) ------------
+    log("phase 18: the models' own requests captured, one program a "
+        "function and bucket, against their eager bodies: the flagship, the "
+        "large grid, jiVAE, ssiVAE, ss_reg_iVAE, the VEDs; one more epoch, "
+        "load_weights; phase 6's model requests in turns")
+    models18 = phase_captured_models(smi, model, big, x, z_big, pose)
+
     # -- 13. K4: the backward in ablation modes --------------------------
     log("phase 13: K4's eight modes of both K2 sources against their plain "
         "versions and K2, timed chains and the attribution of K2's time")
@@ -6335,7 +6606,9 @@ def main() -> int:
                    for path, n in stream["launches"].items()},
                 **{path: n[key]
                    for path, n in serving16["launches"].items()},
-                **{path: n[key] for path, n in pix17["launches"].items()}}
+                **{path: n[key] for path, n in pix17["launches"].items()},
+                **{path: n[key]
+                   for path, n in models18["launches"].items()}}
 
     def entry(name, source, replaces, key, err, shapes, **more):
         head = shapes[0]
@@ -6424,7 +6697,7 @@ def main() -> int:
                            "seconds": phase10_s},
         "jobs": jobs, "parallel": parallel, "captured_epochs": captured,
         "captured_streaming": stream, "captured_serving": serving16,
-        "captured_pixel_tiles": pix17}
+        "captured_pixel_tiles": pix17, "captured_model_requests": models18}
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

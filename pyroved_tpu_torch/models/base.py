@@ -7,13 +7,16 @@ the priors, the latent split in the order rotation -> translation -> scale
 -> content, the decoder and the routing of its decodes (and its gate under
 tensor parallelism, ``sync_fusion_gate``), the transformed grids, the
 pixel-partitioned reconstruction term (``pixel_chunks``, or a mesh axis
-under ``parallel.shard_pixels``), P-fold particle tiling, chunked
-encode/decode, the semi-supervised ``fit`` loop, custom networks
-(``set_encoder`` / ``set_decoder``), pickle-free
+under ``parallel.shard_pixels``), P-fold particle tiling, the models' own
+requests (``encode``, ``decode`` and the rest, as the JAX models jit them:
+bucketed bodies, a captured program a function and bucket on CUDA;
+:meth:`baseVAE._request`), the semi-supervised ``fit`` loop, custom
+networks (``set_encoder`` / ``set_decoder``), pickle-free
 ``save_weights`` / ``load_weights`` and the reference pyroVED's weights
 (``load_torch_weights``). A model without invariances has no grid: VED
 builds on this base with ``data_dim`` its output and its own conv decoder,
-and uses only the grid-free parts (``fit``, ``chunked``, the latent plane, weights).
+and uses only the grid-free parts (``fit``, the requests, the latent
+plane, weights).
 
 Parameters live in ``self.nets``, an ``nn.ModuleDict`` with the JAX
 package's top-level names (``encoder_z``, ``encoder_y``, ``decoder``) on
@@ -25,16 +28,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.modules.batchnorm import _BatchNorm
 from torch.utils.checkpoint import checkpoint
 
 from ..infer.elbo import obs_site
+from ..nets.conv import BatchNorm
 from ..nets.fc import fcDecoderNet, sDecoderNet
+from ..ops import spatial_decoder as _sd
 from ..ops.spatial_decoder import (apply_fused_sdecoder,
                                    padded_sdecoder_weights,
                                    sdecoder_supports_fusion)
 from ..parallel.collectives import Axis, replicated, sum_over
+from ..trainers import _graph
+from ..trainers._requests import Requests, capped_bucket
 from ..utils.coord import generate_grid, transform_coordinates
-from ..utils.nn import as_f32, resolve_device
+from ..utils.nn import as_f32, as_numpy, resolve_device
 
 Tensor = torch.Tensor
 
@@ -118,17 +126,27 @@ def plot_manifold(ndim: int, loc: Tensor, d: int, axes, kwargs) -> None:
         viz.plot_spect_grid(loc, d, **kwargs)
 
 
-def chunked(fn, *arrays: Tensor, batch_size: Optional[int] = None):
-    """Apply ``fn`` over row chunks of ``batch_size`` (all rows at once when
-    None) and concatenate; ``fn`` may return a tensor or a tuple."""
-    n = arrays[0].shape[0]
-    if not batch_size or n <= batch_size:
-        return fn(*arrays)
-    outs = [fn(*(a[i:i + batch_size] for a in arrays))
-            for i in range(0, n, batch_size)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts) for parts in zip(*outs))
-    return torch.cat(outs)
+def request_route(model) -> bool:
+    """True when ``model``'s own requests run as captured programs
+    (:meth:`baseVAE._request`): a CUDA model while ``_graph.CAPTURE`` is
+    set, read at each request. A model whose parameters a mesh splits
+    (tensor parallelism, or a pixel grid under ``shard_pixels``) keeps the
+    eager bodies, as ``mesh=`` epochs keep the eager loop: gloo's
+    collectives cannot be captured."""
+    from ..parallel.mesh import tensor_parallel
+    return (_graph.CAPTURE and model.device.type == "cuda"
+            and model._pixel_mesh is None and not tensor_parallel(model.nets))
+
+
+def row_coupled(m: nn.Module) -> bool:
+    """True when ``m`` is a batchnorm that normalizes a call's rows by their
+    own statistics: the port's without running statistics to serve from,
+    or torch's in training mode or without running statistics. Zero rows
+    padded in would then change every real row's output."""
+    if isinstance(m, BatchNorm):
+        return m.running_stats is None
+    return isinstance(m, _BatchNorm) and (m.training
+                                          or not m.track_running_stats)
 
 
 _SPLIT_DECODER_WARNING = (
@@ -515,17 +533,107 @@ class baseVAE:
         per = single(tile_rows(x, P), tile_rows(y, P), beta, eps)
         return per.reshape(P, x.shape[0]).mean(0)
 
+    # ------------------------------------------------------------------
+    # Requests
+    # ------------------------------------------------------------------
+    def _row_bytes(self) -> int:
+        """Bytes of one row of the model's data: what caps its largest
+        bucket (``_requests.capped_bucket``)."""
+        return 4 * int(np.prod(self.out_shape))
+
+    def _request_settings(self):
+        """``(settings, coupled)``: what every request program's graph
+        freezes besides its name and bucket, and which of the nets couple
+        their rows (net name -> :func:`row_coupled`), from one walk over
+        the nets. The settings are the weights' generation
+        (``_weights_replaced``), the addresses of the tensors the bodies
+        read in place (parameters, buffers, batchnorms' running statistics)
+        and the batchnorms' modes, the decoder's route (``_fused``),
+        ``BF16_MATMUL`` (K1's source) and the largest bucket."""
+        state, coupled = [], {}
+        for name, net in self.nets.items():
+            rows = False
+            for m in net.modules():
+                state += [t.data_ptr() for t in m._parameters.values()
+                          if t is not None]
+                state += [t.data_ptr() for t in m._buffers.values()
+                          if t is not None]
+                if isinstance(m, (BatchNorm, _BatchNorm)):
+                    own = row_coupled(m)
+                    rows = rows or own
+                    state.append(own)
+                    state += [t.data_ptr()
+                              for t in getattr(m, "running_stats", None) or ()]
+            coupled[name] = rows
+        return ((getattr(self, "_graph_generation", 0), tuple(state),
+                 bool(getattr(self, "_fused", False)), _sd.BF16_MATMUL,
+                 self._requests.max_bucket), coupled)
+
+    def _request(self, name: tuple, body, batched, extra=(),
+                 batch_size: Optional[int] = None, nets=()):
+        """``body`` over the rows of the device tensors ``batched`` (and
+        the non-batched ``extra``) as one of the model's own requests
+        (``trainers/_requests.py``): cut into chunks, each padded to its
+        bucket (the JAX package's ``_chunked`` rule under ``batch_size``,
+        else ``ServedModel``'s power-of-two buckets), or run at exact rows
+        when one of ``nets``, the names of the nets the body reads, couples
+        its rows (:func:`row_coupled`). On the captured route
+        (:func:`request_route`) each ``name`` (the function, then the
+        Python arguments its body reads) at each bucket is a program of
+        the model's runner, ``_requests``, under
+        :meth:`_request_settings`; elsewhere the same bodies run eagerly.
+        The programs are bounded a function: at most 8 from the
+        power-of-two rule and 4 others (a ``batch_size``'s, an exact
+        body's row counts), the least recently used freed beyond either.
+        The largest bucket is 1024 rows, halved while a static buffer of
+        its data rows would pass 256 MiB (256 rows at 512x512)."""
+        if self.__dict__.get("_requests") is None:
+            self._requests = Requests(self.device,
+                                      capped_bucket(self._row_bytes()))
+        settings, coupled = self._request_settings()
+        return self._requests.request(
+            name, body, batched, extra, captured=request_route(self),
+            settings=settings, batch_size=batch_size,
+            exact=any(coupled[n] for n in nets))
+
+    def _pose(self, angle=0.0, shift=0.0, scale=1.0) -> Tensor:
+        """The pose ``[angle, shift (D), scale]`` as one float32 vector on
+        the model's device: a decode program's input, filled before each
+        run, so that a new pose takes no new program."""
+        D = self.grid.shape[-1]
+
+        def part(v):
+            return np.asarray(as_numpy(v), np.float32).reshape(-1)
+
+        pose = np.concatenate([part(angle).reshape(1),
+                               np.broadcast_to(part(shift), (D,)),
+                               part(scale).reshape(1)])
+        return torch.from_numpy(pose).to(self.device)
+
+    def _posed_body(self, z: Tensor, pose: Optional[Tensor] = None
+                    ) -> Tensor:
+        """The decode body: decoder inputs ``z`` under ``pose``
+        (:meth:`_pose`) through :func:`posed_decode`, one K1 on the
+        kernels' path, whose padded weights are made inside a captured
+        graph, so that each replay reads the parameters as they then are;
+        a plain decoder takes no pose."""
+        if pose is None:
+            return self.decoder_net(z)
+        D = self.grid.shape[-1]
+        return posed_decode(self.decoder_net, self.grid, z, self._fused,
+                            self.activation, self._dec_sig, pose[:1],
+                            pose[1:1 + D], pose[1 + D:])
+
     @torch.no_grad()
     def _decode_posed(self, z: Tensor, angle=0.0, shift=0.0, scale=1.0,
                       batch_size: Optional[int] = None, **kwargs) -> Tensor:
-        """Decode decoder inputs ``z [B, *]`` under one fixed pose, chunked
-        at ``batch_size`` rows; returns ``[B, *data_dim(, C)]``."""
-        def dec(zz):
-            return posed_decode(self.decoder_net, self.grid, zz, self._fused,
-                                self.activation, self._dec_sig, angle, shift,
-                                scale)
-
-        loc = chunked(dec, z, batch_size=batch_size)
+        """Decode decoder inputs ``z [B, *]`` under one fixed pose as a
+        request (:meth:`_request`), chunked at ``batch_size`` rows or
+        bucketed; returns ``[B, *data_dim(, C)]``."""
+        extra = () if self.grid is None else (self._pose(angle, shift,
+                                                         scale),)
+        loc = self._request(("decode",), self._posed_body, (z,), extra,
+                            batch_size, ("decoder",))
         return loc.reshape((z.shape[0],) + self.out_shape)
 
     # ------------------------------------------------------------------

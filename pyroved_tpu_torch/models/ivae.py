@@ -24,8 +24,8 @@ from ..ops.spatial_decoder import (KERNEL_ACTS_WITH_APPROX,
                                    apply_fused_recon_loss)
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
-from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   plot_manifold, with_labels)
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, plot_manifold,
+                   with_labels)
 
 Tensor = torch.Tensor
 
@@ -185,13 +185,15 @@ class iVAE(baseVAE):
     def encode(self, x_new, y=None, batch_size: Optional[int] = None, **kwargs):
         """``(z_loc, z_scale)`` of q(z|x[,y]); the first ``coord`` latent
         dims are the rotation, shift and scale ones. ``batch_size`` chunks
-        the rows."""
+        the rows. A request (``baseVAE._request``): one program a bucket
+        on CUDA, and one for each of with and without ``y``."""
         x = self._as_f32(x_new)
         x = x.reshape(x.shape[0], -1)
-        if y is None:
-            return chunked(self.encoder_net, x, batch_size=batch_size)
-        y = self._as_f32(y).reshape(x.shape[0], -1)
-        return chunked(self.encoder_net, x, y, batch_size=batch_size)
+        rows = (x,) if y is None else (
+            x, self._as_f32(y).reshape(x.shape[0], -1))
+        return self._request(("encode", y is not None), self.encoder_net,
+                             rows, batch_size=batch_size,
+                             nets=("encoder_z",))
 
     @torch.no_grad()
     def decode(self, z, y=None, angle=0.0, shift=0.0, scale=1.0,
@@ -205,7 +207,9 @@ class iVAE(baseVAE):
 
     def reconstruct(self, x_new, y=None, **kwargs) -> Tensor:
         """Encode, then decode the posterior mean's content latents (in the
-        canonical pose unless ``angle``/``shift``/``scale`` re-pose it)."""
+        canonical pose unless ``angle``/``shift``/``scale`` re-pose it):
+        an encode request, then a decode request, as the JAX package runs
+        two jitted functions; the latents stay on the device."""
         z_loc, _ = self.encode(x_new, y, **kwargs)
         return self.decode(z_loc[:, self.coord:], y, **kwargs)
 

@@ -30,8 +30,7 @@ from ..nets.fc import init_from, jfcEncoderNet
 from ..ops.spatial_decoder import apply_fused_sdecoder
 from ..utils.coord import generate_latent_grid, generate_latent_grid_traversal
 from ..utils.nn import set_deterministic_mode, to_onehot
-from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   plot_manifold)
+from .base import MODEL_KWARGS, baseVAE, check_kwargs, plot_manifold
 
 Tensor = torch.Tensor
 
@@ -252,18 +251,28 @@ class jiVAE(baseVAE):
     def encode(self, x_new, logits: bool = False,
                batch_size: Optional[int] = None, **kwargs):
         """``(z_loc, z_scale, classes)``: classes are argmax indices, or the
-        class probabilities with ``logits=True``. ``batch_size`` chunks."""
+        class probabilities with ``logits=True``. ``batch_size`` chunks. A
+        request (``baseVAE._request``): one program a bucket and value of
+        ``logits`` on CUDA, the argmax inside it."""
+        logits = bool(logits)
         x = self._as_f32(x_new)
         x = x.reshape(x.shape[0], -1)
-        z_loc, z_scale, alpha = chunked(self.encoder_net, x,
-                                        batch_size=batch_size)
-        return z_loc, z_scale, alpha if logits else torch.argmax(alpha, 1)
+
+        def body(xx):
+            z_loc, z_scale, alpha = self.encoder_net(xx)
+            return z_loc, z_scale, alpha if logits else torch.argmax(alpha, 1)
+
+        return self._request(("encode", logits), body, (x,),
+                             batch_size=batch_size, nets=("encoder_z",))
 
     @torch.no_grad()
     def guide_probs(self, x) -> Tensor:
-        """q(k|x), the class probabilities the enumeration weights by."""
+        """q(k|x), the class probabilities the enumeration weights by; a
+        request (``baseVAE._request``), as ``enum_schedule="auto"``'s
+        probe makes it: one program on CUDA."""
         x = self._as_f32(x)
-        return self.encoder_net(x.reshape(x.shape[0], -1))[2]
+        return self._request(("guide_probs",), lambda xx: self.encoder_net(
+            xx)[2], (x.reshape(x.shape[0], -1),), nets=("encoder_z",))
 
     @torch.no_grad()
     def decode(self, z, y, angle=0.0, shift=0.0, scale=1.0,

@@ -18,8 +18,8 @@ from ..infer.elbo import normal_latent_site
 from ..nets.fc import fcEncoderNet, fcRegressorNet, init_from
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import set_deterministic_mode
-from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   fit_semi_supervised, plot_manifold)
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, fit_semi_supervised,
+                   plot_manifold)
 
 Tensor = torch.Tensor
 
@@ -170,26 +170,44 @@ class ss_reg_iVAE(baseVAE):
         this call: they hold the parameters they optimize."""
         self.nets["encoder_y"] = init_from(reg_net, self.generator).to(
             self.device)
+        self._weights_replaced()
+
+    def _predict_head(self, xf: Tensor) -> Tensor:
+        """The regressor's labels of flat rows ``xf``: the body of
+        :meth:`regressor`, which ``auxSVItrainer``'s labeled-set metric
+        runs inside its own captured program."""
+        return self.encoder_y_net(xf)
 
     @torch.no_grad()
     def regressor(self, x_new, batch_size: Optional[int] = None,
                   **kwargs) -> Tensor:
-        """Predicted continuous labels ``[B, reg_dim]``."""
+        """Predicted continuous labels ``[B, reg_dim]``; a request
+        (``baseVAE._request``)."""
         x = self._as_f32(x_new)
-        x = x.reshape(x.shape[0], -1)
-        return chunked(self.encoder_y_net, x, batch_size=batch_size)
+        return self._request(("regressor",), self._predict_head,
+                             (x.reshape(x.shape[0], -1),),
+                             batch_size=batch_size,
+                             nets=("encoder_y",))
 
     @torch.no_grad()
     def encode(self, x_new, y=None, batch_size: Optional[int] = None,
                **kwargs):
         """``(z_loc, z_scale, y)`` of q(z|x,y); without labels the
-        regressor's predictions stand in for them."""
+        regressor's predictions stand in for them. One request
+        (``baseVAE._request``) either way, the head inside it."""
         x = self._as_f32(x_new)
         x = x.reshape(x.shape[0], -1)
-        y = self.regressor(x, batch_size) if y is None else self._labels(y)
-        z_loc, z_scale = chunked(self.encoder_net, x, y,
-                                 batch_size=batch_size)
-        return z_loc, z_scale, y
+        nets = ("encoder_z", "encoder_y")
+        if y is None:
+            def body(xx):
+                c = self._predict_head(xx)
+                return (*self.encoder_net(xx, c), c)
+
+            return self._request(("encode", False), body, (x,),
+                                 batch_size=batch_size, nets=nets)
+        return self._request(
+            ("encode", True), lambda xx, yy: (*self.encoder_net(xx, yy), yy),
+            (x, self._labels(y)), batch_size=batch_size, nets=nets)
 
     @torch.no_grad()
     def decode(self, z, y, angle=0.0, shift=0.0, scale=1.0,

@@ -21,8 +21,8 @@ from ..infer.elbo import normal_latent_site
 from ..nets.fc import fcClassifierNet, fcEncoderNet, init_from
 from ..utils.coord import generate_latent_grid, generate_latent_grid_traversal
 from ..utils.nn import set_deterministic_mode, to_onehot
-from .base import (MODEL_KWARGS, baseVAE, check_kwargs, chunked,
-                   fit_semi_supervised, plot_manifold)
+from .base import (MODEL_KWARGS, baseVAE, check_kwargs, fit_semi_supervised,
+                   plot_manifold)
 from .jivae import log_alpha, top_classes
 
 Tensor = torch.Tensor
@@ -215,38 +215,60 @@ class ssiVAE(baseVAE):
         after this call: they hold the parameters they optimize."""
         self.nets["encoder_y"] = init_from(cls_net, self.generator).to(
             self.device)
+        self._weights_replaced()
+
+    def _predict_head(self, xf: Tensor) -> Tensor:
+        """The classifier's predicted classes of flat rows ``xf``: the body
+        of :meth:`classifier`, which ``auxSVItrainer``'s labeled-set
+        metric runs inside its own captured program."""
+        return torch.argmax(self.encoder_y_net(xf), -1)
+
+    def _flat(self, x) -> Tensor:
+        x = self._as_f32(x)
+        return x.reshape(x.shape[0], -1)
 
     @torch.no_grad()
     def guide_probs(self, x) -> Tensor:
-        """q(y|x), the classifier's class probabilities."""
-        x = self._as_f32(x)
-        return self.encoder_y_net(x.reshape(x.shape[0], -1))
+        """q(y|x), the classifier's class probabilities; a request
+        (``baseVAE._request``), as ``enum_schedule="auto"``'s probe makes
+        it: one program on CUDA."""
+        return self._request(("guide_probs",), self.encoder_y_net,
+                             (self._flat(x),), nets=("encoder_y",))
 
     @torch.no_grad()
     def classifier(self, x_new, batch_size: Optional[int] = None,
                    **kwargs) -> Tensor:
-        """Predicted class indices; ``batch_size`` chunks the rows."""
-        x = self._as_f32(x_new)
-        x = x.reshape(x.shape[0], -1)
-        probs = chunked(self.encoder_y_net, x, batch_size=batch_size)
-        return torch.argmax(probs, -1)
+        """Predicted class indices; ``batch_size`` chunks the rows. A
+        request (``baseVAE._request``), the argmax inside its program."""
+        return self._request(("classifier",), self._predict_head,
+                             (self._flat(x_new),), batch_size=batch_size,
+                             nets=("encoder_y",))
 
     @torch.no_grad()
     def encode(self, x_new, y=None, batch_size: Optional[int] = None,
                **kwargs):
         """``(z_loc, z_scale, classes)`` of q(z|x,y); without labels the
-        classifier's predictions stand in for them."""
-        x = self._as_f32(x_new)
-        x = x.reshape(x.shape[0], -1)
+        classifier's predictions stand in for them. One request
+        (``baseVAE._request``) either way: without labels the head, the
+        one-hot of its argmax classes, made on the device (an argmax is in
+        range, so no host check), and the encoder; with them (one-hot rows,
+        or class indices, whose range is checked on the host first) the
+        encoder and the labels' argmax."""
+        x = self._flat(x_new)
+        nets = ("encoder_z", "encoder_y")
         if y is None:
-            y_idx = self.classifier(x, batch_size)
-            y1h = to_onehot(y_idx, self.num_classes, self.device)
-        else:
-            y1h = self._labels(y)
-            y_idx = torch.argmax(y1h, 1)
-        z_loc, z_scale = chunked(self.encoder_net, x, y1h,
-                                 batch_size=batch_size)
-        return z_loc, z_scale, y_idx
+            def body(xx):
+                idx = self._predict_head(xx)
+                y1h = xx.new_zeros((xx.shape[0], self.num_classes)).scatter_(
+                    -1, idx[:, None], 1.0)
+                return (*self.encoder_net(xx, y1h), idx)
+
+            return self._request(("encode", False), body, (x,),
+                                 batch_size=batch_size, nets=nets)
+        return self._request(
+            ("encode", True),
+            lambda xx, yy: (*self.encoder_net(xx, yy), torch.argmax(yy, 1)),
+            (x, self._labels(y)), batch_size=batch_size, nets=nets)
 
     @torch.no_grad()
     def decode(self, z, y, angle=0.0, shift=0.0, scale=1.0,

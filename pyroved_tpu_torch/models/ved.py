@@ -10,7 +10,10 @@ targets are ``[B, *dim]`` (a singleton channel is appended) or
 It trains on (x, y) pairs (:meth:`VED.weighted_loss_fn` under ``fit`` and
 ``SVItrainer``; the ELBO scores the target y) and serves through its own
 methods: ``encode``, ``decode``, ``predict`` (posterior samples decoded in
-one batched call, their mean and std) and ``manifold2d``. Batchnorm
+one batched call, their mean and std) and ``manifold2d``, each a request
+of ``baseVAE._request`` (bucketed bodies, captured programs on CUDA; a
+batchnorm that normalizes by the batch's statistics runs exact rows, as
+the JAX package pads them). Batchnorm
 normalizes with the batch's own statistics, as the JAX package's
 stateless batchnorm does; running statistics imported with a reference
 model's weights (``state``, set by :mod:`pyroved_tpu_torch.interop`) serve
@@ -19,6 +22,7 @@ a hand-written kernel: the convolutions are cuDNN's on the card.
 """
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -28,7 +32,7 @@ from ..nets.conv import BatchNorm, convDecoderNet, convEncoderNet
 from ..nets.fc import init_from
 from ..utils.coord import generate_latent_grid
 from ..utils.nn import as_f32, set_deterministic_mode
-from .base import baseVAE, check_kwargs, chunked, plot_manifold
+from .base import baseVAE, check_kwargs, plot_manifold
 
 Tensor = torch.Tensor
 
@@ -209,26 +213,21 @@ class VED(baseVAE):
     # ------------------------------------------------------------------
     # Inference / generation
     # ------------------------------------------------------------------
-    def _chunked(self, fn, a: Tensor, batch_size: Optional[int]):
-        """``fn`` over chunks of ``batch_size`` rows. With batchnorm each
-        chunk is normalized by its own statistics, and the last one is
-        zero-padded to ``batch_size`` rows first, as the JAX package pads
-        every chunk: the padding rows enter its statistics there too."""
-        n = a.shape[0]
-        if not (self.batchnorm and batch_size and n > batch_size):
-            return chunked(fn, a, batch_size=batch_size)
-        pad = -n % batch_size
-        a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
-        out = chunked(fn, a, batch_size=batch_size)
-        if isinstance(out, tuple):
-            return tuple(o[:n] for o in out)
-        return out[:n]
+    def _row_bytes(self) -> int:
+        return 4 * max(int(np.prod(self.input_dim)) * self.input_channels,
+                       int(np.prod(self.output_dim)) * self.output_channels)
 
     @torch.no_grad()
     def encode(self, x_new, batch_size: Optional[int] = None, **kwargs):
-        """``(z_loc, z_scale)`` of q(z|x); ``batch_size`` chunks the rows."""
+        """``(z_loc, z_scale)`` of q(z|x); ``batch_size`` chunks the rows. A
+        request (``baseVAE._request``): with batchnorm (and no running
+        statistics served) each chunk is normalized by its own statistics
+        at exact rows, the last one zero-padded to ``batch_size`` rows when
+        the request has more, as the JAX package pads every chunk, so the
+        padding rows enter its statistics there too."""
         x = self._with_channels(x_new, self.input_dim)
-        return self._chunked(self.encoder_net, x, batch_size)
+        return self._request(("encode",), self.encoder_net, (x,),
+                             batch_size=batch_size, nets=("encoder_z",))
 
     def _squeeze(self, out: Tensor) -> Tensor:
         return out[..., 0] if self.output_channels == 1 else out
@@ -236,9 +235,11 @@ class VED(baseVAE):
     @torch.no_grad()
     def decode(self, z, batch_size: Optional[int] = None, **kwargs) -> Tensor:
         """Decode latents into the target space, ``[B, *output_dim]`` (or
-        ``[B, *output_dim, C]``)."""
+        ``[B, *output_dim, C]``); a request, as :meth:`encode`."""
         z = self._as_f32(z)
-        return self._squeeze(self._chunked(self.decoder_net, z, batch_size))
+        return self._squeeze(self._request(
+            ("decode",), self.decoder_net, (z,), batch_size=batch_size,
+            nets=("decoder",)))
 
     @torch.no_grad()
     def predict(self, x_new, num_samples: int = 30, eps=None,
@@ -246,18 +247,29 @@ class VED(baseVAE):
         """Encode, draw ``num_samples`` posterior samples, decode all S*B of
         them in one batched call, and return their (mean, std) over samples
         (population std). ``eps`` ``[S, B, z_dim]`` is the standard-normal
-        noise, drawn from the model's generator when not given."""
+        noise, drawn on the host from the model's generator when not given.
+        A request (``baseVAE._request``), one program a bucket and
+        ``num_samples``: the noise enters it as a batched input, each
+        chunk's rows ``[m, S, z_dim]`` zero-padded to the bucket, so the
+        program draws nothing; with batchnorm, at exact rows (the decode's
+        statistics over all S*B of them, as the JAX package's)."""
+        S = int(num_samples)
         x = self._with_channels(x_new, self.input_dim)
-        mu, sig = self.encoder_net(x)
-        shape = (int(num_samples),) + mu.shape
+        shape = (S, x.shape[0], self.z_dim)
         if eps is None:
             eps = torch.randn(shape, generator=self.generator)
-        eps = self._as_f32(eps).reshape(shape)
-        zs = mu[None] + sig[None] * eps
-        ys = self.decoder_net(zs.reshape(-1, zs.shape[-1]))
-        ys = ys.reshape(shape[:2] + ys.shape[1:])
-        return (self._squeeze(ys.mean(0)),
-                self._squeeze(ys.std(0, correction=0)))
+        eps = self._as_f32(eps).reshape(shape).transpose(0, 1)
+
+        def body(xx, ee):
+            mu, sig = self.encoder_net(xx)
+            zs = mu[None] + sig[None] * ee.transpose(0, 1)
+            ys = self.decoder_net(zs.reshape(-1, zs.shape[-1]))
+            ys = ys.reshape(zs.shape[:2] + ys.shape[1:])
+            return ys.mean(0), ys.std(0, correction=0)
+
+        mean, std = self._request(("predict", S), body, (x, eps),
+                                  nets=("encoder_z", "decoder"))
+        return self._squeeze(mean), self._squeeze(std)
 
     def manifold2d(self, d: int, plot: bool = True, **kwargs) -> Tensor:
         """Decode a d x d grid over the 2-D latent plane; ``which_dims`` /

@@ -30,8 +30,7 @@ CUDA graph and replayed, later ones are replays, as the JAX package runs
 one executable compiled per bucket (:class:`ServedModel`).
 """
 import json
-import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -46,6 +45,7 @@ from .ops.spatial_decoder import (padded_sdecoder_weights,
 from .parallel.collectives import is_writer
 from .parallel.mesh import whole_tensors
 from .trainers import _graph
+from .trainers._requests import Requests
 from .utils.checkpoint import write_archive
 from .utils.coord import generate_grid
 from .utils.nn import as_f32, as_numpy, resolve_device
@@ -161,71 +161,43 @@ def route(device: torch.device) -> bool:
     return _graph.CAPTURE and device.type == "cuda"
 
 
-def _padded(rows: Tensor, bucket: int) -> Tensor:
-    """``rows`` with zero rows appended up to ``bucket``."""
-    m = rows.shape[0]
-    if m == bucket:
-        return rows
-    return torch.cat([rows, rows.new_zeros((bucket - m,) + rows.shape[1:])])
-
-
-def _as_tuple(res) -> tuple:
-    return res if isinstance(res, tuple) else (res,)
-
-
-class ServedModel:
+class ServedModel(Requests):
     """Serves an :func:`export_model` archive on ``device`` (None means
     "cuda"; without CUDA pass ``device="cpu"``). ``quantize`` is the
     archive's (None or ``"int8"``).
 
     A request is cut into chunks and each chunk padded to its bucket
-    (:meth:`chunks`, :meth:`bucket`; module docstring). On CUDA, while
+    (:meth:`chunks`, :meth:`bucket`; module docstring) by the request
+    runner the models' own requests share, which this class is
+    (:class:`~pyroved_tpu_torch.trainers._requests.Requests`: static
+    inputs, programs, the lock and the stream order). On CUDA, while
     :func:`route` holds, each function (``encode``, ``decode``,
     ``classify`` or ``regress``) at each bucket is a
-    :class:`~pyroved_tpu_torch.trainers._graph.Program` over static
-    inputs allocated outside the graphs: the function's rows (one buffer
-    an input, of the largest bucket's rows, which a bucket's program reads
-    the first rows of) and, for a spatial decode, the pose (one ``[1 + D +
-    1]`` vector: angle, shift, scale). A request fills them (the rows,
-    then zeros up to the bucket), runs the program (the first time eagerly
-    on a side stream, the second captured and replayed, then replays) and
-    copies the rows it asked for out of the outputs into its result, one
-    tensor for the whole request, before any other program runs. Elsewhere
-    (the CPU, or ``_graph.CAPTURE`` cleared) the same bodies run eagerly on
-    the zero-padded chunks, and give the same bits. A capture or replay
-    that fails raises; nothing falls back to the eager bodies.
+    :class:`~pyroved_tpu_torch.trainers._graph.Program` over the
+    function's static rows and, for a spatial decode, the pose (one ``[1 +
+    D + 1]`` vector: angle, shift, scale). Elsewhere (the CPU, or
+    ``_graph.CAPTURE`` cleared) the same bodies run eagerly on the
+    zero-padded chunks, and give the same bits.
 
     The programs are bounded by construction: one a function and bucket of
     :meth:`buckets`, which follow from ``max_bucket`` and the archive's
     ``batch_size`` (a symbolic batch: 8, 16, ..., 1024, so at most 8 a
-    function; a fixed batch: 1). None is evicted. A program's key is what
-    its graph freezes: its slot in ``programs``, the function and bucket,
-    and :meth:`settings`; when the settings change (a new
-    ``max_bucket``, or ``ops.spatial_decoder.BF16_MATMUL``, which picks
-    K1's source at the call) every program is dropped, its graph and pool
-    with it, and made again. ``made`` counts the programs made. The weights
-    are loaded once and never replaced, so they are not in the key: the
-    programs read them in place, the spatial decoder's padded copy
-    (``padded_sdecoder_weights``) made once at load, so a replay runs no
-    padding kernels. A model's programs share one memory pool, which holds
-    every program's static outputs and about one body's intermediates (the
-    128x128 grid's 1024-row decode outputs 64 MiB); each program's
-    ``pool_bytes`` is what its capture added. A capture collects no
-    garbage, does not synchronize and leaves the allocator's cache to the
-    process (``_graph.Program.body``): the weights it reads live as long
-    as the model.
-
-    Requests are serialized per model, one lock around the fill, the run
-    and the copy out, since the static buffers are shared; each is queued
-    on the caller's current stream, after the model's previous request
-    (an event, when that ran on another stream)."""
-
-    #: Largest number of rows one call handles for an archive without a
-    #: fixed batch size; larger requests are chunked at this size.
-    max_bucket = 1024
+    function; a fixed batch: 1). None is evicted. A program's key is its
+    slot in ``programs``, the function and bucket, and :meth:`settings`;
+    when the settings change (a new ``max_bucket``, or
+    ``ops.spatial_decoder.BF16_MATMUL``, which picks K1's source at the
+    call) every program is dropped, its graph and pool with it, and made
+    again. ``made`` counts the programs made. The weights are loaded once
+    and never replaced, so they are not in the key: the programs read them
+    in place, the spatial decoder's padded copy (``padded_sdecoder_weights``)
+    made once at load, so a replay runs no padding kernels. A model's
+    programs share one memory pool, which holds every program's static
+    outputs and about one body's intermediates (the 128x128 grid's
+    1024-row decode outputs 64 MiB); each program's ``pool_bytes`` is what
+    its capture added."""
 
     def __init__(self, path: str, device=None):
-        self.device = resolve_device(device)
+        super().__init__(resolve_device(device))
         with np.load(path, allow_pickle=False) as archive:
             m = json.loads(archive["manifest"].tobytes().decode("utf-8"))
             qstate = {k[len(_W):]: archive[k]
@@ -283,112 +255,22 @@ class ServedModel:
         if self.grid is not None and self._fused:
             with torch.no_grad():
                 self._weights = padded_sdecoder_weights(self.decoder)
-        self._lock = threading.Lock()
-        self._settings = None  # the settings the programs were made under
-        self._pool = None  # the programs' memory pool
-        self.programs = {}  # (function, bucket) -> Program
-        self._inputs = {}  # function -> its static input buffers
-        self._last = None  # (stream, event) after the last captured request
-        self.made = 0
 
-    # -- buckets and programs ----------------------------------------------
+    # -- programs -------------------------------------------------------------
     def settings(self) -> tuple:
         """What every program's graph freezes besides its function and
         bucket: ``max_bucket``, the archive's ``batch_size`` and
         ``BF16_MATMUL``."""
         return (self.max_bucket, self.batch_size, _sd.BF16_MATMUL)
 
-    def bucket(self, m: int) -> int:
-        """The rows a call of ``m`` rows runs at: the fixed batch size, or
-        the JAX package's bucket, ``min(max_bucket, max(8, the power of two
-        at or above m))``."""
-        if self.batch_size is not None:
-            return self.batch_size
-        return min(self.max_bucket, max(8, 1 << max(m - 1, 0).bit_length()))
-
-    def buckets(self) -> Tuple[int, ...]:
-        """Every bucket a request can take: the bound on a function's
-        programs."""
-        if self.batch_size is not None:
-            return (self.batch_size,)
-        out, b = [], 8
-        while b < self.max_bucket:
-            out.append(b)
-            b *= 2
-        return tuple(out) + (self.max_bucket,)
-
-    def chunks(self, n: int) -> list:
-        """``(first row, rows)`` of each call a request of ``n`` rows makes:
-        chunks of the fixed batch size or of ``max_bucket`` (one call of no
-        rows for an empty request)."""
-        size = self.batch_size or self.max_bucket
-        return [(s, min(size, n - s)) for s in range(0, max(n, 1), size)]
-
     def _run(self, name: str, body, batched, extra=()):
         """``body`` over the rows of ``batched`` (device tensors of n rows)
         and the non-batched device tensors ``extra``, a call a chunk, each
-        padded to its bucket (class docstring). Returns the n rows'
-        outputs: a tensor or a tuple."""
-        n = batched[0].shape[0]
-        captured = route(self.device)
-        with self._lock:
-            stream = None
-            if captured and self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                if self._last is not None and self._last[0] != stream:
-                    stream.wait_event(self._last[1])
-            outs = None
-            for start, m in self.chunks(n):
-                rows = [b[start:start + m] for b in batched]
-                bucket = self.bucket(m)
-                if captured:
-                    res = self._program_run(name, bucket, body, rows, extra)
-                else:
-                    res = _as_tuple(body(*(_padded(r, bucket) for r in rows),
-                                         *extra))
-                if outs is None:
-                    outs = tuple(r.new_empty((n,) + r.shape[1:]) for r in res)
-                for o, r in zip(outs, res):
-                    o[start:start + m].copy_(r[:m])
-            if stream is not None:
-                event = (torch.cuda.Event() if self._last is None
-                         else self._last[1])
-                event.record(stream)
-                self._last = (stream, event)
-        return outs if len(outs) > 1 else outs[0]
-
-    def _program_run(self, name: str, bucket: int, body, rows, extra
-                     ) -> tuple:
-        """Fill ``name``'s static inputs with ``rows`` (zeros up to
-        ``bucket``) and ``extra``, and run its program at ``bucket`` (made
-        at its first call); returns the program's outputs, which the
-        caller copies out before any other program runs."""
-        if self._settings != self.settings():
-            self.programs.clear()  # their graphs and pool go with them
-            self._inputs.clear()
-            self._settings, self._pool = self.settings(), _graph.Pool()
-        inputs = self._inputs.get(name)
-        if inputs is None:
-            top = max(self.buckets())
-            inputs = self._inputs[name] = (
-                [torch.zeros((top,) + r.shape[1:], device=self.device)
-                 for r in rows] + [torch.empty_like(e) for e in extra])
-        m = rows[0].shape[0]
-        for buf, r in zip(inputs, rows):
-            buf[:m].copy_(r)
-            buf[m:bucket].zero_()
-        for buf, e in zip(inputs[len(rows):], extra):
-            buf.copy_(e)
-        prog = self.programs.get((name, bucket))
-        if prog is None:
-            statics = ([buf[:bucket] for buf in inputs[:len(rows)]]
-                       + inputs[len(rows):])
-            prog = _graph.Program.body(
-                self.device, lambda: _as_tuple(body(*statics)), statics,
-                self._pool)
-            self.programs[name, bucket] = prog
-            self.made += 1
-        return prog.run(clone=False)
+        padded to its bucket, a program each on the captured route (class
+        docstring). Returns the n rows' outputs: a tensor or a tuple."""
+        return self.request(name, body, batched, extra,
+                            captured=route(self.device),
+                            settings=self.settings())
 
     # -- the bodies and the served functions -------------------------------
     def _labeled_encode(self, x: Tensor):

@@ -36,6 +36,14 @@ cannot be captured, and NCCL takes one rank a device, so a captured
 does every epoch while :data:`CAPTURE` is cleared. A capture or replay
 that fails raises; nothing falls back to the eager loop.
 
+The same programs serve requests (``trainers/_requests.py``):
+``ServedModel``'s and the models' own (encode, decode, reconstruct,
+manifold2d, the heads, ``guide_probs``, ``VED.predict``), one a function
+and bucket. What stays eager after them: per-batch streaming (and
+iterables of batches), ``mesh=`` epochs, ``shard_pixels``, and the
+requests of a model whose parameters a mesh splits (tensor parallelism, a
+pixel grid under ``shard_pixels``), for the collectives above.
+
 A trainer keeps its programs by kind of epoch (:class:`GraphCache`), each
 with one graph. A kind holds several variants where the steps a graph
 freezes differ from run to run: a streamed epoch's full chunk and its
@@ -88,10 +96,10 @@ import torch
 
 from ..ops import spatial_decoder as _sd
 
-#: Capture the trainers' epochs and ``ServedModel``'s requests on CUDA
-#: (the default). Cleared, every epoch runs the eager loop and every request
-#: its bucketed body eagerly, on the card too, for A/B runs. Read at each
-#: epoch and each request.
+#: Capture the trainers' epochs, ``ServedModel``'s requests and the models'
+#: own requests on CUDA (the default). Cleared, every epoch runs the eager
+#: loop and every request its bucketed body eagerly, on the card too, for
+#: A/B runs. Read at each epoch and each request.
 CAPTURE = True
 
 _COUNTED = (_sd.fused_spatial_decoder_forward,
@@ -131,7 +139,11 @@ def route(trainer, loaders: Sequence, device_type: Optional[str] = None,
     left out) run as captured programs on a device of type
     ``device_type`` (default: the trainer's), by configuration alone
     (module docstring). With ``chunked`` the first loader may stream in
-    chunks (``stream_chunks > 1``); every other one is resident."""
+    chunks (``stream_chunks > 1``); every other one is resident. Eager
+    still: per-batch streaming and iterables of batches, ``mesh=``,
+    ``shard_pixels``, optimizers without ``capturable=True``; and, in the
+    requests' route (``models.base.request_route``), models whose
+    parameters a mesh splits."""
     from ..utils.data import DataLoader
     model = trainer.model
 

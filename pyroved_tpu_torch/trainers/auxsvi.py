@@ -428,6 +428,14 @@ class auxSVItrainer(SegmentedRunsMixin):
             return self._captured_metric(loader_val, classification)
         return self._metric_sums(loader_val, classification)
 
+    def _head(self, data):
+        """The model's head on a batch: the body of its ``classifier`` or
+        ``regressor`` request, called directly, so that inside the
+        captured metric no request starts a capture of its own."""
+        model = self.model
+        x = model._as_f32(data)
+        return model._predict_head(x.reshape(x.shape[0], -1))
+
     def _metric_sums(self, batches, classification: bool) -> _PendingLoss:
         """Over ``(data, labels)`` batches: the hits and the row count
         (classification), or the batches' mean squared errors summed and
@@ -435,13 +443,13 @@ class auxSVItrainer(SegmentedRunsMixin):
         if classification:
             correct, total = 0, 0
             for data, labels in batches:
-                predicted = self.model.classifier(data)
+                predicted = self._head(data)
                 correct = correct + (predicted == labels.argmax(1)).sum()
                 total += data.shape[0]
             return _PendingLoss(correct, total)
         total, count = 0.0, 0
         for data, gt in batches:
-            predicted = self.model.regressor(data)
+            predicted = self._head(data)
             total = total + torch.mean((predicted - gt.reshape(
                 predicted.shape)) ** 2)
             count += 1

@@ -167,7 +167,9 @@ def test_decoder_padded_to_256_runs_fused_and_matches_jax(hidden):
 
 def test_spatial_decodes_go_through_the_fused_wrapper(monkeypatch):
     """Every spatial decode of the serving path calls the kernel's wrapper
-    (on the CPU, its plain version)."""
+    (on the CPU, its plain version): the requests at their power-of-two
+    buckets (3 and 5 rows at 8, manifold2d's 9 at 16), the loss at its
+    batch's rows."""
     calls = []
     real = tsd.fused_spatial_decoder_forward
 
@@ -184,7 +186,7 @@ def test_spatial_decodes_go_through_the_fused_wrapper(monkeypatch):
     tm.reconstruct(x)
     tm.manifold2d(3, plot=False)
     tm.loss_fn(x)
-    assert calls == [3, 5, 9, 5]
+    assert calls == [8, 8, 16, 5]
 
 
 def test_device_rule_and_later_slices(tmp_path, monkeypatch):
