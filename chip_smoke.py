@@ -26,7 +26,9 @@ source.
 2. Kernels against plain, under each flag: the fused forward K1 against
    ``spatial_decoder_plain`` over D in {1, 2}, C in {1, 3}, the six
    activations, hidden width 128 and 256, ragged B and N, 0 to 5 hidden
-   layers for every activation at both widths, one pixel of one sample and
+   layers for every activation at both widths (H = 256 at 1-4 channels and
+   both cluster plans, held to ``tools/profile_fwd_tc.py``'s mirror of
+   them, and the layer limits to theirs), one pixel of one sample and
    the large grid, each launched twice to show bitwise-equal outputs; the
    tensor-core K1's tanh over every f32 input against f64 tanh
    (``phase_tanh_probe``); then
@@ -46,8 +48,14 @@ source.
    and K2 once per step); the same init with ``fused=False`` (the module
    path, f32) is held against it, first step's grads and per-epoch
    losses; then a few steps with ``one_pass_train=True`` (K3 once per
-   step, no K1 or K2). Then the large grid (128x128, batch 64) trains 32
-   steps through ``fit`` under each flag.
+   step, no K1 or K2). Then the flagship's shape with the decoder widened
+   to (256, 256), and a (128, 256) decoder, both padded to H = 256 (K1
+   and K2 in thread-block clusters): the first step and 3 epochs through
+   ``fit`` against the module path, a captured trajectory bitwise equal to
+   the eager one (one K1 and one K2 a step), the step against the module
+   path's, and K1, K2 and K3 at the step's shape for phase 6's table
+   (``phase_padded_training``). Then the large grid (128x128, batch 64)
+   trains 32 steps through ``fit`` under each flag.
 6. Times: first K2 and K3 under each flag at the flagship training shape
    and the large grid (B=64, N=16384), on the trained models' inputs,
    against their plain versions and a second launch (bitwise); K1 under
@@ -368,6 +376,8 @@ from pyroved_tpu_torch.ops import bwd_ablation as ab
 from pyroved_tpu_torch.ops import spatial_decoder as sd
 from pyroved_tpu_torch.serving import ServedModel, export_model
 from pyroved_tpu_torch.tools import bwd_ablation as abt
+from pyroved_tpu_torch.tools import profile_bwd_tc as bwd_tool
+from pyroved_tpu_torch.tools import profile_fwd_tc as fwd_tool
 from pyroved_tpu_torch.tools.profile_bwd_tc import plan_info
 from pyroved_tpu_torch.tools.measure import (bf16_matmul, blobs, bounds,
                                              card_info, card_peaks,
@@ -639,10 +649,13 @@ def k1_cases():
     """(D, C, act, H, B, N, L, n_layers) of K1's matrix: 51 cases over
     dims, channels, activations and widths (N = 1000 is no multiple of 64
     or 32), then 1 to 5 hidden layers for every activation at both widths
-    (H = 256 streams its weights), no hidden layer at both widths, one
-    pixel of one sample at H = 256, the large grid, and the flagship's
-    shapes of phase 9 (B = 600 enumerated rows at L = 12, and B = 50 under
-    grad_accum): 87 cases."""
+    (H = 256 runs in clusters of two blocks up to two layers, of four
+    beyond), no hidden layer at both widths, one pixel of one sample at
+    H = 256, the large grid, and the flagship's shapes of phase 9 (B = 600
+    enumerated rows at L = 12, and B = 50 under grad_accum); then H = 256
+    at two and four channels, one, three and four layers for every
+    activation, partial tiles (N = 150) and a pixel of each cluster plan:
+    111 cases."""
     acts = sd.KERNEL_ACTS_WITH_APPROX
     cases = [(D, C, act, H, 37, 1000, 3, 2) for H in (128, 256)
              for D in (1, 2) for C in (1, 3) for act in acts]
@@ -658,7 +671,41 @@ def k1_cases():
               (2, 1, "tanh", 128, 64, 16384, 2, 2),  # the large grid
               (2, 1, "tanh", 128, 600, 784, 12, 2),  # enum_topk=3, phase 9
               (2, 1, "tanh", 128, 50, 784, 2, 2)]    # grad_accum, phase 9
+    cases += [(2, C, act, 256, 3, 150, 2, nl) for act in acts
+              for nl, C in ((1, 2), (3, 4), (4, 1))]
+    cases += [(1, 4, "lrelu", 256, 5, 1000, 3, 2),   # four channels, both
+              (2, 2, "softplus", 256, 2, 63, 6, 5),  # plans, partial tiles
+              (2, 4, "tanh_approx", 256, 1, 1, 2, 4),  # one pixel, four blocks
+              (1, 2, "relu", 256, 1, 1, 2, 1),       # one pixel, two blocks
+              (2, 1, "tanh", 256, 200, 784, 2, 2),   # phase 5's (256, 256)
+              (2, 3, "gelu", 256, 4, 129, 3, 0)]     # no layer, three channels
     return cases
+
+
+def card_optin():
+    """The shared memory a block of card 0 can opt into (an H100's where
+    this PyTorch does not report it)."""
+    return getattr(torch.cuda.get_device_properties(0),
+                   "shared_memory_per_block_optin", fwd_tool.H100_OPTIN)
+
+
+# The H = 256 K1 plans (blocks a cluster, tile pixels): two blocks up to
+# two layers, four beyond. Phase 2 runs both.
+K1_CLUSTER_PLANS = {(2, 64), (4, 32)}
+
+
+def k1_cluster_plan(lib, nl, C, act):
+    """(blocks a cluster, tile pixels) of K1's H = 256 plan for one call,
+    as the library reports it, held to profile_fwd_tc's mirror of the
+    source's plan (cluster size and shared memory at the card's limit)."""
+    plan = fwd_tool.cluster_plan(lib, nl, C, sd._ACT_CODE[act])
+    cs = fwd_tool.cluster_blocks(nl, C, card_optin())
+    want = (cs, fwd_tool.cluster_tile(cs), fwd_tool.cluster_smem(cs, nl, C))
+    if (plan["cluster"], plan["R"], plan["smem"]) != want or \
+            plan["clusters"] < 1:
+        raise AssertionError(f"K1 H=256 plan at {nl} layers, {C} channels: "
+                             f"{plan}, the mirror {want}")
+    return plan["cluster"], plan["R"]
 
 
 def phase_k1_vs_plain(dev):
@@ -667,6 +714,7 @@ def phase_k1_vs_plain(dev):
     atol, rel = (BF16_ATOL, BF16_OUT_REL) if sd.BF16_MATMUL else (ATOL, 0.0)
     errs = [0.0]
     rng = np.random.default_rng(0)
+    plans = set()
     with all_cases("K1 vs plain") as case:
         for i, (D, C, act, H, B, N, L, nl) in enumerate(k1_cases()):
             sig = i % 2 == 0
@@ -677,6 +725,12 @@ def phase_k1_vs_plain(dev):
             ref = sd.spatial_decoder_plain(**a, act=act, sigmoid_out=sig)
             what = (f"D={D} C={C} H={H} act={act:<11} sigmoid={sig!s:<5} "
                     f"B={B} N={N} L={L} layers={nl}")
+            if sd.BF16_MATMUL and H == 256:
+                with case():
+                    plan = k1_cluster_plan(_build.load(sd.FWD_SOURCES[True]),
+                                           nl, C, act)
+                    plans.add(plan)
+                    what += f" [clusters of {plan[0]}, R={plan[1]}]"
             with case():
                 if not torch.equal(out, again):
                     raise AssertionError(f"K1 {what}: two launches differ")
@@ -685,14 +739,28 @@ def phase_k1_vs_plain(dev):
                     f"(largest output {ref.abs().max().item():.2e}), "
                     f"bitwise equal across launches")
     if sd.BF16_MATMUL:  # a decoder the tensor-core kernel does not take
-        deep = sd.fwd_tc_max_layers(128, 1, dev) + 1
-        a = random_case(rng, dev, 2, 1, 128, 2, 70, 2, deep)
-        try:
-            K1(**a)
-        except ValueError as e:
-            log(f"  K1 with {deep} layers at H=128 raises: {e}")
-        else:
-            raise AssertionError(f"K1 took {deep} layers at H=128")
+        with case():
+            if plans != K1_CLUSTER_PLANS:
+                raise AssertionError(f"K1 H=256: the cases ran the plans "
+                                     f"{sorted(plans)}, not every plan of "
+                                     f"{sorted(K1_CLUSTER_PLANS)}")
+        optin = card_optin()
+        for H in sd.KERNEL_WIDTHS:
+            limits = [sd.fwd_tc_max_layers(H, C, dev) for C in range(1, 5)]
+            mirror = [fwd_tool.max_layers(H, C, optin) for C in range(1, 5)]
+            log(f"  K1 layer limit at H={H}, C=1..4: {limits} (the mirror "
+                f"{mirror}), the backward's {sd.bwd_max_layers('tanh')}")
+            if limits != mirror or min(limits) < sd.bwd_max_layers("tanh"):
+                raise AssertionError(f"K1's layer limit at H={H}: {limits}, "
+                                     f"the mirror {mirror}")
+            deep = limits[0] + 1
+            a = random_case(rng, dev, 2, 1, H, 2, 70, 2, deep)
+            try:
+                K1(**a)
+            except ValueError as e:
+                log(f"  K1 with {deep} layers at H={H} raises: {e}")
+            else:
+                raise AssertionError(f"K1 took {deep} layers at H={H}")
     return max(errs)
 
 
@@ -782,26 +850,46 @@ def bwd_cases():
               (1, 2, "softplus", 128, 37, 1000, 3, 1),
               (2, 4, "tanh", 128, 37, 1000, 12, 2),
               (2, 1, "tanh", 128, 200, 784, 2, 2),   # K3 at the flagship
-              (2, 1, "tanh", 128, 64, 16384, 2, 2)]  # and the large grid
+              (2, 1, "tanh", 128, 64, 16384, 2, 2),  # and the large grid
+              # H = 256 in clusters of four: the tightest shared memory
+              # (two resident layers, four channels), four and five
+              # streamed layers (two and three passes), and K3 at the
+              # (256, 256) flagship
+              (2, 4, "tanh", 256, 37, 1000, 12, 2),
+              (1, 3, "lrelu", 256, 5, 129, 3, 4),
+              (2, 1, "softplus", 256, 4, 200, 2, 5),
+              (2, 1, "tanh", 256, 200, 784, 2, 2)]
     return cases
 
 
-# The plans the bf16 K2/K3 can choose (H, R, weights resident): H = 128
-# at R = 64 (up to two layers) and R = 32 (three) with every weight
-# resident, R = 32 streamed (four and five layers); H = 256 streamed at
-# R = 32 (up to two layers) and 16. Phase 2 runs each of them (and a
+# The plans the bf16 K2/K3 can choose (H, R, weights resident, blocks a
+# cluster): H = 128 at R = 64 (up to two layers) and R = 32 (three) with
+# every weight resident, R = 32 streamed (four and five layers); H = 256 in
+# clusters of four blocks at R = 32, resident up to two layers (one pass
+# over the tiles), streamed beyond (two passes at three and four layers,
+# three at five: BWD_TC_H256_PASSES). Phase 2 runs each of them (and a
 # block's tiles are odd in number at B = 37, N = 1000: 592 tiles over 132
 # blocks).
-BWD_TC_PLANS = {(128, 64, 1), (128, 32, 1), (128, 32, 0), (256, 32, 0),
-                (256, 16, 0)}
+BWD_TC_PLANS = {(128, 64, 1, 1), (128, 32, 1, 1), (128, 32, 0, 1),
+                (256, 32, 1, 4), (256, 32, 0, 4)}
+BWD_TC_H256_PASSES = {1, 2, 3}
 
 
 def bwd_tc_plan(B, N, D, L, H, nl, C, act):
-    """(H, R, weights resident) of the bf16 K2/K3's plan for one call (as
-    its pvt_sdec_bwd_tc_plan reports it)."""
+    """(H, R, weights resident, blocks a cluster, passes) of the bf16
+    K2/K3's plan for one call (as its pvt_sdec_bwd_tc_plan reports it); at
+    H = 256 held to profile_bwd_tc's mirror of the source's plan (all but
+    the blocks a pass, which follow the occupancy query)."""
     info = plan_info(_build.load(sd.BWD_SOURCES[True]), B, N, L, H, nl, C,
                      D=D, act=sd._ACT_CODE[act])
-    return H, info["R"], info["resident"]
+    if H == 256:
+        want = bwd_tool.cluster_plan(B, N, nl, C, 1, card_optin())
+        keep = [k for k in info if k != "per_pass"]
+        if ({k: info[k] for k in keep} != {k: want[k] for k in keep}
+                or info["per_pass"] % info["cluster"]):
+            raise AssertionError(f"K2 H=256 plan at {nl} layers, {C} "
+                                 f"channels: {info}, the mirror {want}")
+    return H, info["R"], info["resident"], info["cluster"], info["passes"]
 
 
 def near_kink(a, act):
@@ -850,7 +938,8 @@ def phase_k2_k3_vs_plain(dev):
             if sd.BF16_MATMUL:
                 plan = bwd_tc_plan(B, N, D, L, H, nl, C, act)
                 plans.add(plan)
-                what += f" [plan R={plan[1]} resident={plan[2]}]"
+                what += (f" [plan R={plan[1]} resident={plan[2]} cluster="
+                         f"{plan[3]} passes={plan[4]}]")
             with case():
                 got = K2(**a, g=g, act=act, sigmoid_out=sig)
                 again = K2(**a, g=g, act=act, sigmoid_out=sig)
@@ -919,11 +1008,13 @@ def phase_k2_k3_vs_plain(dev):
                 e2, e3 = tile_512_case(rng, dev)
                 errs2.append(e2)
                 errs3.append(e3)
-        elif plans != BWD_TC_PLANS:
+        elif ({p[:4] for p in plans} != BWD_TC_PLANS
+              or {p[4] for p in plans if p[0] == 256} != BWD_TC_H256_PASSES):
             with case():
                 raise AssertionError(f"K2/K3 bf16: the cases ran the plans "
                                      f"{sorted(plans)}, not every plan of "
-                                     f"{sorted(BWD_TC_PLANS)}")
+                                     f"{sorted(BWD_TC_PLANS)} with the "
+                                     f"H=256 passes {BWD_TC_H256_PASSES}")
     return max(errs2), max(errs3)
 
 
@@ -1132,6 +1223,119 @@ def phase_training(module_run=None):
             "module_loss_history": hist_m, "times": times,
             "max_err": max(step_err, one_err), "model": model, "xb": xb,
             "eps": eps}
+
+
+#: Phase 5's padded widths: the flagship's shape with the decoder widened
+#: to (256, 256), and a pair that pads (128, 256) to 256; both run K1 and
+#: K2 at H = 256, in clusters.
+PADDED_WIDTHS = ((256, 256), (128, 256))
+
+
+def phase_padded_training(module_runs):
+    """Phase 5, padded widths, under the current flag: the flagship-shaped
+    iVAE at each of PADDED_WIDTHS. Its first step against the module path
+    (fused=False) and 3 epochs through fit against the module path's
+    (trained once, under the f32 flag, and kept in ``module_runs``), with
+    phase 5's bounds and one K1 and one K2 a step; a 3-epoch trajectory
+    captured and eager on 2,000 rows, bitwise equal, one K1 and one K2 a
+    step each; the training step's time against the module path's (host
+    clock, and device time by CUDA events); under the bf16 flag K1's and
+    K2's (and K3's) rows at the step's shape for phase 6's table."""
+    on = sd.BF16_MATMUL
+    k1, k2 = ("K1_bf16", "K2_bf16") if on else ("K1", "K2")
+    tag = "bf16" if on else "f32"
+    grad_rel = BF16_MODULE_GRAD_REL if on else GRAD_RTOL
+    loss_rtol = BF16_MODULE_LOSS_RTOL if on else LOSS_RTOL
+    epoch_rtol = BF16_EPOCH_RTOL if on else EPOCH_RTOL
+    X = blobs(10000, (28, 28), seed=1)
+    Xc = X[:2000]
+    out = {"launches": {}, "widths": {}}
+    for widths in PADDED_WIDTHS:
+        key = "x".join(map(str, widths))
+        kw = dict(latent_dim=2, invariances=["r"], hidden_dim_d=widths,
+                  seed=0)
+        model = iVAE((28, 28), **kw)
+        module = iVAE((28, 28), fused=False, **kw)
+        if not model._fused or module._fused:
+            raise AssertionError(f"hidden {widths} is not routed as "
+                                 f"configured")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        eps = torch.randn(200, model.z_dim, generator=gen, device="cuda")
+        xb = torch.as_tensor(X[:200], device="cuda")
+        loss_k, grads_k = first_step_grads(model, xb, eps)
+        loss_m, grads_m = first_step_grads(module, xb, eps)
+        names = [n for n, _ in model.nets.named_parameters()]
+        step_err = check_grads(f"{tag} {widths} first step, kernel vs module "
+                               f"path", grads_k, grads_m, names,
+                               per_sample=0, rel=grad_rel)
+        if abs(loss_k - loss_m) > loss_rtol * abs(loss_m):
+            raise AssertionError(f"{widths} first step loss {loss_k} vs "
+                                 f"{loss_m}")
+        trainer, fit_s, fit_counts = run_path(
+            lambda: model.fit(X, epochs=3, batch_size=200))
+        steps = 3 * 50
+        if not only(fit_counts, **{k1: steps, k2: steps}):
+            raise AssertionError(f"{tag} {widths} fit: expected {k1} and {k2} "
+                                 f"once a step: {fit_counts}")
+        hist = trainer.loss_history["training_loss"]
+        if key not in module_runs:
+            module_runs[key] = module.fit(
+                X, epochs=3, batch_size=200).loss_history["training_loss"]
+        hist_m = module_runs[key]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(hist, hist_m))
+        if not (all(np.isfinite(hist)) and hist[-1] < hist[0]
+                and rel <= epoch_rtol):
+            raise AssertionError(f"{tag} {widths}: per-epoch losses {hist}, "
+                                 f"module path {hist_m}: {rel:.3e}")
+
+        def make():
+            m = iVAE((28, 28), **kw)
+            return m, SVItrainer(m)
+
+        def loaders():
+            return (init_dataloader(Xc, batch_size=200, seed=0),)
+
+        cap = trajectory(make, loaders, CAP_EPOCHS, True)
+        eager = trajectory(make, loaders, CAP_EPOCHS, False)
+        cap_same(f"{tag} {widths}", cap, eager)
+        cap_steps = CAP_EPOCHS * 10
+        for run in (cap, eager):
+            if not only(run["launches"], **{k1: cap_steps, k2: cap_steps}):
+                raise AssertionError(f"{tag} {widths} trajectory: launches "
+                                     f"{run['launches']}")
+        # the step's time, kernel path and module path
+        times = {}
+        for name, m in (("kernel", model), ("module", module)):
+            tr = SVItrainer(m)
+            w = torch.ones(200, device="cuda")
+            step = lambda: tr.train_step((xb,), w)  # noqa: E731
+            times[name] = {"step_ms": host_ms(step, reps=30, warmup=5),
+                           "device_ms": cuda_ms(step, reps=20)}
+        res = {"first_step_err": step_err, "fit_s": fit_s,
+               "loss_history": hist, "module_loss_history": hist_m,
+               "max_rel_epoch_diff": rel, "times": times,
+               "trajectory_s": {"captured": cap["seconds"],
+                                "eager": eager["seconds"]}}
+        if on:  # K1, K2 and K3 at the step's shape, both flags
+            a, xf = train_args(model, xb, eps)
+            name = f"hidden {widths}"
+            with torch.no_grad():
+                res["k1_rows"] = time_k1(name, a, card_peaks(card_info()))
+            res["bwd_rows"] = time_bwd(name, a, xf, gen,
+                                       card_peaks(card_info()))
+            del a, xf
+        out["launches"].update({
+            f"padded_{key}_fit_{tag}": fit_counts,
+            f"padded_{key}_captured_{tag}": cap["launches"],
+            f"padded_{key}_eager_{tag}": eager["launches"]})
+        out["widths"][key] = res
+        log(f"  {tag} hidden {widths} (H=256): first step vs module path max "
+            f"abs err {step_err:.3e}; fit 3 epochs {fit_s:.2f} s, launches "
+            f"{fit_counts}, losses {hist}, module path {hist_m} (max rel "
+            f"diff {rel:.3e}); {CAP_EPOCHS} epochs of 10 steps captured and "
+            f"eager bitwise equal, launches {cap['launches']}; step "
+            f"{json.dumps(times)}")
+    return out
 
 
 def phase_large_grid_training():
@@ -6337,10 +6541,15 @@ def main() -> int:
         f"loss max rel err against the module path {rel:.3e}")
 
     # -- 5. training at full width, under each flag; the large grid --------
-    log("phase 5: flagship training, large-grid training")
+    log("phase 5: flagship training, padded widths (256, 256) and (128, "
+        "256), large-grid training")
     with bf16_matmul(False):
         train32 = phase_training()
     train = phase_training(module_run=train32)
+    padded_module = {}  # the module path's losses, trained once
+    with bf16_matmul(False):
+        padded32 = phase_padded_training(padded_module)
+    padded = phase_padded_training(padded_module)
     large = phase_large_grid_training()
     with bf16_matmul(False):
         large32 = phase_large_grid_training()
@@ -6368,6 +6577,12 @@ def main() -> int:
         e = torch.randn(xx.shape[0], m.z_dim, generator=gen, device="cuda")
         a, xf = train_args(m, xx, e)
         for key, row in time_bwd(name, a, xf, gen, peaks).items():
+            rows[key].append(row)
+    # phase 5's padded widths (H = 256, clusters), timed there
+    for res in padded["widths"].values():
+        for on, row in res.pop("k1_rows").items():
+            k1_rows[on].append(row)
+        for key, row in res.pop("bwd_rows").items():
             rows[key].append(row)
     request_ms = {name: host_ms(request, reps=30)
                   for name, request in requests.items()}
@@ -6586,6 +6801,8 @@ def main() -> int:
                 "one_pass_training_f32": train32["one_pass_launches"][key],
                 "large_grid_training_bf16": large["launches"][key],
                 "large_grid_training_f32": large32["launches"][key],
+                **{path: n[key] for f in (padded, padded32)
+                   for path, n in f["launches"].items()},
                 **{f"{path}_{tag}": n[key]
                    for tag, f in (("bf16", fam), ("f32", fam32))
                    for path, n in f["launches"].items()},
@@ -6684,6 +6901,8 @@ def main() -> int:
         "fit_s", "loss_history", "module_loss_history", "times")}
         for tag, t in (("bf16", train), ("f32", train32))},
         "large_grid_training": {"bf16": large, "f32": large32},
+        "padded_training": {"bf16": padded["widths"],
+                            "f32": padded32["widths"]},
         "step_breakdown": breakdown,
         "families": {tag: {k: f[k] for k in (
             "fit_s", "loss_history", "module_loss_history",

@@ -205,8 +205,11 @@ PVT_SAMPLES_KERNEL(sdec_x3_samples, double)
 // dhb, dwout, dbout and the loss the slots of pass 0. Each block takes 32
 // outputs (one a lane); its 8 warps sum every 8th sample or slot, then
 // warp 0 adds the 8 partials in warp order: a fixed order, and 8 loads in
-// flight for each output. In T, as samples_body.
-template <typename T>
+// flight for each output. In T, as samples_body. kCS > 1: the slots of a
+// kernel run in clusters of kCS blocks, whose pass holds kCS kPassUnits
+// units, unit j of the pass in position j / kCS of the slot of each
+// cluster's block j % kCS (summed over the pass's clusters).
+template <typename T, int kCS = 1>
 __device__ __forceinline__ void weights_body(
     const float* __restrict__ blk_ws, int per_pass, int slot,
     const float* __restrict__ duvw, const float* __restrict__ phi,
@@ -244,15 +247,31 @@ __device__ __forceinline__ void weights_body(
   } else if (i < n_samp + n_dw + n_sums) {
     const int j = i - n_samp;
     const float* src;
-    if (j < n_dw) {
-      const int l = j / (H * H), r = (j / H) % H, c = j % H;
-      const int q = (l * (H / 64) + (r >> 6)) * (H / 128) + (c >> 7);
-      src = blk_ws + (size_t)(q / kPassUnits) * per_pass * slot +
-            (q % kPassUnits) * kUnitFloats + (r & 63) * 128 + (c & 127);
+    if constexpr (kCS == 1) {
+      if (j < n_dw) {
+        const int l = j / (H * H), r = (j / H) % H, c = j % H;
+        const int q = (l * (H / 64) + (r >> 6)) * (H / 128) + (c >> 7);
+        src = blk_ws + (size_t)(q / kPassUnits) * per_pass * slot +
+              (q % kPassUnits) * kUnitFloats + (r & 63) * 128 + (c & 127);
+      } else {
+        src = blk_ws + kPassUnits * kUnitFloats + (j - n_dw);
+      }
+      for (int k = w; k < per_pass; k += kWarps) s += src[(size_t)k * slot];
     } else {
-      src = blk_ws + kPassUnits * kUnitFloats + (j - n_dw);
+      int step = 1, n = per_pass;  // db and the rest: every slot of pass 0
+      if (j < n_dw) {
+        const int l = j / (H * H), r = (j / H) % H, c = j % H;
+        const int q = (l * (H / 64) + (r >> 6)) * (H / 128) + (c >> 7);
+        const int p = q / (kPassUnits * kCS), u = q % (kPassUnits * kCS);
+        src = blk_ws + ((size_t)p * per_pass + u % kCS) * slot +
+              (u / kCS) * kUnitFloats + (r & 63) * 128 + (c & 127);
+        step = kCS;
+        n = per_pass / kCS;
+      } else {
+        src = blk_ws + kPassUnits * kUnitFloats + (j - n_dw);
+      }
+      for (int k = w; k < n; k += kWarps) s += src[(size_t)k * step * slot];
     }
-    for (int k = w; k < per_pass; k += kWarps) s += src[(size_t)k * slot];
   }
   part[w][lane] = s;
   __syncthreads();
@@ -274,6 +293,12 @@ __global__ void __launch_bounds__(kThreads) sdec_tc_weights(PVT_WEIGHTS_PARAMS) 
   weights_body<float>(blk_ws, per_pass, slot, duvw, phi, dx, sc, z, out, B, D,
                       L, H, nl, C, loss);
 }
+// the slots of a kernel run in clusters of kCS blocks
+template <int kCS>
+__global__ void __launch_bounds__(kThreads) sdec_tc_weights_cl(PVT_WEIGHTS_PARAMS) {
+  weights_body<float, kCS>(blk_ws, per_pass, slot, duvw, phi, dx, sc, z, out,
+                           B, D, L, H, nl, C, loss);
+}
 // a template, so that only the source that launches it compiles it
 template <int kUnused = 0>
 __global__ void __launch_bounds__(kThreads) sdec_x3_weights(PVT_WEIGHTS_PARAMS) {
@@ -291,8 +316,9 @@ inline size_t slot_floats(int H, int nl, int C) {
 // [B] | dz [B, L] at the head of `out`), then the weight grads (dWc [D, H]
 // | dbc [H] | dWz [L, H] | dhw [nl, H, H] | dhb [nl, H] | dwout [H, C] |
 // dbout [C] | loss (K3)) from the block slots `blk_ws` and the tile sums
-// `tile_ws`, through the sample sums `duvw`; in double with kF64.
-template <bool kF64>
+// `tile_ws`, through the sample sums `duvw`; in double with kF64; the
+// slots of clusters of kCS blocks where kCS > 1 (sdec_tc_weights_cl).
+template <bool kF64, int kCS = 1>
 inline cudaError_t launch_sums(const float* blk_ws, const float* tile_ws,
                                float* duvw, int per_pass, int slot,
                                int n_tiles, const float* phi, const float* dx,
@@ -328,6 +354,10 @@ inline cudaError_t launch_sums(const float* blk_ws, const float* tile_ws,
   if (err != cudaSuccess) return err;
   if constexpr (kF64)
     sdec_x3_weights<0><<<blocks, kThreads, 0, stream>>>(
+        blk_ws, per_pass, slot, duvw, phi, dx, sc, z, out_w, B, D, L, H, nl, C,
+        loss);
+  else if constexpr (kCS > 1)
+    sdec_tc_weights_cl<kCS><<<blocks, kThreads, 0, stream>>>(
         blk_ws, per_pass, slot, duvw, phi, dx, sc, z, out_w, B, D, L, H, nl, C,
         loss);
   else

@@ -18,15 +18,17 @@
 // 0 closes the loop's own overhead, mark k > 0 the k-th "// --" phase of
 // the loop body), and the cycles of a statement that PHASE_TIMED wraps to
 // a counter of its own: kBarSlot barriers, kMmaSlot wgmma waits, kIssueSlot
-// issuing products (parts of the phases' cycles). The counters live in
+// issuing products, kClusterSlot waits on the other blocks of a cluster
+// (their rows, their arrivals) (parts of the phases' cycles). The
+// counters live in
 // g_phase_cycles [warpgroup][kPhaseSlots]; PHASE_CLOCK_AT(acc) keeps a
 // warpgroup's in `acc` instead (shared memory, cheaper than global adds),
 // and PHASE_FLUSH then adds them to g_phase_cycles. PVT_PHASE_READER(name)
 // defines the C entry point that reads them.
 constexpr int kPhaseMarks = 8;
 constexpr int kBarSlot = kPhaseMarks, kMmaSlot = kPhaseMarks + 1,
-              kIssueSlot = kPhaseMarks + 2;
-constexpr int kPhaseSlots = kPhaseMarks + 3;
+              kIssueSlot = kPhaseMarks + 2, kClusterSlot = kPhaseMarks + 3;
+constexpr int kPhaseSlots = kPhaseMarks + 4;
 constexpr int kPhaseGroups = 4;  // warpgroups of a block of up to 512
 #ifdef PVT_PROFILE_PHASES
 __device__ long long g_phase_cycles[kPhaseGroups][kPhaseSlots];
@@ -402,6 +404,97 @@ __device__ __forceinline__ void wgmma_init(float (&d)[N / 2], uint64_t da,
   if constexpr (N == 16) wgmma_n16_init<TA, TB>(d, da, db);
   else if constexpr (N == 32) wgmma_n32_init<TA, TB>(d, da, db);
   else wgmma_n64_init<TA, TB>(d, da, db);
+}
+
+// -- thread-block clusters (the H = 256 kernels): a block's rank, a
+//    location of this block's shared memory in another block of the
+//    cluster, and the cluster's barrier in two halves
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// two floats as a bf16 pair, the bits of store_pair's value
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Every thread of every block of the cluster arrives (release: its earlier
+// writes, remote ones too, are ordered before) and waits (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// -- transaction barriers (mbarrier) and bulk copies between the blocks of
+//    a cluster: a block writes its rows into its own shared memory, one
+//    thread copies them into every other block (async proxy), and each
+//    receiver waits on its own barrier for the bytes it expects
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the barriers' initialisation visible to the cluster's bulk copies
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this block's arrival on `bar`, expecting `bytes` more from the copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on the barrier at shared::cluster address `bar` (another
+// block's)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` to the
+// shared::cluster address `dst`, completing on the barrier `bar` there
+__device__ __forceinline__ void bulk_to_rank(uint32_t dst, uint32_t src,
+                                             int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk copies have read their sources
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // One warpgroup copies `bytes` (a multiple of 2 KB) into shared memory and

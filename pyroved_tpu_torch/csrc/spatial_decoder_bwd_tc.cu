@@ -92,6 +92,9 @@
 //    synchronises with the host.
 
 #include <atomic>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "sm90_bwd.cuh"
 
@@ -892,10 +895,685 @@ sdec_bwd_tc_kernel(const KArgs a) {
   PHASE_FLUSH;
 }
 
+#ifndef PVT_ABLATE
+// -- H = 256: one tile, one cluster of kClusterBlocks blocks. Block k of a
+//    cluster owns the units [64 k, 64 k + 64) of every level: it holds
+//    W_l[:, its units] (the forward's panel of wf) and W_l[its units, :]
+//    (dh's panel of wb) for every layer in shared memory (64 KB a layer,
+//    up to two layers; deeper decoders copy each product's panel from L2),
+//    computes its units' pre-activations, derivatives and dh^T rows over
+//    the whole level, and writes its rows of each level and of each d_pre
+//    into its own copy, where they are contiguous; one thread copies them
+//    into every other block's copy (cp.async.bulk into distributed shared
+//    memory), and each block waits on a transaction barrier of its own for
+//    the other blocks' rows. Where a copy overwrites rows that another
+//    block's products still read (d_pre_{l-1} over h_l; the next tile's
+//    levels), the sender first waits for that block's arrival on one of
+//    its barriers; only the sending thread waits. No cluster barrier and no
+//    proxy fence a tile, where remote stores would need both, seven times
+//    (what each costs: pyroved_tpu_torch/tools/cluster_sync.py). The two
+//    warpgroups take half the tile's pixels each. The cluster's 16 dW units (kPassUnits a block, dealt so that
+//    each warpgroup holds one unit of each of two layers) are a pass: one
+//    pass at two layers, so each tile's forward and dh run once. The head's
+//    dots are each block's partials over its units, exchanged and summed in
+//    block order by every block; the loss and dbout are block 0's. Each
+//    block's warpgroups keep their own db and dwout sums, and the tile's
+//    du/dv/dw sums over their pixels, added in warpgroup order.
+constexpr int kClusterBlocks = 4;
+constexpr int kClusterR = 32;  // pixels a tile
+
+// The cluster kernel's transaction barriers (8 bytes each): F + l, level
+// l's rows from every block; kHead + parity, the head's partials; kTile,
+// every block done with the last tile's products; kTile + l (l >= 1),
+// every block's backward products of layer l done (level l free for
+// d_pre_{l-1}).
+constexpr int kHead = 6, kTile = 8, kBars = 16;
+
+// floats after the derivatives: the transform of the block's units (two
+// slots), coordinates, cotangents, the head's buffers, the blocks' head
+// partials (two slots), the tile's du/dv/dw sums by warpgroup, the block
+// sums and warpgroup 1's db and dwout, the barriers (8-byte aligned), then
+// the profiled build's counters
+inline int cl_small_floats(int nl, int C) {
+  constexpr int H = 256, R = kClusterR, U = H / kClusterBlocks;
+  return 6 * U + 4 * R + 2 * stage_floats(R) + kMaxC * R + R +
+         kWarps * R * C + 2 * kClusterBlocks * R * C + 6 * U + nl * H +
+         H * C + C + 1 + nl * H + H * C + 2 * kBars + 2 + kProfFloats;
+}
+
+inline size_t cl_smem_bytes(int nl, int C, bool resident) {
+  constexpr int H = 256, R = kClusterR, U = H / kClusterBlocks;
+  return (resident ? (size_t)nl * 2 * 128 * H : (size_t)128 * H) +
+         (size_t)(nl + 1) * 2 * H * R + (size_t)(nl + 1) * 4 * U * R +
+         4 * (size_t)cl_small_floats(nl, C);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+sdec_bwd_tc_cluster_kernel(const KArgs a) {
+  constexpr int H = 256, CS = kClusterBlocks, U = H / CS, R = kClusterR;
+  constexpr int NW = R / 2;       // pixels of a warpgroup
+  constexpr int NV = NW / 2;      // accumulator floats a thread
+  constexpr int RSH = 16 * R;     // row-of-cores stride of an [H, R] level
+  constexpr int LVL = 2 * H * R;  // bytes of one bf16 level
+  constexpr int RSW = 16 * H;     // row-of-cores stride of a dh panel
+  constexpr int WL = 2 * H * H;   // bytes of one bf16 W_l
+  constexpr int PANEL = 128 * H;  // bytes of a 64-unit panel of W_l
+  constexpr int UPL = (H / 64) * (H / 128);  // dW units per layer
+  const int nl = a.nl, C = a.C, act = a.act;
+  const bool res = a.resident;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* wsm = smem;
+  uint8_t* lv = wsm + (res ? (size_t)nl * 2 * PANEL : (size_t)PANEL);
+  float* gv = reinterpret_cast<float*>(lv + (nl + 1) * LVL);  // derivatives
+  float* tr = gv + (nl + 1) * NV * kThreads;  // [2][3][U] us | vs | wv
+  float* gs = tr + 6 * U;             // [2][R][2] coordinates, by parity
+  float* stg = gs + 4 * R;            // [2][SS] cotangents, by parity
+  constexpr int SS = stage_floats(R);
+  float* dl = stg + 2 * SS;          // [R][kMaxC] head cotangents
+  float* lossp = dl + kMaxC * R;     // [R]
+  float* headp = lossp + R;          // [kWarps][R][C] warps' partial dots
+  float* hx = headp + kWarps * R * C;  // [2][CS][R][C] blocks' partials
+  float* tsum = hx + 2 * CS * R * C;   // [2][3][U] the tile's sums by warpgroup
+  float* db_s = tsum + 6 * U;          // [nl][H] db, [H][C] dwout, dbout, loss
+  const int n_sums = nl * H + H * C + C + 1;
+  float* db_s1 = db_s + n_sums;        // warpgroup 1's db and dwout
+  const int n_wsums = nl * H + H * C;
+  uint8_t* bar_p = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(db_s1 + n_wsums) + 7) & ~uintptr_t(7));
+  const uint32_t bar = smem_addr(bar_p);
+
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int wi = wtid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int rank = cluster_rank();
+  const int pass = blockIdx.x / a.per_pass;
+  const int n_cl = a.per_pass / CS;
+  const int cl = (blockIdx.x - pass * a.per_pass) / CS;
+  const uint32_t w_addr = smem_addr(wsm), lv_addr = smem_addr(lv);
+  const int n_base = NW * wg;  // this warpgroup's first pixel
+  float* dbw = wg ? db_s1 : db_s;
+#ifdef PVT_PROFILE_PHASES
+  long long* prof = reinterpret_cast<long long*>(bar_p + 8 * kBars);
+  if (tid < 2 * kPhaseSlots) prof[tid] = 0;
+#endif
+  PHASE_CLOCK_AT(prof + wg * kPhaseSlots);
+  // accumulator entry v = 4 j + 2 hh + e of this thread: the block's unit
+  // row m (of 64), pixel n_base + 8 j + 2 tq + e; its unit of the level
+  auto row_of = [&](int hh) { return 16 * wi + gq + 8 * hh; };
+  auto grow = [&](int hh) { return rank * U + row_of(hh); };
+  auto dv = [&](int lvl, int v) -> float& {
+    return gv[(lvl * NV + v) * kThreads + tid];
+  };
+  // a bf16 pair at (row of the level, pixel) of this block's level `lvl`
+  auto store_lv = [&](int lvl, int row, int n, float x, float y) {
+    store_pair(lv + lvl * LVL + tiled(row, n, RSH), x, y);
+  };
+  // Sends `bytes` at byte `off` of this block's shared memory (its part of
+  // a buffer, written by its threads) to the same place in every other
+  // block, completing on their barrier `b`, then waits here for the other
+  // blocks' parts and arms `b` for its next use. The sending thread first
+  // arrives on barrier `signal` of every other block and waits on its own
+  // barrier `empty` (every other block done reading what the copies
+  // overwrite); -1 for none. Before the block barrier, the sender's
+  // earlier copies have read their sources.
+  int phases = 0;  // parity of each barrier's current phase
+  auto exchange = [&](uint32_t off, int bytes, int b, int signal,
+                      int empty) {
+    fence_async_smem();
+    if (tid == 0) bulk_wait_read();
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    if (tid == 0) {
+      if (signal >= 0)
+#pragma unroll
+        for (int k = 1; k < CS; ++k)
+          mbar_arrive_remote(map_rank(bar + 8 * signal, (rank + k) % CS));
+      if (empty >= 0)
+        PHASE_TIMED(kClusterSlot,
+                    mbar_wait(bar + 8 * empty, (phases >> empty) & 1));
+#pragma unroll
+      for (int k = 1; k < CS; ++k) {
+        const int r = (rank + k) % CS;
+        bulk_to_rank(map_rank(smem_addr(smem) + off, r), smem_addr(smem) + off,
+                     bytes, map_rank(bar + 8 * b, r));
+      }
+      bulk_commit();
+    }
+    if (empty >= 0) phases ^= 1 << empty;
+    PHASE_TIMED(kClusterSlot, mbar_wait(bar + 8 * b, (phases >> b) & 1));
+    phases ^= 1 << b;
+    if (tid == 0) mbar_expect(bar + 8 * b, (CS - 1) * bytes);
+  };
+  // level l's rows from every block (kRows bytes a block, contiguous)
+  constexpr int kRows = U / 8 * RSH;
+  const uint32_t lv_off = (uint32_t)(lv - smem) + rank * kRows;
+  auto level_full = [&](int l, int signal, int empty) {
+    exchange(lv_off + l * LVL, kRows, l, signal, empty);
+  };
+  const int head_bytes = 4 * R * C;
+
+  // this warpgroup's dW units in this pass (layer, 64-row and 128-col
+  // block): unit j of the pass is slot position j / CS of block j % CS
+  int u_l[kUnits], u_r[kUnits], u_c[kUnits];
+  float dw[kUnits][64];
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    const int q = pass * kPassUnits * CS + (u * 2 + wg) * CS + rank;
+    const int r = q % UPL;
+    u_l[u] = q < nl * UPL ? q / UPL : -1;
+    u_r[u] = r / (H / 128);
+    u_c[u] = r % (H / 128);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dw[u][i] = 0.0f;
+  }
+  for (int i = tid; i < n_sums + n_wsums; i += kThreads) db_s[i] = 0.0f;
+  if (res) {  // the block's two panels of every layer
+    for (int l = 0; l < nl; ++l)
+      for (int i = tid * 16; i < PANEL; i += kThreads * 16) {
+        cp_async16(wsm + 2 * l * PANEL + i,
+                   a.wf + (size_t)l * WL + (size_t)rank * PANEL + i);
+        cp_async16(wsm + (2 * l + 1) * PANEL + i,
+                   a.wb + (size_t)l * WL + (size_t)rank * PANEL + i);
+      }
+    cp_async_wait_all();
+    fence_async_smem();
+  }
+
+  // -- a tile's inputs into slot `slot` with cp.async, issued a tile ahead:
+  //    the sample's transform of the block's units, the tile's coordinates
+  //    (zero past N), its cotangent rows (zero past N) and the sample's
+  //    weight
+  auto stage = [&](int t, int slot) {
+    const int b = t / a.n_tiles, n0 = (t - b * a.n_tiles) * R;
+    const int rows = min(R, a.N - n0);
+    for (int i = tid; i < 3 * U / 4; i += kThreads) {
+      const int k = i / (U / 4), q = i - k * (U / 4);
+      cp_async16(tr + slot * 3 * U + 4 * i,
+                 a.tf + (size_t)b * 3 * H + k * H + rank * U + 4 * q);
+    }
+    float* g2 = gs + slot * 2 * R;
+    float* st = stg + slot * SS;
+    for (int i = tid; i < 2 * R; i += kThreads) {
+      const int n = i >> 1, d = i & 1;
+      if (n < rows && d < a.D) cp_async4(g2 + i, a.grid + (size_t)(n0 + n) * a.D + d);
+      else g2[i] = 0.0f;
+    }
+    const size_t q0 = (size_t)b * a.N + n0;
+    if (a.loss) {
+      for (int i = tid; i <= R; i += kThreads) {
+        if (i == R) cp_async4(st + kMaxC * R, a.wgt + b);
+        else if (i < rows) cp_async4(st + i, a.x + q0 + i);
+        else st[i] = 0.0f;
+      }
+    } else {
+      for (int i = tid; i < R * C; i += kThreads) {
+        if (i < rows * C) cp_async4(st + i, a.g + q0 * C + i);
+        else st[i] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+  // one panel of the block's weights from L2 for both warpgroups (weights
+  // not resident): no warp reads the slot while it is refilled
+  auto load_slot = [&](const uint8_t* src) {
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    for (int i = tid * 16; i < PANEL; i += kThreads * 16) cp_async16(wsm + i, src + i);
+    cp_async_wait_all();
+    fence_async_smem();
+    PHASE_TIMED(kBarSlot, __syncthreads());
+  };
+
+  const int total = a.B * a.n_tiles;
+  stage(cl, 0);
+  cp_async_wait_all();
+  if (tid == 0) {  // the barriers; the exchanges' armed for their first use
+    for (int b = 0; b < kBars; ++b) mbar_init(bar + 8 * b, b < kTile ? 1 : CS - 1);
+    fence_mbar_init();
+    for (int l = 0; l <= nl; ++l) mbar_expect(bar + 8 * l, (CS - 1) * kRows);
+    for (int p = 0; p < 2; ++p) mbar_expect(bar + 8 * (kHead + p), (CS - 1) * head_bytes);
+  }
+  __syncthreads();
+  // every block of the cluster runs, its barriers armed, before any copy
+  // or arrival reaches it
+  cluster_arrive();
+  cluster_wait();
+
+  float acc[NV];
+  // -- forward product of layer l: pre^T = W_l^T level l, the block's
+  //    units, this warpgroup's pixels
+  auto fwd_issue = [&](int l) {
+    uint32_t wa = w_addr + 2 * l * PANEL;
+    if (!res) {
+      load_slot(a.wf + (size_t)l * WL + (size_t)rank * PANEL);
+      wa = w_addr;
+    }
+    const uint32_t hl = lv_addr + l * LVL + n_base * 16;
+    wgmma_fence();
+    wgmma_init<NW, 1, 1>(acc, desc(wa, 1024, 128), desc(hl, RSH, 128));
+#pragma unroll
+    for (int k = 1; k < H / 16; ++k)
+      wgmma<NW, 1, 1>(acc, desc(wa + k * 2048, 1024, 128),
+                      desc(hl + k * 2 * RSH, RSH, 128), 1);
+    wgmma_commit();
+  };
+  // -- backward products of layer l: dW_l += h_l^T d_pre_l (the units
+  //    this warpgroup holds), dh^T = W_l d_pre_l^T (the block's rows)
+  auto bwd_issue = [&](int l) {
+    const uint32_t hl = lv_addr + l * LVL, dp = lv_addr + (l + 1) * LVL;
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u)
+      if (u_l[u] == l) {
+#pragma unroll
+        for (int k = 0; k < R / 16; ++k)
+          wgmma<128, 0, 0>(dw[u], desc(hl + u_r[u] * 8 * RSH + k * 256, 128, RSH),
+                           desc(dp + u_c[u] * 16 * RSH + k * 256, 128, RSH), 1);
+      }
+    uint32_t wa = w_addr + (2 * l + 1) * PANEL;
+    if (!res) {
+      load_slot(a.wb + (size_t)l * WL + (size_t)rank * PANEL);
+      wa = w_addr;
+      wgmma_fence();
+    }
+    const uint32_t dpw = dp + n_base * 16;
+    wgmma_init<NW, 0, 1>(acc, desc(wa, 128, RSW), desc(dpw, RSH, 128));
+#pragma unroll
+    for (int k = 1; k < H / 16; ++k)
+      wgmma<NW, 0, 1>(acc, desc(wa + k * 256, 128, RSW),
+                      desc(dpw + k * 2 * RSH, RSH, 128), 1);
+    wgmma_commit();
+  };
+  auto wait_products = [&]() {
+    PHASE_TIMED(kMmaSlot, wgmma_wait());
+    fence_regs(acc);
+  };
+
+  int par = 0;  // the slot of this tile's transform, inputs and partials
+  for (int t = cl; t < total; t += n_cl, par ^= 1) {
+    const int b = t / a.n_tiles;
+    const int n0 = (t - b * a.n_tiles) * R;
+    const int rows = min(R, a.N - n0);
+    const int tn = t + n_cl;  // the cluster's next tile
+
+    PHASE_MARK(0);
+    const float* trp = tr + par * 3 * U;   // us | vs | wv
+    const float* gsp = gs + par * 2 * R;
+    const float* stp = stg + par * SS;
+
+    // -- h0 = tanh(gx u + gy v + w): level 0 (in every block) and 1 - h0^2
+    auto h0_pass = [&](auto pade) {
+      float u2[2], v2[2], w2[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = row_of(hh);
+        u2[hh] = trp[m];
+        v2[hh] = trp[U + m];
+        w2[hh] = trp[2 * U + m];
+      }
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int n = n_base + 8 * j + 2 * tq;
+        const float4 c2 = *reinterpret_cast<const float4*>(gsp + 2 * n);
+        const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = 4 * j + 2 * hh + e;
+            const float pre = gx[e] * u2[hh] + gy[e] * v2[hh] + w2[hh];
+            float h;
+            if constexpr (decltype(pade)::value) h = pade_tanh(pre);
+            else h = tanhf(pre);
+            dv(0, v) = 1.0f - h * h;
+            acc[v] = h;
+          }
+      }
+    };
+    if (act == ACT_TANH_APPROX) h0_pass(std::true_type{});
+    else h0_pass(std::false_type{});
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        store_lv(0, grow(hh), n_base + 8 * j + 2 * tq, acc[4 * j + 2 * hh],
+                 acc[4 * j + 2 * hh + 1]);
+    PHASE_MARK(1);
+    // sent once every block is done with the last tile's products
+    level_full(0, -1, t == cl ? -1 : kTile);
+    PHASE_TIMED(kIssueSlot, fwd_issue(0));
+    // the next tile's inputs, in the shadow of the first products
+    if (tn < total) stage(tn, par ^ 1);
+    PHASE_MARK(2);
+
+    // -- forward recompute: level l + 1 = act(W_l^T level l + b_l) (the
+    //    last level in this block only), and the head dots over the
+    //    block's units in the last layer's epilogue at one channel, not gelu
+    const bool fused = C == 1 && act != ACT_GELU;
+    auto fwd_epilogue = [&](int l) {
+      float bias[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) bias[hh] = a.hb[l * H + grow(hh)];
+      auto epilogue = [&](auto tag, auto last, auto dots) {
+        constexpr int A = decltype(tag)::value;
+        constexpr bool LAST = decltype(last)::value;
+        constexpr bool DOTS = decltype(dots)::value && A != ACT_GELU;
+        float wo[2], part[NW / 8][2] = {};
+        if (DOTS) {
+          for (int hh = 0; hh < 2; ++hh) wo[hh] = a.wout[grow(hh)];
+        }
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float h[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int v = 4 * j + 2 * hh + e;
+              const float pre = acc[v] + bias[hh];
+              float g;
+              act_and_grad<A>(pre, h[e], g);
+              if constexpr (LAST) dv(l + 1, v) = A == ACT_GELU ? pre : h[e];
+              else dv(l + 1, v) = g;
+              if (DOTS) part[j][e] += h[e] * wo[hh];
+            }
+            store_lv(l + 1, grow(hh), n_base + 8 * j + 2 * tq, h[0], h[1]);
+          }
+        if (DOTS) {
+#pragma unroll
+          for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float p = part[j][e];
+              p += __shfl_xor_sync(0xffffffffu, p, 4);
+              p += __shfl_xor_sync(0xffffffffu, p, 8);
+              p += __shfl_xor_sync(0xffffffffu, p, 16);
+              if (gq == 0)
+                headp[(wg * 4 + wi) * R + n_base + 8 * j + 2 * tq + e] = p;
+            }
+        }
+      };
+      with_act(act, [&](auto tag) {
+        if (l < nl - 1) epilogue(tag, std::false_type{}, std::false_type{});
+        else if (fused) epilogue(tag, std::true_type{}, std::true_type{});
+        else epilogue(tag, std::true_type{}, std::false_type{});
+      });
+    };
+    auto head_dots = [&]() {
+      with_act(act, [&](auto tag) {
+        constexpr int A = decltype(tag)::value;
+        for (int c = 0; c < C; ++c) {
+          float wo[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) wo[hh] = a.wout[grow(hh) * C + c];
+#pragma unroll
+          for (int j = 0; j < NW / 8; ++j) {
+            float part[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float h = dv(nl, 4 * j + 2 * hh + e);
+                if constexpr (A == ACT_GELU) h = act_fn<A>(h);
+                part[e] += h * wo[hh];
+              }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float p = part[e];
+              p += __shfl_xor_sync(0xffffffffu, p, 4);
+              p += __shfl_xor_sync(0xffffffffu, p, 8);
+              p += __shfl_xor_sync(0xffffffffu, p, 16);
+              if (gq == 0)
+                headp[((wg * 4 + wi) * R + n_base + 8 * j + 2 * tq + e) * C + c] = p;
+            }
+          }
+        }
+      });
+    };
+    for (int l = 0; l < nl; ++l) {
+      wait_products();
+      fwd_epilogue(l);
+      if (l + 1 < nl) {
+        level_full(l + 1, -1, -1);
+        PHASE_TIMED(kIssueSlot, fwd_issue(l + 1));
+      }
+    }
+    if (!fused) head_dots();
+
+    PHASE_MARK(3);
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    // -- head: the block's partial of each pixel (the 4 warps holding it,
+    //    in order) into every block; then the logits from the blocks'
+    //    partials in block order, cotangents (staged), loss
+    float* mine = hx + (size_t)(par * CS + rank) * R * C;
+    for (int i = tid; i < R * C; i += kThreads) {
+      const int w0 = 4 * ((i / C) / NW);
+      float p = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) p += headp[(w0 + w) * R * C + i];
+      mine[i] = p;
+    }
+    exchange((uint32_t)(reinterpret_cast<uint8_t*>(mine) - smem), head_bytes,
+             kHead + par, -1, -1);
+    const float* px = hx + par * CS * R * C;
+    for (int i = tid; i < R * kMaxC; i += kThreads) {
+      const int n = i / kMaxC, c = i - n * kMaxC;
+      float d = 0.0f, lp = 0.0f;  // channels past C stay 0
+      if (c < C && n < rows) {
+        float p = 0.0f;
+#pragma unroll
+        for (int k = 0; k < CS; ++k) p += px[(k * R + n) * C + c];
+        const float logit = p + a.bout[c];
+        if (a.loss) {
+          const float xv = stp[n], wm = stp[kMaxC * R];
+          lp = -wm * (xv * logit - softplus(logit));
+          d = wm * (sigmoid(logit) - xv);
+        } else {
+          const float gv_ = stp[n * C + c];
+          if (a.sigmoid_out) {
+            const float sg = sigmoid(logit);
+            d = gv_ * sg * (1.0f - sg);
+          } else {
+            d = gv_;
+          }
+        }
+      }
+      dl[i] = d;
+      if (c == 0) lossp[n] = lp;
+    }
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    // dbout and the loss (block 0), each sum (c == C: the loss) by one
+    // warp; run once the first backward products are issued
+    auto head_sums = [&]() {
+      if (rank != 0) return;
+      for (int c = 0; c <= C; ++c) {
+        if ((tid >> 5) != (c & 1) * 4 + (c >> 1)) continue;
+        float s = 0.0f;
+        for (int n = lane; n < R; n += 32)
+          s += c < C ? dl[n * kMaxC + c] : lossp[n];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) db_s[nl * H + H * C + c] += s;
+      }
+    };
+
+    PHASE_MARK(4);
+    // the next tile's staged inputs: every thread's copies are visible
+    // after the next barrier
+    cp_async_wait_all();
+    // -- last layer: dh = dl wout^T (f32), dwout += bf16(h_L)^T bf16(dl),
+    //    d_pre = dh act'(pre) in place of h_L in every block, db (the
+    //    channels' loops over kMaxC, or over one at C = 1); then the first
+    //    backward products
+    auto last_layer = [&](auto tag, auto kc) {
+      constexpr int A = decltype(tag)::value;
+      constexpr int KC = decltype(kc)::value;
+      uint8_t* top = lv + nl * LVL;
+      float dbp[2] = {}, dwp[2][KC] = {}, wo[2][KC];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < KC; ++c)
+          wo[hh][c] = c < C ? a.wout[grow(hh) * C + c] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = grow(hh), n = n_base + 8 * j + 2 * tq;
+          const float2 hv = load_pair(top + tiled(m, n, RSH));
+          const float hf[2] = {hv.x, hv.y};
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float dh = 0.0f;  // channels past C add exact zeros
+#pragma unroll
+            for (int c = 0; c < KC; ++c) {
+              const float dlv = dl[(n + e) * kMaxC + c];
+              dh += dlv * wo[hh][c];
+              dwp[hh][c] += hf[e] * bf16_round(dlv);
+            }
+            const float kept = dv(nl, 4 * j + 2 * hh + e);
+            d[e] = dh * (A == ACT_GELU ? gelu_grad(kept)
+                                       : grad_from_post<A>(kept));
+            dbp[hh] += d[e];
+          }
+          store_lv(nl, m, n, d[0], d[1]);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = grow(hh);
+        float v = dbp[hh];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tq == 0) dbw[(nl - 1) * H + m] += v;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          float w = dwp[hh][c];
+          w += __shfl_xor_sync(0xffffffffu, w, 1);
+          w += __shfl_xor_sync(0xffffffffu, w, 2);
+          if (tq == 0 && c < C) dbw[nl * H + m * C + c] += w;
+        }
+      }
+    };
+    with_act(act, [&](auto tag) {
+      if (C == 1) last_layer(tag, std::integral_constant<int, 1>{});
+      else last_layer(tag, std::integral_constant<int, kMaxC>{});
+    });
+    level_full(nl, -1, -1);
+    PHASE_TIMED(kIssueSlot, bwd_issue(nl - 1));
+    head_sums();
+
+    PHASE_MARK(5);
+    // -- hidden layers, last to first: level l + 1 holds d_pre_l; d =
+    //    dh act'(pre_l) is d_pre_{l-1} into level l of every block (and db)
+    for (int l = nl - 1; l > 0; --l) {
+      wait_products();
+      // both warpgroups are done reading level l (dW_l reads all its
+      // pixels)
+      PHASE_TIMED(kBarSlot, __syncthreads());
+      float d[NV], sp[2] = {};
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        d[v] = acc[v] * dv(l, v);
+        sp[(v >> 1) & 1] += d[v];
+      }
+      // this block's rows of level l take d_pre_{l-1}; its copies into the
+      // other blocks wait for their arrivals (level_full's `empty`)
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          store_lv(l, grow(hh), n_base + 8 * j + 2 * tq, d[4 * j + 2 * hh],
+                   d[4 * j + 2 * hh + 1]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // db, before the products
+        float v = sp[hh];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tq == 0) dbw[(l - 1) * H + grow(hh)] += v;
+      }
+      level_full(l, kTile + l, kTile + l);
+      PHASE_TIMED(kIssueSlot, bwd_issue(l - 1));
+    }
+
+    PHASE_MARK(6);
+    // -- layer 0: d0 = dh act'(pre_0), summed into this tile's du, dv, dw
+    //    (the warpgroups' sums over their pixels, added in order)
+    wait_products();
+    {
+      float sp[2][3] = {};
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const float4 c2 = *reinterpret_cast<const float4*>(
+            gsp + 2 * (n_base + 8 * j + 2 * tq));
+        const float gx[2] = {c2.x, c2.z}, gy[2] = {c2.y, c2.w};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = 4 * j + 2 * hh + e;
+            const float d = acc[v] * dv(0, v);
+            sp[hh][0] += gx[e] * d;
+            sp[hh][1] += gy[e] * d;
+            sp[hh][2] += d;
+          }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float v = sp[hh][k];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (tq == 0) tsum[(wg * 3 + k) * U + row_of(hh)] = v;
+        }
+    }
+    PHASE_TIMED(kBarSlot, __syncthreads());
+    if (tid == 0)  // every product of this tile done in this block
+#pragma unroll
+      for (int k = 1; k < CS; ++k)
+        mbar_arrive_remote(map_rank(bar + 8 * kTile, (rank + k) % CS));
+    if (pass == 0)
+      for (int i = tid; i < 3 * U; i += kThreads) {
+        const int k = i / U, m = i - k * U;
+        a.tile_ws[(size_t)t * 3 * H + k * H + rank * U + m] =
+            tsum[i] + tsum[3 * U + i];
+      }
+    PHASE_MARK(7);
+  }
+  // no block leaves while another may still copy or arrive into it
+  if (tid == 0) bulk_wait_read();
+  cluster_arrive();
+  cluster_wait();
+
+  // -- the block's slot: its dW units, then db, dwout (the warpgroups'
+  //    sums in order), dbout, loss
+  float* slot = a.blk_ws + (size_t)blockIdx.x * a.slot;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    if (u_l[u] < 0) continue;
+    fence_regs(dw[u]);
+    float* o = slot + (u * 2 + wg) * kUnitFloats;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * wi + gq + 8 * hh, col = 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(o + row * 128 + col) =
+            make_float2(dw[u][4 * j + 2 * hh], dw[u][4 * j + 2 * hh + 1]);
+      }
+  }
+  __syncthreads();
+  float* sums = slot + kPassUnits * kUnitFloats;
+  for (int i = tid; i < n_sums; i += kThreads)
+    sums[i] = i < n_wsums ? db_s[i] + db_s1[i] : db_s[i];
+  PHASE_FLUSH;
+}
+#endif  // PVT_ABLATE
+
 // What a call runs: tile rows R, whether the weights stay resident, the
-// shared memory, passes over the tiles and blocks per pass.
+// shared memory, passes over the tiles, blocks per pass and blocks a
+// cluster (1: no cluster).
 struct Plan {
-  int R, resident, smem, passes, per_pass, n_tiles;
+  int R, resident, smem, passes, per_pass, n_tiles, cluster;
 };
 
 inline size_t smem_bytes(int H, int R, int nl, int C, bool resident) {
@@ -923,8 +1601,76 @@ cudaError_t occupancy(int dev, int optin, int smem, int* per_sm) {
       per_sm, sdec_bwd_tc_kernel<H, R>, kThreads, smem);
 }
 
-// The largest tile (R = 64, 32 at H = 128; 32, 16 at H = 256) whose
-// activations fit, with the weights resident where they fit beside it.
+#ifndef PVT_ABLATE
+// A cluster launch's configuration: kClusterBlocks blocks a cluster.
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterConfig(int blocks, int smem, cudaStream_t stream) : cfg{}, attr{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kClusterBlocks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The clusters of the H = 256 kernel that fit on device dev at once with
+// `smem` bytes a block, queried once per device and size.
+cudaError_t cluster_fit(int dev, int optin, int smem, int* clusters) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> fits;
+  const auto key = std::make_pair(dev, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = fits.find(key);
+  if (it != fits.end()) {
+    *clusters = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      sdec_bwd_tc_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin);
+  if (err != cudaSuccess) return err;
+  ClusterConfig c(kClusterBlocks, smem, nullptr);
+  err = cudaOccupancyMaxActiveClusters(clusters, sdec_bwd_tc_cluster_kernel,
+                                       &c.cfg);
+  if (err != cudaSuccess) return err;
+  fits.emplace(key, *clusters);
+  return cudaSuccess;
+}
+
+// The H = 256 plan: R = 32, the weights resident where they fit, 16 dW
+// units a pass, as many clusters as fit on the card split over the passes.
+cudaError_t make_cluster_plan(int B, int N, int nl, int C, int dev, int optin,
+                              Plan* p) {
+  p->R = kClusterR;
+  p->cluster = kClusterBlocks;
+  p->resident = cl_smem_bytes(nl, C, true) <= (size_t)optin;
+  p->smem = (int)cl_smem_bytes(nl, C, p->resident);
+  if ((size_t)p->smem > (size_t)optin) return cudaErrorInvalidValue;
+  int clusters = 0;
+  const cudaError_t err = cluster_fit(dev, optin, p->smem, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  const int units = nl * 8;
+  const int per = kPassUnits * kClusterBlocks;
+  p->passes = (units + per - 1) / per;
+  p->n_tiles = (N + p->R - 1) / p->R;
+  const long long total = (long long)B * p->n_tiles;
+  const long long fit = clusters / p->passes;
+  p->per_pass = kClusterBlocks * (int)(fit < 1 ? 1 : fit < total ? fit : total);
+  return cudaSuccess;
+}
+#endif
+
+// The largest tile (R = 64, 32 at H = 128; 32, 16 at H = 256 in the
+// ablation builds) whose activations fit, with the weights resident where
+// they fit beside it; H = 256 runs in clusters (make_cluster_plan).
 cudaError_t make_plan(int B, int N, int H, int nl, int C, Plan* p) {
   int dev = 0, optin = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -933,6 +1679,10 @@ cudaError_t make_plan(int B, int N, int H, int nl, int C, Plan* p) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+#ifndef PVT_ABLATE
+  if (H == 256) return make_cluster_plan(B, N, nl, C, dev, optin, p);
+#endif
+  p->cluster = 1;
   p->R = 0;
   for (int R = H == 128 ? 64 : 32; R >= (H == 128 ? 32 : 16) && !p->R; R /= 2)
     for (int res = 1; res >= 0; --res)
@@ -978,6 +1728,15 @@ struct Args {
 // the main kernel of the plan's tile
 cudaError_t launch_main(const KArgs& k, const Plan& p, int H, int n_blocks,
                         cudaStream_t stream) {
+#ifndef PVT_ABLATE
+  if (p.cluster > 1) {
+    ClusterConfig c(n_blocks, p.smem, stream);
+    const cudaError_t err =
+        cudaLaunchKernelEx(&c.cfg, sdec_bwd_tc_cluster_kernel, k);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+#endif
   if (H == 128) {
     if (p.R == 64)
       sdec_bwd_tc_kernel<128, 64><<<n_blocks, kThreads, p.smem, stream>>>(k);
@@ -1026,6 +1785,13 @@ cudaError_t launch(const Args& a) {
                 p.resident, p.n_tiles, p.per_pass, (int)slot};
   err = launch_main(k, p, H, a.n_blocks, a.stream);
   if (err != cudaSuccess) return err;
+#ifndef PVT_ABLATE
+  if (p.cluster > 1)
+    return launch_sums<false, kClusterBlocks>(
+        blk_ws, tile_ws, duvw, p.per_pass, (int)slot, p.n_tiles, a.phi, a.dx,
+        a.sc, a.z, a.wc, a.wz, a.out, a.B, a.D, a.L, H, nl, a.C, a.loss,
+        a.stream);
+#endif
   return launch_sums<false>(blk_ws, tile_ws, duvw, p.per_pass, (int)slot, p.n_tiles,
                      a.phi, a.dx, a.sc, a.z, a.wc, a.wz, a.out, a.B, a.D, a.L,
                      H, nl, a.C, a.loss, a.stream);
@@ -1072,9 +1838,10 @@ cudaError_t launch_ablate(const Args& a, int b_t, int n_t) {
 
 // Workspace and grid of one call: *n_blocks blocks of the main kernel and
 // *ws_floats floats of workspace. The same inputs on the same card give the
-// same plan. With ws_floats null, n_blocks points to six ints and receives
-// the plan itself (for checks and tools): R, weights resident, shared
-// memory bytes, passes, blocks per pass, tiles a sample.
+// same plan. With ws_floats null, n_blocks points to seven ints and
+// receives the plan itself (for checks and tools): R, weights resident,
+// shared memory bytes, passes, blocks per pass, tiles a sample, blocks a
+// cluster.
 extern "C" int pvt_sdec_bwd_tc_plan(int B, int N, int D, int L, int H,
                                     int n_layers, int C, int act,
                                     int loss_mode, long long* ws_floats,
@@ -1085,9 +1852,9 @@ extern "C" int pvt_sdec_bwd_tc_plan(int B, int N, int D, int L, int H,
   const cudaError_t err = make_plan(B, N, H, n_layers, C, &p);
   if (err != cudaSuccess) return (int)err;
   if (!ws_floats) {
-    const int v[6] = {p.R, p.resident, p.smem, p.passes, p.per_pass,
-                      p.n_tiles};
-    for (int i = 0; i < 6; ++i) n_blocks[i] = v[i];
+    const int v[7] = {p.R, p.resident, p.smem, p.passes, p.per_pass,
+                      p.n_tiles, p.cluster};
+    for (int i = 0; i < 7; ++i) n_blocks[i] = v[i];
     return (int)cudaSuccess;
   }
   *n_blocks = p.passes * p.per_pass;

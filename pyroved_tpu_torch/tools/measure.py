@@ -138,6 +138,25 @@ def random_case(rng, dev, D, C, H, B, N, L, nl):
                 wout=t(H, C, k=1.0 / H ** 0.5), bout=t(C, k=0.1))
 
 
+def padded_case(a, hidden):
+    """Kernel inputs ``a`` (width H) made those of a decoder with hidden
+    widths ``hidden`` zero-padded to H, as ``padded_sdecoder_weights``
+    pads them: level 0 and hidden layer l's output keep ``hidden[0]`` and
+    ``hidden[l]`` units, every weight into or out of a padded unit and
+    its bias zero. Returns a new dict; ``a`` is left as it is."""
+    out = {k: v.clone() for k, v in a.items()}
+    widths = (hidden[0],) + tuple(hidden)  # levels 0 .. nl
+    out["Wc"][:, widths[0]:] = 0
+    out["bc"][widths[0]:] = 0
+    out["Wz"][:, widths[0]:] = 0
+    for i in range(out["hw"].shape[0]):
+        out["hw"][i, widths[i]:, :] = 0
+        out["hw"][i, :, widths[i + 1]:] = 0
+        out["hb"][i, widths[i + 1]:] = 0
+    out["wout"][widths[-1]:, :] = 0
+    return out
+
+
 def row_chunks(a, chunks):
     """Kernel inputs ``a`` cut into ``chunks`` equal row chunks of the
     batch (the per-sample inputs split, the grid and weights shared)."""
@@ -304,8 +323,9 @@ def bound_fwd(lib, bf16):
 
 #: The phase counters of a profiled build (``csrc/sm90_common.cuh``):
 #: per warpgroup, the phases that marks 0-7 close, then the cycles in
-#: barriers, in wgmma waits and issuing products.
-PHASE_GROUPS, PHASE_MARKS, PHASE_SLOTS = 4, 8, 11
+#: barriers, in wgmma waits, issuing products and waiting on the other
+#: blocks of a cluster.
+PHASE_GROUPS, PHASE_MARKS, PHASE_SLOTS = 4, 8, 12
 
 
 def phase_cycles(lib, reader, fn):
@@ -338,7 +358,7 @@ def per_tile(cycles, names, tiles):
 
 
 #: The main kernels of the K1 and K2/K3 sources, by their mangled names.
-MAIN_KERNELS = r"sdec_(?:fwd|bwd)_(?:tc|x3)_kernel"
+MAIN_KERNELS = r"sdec_(?:fwd|bwd)_(?:tc|x3)(?:_cluster)?_kernel"
 
 
 def usage(log, kernels=MAIN_KERNELS):
@@ -447,26 +467,36 @@ def first_difference(old, new):
     return None
 
 
-def same_machine_code(base_dir, builds):
+def same_machine_code(base_dir, builds, skip=None):
     """{build: {"same": bool, "alone": bool, "instructions": {function:
     [baseline's, port's]}, "differs": {function: first_difference}}} for
     each ``(name, defines)`` of ``builds``: whether ``base_dir``'s copy of
     ``name.cu`` compiles to the port's machine code, function by function,
     each function's instruction counts and, for a function that differs,
-    where; a build is keyed by its name and macros. All builds compile at
-    once; a build whose two sides differ there is compiled again alone,
-    one side after the other (``alone``), and that decides: with 32 builds
-    of one source at once on an H100 host, ptxas swapped the operands of a
-    few commutative FADDs in 7 of them, where builds alone all agreed."""
+    where; a build is keyed by its name and macros. ``skip`` maps a build
+    ``(name, defines)`` to a regular expression: its functions whose names
+    match it are left out on both sides (a build whose other functions
+    must keep their code). All builds compile at once; a build whose two
+    sides differ there is compiled again alone, one side after the other
+    (``alone``), and that decides: with 32 builds of one source at once on
+    an H100 host, ptxas swapped the operands of a few commutative FADDs in
+    7 of them, where builds alone all agreed."""
     items = [(os.path.join(d, n + ".cu"), tuple(defs)) for n, defs in builds
              for d in (os.path.abspath(base_dir), _build.CSRC)]
     out = sass_all(items)
     res = {}
     for i, (n, defs) in enumerate(builds):
+        pattern = (skip or {}).get((n, tuple(defs)))
+        if pattern:
+            out[2 * i], out[2 * i + 1] = (
+                {f: v for f, v in o.items() if not re.search(pattern, f)}
+                for o in out[2 * i:2 * i + 2])
         old, new = out[2 * i], out[2 * i + 1]
         alone = old != new
         if alone:
-            old, new = (sass_all([it])[0] for it in items[2 * i:2 * i + 2])
+            old, new = ({f: v for f, v in sass_all([it])[0].items()
+                         if not (pattern and re.search(pattern, f))}
+                        for it in items[2 * i:2 * i + 2])
         fns = sorted(set(old) | set(new))
         res[" ".join((n,) + tuple(defs))] = {
             "same": old == new, "alone": alone,

@@ -26,14 +26,16 @@ with the headers beside it, e.g. the parent commit's ``pyroved_tpu_torch``
 unpacked under ``_checkout/`` (which ``.gitignore`` lists) with ``DIR`` its
 ``csrc``, built as the port builds it. Where ``DIR/../ops/spatial_decoder.py``
 exists the baseline runs through that wrapper (its host work included),
-else through the port's. ``--same`` compiles every other production
-source (both K2/K3 sources, their K4 builds, the f32 K1) from ``DIR`` and
-from the port and prints whether each has the same machine code, with its
-SASS counts and, where a function differs, its first differing lines; the
-tool then exits 1. Prints one JSON line at the end.
+else through the port's. ``--same`` compiles every production build
+(both K2/K3 sources, their K4 builds, both K1 sources) from ``DIR`` and
+from the port and prints whether each has the same machine code, the bf16
+K1 and K2/K3 without their H = 256 functions (:data:`H256_FUNCTIONS`),
+with its SASS counts and, where a function differs, its first differing
+lines; the tool then exits 1. Prints one JSON line at the end.
 """
 import argparse
 import contextlib
+import ctypes
 import importlib.util
 import json
 import os
@@ -48,58 +50,159 @@ from ..ops import bwd_ablation as ab
 from ..ops import spatial_decoder as sd
 from .measure import (bf16_matmul, bound_fwd, bounds, card_info, card_peaks,
                       cublas_fwd_ms, cuda_ms, cuda_ms_queued, finish_build,
-                      per_tile, phase_cycles, random_case, row_chunks,
+                      padded_case, per_tile, phase_cycles, random_case,
+                      row_chunks,
                       same_machine_code, sass_counts, sfu_floor_ms,
                       start_build, usage, work_fwd)
 
 NAME = "spatial_decoder_fwd_tc"
 PROFILE = ("PVT_PROFILE_PHASES",)
-#: What each mark of the profiled source closes, in mark order.
-PHASES = ("(loop)", "per-sample transform", "h0",
-          "products", "layer epilogues (C = 1: with the head's dots)",
-          "head: dots (C > 1), folds, partials", "logits out")
-#: (name, B, N, L, H): PERF.md section 6's nine K1 shapes (two tanh layers,
-#: one channel), then H = 256 at the flagship's training shape.
-SHAPES = (("B=1024", 1024, 784, 2, 128), ("B=200", 200, 784, 2, 128),
-          ("B=452", 452, 784, 2, 128), ("large grid", 64, 16384, 2, 128),
-          ("2,000 rows", 2000, 784, 12, 128), ("B=50", 50, 784, 2, 128),
-          ("600 rows", 600, 784, 12, 128),
-          ("512x512 tile", 200, 16384, 2, 128),
-          ("pixel rank", 200, 131072, 2, 128),
-          ("H=256 B=200", 200, 784, 2, 256))
-MARK_SHAPES = (SHAPES[0], SHAPES[1], SHAPES[9])
+#: What each mark of the profiled source closes, in mark order, then the
+#: PHASE_TIMED counter of the cluster barriers' waits (H = 256; the H = 128
+#: kernel times none).
+PHASES = ("(loop)", "per-sample transform, coordinates (H = 256: and the "
+          "level-0 barrier)", "h0",
+          "products", "layer epilogues (C = 1: with the head's dots; "
+          "H = 256: and the level barriers)",
+          "head: dots (C > 1), folds, partials (H = 256: and the head "
+          "barrier)", "logits out", "(no mark 7)", "in barriers",
+          "in wgmma waits", "issuing products", "waiting on the cluster")
+#: (name, B, N, L, H, hidden layers, hidden widths where padded to H):
+#: PERF.md section 6's nine K1 shapes (two tanh layers, one channel), then
+#: H = 256 at the flagship's training shape with two and five layers, and
+#: a (128, 256) decoder padded to 256.
+SHAPES = (("B=1024", 1024, 784, 2, 128, 2, None),
+          ("B=200", 200, 784, 2, 128, 2, None),
+          ("B=452", 452, 784, 2, 128, 2, None),
+          ("large grid", 64, 16384, 2, 128, 2, None),
+          ("2,000 rows", 2000, 784, 12, 128, 2, None),
+          ("B=50", 50, 784, 2, 128, 2, None),
+          ("600 rows", 600, 784, 12, 128, 2, None),
+          ("512x512 tile", 200, 16384, 2, 128, 2, None),
+          ("pixel rank", 200, 131072, 2, 128, 2, None),
+          ("H=256 B=200", 200, 784, 2, 256, 2, None),
+          ("H=256 B=200 5 layers", 200, 784, 2, 256, 5, None),
+          ("(128, 256) B=200", 200, 784, 2, 256, 2, (128, 256)))
+MARK_SHAPES = (SHAPES[0], SHAPES[1], SHAPES[9], SHAPES[10])
 BIG = 4_000_000  # B N above which the plain version runs in 8 row chunks
 # K1 against its plain version in bf16: chip_smoke.py's bound
 # (BF16_ATOL + BF16_OUT_REL of the largest output; why there).
 ATOL, OUT_REL = 3e-3, 2e-3
 
 
+#: Shared memory a block of an H100 can opt into, bytes
+#: (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+H100_OPTIN = 232_448
+K1_MAX_C = 4
+
+
 def warpgroups(H):
     """Warpgroups a block of the tensor-core K1 holds at two layers and
-    one channel: four at H = 128, two at H = 256 (its panel slots)."""
+    one channel: four at H = 128; two at H = 256, a cluster's block, both
+    on the cluster's tile."""
     return 4 if H == 128 else 2
 
 
 def warpgroup_tiles(B, N, H, g, sms):
-    """Tiles of block 0's warpgroup g: the kernel's split of the flat tile
-    list [g T / W, (g + 1) T / W) over W warpgroups, one block an SM."""
-    tile, wgs = (64 if H == 128 else 32), warpgroups(H)
-    total = B * -(-N // tile)
+    """Tiles of block 0's warpgroup g at H = 128: the kernel's split of the
+    flat tile list [g T / W, (g + 1) T / W) over W warpgroups, one block an
+    SM."""
+    wgs = warpgroups(H)
+    total = B * -(-N // 64)
     w = min(-(-total // wgs), sms) * wgs
     return (g + 1) * total // w - g * total // w
+
+
+# -- the H = 256 plan, as csrc/spatial_decoder_fwd_tc.cu works it out
+
+def smem_128(nl, C, wgs):
+    """Shared memory of a block of the H = 128 kernel (smem_bytes): every
+    layer's bf16 weights, then a level, u, v, w, coordinates and head
+    partials a warpgroup, biases and head weights once."""
+    H, R = 128, 64
+    return (nl * 2 * H * H + wgs * 2 * H * R
+            + 4 * (nl * H + H * C + K1_MAX_C + wgs * (3 * H + 2 * R + 4 * R * C)))
+
+
+def cluster_tile(cs):
+    """Pixels of a tile of the H = 256 cluster kernel with ``cs`` blocks a
+    cluster."""
+    return 64 if cs == 2 else 32
+
+
+def cluster_smem(cs, nl, C):
+    """Shared memory of a block of the H = 256 cluster kernel
+    (cluster_smem_bytes): its columns of every layer's bf16 weights, two
+    levels, then biases, head weights, u, v, w, coordinates, head
+    partials (per warp, and every block's, two slots) and four
+    transaction barriers."""
+    U, R = 256 // cs, cluster_tile(cs)
+    floats = (nl * U + U * C + K1_MAX_C + 3 * U + 2 * R + 8 * R * C
+              + 2 * cs * R * C + 8)
+    return nl * 512 * U + 1024 * R + 4 * floats
+
+
+def cluster_blocks(nl, C, optin=H100_OPTIN):
+    """Blocks a cluster of the H = 256 K1: 2 where the weights of ``nl``
+    layers fit, else 4, else 0 (no plan)."""
+    for cs in (2, 4):
+        if cluster_smem(cs, nl, C) <= optin:
+            return cs
+    return 0
+
+
+def max_layers(H, C, optin=H100_OPTIN):
+    """``pvt_sdec_fwd_tc_max_layers``: the most hidden layers K1 takes at
+    width H with C channels."""
+    nl = -1
+    if H == 128:
+        while smem_128(nl + 1, C, 1) <= optin:
+            nl += 1
+    else:
+        while cluster_blocks(nl + 1, C, optin):
+            nl += 1
+    return nl
+
+
+def cluster_plan(lib, nl, C, act=0):
+    """The H = 256 plan that the library ``lib`` reports for one call on
+    the current device (``pvt_sdec_fwd_tc_cluster_plan``): blocks a
+    cluster, the tile's pixels, shared memory a block, and the clusters
+    that fit on the card at once."""
+    f = lib.pvt_sdec_fwd_tc_cluster_plan
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = f(nl, C, act, out)
+    if err:
+        raise RuntimeError(f"the H=256 K1 plan failed: CUDA error {err}")
+    return dict(zip(("cluster", "R", "smem", "clusters"), out))
+
+
+def cluster_tiles(B, N, cs, clusters):
+    """Tiles of cluster 0 (each of its blocks and warpgroups runs them
+    all): the first of min(clusters, tiles) contiguous runs of the flat
+    tile list, [0, T / n)."""
+    total = B * -(-N // cluster_tile(cs))
+    return total // min(clusters, total)
 
 
 def marks(lib, a):
     """Block 0's cycles a tile by phase, per warpgroup, in one K1 call of
     the profiled build ``lib``."""
     B, N, H = a["z"].shape[0], a["grid"].shape[0], a["Wc"].shape[1]
+    nl, C = a["hw"].shape[0], a["wout"].shape[1]
     with bound_fwd(lib, True), bf16_matmul(True):
         cycles = phase_cycles(lib, "pvt_sdec_fwd_tc_phase_cycles",
                               lambda: sd.fused_spatial_decoder_forward(**a))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return {f"warpgroup {g}": per_tile(
-        cycles[g], PHASES, warpgroup_tiles(B, N, H, g, sms))
-        for g in range(warpgroups(H))}
+    if H == 256:
+        plan = cluster_plan(lib, nl, C)
+        tiles = [cluster_tiles(B, N, plan["cluster"], plan["clusters"])] * 2
+    else:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = [warpgroup_tiles(B, N, H, g, sms) for g in range(4)]
+    return {f"warpgroup {g}": per_tile(cycles[g], PHASES, n)
+            for g, n in enumerate(tiles)}
 
 
 def baseline_module(csrc):
@@ -128,6 +231,13 @@ def bound(mod, lib):
         mod._fwd_fns.update(saved)
 
 
+def shape_case(rng, B, N, L, H, nl, hidden):
+    """A shape's random inputs (2-D, one channel), padded where ``hidden``
+    names the decoder's widths."""
+    a = random_case(rng, "cuda", 2, 1, H, B, N, L, nl)
+    return a if hidden is None else padded_case(a, hidden)
+
+
 def plain(a, chunks):
     """K1's plain version (bf16 products) over ``chunks`` row chunks."""
     return torch.cat([sd.spatial_decoder_plain(**c, bf16=True)
@@ -149,8 +259,8 @@ def times(versions, peaks):
     order = versions + versions[::-1]
     rng = np.random.default_rng(0)
     with bf16_matmul(True), torch.no_grad():
-        for shape, B, N, L, H in SHAPES:
-            a = random_case(rng, "cuda", 2, 1, H, B, N, L, 2)
+        for shape, B, N, L, H, nl, hidden in SHAPES:
+            a = shape_case(rng, B, N, L, H, nl, hidden)
             big = B * N > BIG
             ref = plain(a, 8 if big else 1)
             outs = {}
@@ -178,11 +288,11 @@ def times(versions, peaks):
                             fn, reps=5 if big else 25), 4))
                     res["back_to_back"].setdefault(label, {}).setdefault(
                         shape, []).append(round(cuda_ms_queued(fn), 4))
-            res["sfu_floor_ms"][shape] = round(sfu_floor_ms(B, N, H, 2), 4)
+            res["sfu_floor_ms"][shape] = round(sfu_floor_ms(B, N, H, nl), 4)
             b = bounds(*work_fwd(a), peaks)
             res["bound"][shape] = [round(b[1], 4), b[3]]
             res["cublas_bf16_ms"][shape] = round(cublas_fwd_ms(
-                B, N, H, 2, torch.bfloat16, 8 if big else 1), 4)
+                B, N, H, nl, torch.bfloat16, 8 if big else 1), 4)
             print(json.dumps({shape: {k: {v: res[k][v][shape]
                                           for v in res[k]}
                                       for k in ("one_call", "back_to_back",
@@ -242,12 +352,29 @@ def other_builds():
                for m in ab.MODES])
 
 
+#: The functions of the bf16 K1 and K2/K3 production builds that run at
+#: H = 256 (the cluster kernels, their weight reduction, the instances of
+#: width 256): ``--same`` holds every other function of those two builds
+#: to the baseline's machine code.
+H256_FUNCTIONS = r"_cluster_kernel|sdec_tc_weights_cl|ILi256E"
+
+
+def same_builds():
+    """What ``--same`` compares, as ``(builds, skip)`` for
+    :func:`measure.same_machine_code`: every production build, the bf16 K1
+    and K2/K3 without their H = 256 functions (:data:`H256_FUNCTIONS`)."""
+    edited = [(sd.FWD_SOURCES[True], ()), (sd.BWD_SOURCES[True], ())]
+    return (edited[:1] + other_builds(),
+            {build: H256_FUNCTIONS for build in edited})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="a directory holding an earlier "
                     "spatial_decoder_fwd_tc.cu and its headers")
-    ap.add_argument("--same", action="store_true", help="compare the other "
-                    "sources' machine code with the baseline's")
+    ap.add_argument("--same", action="store_true", help="compare every "
+                    "production build's machine code (H = 256 functions "
+                    "of the bf16 sources left out) with the baseline's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fwd_tc: CUDA is not available", file=sys.stderr)
@@ -280,16 +407,16 @@ def main(argv=None) -> int:
     for label, counts in report["sass"].items():
         print(f"sass {label}: {json.dumps(counts)}", flush=True)
     rng = np.random.default_rng(1)
-    for shape, B, N, L, H in MARK_SHAPES:
-        report["marks"][shape] = marks(libs["port, profiled"], random_case(
-            rng, "cuda", 2, 1, H, B, N, L, 2))
+    for shape, B, N, L, H, nl, hidden in MARK_SHAPES:
+        report["marks"][shape] = marks(libs["port, profiled"], shape_case(
+            rng, B, N, L, H, nl, hidden))
         print(f"marks {shape}: {json.dumps(report['marks'][shape])}",
               flush=True)
     report.update(times(versions, peaks))
     report["host_us"] = host_times(versions)
     print(f"host us a call: {json.dumps(report['host_us'])}", flush=True)
     if args.same:
-        report["same"] = same_machine_code(args.baseline, other_builds())
+        report["same"] = same_machine_code(args.baseline, *same_builds())
         print(f"same machine code: {json.dumps(report['same'])}", flush=True)
     print(json.dumps(report), flush=True)
     differ = changed(report.get("same", {}))

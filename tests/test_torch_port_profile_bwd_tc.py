@@ -72,16 +72,16 @@ def test_per_tile_totals_the_phases_not_the_wait_counters():
 
 @pytest.mark.parametrize("shape", tool.SHAPES, ids=[s[0] for s in tool.SHAPES])
 def test_bound_is_the_hidden_products_at_the_bf16_peak(shape):
-    """K2's and K3's bf16 bound at the tool's shapes (two tanh layers, one
+    """K2's and K3's bf16 bound at the tool's shapes (nl tanh layers, one
     channel, 2-D): per pixel 6 nl H^2 product flops and 18 H elementwise
     ones at 989 TFLOP/s, above the bytes at 3.35 TB/s; the f32 bound at
     67 TFLOP/s."""
-    _, B, N, L, H = shape
+    _, B, N, L, H, nl, _ = shape
     a = {k: torch.empty(s, device="meta") for k, s in dict(
         grid=(N, 2), phi=(B,), dx=(B, 2), sc=(B,), z=(B, L), Wc=(2, H),
-        bc=(H,), Wz=(L, H), hw=(2, H, H), hb=(2, H), wout=(H, 1),
+        bc=(H,), Wz=(L, H), hw=(nl, H, H), hb=(nl, H), wout=(H, 1),
         bout=(1,)).items()}
-    flops = B * N * (12 * H * H + 18 * H)
+    flops = B * N * (6 * nl * H * H + 18 * H)
     for loss in (False, True):
         got_flops, nbytes = measure.work_bwd(a, loss_mode=loss)
         assert got_flops == flops

@@ -42,24 +42,27 @@ SASS = f"""
 def test_shapes_are_perf_mds_nine_and_h256():
     """The nine K1 shapes of PERF.md section 6 (two layers, one channel;
     L = 12 for the enumerated rows), then H = 256 at the flagship's
-    training shape; the marks take some of them."""
+    training shape with two and five layers, and a (128, 256) decoder
+    padded to 256; the marks take some of them."""
     assert [s[1:] for s in tool.SHAPES] == [
-        (1024, 784, 2, 128), (200, 784, 2, 128), (452, 784, 2, 128),
-        (64, 16384, 2, 128), (2000, 784, 12, 128), (50, 784, 2, 128),
-        (600, 784, 12, 128), (200, 16384, 2, 128), (200, 131072, 2, 128),
-        (200, 784, 2, 256)]
+        (1024, 784, 2, 128, 2, None), (200, 784, 2, 128, 2, None),
+        (452, 784, 2, 128, 2, None), (64, 16384, 2, 128, 2, None),
+        (2000, 784, 12, 128, 2, None), (50, 784, 2, 128, 2, None),
+        (600, 784, 12, 128, 2, None), (200, 16384, 2, 128, 2, None),
+        (200, 131072, 2, 128, 2, None), (200, 784, 2, 256, 2, None),
+        (200, 784, 2, 256, 5, None), (200, 784, 2, 256, 2, (128, 256))]
     assert set(tool.MARK_SHAPES) <= set(tool.SHAPES)
 
 
 @pytest.mark.parametrize("B,N,H,first", [(1024, 784, 128, 25),
                                          (50, 784, 128, 1),
-                                         (200, 784, 256, 18)])
+                                         (200, 784, 128, 4)])
 def test_warpgroup_tiles_split_the_tile_list(B, N, H, first):
     """Block 0's first warpgroup takes floor(T / W) tiles (B = 1024: 100.8
     tiles an SM of four warpgroups); over every warpgroup the contiguous
     runs cover the T tiles once."""
     sms = 132
-    tile = 64 if H == 128 else 32
+    tile = 64
     total = B * -(-N // tile)
     assert tool.warpgroup_tiles(B, N, H, 0, sms) == first
     w = min(-(-total // tool.warpgroups(H)), sms) * tool.warpgroups(H)
